@@ -7,7 +7,9 @@
 raster per modality) or a directory of scene directories (one after the
 other), and writes the upscaled DEM in metres. It runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given.
---tile, --val, --export and training are not yet ported and raise.
+--tile, --val, --export and training through the CLI (which needs the
+eval loop for ``Trainer.fit``) are not yet ported and raise; the epoch
+loop is ``jspsr_torch.train.trainer.Trainer(p).train_one_epoch``.
 """
 
 from __future__ import annotations
@@ -49,7 +51,9 @@ def main(argv=None):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not yet ported")
     if not args.infer:
-        raise NotImplementedError("training is not yet ported; use --infer")
+        raise NotImplementedError(
+            "training through the CLI is not yet ported (Trainer.fit needs "
+            "the eval loop); use --infer, or Trainer(p).train_one_epoch")
     p = create_config(args.config)
     ckpt = p.model_kwargs.get("checkpoint")
     if not ckpt:

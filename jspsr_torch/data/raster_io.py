@@ -1,4 +1,4 @@
-"""Host-side raster IO (copy of the reading and writing half of
+"""Host-side raster IO (copy of the reading, writing and naming half of
 ``jspsr_tpu/data/raster_io.py``).
 
 rasterio when available (keeps real GeoTIFF profiles), tifffile or cv2
@@ -14,6 +14,7 @@ with the affine coefficient order of rasterio.Affine
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -53,6 +54,12 @@ def default_profile(h: int, w: int, count: int = 1, dtype: str = "float32",
         "dtype": dtype,
         "crs": "EPSG:2154",
     }
+
+
+def affine_xy(transform, col: float, row: float):
+    """Apply the affine profile transform to (col, row) -> (x, y)."""
+    a, b, c, d, e, f = transform
+    return a * col + b * row + c, d * col + e * row + f
 
 
 def read_raster(path, with_profile: bool = False):
@@ -135,3 +142,15 @@ def write_raster(path, arr: np.ndarray, profile: dict | None = None):
         tifffile.imwrite(str(path), arr)
         return
     raise ImportError(f"No writer for {path.suffix}")
+
+
+_NAT_RE = re.compile(r"(\d+)")
+
+
+def natsort_key(s: str):
+    """Natural-sort key (replacement for the natsort dependency)."""
+    return [int(t) if t.isdigit() else t.lower() for t in _NAT_RE.split(str(s))]
+
+
+def natsorted(seq):
+    return sorted(seq, key=natsort_key)

@@ -11,9 +11,14 @@ Semantics match the JAX package and torchvision.ops.deform_conv2d:
 
 The case carried here is the one the framework runs: one input and one
 output channel, 3x3 kernel, stride 1, dilation 1 (the SPN head).
-``deform_conv2d`` runs the CUDA kernel (``deform_cuda``) for CUDA tensors
-and the plain version ``deform_conv2d_plain`` for CPU tensors. The JAX
-package's ``mxu`` form exists only to avoid TPU gathers and is not ported.
+``deform_conv2d`` is a ``torch.autograd.Function`` (the counterpart of
+``deform_conv2d_pallas``, a ``jax.custom_vjp``): on CUDA tensors its
+forward launches the forward kernel and its backward the backward kernel
+(``deform_cuda``); on CPU tensors they are the plain versions
+``deform_conv2d_plain`` and ``deform_conv2d_backward_plain``. The backward
+gives no input gradient (the SPN head detaches the DEM); an ``x`` that
+requires grad raises at backward. The JAX package's ``mxu`` form exists
+only to avoid TPU gathers and is not ported.
 """
 
 from __future__ import annotations
@@ -54,16 +59,14 @@ def _positions(offset: torch.Tensor, padding: int):
     return py, px
 
 
-def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                  padding: int = 1) -> torch.Tensor:
-    """Deformable im2col by four corner gathers, modulated by the mask:
-    columns (B, K, H, W)."""
+def _bilinear_corners(x: torch.Tensor, offset: torch.Tensor, padding: int):
+    """The four corners around every tap's position and its fractional
+    parts: (v00, v01, v10, v11, ty, tx), each (B, K, H, W). A corner off the
+    image is 0."""
     b, _, h, w = x.shape
     py, px = _positions(offset, padding)
     y0 = torch.floor(py)
     x0 = torch.floor(px)
-    ty = py - y0
-    tx = px - x0
     img = x.reshape(b, h * w)
 
     def corner(yc, xc):
@@ -74,10 +77,15 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         g = torch.gather(img, 1, (yi * w + xi).reshape(b, -1))
         return g.view(yc.shape) * valid.to(x.dtype)
 
-    v00 = corner(y0, x0)
-    v01 = corner(y0, x0 + 1)
-    v10 = corner(y0 + 1, x0)
-    v11 = corner(y0 + 1, x0 + 1)
+    return (corner(y0, x0), corner(y0, x0 + 1), corner(y0 + 1, x0),
+            corner(y0 + 1, x0 + 1), py - y0, px - x0)
+
+
+def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  padding: int = 1) -> torch.Tensor:
+    """Deformable im2col by four corner gathers, modulated by the mask:
+    columns (B, K, H, W)."""
+    v00, v01, v10, v11, ty, tx = _bilinear_corners(x, offset, padding)
     cols = (1.0 - ty) * ((1.0 - tx) * v00 + tx * v01) \
         + ty * ((1.0 - tx) * v10 + tx * v11)
     return cols * mask
@@ -85,12 +93,78 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
 
 def deform_conv2d_plain(x, offset, weight, bias, mask,
                         padding: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: gather im2col, times the mask,
-    contracted with the 3x3 weight, plus bias. Any device."""
+    """Plain PyTorch version of the forward kernel: gather im2col, times the
+    mask, contracted with the 3x3 weight, plus bias. Any device."""
     check_deform_args(x, offset, weight, bias, mask)
     cols = deform_im2col(x, offset, mask, padding)  # (B, K, H, W)
     y = torch.einsum("bkhw,k->bhw", cols, weight.reshape(TAPS))
     return (y + bias).unsqueeze(1)
+
+
+def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
+                                 padding: int = 1):
+    """Plain PyTorch version of the backward kernel, the same closed forms
+    on tensors: returns (d_offset, d_mask, d_weight, d_bias) for
+    ``grad_out`` (B,1,H,W). The offset derivative is floor-based (the
+    corners stay fixed, only the fractional part moves), so at integer
+    positions it is the forward difference; off-image corners are 0. Any
+    device."""
+    b, _, h, w = x.shape
+    v00, v01, v10, v11, ty, tx = _bilinear_corners(x, offset, padding)
+    top = (1.0 - tx) * v00 + tx * v01
+    bot = (1.0 - tx) * v10 + tx * v11
+    val = (1.0 - ty) * top + ty * bot
+    gw = grad_out * weight.reshape(1, TAPS, 1, 1)
+    gwm = gw * mask
+    d_py = gwm * (bot - top)
+    d_px = gwm * ((1.0 - ty) * (v01 - v00) + ty * (v11 - v10))
+    d_offset = torch.stack([d_py, d_px], dim=2).reshape(b, 2 * TAPS, h, w)
+    d_weight = (grad_out * mask * val).sum(dim=(0, 2, 3)).view_as(weight)
+    return d_offset, gw * val, d_weight, grad_out.sum().view(1)
+
+
+class DeformConv2dFunction(torch.autograd.Function):
+    """Forward K1, backward K2 on CUDA tensors; the plain versions on CPU
+    tensors. The backward gives no gradient for ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, offset, weight, bias, mask, padding):
+        if x.device.type == "cuda":
+            from jspsr_torch.ops import deform_cuda
+
+            out = deform_cuda.deform_fwd(x, offset, weight, bias, mask,
+                                         padding)
+        elif x.device.type == "cpu":
+            out = deform_conv2d_plain(x, offset, weight, bias, mask, padding)
+        else:
+            raise ValueError(f"deform_conv2d: unsupported device {x.device}")
+        ctx.save_for_backward(x, offset, weight, mask)
+        ctx.padding = padding
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if ctx.needs_input_grad[0]:
+            raise NotImplementedError(
+                "deform_conv2d: the input gradient (the TPU kernel's "
+                "need_dx=True backward, K3) is not yet ported; it comes with "
+                "the CompletionFormer slice. Detach x, as the SPN head does.")
+        x, offset, weight, mask = ctx.saved_tensors
+        # autograd may hand over an expanded (stride-0) gradient
+        grad_out = grad_out.contiguous()
+        if x.device.type == "cuda":
+            from jspsr_torch.ops import deform_cuda
+
+            grads = deform_cuda.deform_bwd(x, offset, weight, mask, grad_out,
+                                           ctx.padding)
+        else:
+            grads = deform_conv2d_backward_plain(x, offset, weight, mask,
+                                                 grad_out, ctx.padding)
+        d_offset, d_mask, d_weight, d_bias = grads
+        need = ctx.needs_input_grad
+        return (None, d_offset if need[1] else None,
+                d_weight if need[2] else None, d_bias if need[3] else None,
+                d_mask if need[4] else None, None)
 
 
 def deform_conv2d(x, offset, weight, bias, mask,
@@ -98,19 +172,13 @@ def deform_conv2d(x, offset, weight, bias, mask,
     """Modulated deformable conv: x (B,1,H,W), offset (B,18,H,W),
     weight (1,1,3,3), bias (1,), mask (B,9,H,W) -> (B,1,H,W).
 
-    A CUDA tensor launches the CUDA kernel (``deform_cuda.deform_fwd``) or
-    raises; there is no fallback. Only CPU tensors take
-    ``deform_conv2d_plain``. The kernel is forward-only: with grad mode on,
-    inputs that require grad are refused on CUDA until the backward kernel
-    lands."""
+    A CUDA tensor launches the kernels (``deform_cuda.deform_fwd``, and
+    ``deform_bwd`` in the backward) or raises; there is no fallback. Only
+    CPU tensors take the plain versions. Gradients flow to offset, weight,
+    bias and mask; an ``x`` that requires grad raises at backward."""
     check_deform_args(x, offset, weight, bias, mask)
-    if x.device.type == "cuda":
-        from jspsr_torch.ops import deform_cuda
-
-        return deform_cuda.deform_fwd(x, offset, weight, bias, mask, padding)
-    if x.device.type == "cpu":
-        return deform_conv2d_plain(x, offset, weight, bias, mask, padding)
-    raise ValueError(f"deform_conv2d: unsupported device {x.device}")
+    return DeformConv2dFunction.apply(x, offset, weight, bias, mask,
+                                      int(padding))
 
 
 def insert_zero_center_offset(offset: torch.Tensor,

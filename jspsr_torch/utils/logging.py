@@ -1,8 +1,10 @@
-"""Stdout tee the CLI installs (copy of ``Logger`` from
+"""Stdout tee the CLI installs and the config dump the trainer writes
+(copies of ``Logger`` and ``serialize_config`` from
 ``jspsr_tpu/utils/logging.py``; reference utils/logger.py)."""
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
 
@@ -25,3 +27,10 @@ class Logger:
 
     def close(self):
         self.log.close()
+
+
+def serialize_config(p, path):
+    """Dump the resolved config as JSON (reference utils/utils.py:444-465)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(p, f, indent=2, default=str)

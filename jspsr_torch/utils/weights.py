@@ -17,6 +17,10 @@ reference torch key layout that the port's modules use:
 Layouts: conv HWIO -> OIHW; the transposed conv's equivalent-forward HWIO
 kernel -> torch (Cin, Cout, kh, kw) with its spatial flip undone; BN
 ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+
+``state_dict_from_jax_tree(tree)`` does the same for any tree shaped like
+the JAX parameters (its gradients, AdamW's ``mu``/``nu``): nested dicts of
+arrays, flattened to ``params/...`` keys first.
 """
 
 from __future__ import annotations
@@ -91,3 +95,25 @@ def state_dict_from_jax(flat: dict) -> OrderedDict:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         sd[f"{mod}.{name}"] = torch.from_numpy(np.array(arr, np.float32))
     return sd
+
+
+def flatten_jax_tree(tree, prefix: str = "params") -> dict:
+    """Nested dicts (or lists) of arrays -> ``{prefix/a/b/leaf: ndarray}``,
+    the ``.npz`` checkpoint layout."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_jax_tree(v, f"{prefix}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_jax_tree(v, f"{prefix}/{i}"))
+    else:
+        out[prefix] = np.asarray(tree)
+    return out
+
+
+def state_dict_from_jax_tree(tree, prefix: str = "params") -> OrderedDict:
+    """A tree shaped like the JAX parameters (``prefix='params'``) or the
+    BatchNorm state (``prefix='bn'``), in the port's key names and
+    layouts."""
+    return state_dict_from_jax(flatten_jax_tree(tree, prefix))

@@ -63,7 +63,7 @@ def test_plain_matches_jax_gather(b, h, w, scale):
     ref = jax_deform_conv2d(jnp.asarray(x), jnp.asarray(off),
                             jnp.asarray(wgt), jnp.asarray(bias),
                             jnp.asarray(mask), impl="gather")
-    launches = deform_cuda.LAUNCHES
+    launches = dict(deform_cuda.LAUNCHES)
     got = deform_conv2d(*_port_args(x, off, mask, wgt, bias))
     assert deform_cuda.LAUNCHES == launches  # CPU tensors take the plain path
     np.testing.assert_allclose(_nhwc(got), np.asarray(ref),
