@@ -11,7 +11,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    sources in the checkout, one ``nvcc`` per source, all at once (sm_90a),
    printing each one's ``-Xptxas -v`` report (registers, spills);
 3. kernel check, forward (K1): against its plain PyTorch version on the
-   card at the main paths' shapes (rtol = atol = 1e-5: the same fp32
+   card at the main paths' shapes (336^2 and 1024^2 JSPSR scenes, the
+   50 and 16 x 128^2 train batches, a 352^2 CompletionFormer scene; rtol = atol = 1e-5: the same fp32
    arithmetic, only the order of the 9-term sum differs), timed with CUDA
    events (median of 25 runs, L2 flushed before each) beside its plain
    version, a PyTorch library call that computes the same function, and
@@ -23,6 +24,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    sum of its terms' magnitudes (it sums B*H*W terms in another order);
    timed as K1, the library yardstick being autograd's backward through
    the ``grid_sample`` form;
+3c. kernel check, backward with the input gradient (K3): against its
+   plain backward at the CompletionFormer train batch (16 x 128^2),
+   2 x 128^2 and one 334^2 scene padded to 352^2, offsets at 0, 1.5 and
+   20 px; d_offset and d_mask at rtol = atol = 1e-5; d_weight and d_x
+   (float atomics, summed in an order that changes from run to run)
+   within 1e-5 of the sums of their terms' magnitudes; timed as K2, the
+   library yardstick being autograd's backward through the
+   ``grid_sample`` form with ``x`` requiring grad; the atomics this run's
+   data needs are counted and printed beside the byte bound;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -43,10 +53,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    gradient and BatchNorm running statistic no further (relative L2) from
    float64 than three times the CPU fp32 run's distance plus 5e-3 (the
    step is ill-conditioned in fp32 at init, see ``CARD_FP64_FLOOR``); the
-   largest errors are printed.
+   largest errors are printed;
+6. CompletionFormer training: configs/completionformer_r8_img_msk.yml as
+   it is (PVT backbone + NLSPN, 83,689,176 parameters, batch 16, drop
+   path on) on the same synthetic tree (9 steps of 16 per epoch) through
+   ``Trainer(p, device="cuda").train_one_epoch`` for epochs 0 and 1, with
+   exactly 6 K1 and 6 K3 launches and no K2 per step (NLSPN's 6
+   propagation steps on a feature that needs its gradient); then one train
+   step at 2 x 128^2 held against the CPU and float64 by the same rule
+   (the CBAM SpatialAttention convs' weight gradients at a wider floor,
+   ``SA_CONV_FLOOR``), from the seeded weights with NLSPN's offset/affinity conv perturbed
+   away from its zero init (which makes the propagation the identity);
+7. CompletionFormer serving: one 334^2 scene (padded to 352^2, the
+   backbone's /32) through the CLI's ``--infer`` with a seeded checkpoint
+   whose BatchNorm statistics and offset/affinity conv are perturbed:
+   exactly 6 K1 launches, and the card against the CPU at rtol 1e-3 /
+   atol 1e-4 (the JAX suite's CompletionFormer tolerance, for outputs in
+   the scaled DEM's [0, 1]), atol times the output's largest magnitude
+   (random weights put it above 1).
 
-It prints a ``{"serving": ...}``, a ``{"training": ...}`` and a
-``{"kernels": [...]}`` line, and ends with ``{"ok": true, "device":
+It prints ``{"serving": ...}``, ``{"training": ...}``,
+``{"cf_training": ...}``, ``{"cf_serving": ...}`` and ``{"kernels":
+[...]}`` lines, and ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
 """
 
@@ -74,6 +102,7 @@ from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
 from jspsr_torch.ops import deform_cuda
 from jspsr_torch.ops.deform_conv import (
+    _corners,
     _positions,
     deform_conv2d_backward_plain,
     deform_conv2d_plain,
@@ -84,9 +113,11 @@ from jspsr_torch.train.profile_step import random_batch
 from jspsr_torch.train.step import make_train_step
 from jspsr_torch.train.trainer import Trainer
 from jspsr_torch.utils.device import set_strict_fp32
+from jspsr_torch.utils.perturb import perturb_weights
 
 REPO = Path(__file__).resolve().parent
 FLAGSHIP = REPO / "configs" / "jspsr_r8_img_msk.yml"
+CF_CONFIG = REPO / "configs" / "completionformer_r8_img_msk.yml"
 
 # Published peaks (NVIDIA data sheets; dense, at the full power limit):
 # device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
@@ -98,21 +129,36 @@ CARDS = {
 }
 
 KERNEL_SHAPES = [(1, 336, 336), (1, 1024, 1024), (16, 128, 128),
-                 (50, 128, 128)]
+                 (50, 128, 128), (1, 352, 352)]
 BWD_SHAPES = [(50, 128, 128), (16, 128, 128), (1, 336, 336)]
+DX_SHAPES = [(16, 128, 128), (2, 128, 128), (1, 352, 352)]
 OFFSET_SCALES = (0.0, 1.5, 20.0)
 TIMED_SCALE = 1.5
 SCENES = [("scene_0", 334), ("scene_1", 334), ("scene_2", 334),
           ("scene_3", 334), ("scene_4", 1024)]
+CF_SCENE = ("scene_cf", 334)
 TRAIN_SCENES_PER_CITY = 12  # x 13 cities = 156 samples: 3 steps of 50
 TRAIN_SIDE = 128  # an 8 m DFC30 sample
 # One train step, per tensor (relative L2): the card's distance from
-# float64 may be three times the CPU fp32 run's, plus this floor. At init
-# the step is ill-conditioned in fp32 (the CPU's own fp32 gradients are up
-# to 2 % from float64); cuDNN picks other conv algorithms than the CPU
-# (FFT among them); and the SPN kernel's 9 weight gradients are sums of
-# B*H*W signed terms that cancel.
+# float64 may be three times the CPU fp32 run's, plus a floor. At init the
+# step is ill-conditioned in fp32 (the CPU's own fp32 gradients are up to
+# 2 % from float64); cuDNN picks other conv algorithms than the CPU (FFT
+# among them); and the SPN kernel's 9 weight gradients are sums of B*H*W
+# signed terms that cancel.
 CARD_FP64_FLOOR = 5e-3
+# The one wider floor: the weight gradients of CompletionFormer's CBAM
+# SpatialAttention convs (``*.sa.conv1.weight``, a 7x7 conv from 2
+# channels to 1) are small sums of cancelling terms, and cuDNN's
+# algorithms leave them up to 2.8 % from float64 where the CPU's are 0.4 %
+# (an excess over 3x the CPU's of up to 1.6e-2 on an H100). With cuDNN off
+# they hold CARD_FP64_FLOOR, as every other tensor does with it on.
+SA_CONV_SUFFIX, SA_CONV_FLOOR = ".sa.conv1.weight", 2.5e-2
+# Launches per train step: JSPSR's SPN head runs one deform forward and,
+# as it detaches the DEM, the backward without the input gradient (K2);
+# NLSPN propagates 6 times a feature that needs its gradient (K3).
+PER_STEP = {"JSPSR": {"deform_fwd": 1, "deform_bwd": 1, "deform_bwd_dx": 0},
+            "CompletionFormer": {"deform_fwd": 6, "deform_bwd": 0,
+                                 "deform_bwd_dx": 6}}
 
 
 def card_peaks(name: str):
@@ -271,12 +317,96 @@ def check_deform_backward(dev, bandwidth, fp32_peak):
     return rows
 
 
-def write_scenes(root: Path, seed: int = 0):
+def _err_over_abs_sum(got, ref, abs_sum) -> float:
+    """The largest |got - ref| relative to the sum of the terms' magnitudes
+    (0 where there are no terms and both are 0)."""
+    return ((got - ref).abs() / abs_sum.clamp_min(1e-30)).max().item()
+
+
+def check_deform_backward_dx(dev, bandwidth, fp32_peak):
+    """K3 against its plain backward at NLSPN's shapes; returns one row per
+    shape."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    flush = torch.empty(64 * 2**20, device=dev)
+    rows = []
+    for b, h, w in DX_SHAPES:
+        row = {"shape": [b, 1, h, w], "max_abs_err": 0.0,
+               "d_weight_err_over_abs_sum": 0.0,
+               "d_x_err_over_abs_sum": 0.0}
+        for scale in OFFSET_SCALES:
+            x, offset, weight, bias, mask = deform_inputs(b, h, w, scale, gen,
+                                                          dev)
+            g = torch.randn(b, 1, h, w, generator=gen, device=dev)
+            got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+            ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                               need_dx=True)
+            # d_weight and d_x bounded by the sums of their terms' magnitudes
+            abs_sum = deform_conv2d_backward_plain(
+                x.abs(), offset, weight.abs(), mask.abs(), g.abs(),
+                need_dx=True)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("d_offset", "d_mask", "d_bias"),
+                                  got[:2] + got[3:4], ref[:2] + ref[3:4]):
+                if not torch.allclose(a, r, rtol=1e-5, atol=1e-5):
+                    raise AssertionError(
+                        f"deform_bwd_dx {name} disagrees with the plain "
+                        f"backward at {(b, h, w)} offset scale {scale}: max "
+                        f"|err| {(a - r).abs().max().item()}")
+            w_err = _err_over_abs_sum(got[2], ref[2], abs_sum[2])
+            x_err = _err_over_abs_sum(got[4], ref[4], abs_sum[4])
+            if w_err > 1e-5 or x_err > 1e-5:
+                raise AssertionError(
+                    f"deform_bwd_dx at {(b, h, w)} offset scale {scale}: "
+                    f"d_weight error {w_err}, d_x error {x_err} of the "
+                    f"terms' magnitude sums")
+            row["max_abs_err"] = max(
+                row["max_abs_err"], (got[0] - ref[0]).abs().max().item(),
+                (got[1] - ref[1]).abs().max().item(),
+                (got[4] - ref[4]).abs().max().item())
+            row["d_weight_err_over_abs_sum"] = max(
+                row["d_weight_err_over_abs_sum"], w_err)
+            row["d_x_err_over_abs_sum"] = max(row["d_x_err_over_abs_sum"],
+                                              x_err)
+            if scale == TIMED_SCALE:
+                # the scatter's atomics that this data needs: one per
+                # in-bounds corner of every tap
+                corners, _, _ = _corners(*_positions(offset, 1), h, w)
+                atomics = int(sum(valid.sum().item() for _, valid in corners))
+                row["kernel_ms"] = time_ms(lambda: deform_cuda.deform_bwd_dx(
+                    x, offset, weight, mask, g), flush)
+                row["plain_ms"] = time_ms(
+                    lambda: deform_conv2d_backward_plain(
+                        x, offset, weight, mask, g, need_dx=True), flush)
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (x, offset, weight, bias, mask)]
+                out = deform_library(*leaves)
+                row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, g, retain_graph=True), flush)
+                del out, leaves
+        pixels = b * h * w
+        # each input read once, each output written once: K2's 224 B per
+        # pixel plus d_x (4 B); weight in and d_weight out 36 B each
+        nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36 + 4) + 72
+        # K2's ~35 operations per tap, 2 more per tap for the scatter's
+        # row weights, and a multiply and an add per atomic
+        flops = pixels * (315 + 18) + 2 * atomics
+        bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["atomics"] = atomics
+        row["atomics_per_pixel"] = atomics / pixels
+        row["atomics_per_us"] = atomics / (row["kernel_ms"] * 1e3)
+        rows.append(row)
+        print(f"deform_bwd_dx {row}", flush=True)
+    return rows
+
+
+def write_scenes(root: Path, scenes, seed: int = 0):
     """Smooth synthetic terrain in metres, a 0-255 RGB orthophoto and a
     15-channel one-hot land-use mask per scene, as .npy rasters in the
     DFC30 subdirectory layout."""
     rng = np.random.default_rng(seed)
-    for name, side in SCENES:
+    for name, side in scenes:
         yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
         fx, fy, ph = rng.uniform(2, 6, 3)
         dem = (150 + 120 * np.sin(fx * np.pi * xx + ph)
@@ -290,69 +420,113 @@ def write_scenes(root: Path, seed: int = 0):
         write_raster(scene / "UA2012" / "ua.npy", mask)
 
 
-def flagship_config(ckpt: Path) -> dict:
-    """The serving keys of configs/jspsr_r8_img_msk.yml."""
+def serving_config(name: str, model_name: str, model_kwargs: dict,
+                   ckpt: Path) -> dict:
+    """The serving keys of the r8 configs (configs/*_r8_img_msk.yml)."""
     return {
-        "name": "chip_smoke_jspsr_r8_img_msk", "dataset": "DFC30",
+        "name": f"chip_smoke_{name}", "dataset": "DFC30",
         "resolution": 8, "input_data": {"COP30": 1, "image": 3, "mask": 15},
         "relative": True, "patch_size": 128,
         "tensor_kwargs": {"log": True, "min": -80, "max": 929,
                           "scale_mask": True},
-        "model_name": "JSPSR",
-        "model_kwargs": {"num_block": 2, "num_feature": 32,
-                         "checkpoint": str(ckpt)},
+        "model_name": model_name,
+        "model_kwargs": {**model_kwargs, "checkpoint": str(ckpt)},
         "optimizer_kwargs": {"lr": 0.001}, "metric": {},
     }
 
 
-def serve(work: Path, dev: torch.device):
-    """The serving path: the port's CLI over a directory of scenes."""
+def seeded_checkpoint(work: Path, name: str, model_name: str,
+                      model_kwargs: dict):
+    """A serving config and a checkpoint of its model's seeded weights,
+    perturbed; returns (config, config path, checkpoint path)."""
     work.mkdir(parents=True, exist_ok=True)
-    ckpt = work / "jspsr_flagship.pt"
-    cfg_path = work / "jspsr_r8_img_msk.json"
-    cfg_path.write_text(json.dumps(flagship_config(ckpt)))
+    ckpt = work / f"{name}.pt"
+    cfg_path = work / f"{name}.json"
+    cfg_path.write_text(json.dumps(serving_config(name, model_name,
+                                                  model_kwargs, ckpt)))
     p = create_config(cfg_path)
-    model = build_model(p, generator=torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm2d):
-                m.running_mean.normal_(0, 0.1, generator=gen)
-                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    model = perturb_weights(
+        build_model(p, generator=torch.Generator().manual_seed(0)), seed=1)
     torch.save(model.state_dict(), ckpt)
     n_params = sum(t.numel() for t in model.parameters())
-    print(f"flagship JSPSR: {n_params} parameters", flush=True)
-    write_scenes(work / "scenes")
+    print(f"{model_name}: {n_params} parameters", flush=True)
+    return p, cfg_path, ckpt
 
-    out_dir, res_dir = work / "out", work / "result"
+
+def run_cli(argv):
+    """The port's CLI, its stdout logger closed afterwards."""
     real_stdout = sys.stdout
-    deform_cuda.reset_launches()
     try:
-        paths = cli_main(["--config", str(cfg_path), "--infer",
-                          str(work / "scenes"), "--out", str(out_dir),
-                          "--result-dir", str(res_dir)])
+        return cli_main(argv)
     finally:
         logger, sys.stdout = sys.stdout, real_stdout
         if logger is not real_stdout:
             logger.close()
-    launches = dict(deform_cuda.LAUNCHES)
-    print(f"serving-path launches: {launches}", flush=True)
-    if launches != {"deform_fwd": len(SCENES), "deform_bwd": 0}:
-        raise AssertionError(f"launches {launches} for {len(SCENES)} scenes")
 
-    if len(paths) != len(SCENES):
-        raise AssertionError(f"{len(paths)} rasters for {len(SCENES)} scenes")
-    for path, (name, side) in zip(paths, SCENES):
+
+def check_outputs(paths, scenes, scene_root: Path, near_input: bool):
+    """One finite raster of each scene's shape in metres: with
+    ``near_input`` its mean within the input's elevation range (JSPSR's
+    SPN head refines the input even at random weights), else every value
+    within the range the configs' descaling gives the clipped [0, 1]
+    prediction above the scene's base (random weights need not refine)."""
+    if len(paths) != len(scenes):
+        raise AssertionError(f"{len(paths)} rasters for {len(scenes)} scenes")
+    for path, (name, side) in zip(paths, scenes):
         arr = read_raster(path)
-        dem = read_raster(work / "scenes" / name / "COP30" / "dem.npy")
+        dem = read_raster(scene_root / name / "COP30" / "dem.npy")
         if arr.shape != (side, side, 1) or not np.isfinite(arr).all():
             raise AssertionError(f"{path}: shape {arr.shape}, finite "
                                  f"{np.isfinite(arr).all()}")
-        # metres: the refined DEM stays within the input's elevation range
         lo, hi = float(dem.min()), float(dem.max())
-        if not (lo - 50 < float(arr.mean()) < hi + 50):
+        if near_input and not (lo - 50 < float(arr.mean()) < hi + 50):
             raise AssertionError(f"{path}: mean {arr.mean()} outside the "
                                  f"input's range [{lo}, {hi}] m")
+        # log-minmax over [-80, 929] m: descale(0) = -79, descale(1) = 929
+        if not (lo - 79.5 <= float(arr.min()) and
+                float(arr.max()) <= lo + 929.5):
+            raise AssertionError(f"{path}: values [{arr.min()}, {arr.max()}]"
+                                 f" outside the descaled range above {lo} m")
+
+
+def card_vs_cpu_scene(p, ckpt, scene_dir, dev, rtol, atol,
+                      scale_atol=False):
+    """One scene through ``upscale_dem`` on the card and on the CPU from the
+    same checkpoint, at ``rtol`` and ``atol`` (times the output's largest
+    magnitude, at least 1, with ``scale_atol``): (max |card - CPU|, warm
+    card ms (best of 3), the output's largest magnitude)."""
+    sample, _ = load_scene(scene_dir, p)
+    fwd_gpu = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    got = upscale_dem(fwd_gpu, sample, p, dev)[0]
+    warm_ms = min(upscale_dem(fwd_gpu, sample, p, dev)[1] for _ in range(3))
+    fwd_cpu = make_forward(load_model_params(build_model(p), ckpt))
+    ref = upscale_dem(fwd_cpu, sample, p, "cpu")[0]
+    scale = float(np.abs(ref).max())
+    if scale_atol:
+        atol *= max(1.0, scale)
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
+                               err_msg=f"card vs CPU, {scene_dir.name}")
+    return float(np.abs(got - ref).max()), warm_ms, scale
+
+
+def serve(work: Path, dev: torch.device):
+    """The serving path: the flagship JSPSR through the port's CLI over a
+    directory of scenes."""
+    p, cfg_path, ckpt = seeded_checkpoint(
+        work, "jspsr_r8_img_msk", "JSPSR", {"num_block": 2, "num_feature": 32})
+    write_scenes(work / "scenes", SCENES)
+
+    out_dir, res_dir = work / "out", work / "result"
+    deform_cuda.reset_launches()
+    paths = run_cli(["--config", str(cfg_path), "--infer",
+                     str(work / "scenes"), "--out", str(out_dir),
+                     "--result-dir", str(res_dir)])
+    launches = dict(deform_cuda.LAUNCHES)
+    print(f"serving-path launches: {launches}", flush=True)
+    if launches != {"deform_fwd": len(SCENES), "deform_bwd": 0,
+                    "deform_bwd_dx": 0}:
+        raise AssertionError(f"launches {launches} for {len(SCENES)} scenes")
+    check_outputs(paths, SCENES, work / "scenes", near_input=True)
 
     log = (res_dir / "train.log").read_text()
     per_scene = {m[1]: {"ms": float(m[2]), "peak_mb": float(m[3])}
@@ -361,22 +535,12 @@ def serve(work: Path, dev: torch.device):
     total = re.search(r"Inference: \d+ scenes -> .* \(([\d.]+) ms, ([\d.]+) "
                       r"scenes/s\)", log)
 
-    # warm re-runs of each scene size (not counted): steady latency
-    fwd_gpu = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    # warm re-runs of each scene size (not counted): steady latency; one
+    # 334^2 scene on the card against the port on the CPU
     warm = {}
-    for name, side in (SCENES[0], SCENES[-1]):
-        sample, _ = load_scene(work / "scenes" / name, p)
-        warm[f"{side}x{side}"] = min(upscale_dem(fwd_gpu, sample, p, dev)[1]
-                                     for _ in range(3))
-
-    # one 334^2 scene: the card against the port on the CPU
-    sample, _ = load_scene(work / "scenes" / SCENES[0][0], p)
-    got = upscale_dem(fwd_gpu, sample, p, dev)[0]
-    fwd_cpu = make_forward(load_model_params(build_model(p), ckpt))
-    ref = upscale_dem(fwd_cpu, sample, p, "cpu")[0]
-    err = float(np.abs(got - ref).max())
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=2e-5,
-                               err_msg="card vs CPU, 334^2 scene")
+    for name, side in (SCENES[-1], SCENES[0]):
+        err, warm[f"{side}x{side}"], _ = card_vs_cpu_scene(
+            p, ckpt, work / "scenes" / name, dev, rtol=1e-4, atol=2e-5)
     return {
         "scenes": [f"{s}x{s}" for _, s in SCENES],
         "per_scene": per_scene,
@@ -385,76 +549,129 @@ def serve(work: Path, dev: torch.device):
     }, launches
 
 
+def serve_cf(work: Path, dev: torch.device):
+    """CompletionFormer serving: one 334^2 scene through the port's CLI."""
+    mk = dict(create_config(CF_CONFIG).model_kwargs)
+    mk = {k: v for k, v in mk.items() if k not in ("checkpoint", "pretrained")}
+    p, cfg_path, ckpt = seeded_checkpoint(work, "completionformer_r8_img_msk",
+                                          "CompletionFormer", mk)
+    write_scenes(work / "scenes", [CF_SCENE], seed=1)
+    scene = work / "scenes" / CF_SCENE[0]
+    out, res_dir = work / "out" / f"{CF_SCENE[0]}_sr.npy", work / "result"
+    deform_cuda.reset_launches()
+    path = run_cli(["--config", str(cfg_path), "--infer", str(scene),
+                    "--out", str(out), "--result-dir", str(res_dir)])
+    launches = dict(deform_cuda.LAUNCHES)
+    print(f"cf-serving-path launches: {launches}", flush=True)
+    if launches != {"deform_fwd": 6, "deform_bwd": 0, "deform_bwd_dx": 0}:
+        raise AssertionError(f"launches {launches} for one scene")
+    check_outputs([path], [CF_SCENE], work / "scenes", near_input=False)
+    m = re.search(r"Inference: .* \(([\d.]+) ms, peak ([\d.]+) MB\)",
+                  (res_dir / "train.log").read_text())
+    # the JAX suite's CompletionFormer tolerance, rtol 1e-3 / atol 1e-4, set
+    # for outputs in the [0, 1] range of a scaled DEM; atol scales with the
+    # output's range, which random weights widen
+    err, warm_ms, scale = card_vs_cpu_scene(p, ckpt, scene, dev, rtol=1e-3,
+                                            atol=1e-4, scale_atol=True)
+    return {"scene": f"{CF_SCENE[1]}x{CF_SCENE[1]}", "cold_ms": float(m[1]),
+            "peak_mb": float(m[2]), "warm_ms": warm_ms,
+            "cpu_max_abs_err": err, "output_max_abs": scale,
+            "launches": launches}, launches
+
+
 def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """Relative L2 error of one tensor (absolute where ``ref`` is 0)."""
     diff = (got.double().cpu() - ref.double().cpu()).norm()
     return float(diff / max(float(ref.double().norm()), 1e-12))
 
 
-def step_state(p, device, dtype, inputs, gt):
-    """One full-width train step of the port from the config's seeded
-    weights: (loss, {param: grad}, {BatchNorm buffer: value})."""
-    model = build_model(p).to(device=device, dtype=dtype)
+def step_state(p, state, device, dtype, inputs, gt):
+    """One full-width train step of the port from the weights ``state``:
+    (loss, {param: grad}, {BatchNorm buffer: value})."""
+    model = build_model(p)
+    model.load_state_dict(state)
+    model = model.to(device=device, dtype=dtype)
     step = make_train_step(model, build_criterion(dict(p.loss)),
                            build_optimizer(p, model))
     losses = step([x.to(device, dtype) for x in inputs], gt.to(device, dtype))
     return (float(losses["Total"]),
-            {n: q.grad.cpu() for n, q in model.named_parameters()},
+            {n: q.grad.cpu() for n, q in model.named_parameters()
+             if q.grad is not None},
             {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
 
 
-def compare_train_step(p, dev):
-    """One train step on 4 x 128^2 on the card against the port on the CPU,
-    both against float64 on the CPU: the loss, every gradient and the
-    BatchNorm running statistics. Returns the errors, the largest (by the
-    card's distance from float64) first."""
-    inputs, gt = random_batch(4, 128, "cpu", seed=3)
-    card = step_state(p, dev, torch.float32, inputs, gt)
-    cpu = step_state(p, "cpu", torch.float32, inputs, gt)
-    f64 = step_state(p, "cpu", torch.float64, inputs, gt)
+def fp64_floor(name: str) -> float:
+    """The floor of the train-step rule for the tensor ``name``."""
+    return SA_CONV_FLOOR if name.endswith(SA_CONV_SUFFIX) else CARD_FP64_FLOOR
+
+
+def compare_train_step(p, dev, state, batch: int):
+    """One train step on ``batch`` x 128^2 on the card against the port on
+    the CPU, both against float64 on the CPU, from the weights ``state``:
+    the loss, and every gradient and BatchNorm running statistic no
+    further (relative L2) from float64 than three times the CPU fp32
+    run's distance plus its floor (``fp64_floor``). Returns the errors,
+    the tensors furthest beyond three times the CPU's distance first."""
+    inputs, gt = random_batch(p, batch, 128, "cpu", seed=3)
+    card = step_state(p, state, dev, torch.float32, inputs, gt)
+    cpu = step_state(p, state, "cpu", torch.float32, inputs, gt)
+    f64 = step_state(p, state, "cpu", torch.float64, inputs, gt)
     loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
     if loss_err > 1e-4:
         raise AssertionError(f"train-step loss: card {card[0]} vs CPU "
                              f"{cpu[0]}")
-    out = {"loss_rel_err": loss_err}
+    out = {"batch": [batch, 128, 128], "loss_rel_err": loss_err}
     for i, what in ((1, "grad"), (2, "bn")):
+        if set(card[i]) != set(f64[i]):
+            raise AssertionError(f"train-step {what}: card and float64 "
+                                 "differ in which tensors they have")
         rows = []
         for name, ref in f64[i].items():
             e_card = _rel_err(card[i][name], ref)
             e_fp32 = _rel_err(cpu[i][name], ref)
-            rows.append((e_card, e_fp32, _rel_err(card[i][name],
-                                                  cpu[i][name]), name))
-            if e_card > CARD_FP64_FLOOR + 3 * e_fp32:
-                raise AssertionError(
-                    f"train-step {what} {name}: card vs fp64 {e_card}, CPU "
-                    f"fp32 vs fp64 {e_fp32}")
-        rows.sort(reverse=True)
+            rows.append((e_card - 3 * e_fp32, e_card, e_fp32,
+                         _rel_err(card[i][name], cpu[i][name]), name))
+        rows.sort(reverse=True)  # the furthest beyond the rule first
         out[what] = {
             "tensors": len(rows),
-            "card_vs_fp64_max": rows[0][0],
-            "card_vs_fp64_median": statistics.median(r[0] for r in rows),
-            "cpu_fp32_vs_fp64_max": max(r[1] for r in rows),
-            "card_vs_cpu_max": max(r[2] for r in rows),
-            "largest": [{"name": n, "card_vs_fp64": a, "cpu_fp32_vs_fp64": b,
-                         "card_vs_cpu": c} for a, b, c, n in rows[:4]],
+            "card_vs_fp64_max": max(r[1] for r in rows),
+            "card_vs_fp64_median": statistics.median(r[1] for r in rows),
+            "cpu_fp32_vs_fp64_max": max(r[2] for r in rows),
+            "card_vs_cpu_max": max(r[3] for r in rows),
+            "largest_excess": [
+                {"name": n, "card_vs_fp64": a, "cpu_fp32_vs_fp64": b,
+                 "card_vs_cpu": c} for _, a, b, c, n in rows[:4]],
         }
+        bad = [r[4] for r in rows if r[0] > fp64_floor(r[4])]
+        if bad:
+            raise AssertionError(
+                f"train-step {what}: {bad} beyond 3 x the CPU fp32 distance "
+                f"from fp64 + their floor: {out[what]}")
     return out
 
 
-def train(work: Path, dev: torch.device):
-    """The training path: the flagship config through the port's Trainer
-    for two epochs on a synthetic DFC30 tree."""
+def make_train_tree(root: Path) -> float:
+    """The synthetic DFC30 tree of the r8 configs' 13 train cities (12
+    samples of 128^2 each) and 3 valid cities; returns the seconds taken."""
     p = create_config(FLAGSHIP)
-    root = work / "DFC30_8m"
     t0 = time.perf_counter()
     generate_mini_dfc30(root, train_cities=p.train_set, valid_cities=(),
                         n_per_city=TRAIN_SCENES_PER_CITY, size=TRAIN_SIDE)
     for city in p.valid_set:
         generate_city(root, city, 1, size=TRAIN_SIDE)
-    data_s = time.perf_counter() - t0
-    p.dataset_path = str(root)
+    return time.perf_counter() - t0
 
-    trainer = Trainer(p, result_dir=work / "train", device=dev)
+
+def train(config: Path, root: Path, work: Path, dev: torch.device,
+          compare_batch: int, perturbed: bool):
+    """A training path: ``config`` as it is, on the synthetic tree at
+    ``root``, through the port's Trainer for epochs 0 and 1, with exactly
+    ``PER_STEP`` launches per step; then one train step on the card held
+    against the CPU and float64 (from the seeded weights, ``perturbed``
+    or not)."""
+    p = create_config(config)
+    p.dataset_path = str(root)
+    trainer = Trainer(p, result_dir=work, device=dev)
     inner, steps = trainer.train_step, []
 
     def timed_step(inputs, gt):
@@ -477,10 +694,11 @@ def train(work: Path, dev: torch.device):
     torch.cuda.synchronize()
     launches = dict(deform_cuda.LAUNCHES)
     n_steps = len(steps)
-    print(f"training-path launches: {launches} in {n_steps} steps",
-          flush=True)
-    if n_steps < 6 or launches != {"deform_fwd": n_steps,
-                                   "deform_bwd": n_steps}:
+    print(f"{p.model_name} training-path launches: {launches} in {n_steps} "
+          f"steps", flush=True)
+    n_samples = len(p.train_set) * TRAIN_SCENES_PER_CITY
+    want = {k: v * n_steps for k, v in PER_STEP[p.model_name].items()}
+    if n_steps != 2 * (n_samples // p.train_batch_size) or launches != want:
         raise AssertionError(f"launches {launches} for {n_steps} steps")
     step_losses = [float(t) for _, _, t in steps]
     if not all(np.isfinite(step_losses + [e["loss"] for e in epochs])):
@@ -491,15 +709,18 @@ def train(work: Path, dev: torch.device):
     batch = p.train_batch_size
     del trainer
 
-    errs = compare_train_step(p, dev)
+    model = build_model(p)
+    state = (perturb_weights(model, seed=2) if perturbed
+             else model).state_dict()
+    errs = compare_train_step(p, dev, state, compare_batch)
+    # epoch 0's first step carries cuDNN's set-up: the warm steps follow
+    warm = statistics.median(step_ms[1:])
     return {
-        "config": str(FLAGSHIP.relative_to(REPO)), "parameters": n_params,
-        "batch": batch, "patch": p.patch_size,
-        "train_samples": len(p.train_set) * TRAIN_SCENES_PER_CITY,
-        "data_gen_s": data_s, "steps": n_steps, "step_losses": step_losses,
-        "step_ms": step_ms,
-        "step_ms_warm_median": statistics.median(step_ms[1:]),
-        "tiles_per_s_warm": batch / statistics.median(step_ms[1:]) * 1e3,
+        "config": str(config.relative_to(REPO)), "model": p.model_name,
+        "parameters": n_params, "batch": batch, "patch": p.patch_size,
+        "train_samples": n_samples, "steps": n_steps,
+        "step_losses": step_losses, "step_ms": step_ms,
+        "step_ms_warm_median": warm, "tiles_per_s_warm": batch / warm * 1e3,
         "epochs": epochs, "peak_mb": peak_mb,
         "peak_source": "torch.cuda.max_memory_allocated over both epochs",
         "launches": launches, "card_vs_cpu_step": errs,
@@ -534,20 +755,33 @@ def main() -> int:
     # 3. each kernel against its plain version
     fwd_rows = check_deform_kernel(dev, bandwidth, fp32_peak)
     bwd_rows = check_deform_backward(dev, bandwidth, fp32_peak)
+    dx_rows = check_deform_backward_dx(dev, bandwidth, fp32_peak)
 
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="jspsr_chip_smoke_") as tmp:
-        # 4. serving through the CLI
-        serving, serve_launches = serve(Path(tmp) / "serve", dev)
+        tmp = Path(tmp)
+        # 4. serving the flagship through the CLI
+        serving, paths["serving"] = serve(tmp / "serve", dev)
         serving["peak_source"] = "torch.cuda.max_memory_allocated per scene"
-        serving["card"] = card
-        # 5. training through the Trainer
-        training, train_launches = train(Path(tmp) / "train", dev)
-        training["card"] = card
+        # 5. training the flagship through the Trainer
+        root = tmp / "DFC30_8m"
+        data_s = make_train_tree(root)
+        training, paths["training"] = train(
+            FLAGSHIP, root, tmp / "train", dev, compare_batch=4,
+            perturbed=False)
+        training["data_gen_s"] = data_s
+        # 6. training CompletionFormer through the Trainer
+        cf_training, paths["cf_training"] = train(
+            CF_CONFIG, root, tmp / "train_cf", dev, compare_batch=2,
+            perturbed=True)
+        # 7. serving CompletionFormer through the CLI
+        cf_serving, paths["cf_serving"] = serve_cf(tmp / "serve_cf", dev)
+    for result in (serving, training, cf_training, cf_serving):
+        result["card"] = card
 
     def kernel_line(name, source, replaces, tpu_kernel, rows, main_shape):
         main = next(r for r in rows if r["shape"] == main_shape)
-        by_path = {"serving": serve_launches[name],
-                   "training": train_launches[name]}
+        by_path = {path: launches[name] for path, launches in paths.items()}
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
@@ -568,9 +802,16 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py:175",
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=False)", bwd_rows, [50, 1, 128, 128]),
+        kernel_line("deform_bwd_dx", "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=True, d_x at :227-242)", dx_rows,
+                    [16, 1, 128, 128]),
     ]
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"cf_training": cf_training}), flush=True)
+    print(json.dumps({"cf_serving": cf_serving}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

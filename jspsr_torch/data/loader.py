@@ -188,29 +188,31 @@ def input_kinds(input_data: dict) -> list:
     return order
 
 
-def build_batch_inputs(batch: dict, model_name: str, input_data: dict):
-    """Assemble model inputs from a collated batch
-    (reference utils/utils.py:152-321 get_batch_pair):
+def model_inputs(batch: dict, model_name: str, input_data: dict) -> list:
+    """The model's inputs from a batch of NHWC modality arrays, in its
+    input layout (reference utils/utils.py:152-321 get_batch_pair):
 
-    - JSPSR/LRRU: list of per-modality NHWC arrays [dem, image, aux];
+    - JSPSR/LRRU: list of per-modality arrays [dem, image, aux];
     - CompletionFormer: [dem, stacked-guidance];
-    - others (EDSR): one channel-stacked tensor.
-    Returns (inputs, gt, base_elev, meta).
+    - others (EDSR): one channel-stacked array.
     """
     name = model_name.lower()
     order = input_kinds(input_data)
+    if name in ("jspsr", "lrru"):
+        return [batch[k] for k in order]
+    if name == "completionformer":
+        guidance = [batch[k] for k in order[1:]]
+        return [batch["lr_dem"], np.concatenate(guidance, axis=-1)]
+    return [np.concatenate([batch[k] for k in order], axis=-1)]
 
+
+def build_batch_inputs(batch: dict, model_name: str, input_data: dict):
+    """Assemble model inputs from a collated batch (``model_inputs``).
+    Returns (inputs, gt, base_elev, meta).
+    """
     gt = batch["hr_dem"]
     meta = batch.get("meta", [])
     base_elev = np.asarray(
         [m.get("base", 0) for m in meta], np.float32
     ) if meta else np.zeros((gt.shape[0],), np.float32)
-
-    if name in ("jspsr", "lrru"):
-        inputs = [batch[k] for k in order]
-    elif name == "completionformer":
-        guidance = [batch[k] for k in order[1:]]
-        inputs = [batch["lr_dem"], np.concatenate(guidance, axis=-1)]
-    else:
-        inputs = [np.concatenate([batch[k] for k in order], axis=-1)]
-    return inputs, gt, base_elev, meta
+    return model_inputs(batch, model_name, input_data), gt, base_elev, meta

@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from jspsr_torch.data.loader import model_inputs
 from jspsr_torch.data.transforms import ToArray, TransformCtx
 from jspsr_torch.utils.device import resolve_device, set_strict_fp32
 
@@ -37,17 +38,11 @@ def _normalize_sample(sample: dict, p) -> dict:
 
 def _model_inputs(sample: dict, p, device) -> list:
     """HWC numpy modalities -> list of contiguous (1, C, H, W) tensors in
-    the JSPSR input order."""
-    if p.model_name.lower() != "jspsr":
-        raise NotImplementedError(f"{p.model_name} inference is not yet ported")
-    order = ["lr_dem"]
-    if "image" in sample:
-        order.append("image")
-    for aux in ("mask", "canopy", "coord"):
-        if aux in sample:
-            order.append(aux)
-    return [torch.from_numpy(np.ascontiguousarray(sample[k].transpose(2, 0, 1)))
-            .unsqueeze(0).to(device) for k in order]
+    the model's input layout (``data.loader.model_inputs``)."""
+    batch = {k: v[None] for k, v in sample.items() if k != "meta"}
+    arrays = model_inputs(batch, p.model_name, p.get("input_data") or {})
+    return [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+            .to(device) for a in arrays]
 
 
 def _pad_hwc(img: np.ndarray, pads):

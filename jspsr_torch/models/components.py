@@ -6,8 +6,9 @@ NCHW ``nn.Module``s whose parameter names follow the reference torch
 state_dict layout (the layout ``jspsr_tpu/utils/torch_import.py`` reads):
 ``Basic2d`` -> ``conv.0`` / ``conv.bn``, ``Basic2dTrans`` -> ``dconv.0`` /
 ``dconv.1`` / ``dconv.bn``, ``Downsample`` -> ``0`` / ``1``,
-``ChannelAttention`` -> ``fc.0`` / ``fc.2``. SpatialAttention and
-CBAMBasicBlock wait for the CompletionFormer port.
+``ChannelAttention`` -> ``fc.0`` / ``fc.2``, ``SpatialAttention`` ->
+``conv1``, ``CBAMBasicBlock`` -> ``conv1`` / ``bn1`` / ``conv2`` / ``bn2`` /
+``ca`` / ``sa`` / ``downsample``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,20 @@ class ChannelAttention(nn.Module):
     def forward(self, x):
         return torch.sigmoid(self.fc(jnn.global_avg_pool(x))
                              + self.fc(jnn.global_max_pool(x)))
+
+
+class SpatialAttention(nn.Module):
+    """CBAM spatial attention: sigmoid(conv7x7([mean_c(x), max_c(x)]))."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        self.conv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+                               bias=False)
+
+    def forward(self, x):
+        y = torch.cat([x.mean(dim=1, keepdim=True),
+                       x.amax(dim=1, keepdim=True)], dim=1)
+        return torch.sigmoid(self.conv1(y))
 
 
 class Basic2d(nn.Module):
@@ -114,6 +129,30 @@ class BasicBlock(nn.Module):
         residual = x if self.downsample is None else self.downsample(x)
         out = out * self.scale + residual
         return F.relu(out) if self.act else out
+
+
+class CBAMBasicBlock(nn.Module):
+    """ResNet BasicBlock with CBAM channel then spatial attention on the
+    residual branch."""
+
+    def __init__(self, inplanes, planes, stride=1,
+                 downsample: nn.Module | None = None, ratio: int = 16):
+        super().__init__()
+        self.conv1 = conv3x3(inplanes, planes, stride)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.ca = ChannelAttention(planes, ratio=ratio)
+        self.sa = SpatialAttention()
+        self.downsample = downsample
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        out = self.ca(out) * out
+        out = self.sa(out) * out
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
 
 
 def Downsample(cin, cout, stride) -> nn.Sequential:

@@ -149,8 +149,10 @@ class JSPSR(nn.Module):
     def _merge(self, up, skip):
         return torch.cat([up, skip], dim=1) if self.cat_only else up + skip
 
-    def forward(self, inputs):
-        """inputs: list of NCHW tensors in input_keys() order -> (B,1,H,W)."""
+    def forward(self, inputs, generator=None):
+        """inputs: list of NCHW tensors in input_keys() order -> (B,1,H,W).
+        ``generator`` is accepted as every model's forward accepts it; JSPSR
+        draws nothing."""
         keys = self.input_keys()
         if len(inputs) != len(keys):
             raise ValueError(f"expected inputs {keys}, got {len(inputs)}")

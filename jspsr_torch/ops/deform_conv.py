@@ -10,15 +10,19 @@ Semantics match the JAX package and torchvision.ops.deform_conv2d:
   in-bounds corners.
 
 The case carried here is the one the framework runs: one input and one
-output channel, 3x3 kernel, stride 1, dilation 1 (the SPN head).
-``deform_conv2d`` is a ``torch.autograd.Function`` (the counterpart of
-``deform_conv2d_pallas``, a ``jax.custom_vjp``): on CUDA tensors its
-forward launches the forward kernel and its backward the backward kernel
-(``deform_cuda``); on CPU tensors they are the plain versions
-``deform_conv2d_plain`` and ``deform_conv2d_backward_plain``. The backward
-gives no input gradient (the SPN head detaches the DEM); an ``x`` that
-requires grad raises at backward. The JAX package's ``mxu`` form exists
-only to avoid TPU gathers and is not ported.
+output channel, 3x3 kernel, stride 1, dilation 1 (the SPN head and NLSPN's
+propagation). ``deform_conv2d`` is a ``torch.autograd.Function`` (the
+counterpart of ``deform_conv2d_pallas``, a ``jax.custom_vjp``): on CUDA
+tensors its forward launches the forward kernel and its backward one of
+the two backward kernels (``deform_cuda``): ``deform_bwd_dx`` where ``x``
+needs its gradient (NLSPN), ``deform_bwd`` where it does not (the SPN head
+detaches the DEM). On CPU tensors they are the plain versions
+``deform_conv2d_plain`` and ``deform_conv2d_backward_plain``.
+
+``bilinear_sample`` is the plain bilinear gather at given positions, with
+autograd to the image: NLSPN's 1x1 confidence taps, which the JAX package
+also leaves to XLA. The JAX package's ``mxu`` form exists only to avoid
+TPU gathers and is not ported.
 """
 
 from __future__ import annotations
@@ -59,36 +63,51 @@ def _positions(offset: torch.Tensor, padding: int):
     return py, px
 
 
-def _bilinear_corners(x: torch.Tensor, offset: torch.Tensor, padding: int):
-    """The four corners around every tap's position and its fractional
-    parts: (v00, v01, v10, v11, ty, tx), each (B, K, H, W). A corner off the
-    image is 0."""
-    b, _, h, w = x.shape
-    py, px = _positions(offset, padding)
+def _corner(yc, xc, h: int, w: int):
+    """Flat index into an (H*W) image of the integer corner (yc, xc) and
+    whether it lies on the image; the bounds are tested in float, before
+    any int conversion, and the index is clamped."""
+    valid = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
+    return yc.clamp(0, h - 1).long() * w + xc.clamp(0, w - 1).long(), valid
+
+
+def _corners(py, px, h: int, w: int):
+    """The four corners (v00, v01, v10, v11 order) around every position,
+    as ``_corner`` pairs, and the positions' fractional parts ty, tx."""
     y0 = torch.floor(py)
     x0 = torch.floor(px)
+    return ([_corner(y0 + dy, x0 + dx, h, w)
+             for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1))],
+            py - y0, px - x0)
+
+
+def _bilinear_corners(x: torch.Tensor, py, px):
+    """The corner values around every position, 0 off the image, and the
+    fractional parts: (v00, v01, v10, v11, ty, tx), each shaped like
+    ``py``."""
+    b, _, h, w = x.shape
+    corners, ty, tx = _corners(py, px, h, w)
     img = x.reshape(b, h * w)
+    vals = [torch.gather(img, 1, idx.reshape(b, -1)).view(py.shape)
+            * valid.to(x.dtype) for idx, valid in corners]
+    return (*vals, ty, tx)
 
-    def corner(yc, xc):
-        # bounds tested in float, before any int conversion
-        valid = (yc >= 0) & (yc <= h - 1) & (xc >= 0) & (xc <= w - 1)
-        yi = yc.clamp(0, h - 1).long()
-        xi = xc.clamp(0, w - 1).long()
-        g = torch.gather(img, 1, (yi * w + xi).reshape(b, -1))
-        return g.view(yc.shape) * valid.to(x.dtype)
 
-    return (corner(y0, x0), corner(y0, x0 + 1), corner(y0 + 1, x0),
-            corner(y0 + 1, x0 + 1), py - y0, px - x0)
+def bilinear_sample(x: torch.Tensor, py: torch.Tensor,
+                    px: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of x (B,1,H,W) at the positions py, px (B,K,H',W'),
+    zero off the image: (B,K,H',W'). Plain PyTorch; autograd reaches ``x``
+    through the gathers and the positions through the fractional parts."""
+    v00, v01, v10, v11, ty, tx = _bilinear_corners(x, py, px)
+    return (1.0 - ty) * ((1.0 - tx) * v00 + tx * v01) \
+        + ty * ((1.0 - tx) * v10 + tx * v11)
 
 
 def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   padding: int = 1) -> torch.Tensor:
     """Deformable im2col by four corner gathers, modulated by the mask:
     columns (B, K, H, W)."""
-    v00, v01, v10, v11, ty, tx = _bilinear_corners(x, offset, padding)
-    cols = (1.0 - ty) * ((1.0 - tx) * v00 + tx * v01) \
-        + ty * ((1.0 - tx) * v10 + tx * v11)
-    return cols * mask
+    return bilinear_sample(x, *_positions(offset, padding)) * mask
 
 
 def deform_conv2d_plain(x, offset, weight, bias, mask,
@@ -102,15 +121,18 @@ def deform_conv2d_plain(x, offset, weight, bias, mask,
 
 
 def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
-                                 padding: int = 1):
-    """Plain PyTorch version of the backward kernel, the same closed forms
+                                 padding: int = 1, need_dx: bool = False):
+    """Plain PyTorch version of the backward kernels, the same closed forms
     on tensors: returns (d_offset, d_mask, d_weight, d_bias) for
-    ``grad_out`` (B,1,H,W). The offset derivative is floor-based (the
+    ``grad_out`` (B,1,H,W), and with ``need_dx`` also d_x (B,1,H,W), each
+    tap's g·w_t·m_t times its bilinear weights scattered onto its in-bounds
+    corners with ``index_add_``. The offset derivative is floor-based (the
     corners stay fixed, only the fractional part moves), so at integer
-    positions it is the forward difference; off-image corners are 0. Any
-    device."""
+    positions it is the forward difference; off-image corners read 0 and
+    receive nothing. Any device."""
     b, _, h, w = x.shape
-    v00, v01, v10, v11, ty, tx = _bilinear_corners(x, offset, padding)
+    py, px = _positions(offset, padding)
+    v00, v01, v10, v11, ty, tx = _bilinear_corners(x, py, px)
     top = (1.0 - tx) * v00 + tx * v01
     bot = (1.0 - tx) * v10 + tx * v11
     val = (1.0 - ty) * top + ty * bot
@@ -120,12 +142,24 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
     d_px = gwm * ((1.0 - ty) * (v01 - v00) + ty * (v11 - v10))
     d_offset = torch.stack([d_py, d_px], dim=2).reshape(b, 2 * TAPS, h, w)
     d_weight = (grad_out * mask * val).sum(dim=(0, 2, 3)).view_as(weight)
-    return d_offset, gw * val, d_weight, grad_out.sum().view(1)
+    grads = (d_offset, gw * val, d_weight, grad_out.sum().view(1))
+    if not need_dx:
+        return grads
+    corners, _, _ = _corners(py, px, h, w)
+    base = torch.arange(b, device=x.device).view(b, 1, 1, 1) * (h * w)
+    d_x = x.new_zeros(b * h * w)
+    for (idx, valid), wgt in zip(corners, ((1.0 - ty) * (1.0 - tx),
+                                           (1.0 - ty) * tx, ty * (1.0 - tx),
+                                           ty * tx)):
+        d_x.index_add_(0, (idx + base).reshape(-1),
+                       (gwm * wgt * valid.to(x.dtype)).reshape(-1))
+    return (*grads, d_x.view_as(x))
 
 
 class DeformConv2dFunction(torch.autograd.Function):
-    """Forward K1, backward K2 on CUDA tensors; the plain versions on CPU
-    tensors. The backward gives no gradient for ``x``."""
+    """Forward K1 on CUDA tensors, backward K3 where ``x`` needs its
+    gradient and K2 where it does not; the plain versions on CPU
+    tensors."""
 
     @staticmethod
     def forward(ctx, x, offset, weight, bias, mask, padding):
@@ -144,25 +178,23 @@ class DeformConv2dFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        if ctx.needs_input_grad[0]:
-            raise NotImplementedError(
-                "deform_conv2d: the input gradient (the TPU kernel's "
-                "need_dx=True backward, K3) is not yet ported; it comes with "
-                "the CompletionFormer slice. Detach x, as the SPN head does.")
         x, offset, weight, mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
         # autograd may hand over an expanded (stride-0) gradient
         grad_out = grad_out.contiguous()
         if x.device.type == "cuda":
             from jspsr_torch.ops import deform_cuda
 
-            grads = deform_cuda.deform_bwd(x, offset, weight, mask, grad_out,
-                                           ctx.padding)
+            kernel = deform_cuda.deform_bwd_dx if need[0] \
+                else deform_cuda.deform_bwd
+            grads = kernel(x, offset, weight, mask, grad_out, ctx.padding)
         else:
             grads = deform_conv2d_backward_plain(x, offset, weight, mask,
-                                                 grad_out, ctx.padding)
-        d_offset, d_mask, d_weight, d_bias = grads
-        need = ctx.needs_input_grad
-        return (None, d_offset if need[1] else None,
+                                                 grad_out, ctx.padding,
+                                                 need_dx=need[0])
+        d_offset, d_mask, d_weight, d_bias = grads[:4]
+        return (grads[4] if need[0] else None,
+                d_offset if need[1] else None,
                 d_weight if need[2] else None, d_bias if need[3] else None,
                 d_mask if need[4] else None, None)
 
@@ -173,9 +205,9 @@ def deform_conv2d(x, offset, weight, bias, mask,
     weight (1,1,3,3), bias (1,), mask (B,9,H,W) -> (B,1,H,W).
 
     A CUDA tensor launches the kernels (``deform_cuda.deform_fwd``, and
-    ``deform_bwd`` in the backward) or raises; there is no fallback. Only
-    CPU tensors take the plain versions. Gradients flow to offset, weight,
-    bias and mask; an ``x`` that requires grad raises at backward."""
+    ``deform_bwd_dx`` or ``deform_bwd`` in the backward) or raises; there is
+    no fallback. Only CPU tensors take the plain versions. Gradients flow
+    to every tensor argument that requires one."""
     check_deform_args(x, offset, weight, bias, mask)
     return DeformConv2dFunction.apply(x, offset, weight, bias, mask,
                                       int(padding))

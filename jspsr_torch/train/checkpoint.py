@@ -46,6 +46,6 @@ def load_model_params(model: torch.nn.Module, path) -> torch.nn.Module:
         sd, _ = load_torch_checkpoint(path)
     else:
         flat, _ = load_checkpoint(path)
-        sd = state_dict_from_jax(flat)
+        sd = state_dict_from_jax(flat, model)
     model.load_state_dict(sd, strict=True)
     return model

@@ -2,13 +2,15 @@
 """Where the time of one train step of the PyTorch port goes, on one CUDA
 card.
 
-    python -m jspsr_torch.train.profile_step [--batch 50] [--side 128]
-                                             [--steps 10]
+    python -m jspsr_torch.train.profile_step [--config <yml>] [--batch N]
+                                             [--side 128] [--steps 10]
 
-Builds the flagship JSPSR of configs/jspsr_r8_img_msk.yml (3 branches,
-num_feature 32, num_block 2) with seeded random weights, its criterion
-(L1 + L2 + 0.1 Grad) and AdamW, fp32 with TF32 off, and a resident batch
-of random tiles on the card. Then:
+Builds the model, criterion and optimizer of a config (by default the
+flagship JSPSR of configs/jspsr_r8_img_msk.yml; any model the port
+supports) with seeded random weights, fp32 with TF32 off, and a resident
+batch of random tiles on the card in the model's input order
+(``data.loader.build_batch_inputs``), of the config's train batch size
+unless ``--batch`` is given. Then:
 
 - times ``--steps`` warm train steps with the host clock around a
   ``torch.cuda.synchronize()`` (ms/step, tiles/s) and reads the peak
@@ -16,16 +18,23 @@ of random tiles on the card. Then:
 - traces the forward (with the loss), the backward and the optimizer
   step of three warm steps with ``torch.profiler``, each phase in a trace
   of its own, and prints the device time per step by phase and kernel
-  group (convolutions, BatchNorm, elementwise, K1, K2, ...), the top
-  kernels, and the device's idle share of three whole traced steps (one
-  minus the union of kernel intervals over the wall time).
+  group (convolutions, BatchNorm, elementwise, K1, K2, K3, ...), the
+  device time of the kernels that matmul ops launched (the Linear layers
+  and attention of a transformer), the top kernels, and the device's idle
+  share of three whole traced steps (one minus the union of kernel
+  intervals over the wall time) and of the untraced steps (one minus the
+  traced busy time over the untraced step time).
 
 In the backward, cuDNN kernels named ``dgrad`` / ``wgrad`` are the data
 and weight gradients; its GEMM and FFT kernels serve either and are
 counted as 'conv backward, gemm/fft'. cuDNN runs a transposed
 convolution's forward as a dgrad kernel, so the decoder's three
-``ConvTranspose2d`` forwards count as 'conv' in the forward phase. Prints
-one JSON line. Needs a CUDA card.
+``ConvTranspose2d`` forwards count as 'conv' in the forward phase. A GEMM
+kernel's name does not say whether cuDNN or a matmul launched it, so the
+groups count every GEMM as 'conv'; ``matmul_ms_per_step`` gives the share
+that matmul ops launched, from the CPU op each kernel ran under. K2 and K3
+are the two instances of one templated kernel, told apart by their
+template argument. Prints one JSON line. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,11 +45,13 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from jspsr_torch.config.loader import AttrDict
+from jspsr_torch.config.loader import create_config
+from jspsr_torch.data.loader import build_batch_inputs, input_kinds
 from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
 from jspsr_torch.ops import deform_cuda
@@ -48,15 +59,23 @@ from jspsr_torch.train.optim import build_optimizer
 from jspsr_torch.train.step import make_train_step
 from jspsr_torch.utils.device import set_strict_fp32
 
+DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" \
+    / "jspsr_r8_img_msk.yml"
 CONV_KEYS = ("conv", "xmma", "gemm", "cutlass", "sm80", "sm90", "winograd",
              "fft", "implicit", "region_transform", "DSE::")
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 GROUPS = (  # first match wins; names are CUDA kernel names
     ("K1 deform_fwd", ("deform_fwd",)),
+    ("K3 deform_bwd_dx", ("deform_bwd_kernel<true>",
+                          "deform_bwd_kernel<(bool)1>")),
     ("K2 deform_bwd", ("deform_bwd",)),
     ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
     ("conv wgrad", ("wgrad",)),
     ("conv dgrad", ("dgrad",)),
     ("batchnorm", ("bn_", "batch_norm", "batchnorm")),
+    ("layernorm", ("layer_norm", "LayerNorm")),
+    ("softmax", ("softmax", "Softmax")),
+    ("bilinear resize", ("upsample_bilinear",)),
     ("conv", CONV_KEYS),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("concat/copy", ("cat", "copy", "Copy")),
@@ -76,8 +95,23 @@ def group_of(name: str, phase: str) -> str:
 
 
 def _kernels(prof):
+    """The trace's kernels and copies on the device. User annotations are
+    left out: the profiler also puts spans such as ``Optimizer.step#...``
+    on the device timeline, and counting them would add their whole
+    length, gaps included, to the device time."""
     return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def matmul_ms(prof) -> float:
+    """Device time, in ms, of the kernels that matmul ops launched."""
+    total = 0.0
+    for e in prof.key_averages():
+        if e.key in MATMUL_OPS:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3
 
 
 def busy_ms(kernels) -> float:
@@ -91,37 +125,36 @@ def busy_ms(kernels) -> float:
     return total / 1e3
 
 
-def flagship_config() -> AttrDict:
-    """The model, loss and optimizer keys of configs/jspsr_r8_img_msk.yml."""
-    return AttrDict({
-        "model_name": "JSPSR", "seed": 0,
-        "input_data": {"lr_dem": 1, "image": 3, "mask": 15},
-        "model_kwargs": {"num_block": 2, "num_feature": 32},
-        "loss": {"L1": 1, "L2": 1, "Grad": 0.1},
-        "optimizer": "AdamW",
-        "optimizer_kwargs": {"lr": 0.001, "weight_decay": 0.000001,
-                             "momentum": 0.9, "diff_lr": False},
-    })
-
-
-def random_batch(b: int, side: int, dev, seed: int = 0):
-    """A train batch in [0, 1] as the loader makes it: DEM, RGB, a one-hot
-    15-class mask scaled by (i+1)/16, and the target DEM."""
+def random_batch(p, b: int, side: int, dev, seed: int = 0):
+    """A train batch in [0, 1] as the loader makes it, in the model's input
+    order (``build_batch_inputs``): DEM, RGB, a one-hot mask with class i
+    scaled by (i+1)/(n+1), uniform canopy / coordinate channels, and the
+    target DEM; NCHW on ``dev``."""
     rng = np.random.default_rng(seed)
-    dem = rng.uniform(0.3, 0.7, (b, 1, side, side))
-    img = rng.uniform(0, 1, (b, 3, side, side))
-    cls = rng.integers(0, 15, (b, side, side))
-    mask = (np.arange(15)[None, :, None, None] == cls[:, None]) \
-        * (np.arange(1, 16)[None, :, None, None] / 16.0)
-    gt = dem + rng.normal(0, 0.01, dem.shape)
-    return ([torch.from_numpy(a.astype(np.float32)).to(dev)
-             for a in (dem, img, mask)],
-            torch.from_numpy(gt.astype(np.float32)).to(dev))
+    dem = rng.uniform(0.3, 0.7, (b, side, side, 1))
+    batch = {"lr_dem": dem, "hr_dem": dem + rng.normal(0, 0.01, dem.shape)}
+    for kind in input_kinds(p.input_data)[1:]:
+        n = int(p.input_data[kind])
+        if kind == "mask":
+            cls = rng.integers(0, n, (b, side, side))
+            batch[kind] = (np.arange(n) == cls[..., None]) \
+                * ((np.arange(n) + 1) / (n + 1))
+        else:
+            batch[kind] = rng.uniform(0, 1, (b, side, side, n))
+    inputs, gt, _, _ = build_batch_inputs(batch, p.model_name, p.input_data)
+
+    def nchw(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            a.transpose(0, 3, 1, 2), np.float32)).to(dev)
+
+    return [nchw(a) for a in inputs], nchw(gt)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=50)
+    ap.add_argument("--config", default=str(DEFAULT_CONFIG))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default: the config's train_batch_size")
     ap.add_argument("--side", type=int, default=128)
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
@@ -133,11 +166,14 @@ def main(argv=None) -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     set_strict_fp32()
-    p = flagship_config()
+    p = create_config(args.config)
+    batch = args.batch or p.train_batch_size
     model = build_model(p).to(dev)
     optimizer = build_optimizer(p, model)
-    step = make_train_step(model, build_criterion(dict(p.loss)), optimizer)
-    inputs, gt = random_batch(args.batch, args.side, dev)
+    generator = torch.Generator(dev).manual_seed(int(p.get("seed") or 0))
+    step = make_train_step(model, build_criterion(dict(p.loss)), optimizer,
+                           generator=generator)
+    inputs, gt = random_batch(p, batch, args.side, dev)
 
     for _ in range(3):  # warm-up: cuDNN algorithms, optimizer state
         step(inputs, gt)
@@ -159,12 +195,14 @@ def main(argv=None) -> int:
     phases = {ph: defaultdict(float)
               for ph in ("forward", "backward", "optimizer")}
     kernels = defaultdict(float)
+    matmuls = defaultdict(float)
     deform_cuda.reset_launches()
     model.train()
     for _ in range(traced):
         optimizer.zero_grad(set_to_none=True)
         with torch.profiler.profile(activities=acts) as prof:
-            total = criterion(model(inputs), gt)["Total"]
+            total = criterion(model(inputs, generator=generator),
+                              gt)["Total"]
             torch.cuda.synchronize()
         traces = [("forward", prof)]
         with torch.profiler.profile(activities=acts) as prof:
@@ -176,6 +214,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
         traces.append(("optimizer", prof))
         for phase, pr in traces:
+            matmuls[phase] += matmul_ms(pr) / traced
             for k in _kernels(pr):
                 us = k.time_range.elapsed_us()
                 phases[phase][group_of(k.name, phase)] += us / 1e3 / traced
@@ -190,19 +229,24 @@ def main(argv=None) -> int:
     busy = busy_ms(_kernels(prof))
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps({
-        "card": card, "batch": args.batch, "side": args.side,
+        "card": card, "config": args.config, "model": p.model_name,
+        "parameters": sum(q.numel() for q in model.parameters()),
+        "batch": batch, "side": args.side,
         "step_ms_median": step_ms, "step_ms_all": times,
-        "tiles_per_s": args.batch / step_ms * 1e3, "peak_mb": peak_mb,
+        "tiles_per_s": batch / step_ms * 1e3, "peak_mb": peak_mb,
         "loss": float(losses["Total"]), "traced_steps": traced,
         "phase_ms_per_step": {ph: sum(g.values())
                               for ph, g in phases.items()},
         "device_ms_per_step": {ph: dict(sorted(g.items(),
                                                key=lambda kv: -kv[1]))
                                for ph, g in phases.items()},
+        "matmul_ms_per_step": dict(matmuls),
         "launches_in_phase_traces": launches,
         "whole_step_wall_ms": wall_ms / traced,
         "whole_step_busy_ms": busy / traced,
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "device_idle_share_untraced": max(0.0, 1.0 - busy / traced
+                                          / step_ms),
         "top_kernels_ms_per_step": [[n[:100], v] for n, v in top],
     }), flush=True)
     return 0

@@ -16,6 +16,10 @@ step restores the starting statistics before each microbatch and averages
 the results. Each BatchNorm's ``num_batches_tracked`` goes up by one per
 step.
 
+``generator`` is handed to the model's forward for its random draws
+(CompletionFormer's drop path; JSPSR draws nothing), as the JAX package
+hands its model a per-step key.
+
 ``remat`` is not yet ported: ``torch.utils.checkpoint`` re-runs the
 forward, and with it BatchNorm's in-place running-statistics update, in the
 backward, where ``jax.checkpoint`` updates them once (the state is
@@ -35,7 +39,8 @@ def _bn_modules(model: torch.nn.Module) -> list:
 
 def make_train_step(model: torch.nn.Module, criterion, optimizer,
                     accum_steps: int = 1, monitor: bool = False,
-                    remat: bool = False):
+                    remat: bool = False,
+                    generator: torch.Generator | None = None):
     """Returns ``train_step(inputs, gt) -> loss dict``: ``inputs`` a list of
     NCHW tensors in the model's input order, ``gt`` (B,1,H,W). The loss
     values are detached 0-d tensors on the model's device (no host sync).
@@ -50,7 +55,7 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
     bns = _bn_modules(model)
 
     def step_full(inputs, gt):
-        pred = model(inputs)
+        pred = model(inputs, generator=generator)
         losses = criterion(pred, gt)
         losses["Total"].backward()
         return losses, pred

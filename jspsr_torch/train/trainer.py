@@ -5,7 +5,8 @@ reference main.py:47-315): the constructor and the epoch loop.
 ``p.seed``), the criterion, the optimizer and its per-epoch schedule, the
 train and valid datasets and loaders, the result directory and its
 ``config.json``. ``train_one_epoch(epoch)`` sets the epoch's learning rate
-and runs one train step per batch:
+and runs one train step per batch, handing the model a generator seeded
+from ``p.seed`` for its random draws (CompletionFormer's drop path):
 
 - the host stages each batch on a prefetch thread: the loader's NHWC numpy
   arrays become NCHW tensors in pinned memory, copied to the card with
@@ -89,10 +90,13 @@ class Trainer:
         self.criterion = build_criterion(dict(p.loss))
         self.optimizer = build_optimizer(p, self.model)
         self.lr_schedule = build_lr_schedule(p)
+        # the model's random draws in training (drop path), seeded as the
+        # JAX Trainer seeds its per-step keys
+        self.generator = torch.Generator(self.device).manual_seed(self.seed)
         self.train_step = make_train_step(
             self.model, self.criterion, self.optimizer,
             accum_steps=int(p.get("accum_steps") or 1),
-            monitor=bool(p.get("monitor_value")))
+            monitor=bool(p.get("monitor_value")), generator=self.generator)
 
         # stage batches on prefetch threads (default on): numpy assembly
         # in one, the copy to the device in another (the JAX package's

@@ -153,10 +153,20 @@ def test_expanded_grad_out_is_accepted():
 
 
 def test_input_gradient_raises_naming_k3():
-    x, off, mask, wgt, bias, _ = _case(1, 8, 8, 1.0, seed=2)
-    xt = _nchw(x).requires_grad_(True)
-    out = deform_conv2d(xt, _nchw(off).requires_grad_(True), torch.from_numpy(
-        wgt.transpose(3, 2, 0, 1).copy()), torch.from_numpy(bias.copy()),
-        _nchw(mask))
-    with pytest.raises(NotImplementedError, match="K3"):
-        out.sum().backward()
+    """Once a refusal naming K3, the input gradient now flows: the
+    Function's d_x is the plain backward's and autograd's through the
+    plain forward (tests/test_torch_deform_dx.py holds it against JAX)."""
+    x, off, mask, wgt, bias, g = _case(1, 8, 8, 1.0, seed=2)
+    w_t = torch.from_numpy(wgt.transpose(3, 2, 0, 1).copy())
+    grads = []
+    for fn in (deform_conv2d, deform_conv2d_plain):
+        xt = _nchw(x).requires_grad_(True)
+        fn(xt, _nchw(off), w_t, torch.from_numpy(bias.copy()),
+           _nchw(mask)).backward(torch.from_numpy(g)[:, None])
+        grads.append(xt.grad)
+    d_x = deform_conv2d_backward_plain(_nchw(x), _nchw(off), w_t, _nchw(mask),
+                                       torch.from_numpy(g)[:, None],
+                                       need_dx=True)[4]
+    assert grads[0].abs().max() > 0
+    torch.testing.assert_close(grads[0], d_x, rtol=0, atol=0)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)

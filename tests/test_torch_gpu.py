@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from jspsr_torch.losses import build_criterion
+from jspsr_torch.models.completionformer import CompletionFormer
 from jspsr_torch.models.jspsr import JSPSR
 from jspsr_torch.ops import deform_cuda
 from jspsr_torch.ops.deform_conv import (
@@ -21,6 +22,7 @@ from jspsr_torch.ops.deform_conv import (
 )
 from jspsr_torch.train.step import make_train_step
 from jspsr_torch.utils.device import set_strict_fp32
+from jspsr_torch.utils.perturb import perturb_weights
 
 pytestmark = pytest.mark.gpu
 
@@ -84,6 +86,52 @@ def test_backward_kernel_matches_plain(cuda_device, b, h, w, scale):
     torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-4)
 
 
+# K3 at NLSPN's shapes: a narrow odd width, integer positions (NLSPN's
+# zero-offset init) and the CompletionFormer train batch far off the image
+DX_CASES = [(1, 12, 20, 2.0), (2, 32, 32, 0.0), (16, 128, 128, 20.0)]
+
+
+@pytest.mark.parametrize("b,h,w,scale", DX_CASES)
+def test_backward_dx_kernel_matches_plain(cuda_device, b, h, w, scale):
+    """K3: d_offset and d_mask as K2's; d_x is summed with float atomics
+    in an order that changes from run to run, so its error is held to 1e-5
+    of the sum of its terms' magnitudes (the same scatter on |g w m|),
+    as d_weight's is."""
+    x, offset, weight, _, mask = _args(b, h, w, scale, cuda_device)
+    g = torch.randn(b, 1, h, w, generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda_device)
+    launches = dict(deform_cuda.LAUNCHES)
+    got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                       need_dx=True)
+    abs_sum = deform_conv2d_backward_plain(x.abs(), offset, weight.abs(),
+                                           mask.abs(), g.abs(), need_dx=True)
+    torch.cuda.synchronize()
+    assert {k: deform_cuda.LAUNCHES[k] - launches[k] for k in launches} == \
+        {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 1}
+    assert ref[4].abs().max() > 0
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    assert ((got[2] - ref[2]).abs() <= 1e-5 * abs_sum[2] + 1e-6).all()
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-4)
+    assert ((got[4] - ref[4]).abs() <= 1e-5 * abs_sum[4] + 1e-7).all()
+
+
+def test_input_grad_on_gpu_matches_cpu(cuda_device):
+    """Every gradient of the Function, x included, on the card (K1, K3)
+    against the CPU (the plain versions)."""
+    args = _args(2, 24, 20, 1.5, "cpu", seed=4)
+    g = torch.randn(2, 1, 24, 20, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = [t.detach().clone().to(dev).requires_grad_(True)
+                  for t in args]
+        deform_conv2d(*leaves).backward(g.to(dev))
+        grads[str(dev)] = [t.grad.cpu() for t in leaves]
+    for got, ref in zip(grads[str(cuda_device)], grads["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
 def test_function_grads_on_gpu_match_cpu(cuda_device):
     args = _args(2, 24, 20, 1.5, "cpu")
     g = torch.randn(2, 1, 24, 20, generator=torch.Generator().manual_seed(2))
@@ -115,9 +163,14 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     offset.requires_grad_(True)
     deform_conv2d(x, offset, weight, bias, mask).sum().backward()
     assert offset.grad is not None and offset.grad.is_cuda
-    out = deform_conv2d(x.requires_grad_(True), offset, weight, bias, mask)
-    with pytest.raises(NotImplementedError, match="K3"):
-        out.sum().backward()
+    # an input that needs its gradient takes the other backward kernel
+    launches = dict(deform_cuda.LAUNCHES)
+    x.requires_grad_(True)
+    deform_conv2d(x, offset, weight, bias, mask).sum().backward()
+    assert x.grad is not None and x.grad.is_cuda
+    assert deform_cuda.LAUNCHES["deform_bwd_dx"] == \
+        launches["deform_bwd_dx"] + 1
+    assert deform_cuda.LAUNCHES["deform_bwd"] == launches["deform_bwd"]
 
 
 def test_jspsr_on_gpu_matches_cpu(cuda_device):
@@ -169,7 +222,8 @@ def test_jspsr_train_step_on_gpu_matches_cpu(cuda_device):
         losses = step([x.to(dev) for x in inputs], gt.to(dev))
         if dev != "cpu":
             assert {k: deform_cuda.LAUNCHES[k] - launches[k]
-                    for k in launches} == {"deform_fwd": 1, "deform_bwd": 1}
+                    for k in launches} == {"deform_fwd": 1, "deform_bwd": 1,
+                                           "deform_bwd_dx": 0}
         out[str(dev)] = (
             float(losses["Total"]),
             {n: p.grad.cpu() for n, p in model.named_parameters()},
@@ -182,3 +236,91 @@ def test_jspsr_train_step_on_gpu_matches_cpu(cuda_device):
         assert _rel_err(g_gpu[name], g_cpu[name]) < 1e-3, name
     for name in bn_cpu:
         assert _rel_err(bn_gpu[name], bn_cpu[name]) < 1e-4, name
+
+
+CF_INPUTS = {"lr_dem": 1, "image": 3, "mask": 15}
+
+
+@pytest.fixture(scope="module")
+def completionformer():
+    """The config's CompletionFormer at its fixed widths (83.7 M
+    parameters), seeded, with BatchNorm statistics and NLSPN's
+    offset/affinity conv perturbed away from their init (at the zero init
+    the propagation is the identity and K3's d_x is trivial)."""
+    model = perturb_weights(CompletionFormer(
+        dict(CF_INPUTS), generator=torch.Generator().manual_seed(0)), seed=1)
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def _cf(state, device, dtype=torch.float32):
+    model = CompletionFormer(dict(CF_INPUTS))
+    model.load_state_dict(state)
+    return model.to(device=device, dtype=dtype)
+
+
+def _cf_batch(b, side, seed):
+    rng = np.random.default_rng(seed)
+    dem = rng.uniform(0.2, 0.8, (b, 1, side, side))
+    guide = rng.uniform(0, 1, (b, 18, side, side))
+    gt = dem + rng.normal(0, 0.02, dem.shape)
+    return [torch.from_numpy(a) for a in (dem, guide)], torch.from_numpy(gt)
+
+
+def test_completionformer_on_gpu_matches_cpu(cuda_device, completionformer):
+    """The eval forward at 1 x 64²: 6 K1 launches on the card, and the
+    JAX suite's CompletionFormer tolerance (rtol 1e-3 / atol 1e-4), set for
+    outputs in a scaled DEM's [0, 1]; atol scales with the output's
+    largest magnitude, which random weights put near 10 (as in
+    ``chip_smoke.py``'s serving check)."""
+    inputs, _ = _cf_batch(1, 64, seed=7)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = _cf(completionformer, dev).eval()
+        launches = dict(deform_cuda.LAUNCHES)
+        with torch.inference_mode():
+            out[str(dev)] = model([x.float().to(dev) for x in inputs]).cpu()
+        if dev != "cpu":
+            assert {k: deform_cuda.LAUNCHES[k] - launches[k]
+                    for k in launches} == {"deform_fwd": 6, "deform_bwd": 0,
+                                           "deform_bwd_dx": 0}
+    ref = out["cpu"].numpy()
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(out[str(cuda_device)].numpy(), ref, rtol=1e-3,
+                               atol=1e-4 * scale, err_msg=f"scale {scale}")
+
+
+def test_completionformer_train_step_on_gpu_matches_cpu(cuda_device,
+                                                        completionformer):
+    """One train-mode forward and backward at 2 x 64² (L1 + L2 + 0.1 Grad),
+    no drop path: 6 K1 and 6 K3 launches on the card, none of K2. The fp32
+    step is ill-conditioned (the CPU's own fp32 gradients are percents from
+    float64 on some tensors), so each gradient and running statistic of
+    the card may be three times as far from float64 (relative L2) as the
+    CPU's fp32 one, plus 5e-3; the loss within rtol 1e-4 of the CPU's."""
+    inputs, gt = _cf_batch(2, 64, seed=8)
+    crit = build_criterion({"L1": 1, "L2": 1, "Grad": 0.1})
+    out = {}
+    for key, dev, dtype in (("cpu", "cpu", torch.float32),
+                            ("f64", "cpu", torch.float64),
+                            ("card", cuda_device, torch.float32)):
+        model = _cf(completionformer, dev, dtype).train()
+        launches = dict(deform_cuda.LAUNCHES)
+        loss = crit(model([x.to(dev, dtype) for x in inputs]),
+                    gt.to(dev, dtype))["Total"]
+        loss.backward()
+        if key == "card":
+            assert {k: deform_cuda.LAUNCHES[k] - launches[k]
+                    for k in launches} == {"deform_fwd": 6, "deform_bwd": 0,
+                                           "deform_bwd_dx": 6}
+        out[key] = (loss.item(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None},
+                    {n: b.cpu() for n, b in model.named_buffers()
+                     if "running" in n})
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for i in (1, 2):
+        assert set(out["card"][i]) == set(out["f64"][i])
+        for name, ref in out["f64"][i].items():
+            e_card = _rel_err(out["card"][i][name], ref)
+            e_cpu = _rel_err(out["cpu"][i][name], ref)
+            assert e_card <= 3 * e_cpu + 5e-3, (name, e_card, e_cpu)

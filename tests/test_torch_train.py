@@ -286,18 +286,19 @@ def _check_step(port, opt, before, state, losses, jlosses, grad_tree=None):
         np.testing.assert_allclose(float(losses[k]), float(jlosses[k]),
                                    rtol=1e-4, err_msg=k)
     named = dict(port.named_parameters())
-    mu, nu = (state_dict_from_jax_tree(t) for t in _adam_moments(
+    mu, nu = (state_dict_from_jax_tree(t, port) for t in _adam_moments(
         state.opt_state))
     checks = [("exp_avg", mu, 5e-2), ("exp_avg_sq", nu, 1e-1)]
     if grad_tree is not None:
-        checks.append(("grad", state_dict_from_jax_tree(grad_tree), 5e-2))
+        checks.append(("grad", state_dict_from_jax_tree(grad_tree, port),
+                       5e-2))
     for what, ref, tol in checks:
         assert set(ref) == set(named), what
         for name, want in ref.items():
             got = (named[name].grad if what == "grad"
                    else opt.state[named[name]][what])
             assert _rel_err(got.numpy(), want.numpy()) < tol, (what, name)
-    for name, want in state_dict_from_jax_tree(state.params).items():
+    for name, want in state_dict_from_jax_tree(state.params, port).items():
         old = before[name].numpy()
         d_port = named[name].detach().numpy() - old
         d_jax = want.numpy() - old
@@ -308,7 +309,8 @@ def _check_step(port, opt, before, state, losses, jlosses, grad_tree=None):
         assert _rel_err(d_port[~noisy], d_jax[~noisy]) < 1e-2, name
         assert (np.abs(d_port - d_jax)[noisy] <= 2.1 * LR).all(), name
     bufs = dict(port.named_buffers())
-    for name, want in state_dict_from_jax_tree(state.bn_state, "bn").items():
+    for name, want in state_dict_from_jax_tree(state.bn_state, port,
+                                                "bn").items():
         if not name.endswith("num_batches_tracked"):
             np.testing.assert_allclose(bufs[name].numpy(), want.numpy(),
                                        rtol=1e-4, atol=1e-6, err_msg=name)

@@ -74,7 +74,8 @@ def test_flagship_jax_init_round_trip():
     params, bn = _perturb_bn(params, rng), _perturb_bn(bn, rng)
 
     port = JSPSR(dict(FLAGSHIP), num_feature=8, layers=(1, 1, 1, 1))
-    port.load_state_dict(state_dict_from_jax(_flat(params, bn)), strict=True)
+    port.load_state_dict(state_dict_from_jax(_flat(params, bn), port),
+                         strict=True)
 
     assert _port_keys(port) == expected_torch_keys(jax_model)
     assert sum(p.numel() for p in port.parameters()) == param_count(params)
@@ -104,8 +105,8 @@ def test_bridge_inverts_importer(variant):
     params, bn = import_torch_state_dict(jax_model, port.state_dict())
     assert sum(p.numel() for p in port.parameters()) == param_count(params)
 
-    sd = state_dict_from_jax(_flat(params, bn))
     fresh = JSPSR(dict(FLAGSHIP), num_feature=8, layers=(1, 1, 1, 1), **kw)
+    sd = state_dict_from_jax(_flat(params, bn), fresh)
     fresh.load_state_dict(sd, strict=True)
     for k, v in port.state_dict().items():
         if not k.endswith("num_batches_tracked"):
