@@ -12,7 +12,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    printing each one's ``-Xptxas -v`` report (registers, spills);
 3. kernel check, forward (K1): against its plain PyTorch version on the
    card at the main paths' shapes (336^2 and 1024^2 JSPSR scenes, the
-   50 and 16 x 128^2 train batches, a 352^2 CompletionFormer scene; rtol = atol = 1e-5: the same fp32
+   50 and 16 x 128^2 train batches, a 352^2 CompletionFormer scene, the
+   tiled server's chunks of 72, 81 and 28 x 128^2; rtol = atol = 1e-5: the same fp32
    arithmetic, only the order of the 9-term sum differs), timed with CUDA
    events (median of 25 runs, L2 flushed before each) beside its plain
    version, a PyTorch library call that computes the same function, and
@@ -70,12 +71,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    exactly 6 K1 launches, and the card against the CPU at rtol 1e-3 /
    atol 1e-4 (the JAX suite's CompletionFormer tolerance, for outputs in
    the scaled DEM's [0, 1]), atol times the output's largest magnitude
-   (random weights put it above 1).
+   (random weights put it above 1);
+8. K4 kernel check: ``conv_same`` against ``conv_same_plain`` on the card
+   at the TPU probe's four cases (16 x 128^2 at 64->64 in bf16 and fp32,
+   32->64 and 64->32 in bf16), at the probe's tolerances (max |err| <=
+   0.03 in bf16, 1e-4 in fp32, times max(1, max |plain|)), timed as K1
+   beside the plain version, cuDNN's ``F.conv2d`` on the channels-last view
+   of the same bytes and the bound; then the probe's port
+   (``jspsr_torch/scripts/bench_conv_same.py``) once, its launches counted
+   on the path ``conv_probe``;
+9. tiled serving: the flagship with phase 4's checkpoint through the CLI's
+   ``--infer --tile``: (a) a directory of 8 x 334^2 scenes, (b) one of 2 x
+   1024^2 scenes, each run twice through the pipelined server, (c) one
+   500 x 700 scene (an exact grid down, a padded generalized grid across)
+   on its own; K1 launches exactly the rule's count per run (the sum over
+   scene groups of ceil(S * n / infer_tile_batch): 1, 2 and 1 with the
+   defaults); every served raster against the same scene through
+   ``tile_inference_device`` on the card at rtol 2e-4 / atol 5e-3 m (the
+   JAX suite's tolerance between tile batch sizes, which change cuDNN's
+   reduction order); one 334^2 scene and scene (c) on the card against the
+   port on the CPU at rtol 1e-3 / atol 1e-2 m (test_torch_infer.py's
+   rtol for metres); warm scenes/s, one 1024^2 scene's warm end-to-end ms
+   through ``--tile`` against whole-scene (best of 5) and the peaks.
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
-``{"cf_training": ...}``, ``{"cf_serving": ...}`` and ``{"kernels":
-[...]}`` lines, and ends with ``{"ok": true, "device":
-{...}}``. Without CUDA it exits non-zero before printing any result.
+``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
+...}`` and ``{"kernels": [...]}`` lines, and ends with ``{"ok": true,
+"device": {...}}``. Without CUDA it exits non-zero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -97,16 +120,26 @@ from jspsr_torch.cli.main import main as cli_main
 from jspsr_torch.config.loader import create_config
 from jspsr_torch.data.raster_io import read_raster, write_raster
 from jspsr_torch.data.synthetic import generate_city, generate_mini_dfc30
-from jspsr_torch.eval.inference import load_scene, make_forward, upscale_dem
+from jspsr_torch.eval.inference import (
+    load_scene,
+    make_forward,
+    run_scene_inference,
+    upscale_dem,
+)
+from jspsr_torch.eval.scene import tile_grid, tile_inference_device
+from jspsr_torch.eval.serve import auto_scene_batch
 from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
-from jspsr_torch.ops import deform_cuda
+from jspsr_torch.ops import conv_same as conv_same_mod
+from jspsr_torch.ops import cuda_build, deform_cuda
+from jspsr_torch.ops.conv_same import conv_same, conv_same_plain
 from jspsr_torch.ops.deform_conv import (
     _corners,
     _positions,
     deform_conv2d_backward_plain,
     deform_conv2d_plain,
 )
+from jspsr_torch.scripts import bench_conv_same
 from jspsr_torch.train.checkpoint import load_model_params
 from jspsr_torch.train.optim import build_optimizer
 from jspsr_torch.train.profile_step import random_batch
@@ -120,16 +153,21 @@ FLAGSHIP = REPO / "configs" / "jspsr_r8_img_msk.yml"
 CF_CONFIG = REPO / "configs" / "completionformer_r8_img_msk.yml"
 
 # Published peaks (NVIDIA data sheets; dense, at the full power limit):
-# device-memory bytes/s and fp32 FLOP/s outside the tensor cores.
+# device-memory bytes/s, fp32 FLOP/s outside the tensor cores, and bf16
+# FLOP/s on the tensor cores.
 CARDS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),  # SXM, "NVIDIA H100 80GB HBM3"
-    "H200": (4.8e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),  # SXM, "NVIDIA H100 80GB HBM3"
+    "H200": (4.8e12, 67e12, 989e12),
 }
 
+# K1's shapes on the main paths: whole scenes, the train batches, the
+# CompletionFormer scene, and the tiled server's chunks of 128^2 tiles
+# (8 x 334^2 in one run, one 1024^2 scene, the 500 x 700 scene)
 KERNEL_SHAPES = [(1, 336, 336), (1, 1024, 1024), (16, 128, 128),
-                 (50, 128, 128), (1, 352, 352)]
+                 (50, 128, 128), (1, 352, 352), (72, 128, 128),
+                 (81, 128, 128), (28, 128, 128)]
 BWD_SHAPES = [(50, 128, 128), (16, 128, 128), (1, 336, 336)]
 DX_SHAPES = [(16, 128, 128), (2, 128, 128), (1, 352, 352)]
 OFFSET_SCALES = (0.0, 1.5, 20.0)
@@ -137,6 +175,14 @@ TIMED_SCALE = 1.5
 SCENES = [("scene_0", 334), ("scene_1", 334), ("scene_2", 334),
           ("scene_3", 334), ("scene_4", 1024)]
 CF_SCENE = ("scene_cf", 334)
+# Tiled serving: 8 x 334^2 (auto batch 8: one 72-tile run), 2 x 1024^2
+# (auto batch 1: two 81-tile runs), and one 500 x 700 scene
+TILED_SMALL = [(f"tile_{i}", 334) for i in range(8)]
+TILED_LARGE = [(f"big_{i}", 1024) for i in range(2)]
+TILED_RECT = ("rect", (500, 700))
+# Between tile batch sizes cuDNN may change its reduction order: the JAX
+# suite's tolerance for that (tests/test_scene_device.py), in metres.
+BATCH_RTOL, BATCH_ATOL = 2e-4, 5e-3
 TRAIN_SCENES_PER_CITY = 12  # x 13 cities = 156 samples: 3 steps of 50
 TRAIN_SIDE = 128  # an 8 m DFC30 sample
 # One train step, per tensor (relative L2): the card's distance from
@@ -407,13 +453,15 @@ def write_scenes(root: Path, scenes, seed: int = 0):
     DFC30 subdirectory layout."""
     rng = np.random.default_rng(seed)
     for name, side in scenes:
-        yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
+        h, w = (side, side) if isinstance(side, int) else side
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        yy, xx = yy / h, xx / w
         fx, fy, ph = rng.uniform(2, 6, 3)
         dem = (150 + 120 * np.sin(fx * np.pi * xx + ph)
                * np.cos(fy * np.pi * yy) + 60 * xx
-               + rng.normal(0, 0.5, (side, side)))
-        img = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
-        mask = np.eye(15, dtype=np.uint8)[rng.integers(0, 15, (side, side))]
+               + rng.normal(0, 0.5, (h, w)))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        mask = np.eye(15, dtype=np.uint8)[rng.integers(0, 15, (h, w))]
         scene = root / name
         write_raster(scene / "COP30" / "dem.npy", dem.astype(np.float32)[..., None])
         write_raster(scene / "BDORTHO" / "ortho.npy", img)
@@ -475,7 +523,7 @@ def check_outputs(paths, scenes, scene_root: Path, near_input: bool):
     for path, (name, side) in zip(paths, scenes):
         arr = read_raster(path)
         dem = read_raster(scene_root / name / "COP30" / "dem.npy")
-        if arr.shape != (side, side, 1) or not np.isfinite(arr).all():
+        if arr.shape != dem.shape or not np.isfinite(arr).all():
             raise AssertionError(f"{path}: shape {arr.shape}, finite "
                                  f"{np.isfinite(arr).all()}")
         lo, hi = float(dem.min()), float(dem.max())
@@ -509,15 +557,23 @@ def card_vs_cpu_scene(p, ckpt, scene_dir, dev, rtol, atol,
     return float(np.abs(got - ref).max()), warm_ms, scale
 
 
-def serve(work: Path, dev: torch.device):
+def reset_launches() -> None:
+    deform_cuda.reset_launches()
+    conv_same_mod.reset_launches()
+
+
+def launch_counts() -> dict:
+    return {**deform_cuda.LAUNCHES, **conv_same_mod.LAUNCHES}
+
+
+def serve(work: Path, dev: torch.device, flagship):
     """The serving path: the flagship JSPSR through the port's CLI over a
-    directory of scenes."""
-    p, cfg_path, ckpt = seeded_checkpoint(
-        work, "jspsr_r8_img_msk", "JSPSR", {"num_block": 2, "num_feature": 32})
+    directory of scenes; ``flagship`` is ``seeded_checkpoint``'s triple."""
+    p, cfg_path, ckpt = flagship
     write_scenes(work / "scenes", SCENES)
 
     out_dir, res_dir = work / "out", work / "result"
-    deform_cuda.reset_launches()
+    reset_launches()
     paths = run_cli(["--config", str(cfg_path), "--infer",
                      str(work / "scenes"), "--out", str(out_dir),
                      "--result-dir", str(res_dir)])
@@ -558,7 +614,7 @@ def serve_cf(work: Path, dev: torch.device):
     write_scenes(work / "scenes", [CF_SCENE], seed=1)
     scene = work / "scenes" / CF_SCENE[0]
     out, res_dir = work / "out" / f"{CF_SCENE[0]}_sr.npy", work / "result"
-    deform_cuda.reset_launches()
+    reset_launches()
     path = run_cli(["--config", str(cfg_path), "--infer", str(scene),
                     "--out", str(out), "--result-dir", str(res_dir)])
     launches = dict(deform_cuda.LAUNCHES)
@@ -685,7 +741,7 @@ def train(config: Path, root: Path, work: Path, dev: torch.device,
 
     trainer.train_step = timed_step
     torch.cuda.reset_peak_memory_stats(dev)
-    deform_cuda.reset_launches()
+    reset_launches()
     epochs = []
     for epoch in (0, 1):
         loss, lr = trainer.train_one_epoch(epoch)
@@ -727,6 +783,193 @@ def train(config: Path, root: Path, work: Path, dev: torch.device,
     }, launches
 
 
+def check_conv_same(dev, bandwidth, fp32_peak, bf16_peak):
+    """K4 against its plain version at the TPU probe's four cases; returns
+    one row per case."""
+    flush = torch.empty(64 * 2**20, device=dev)
+    rows = []
+    for tag, b, h, w, cin, cout, kk, dt in bench_conv_same.CASES:
+        x, w1, _ = bench_conv_same.case_inputs(b, h, w, cin, cout, kk, dt, dev)
+        got = conv_same(x, w1)
+        ref = conv_same_plain(x, w1)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = bench_conv_same.TOL[dt]
+        if not err <= tol * max(scale, 1.0):
+            raise AssertionError(f"conv_same {tag}: max |err| {err} against "
+                                 f"its plain version > {tol} x max(1, "
+                                 f"{scale})")
+        w_oihw = bench_conv_same.oihw(w1)
+        lib_err = (bench_conv_same.cudnn_conv(x, w_oihw).float()
+                   - ref.float()).abs().max().item()
+        row = {"case": tag, "shape": [b, h, w, cin, cout, kk],
+               "dtype": str(dt).replace("torch.", ""), "max_abs_err": err,
+               "plain_max_abs": scale, "tol": tol,
+               "library_max_abs_err": lib_err,
+               "kernel_ms": time_ms(lambda: conv_same(x, w1), flush),
+               "plain_ms": time_ms(lambda: conv_same_plain(x, w1), flush),
+               "library_ms": time_ms(
+                   lambda: bench_conv_same.cudnn_conv(x, w_oihw), flush)}
+        # x and w read once, y written once, in the working type; the
+        # products on the tensor cores (bf16) or the FFMA units (fp32)
+        nbytes = (b * h * w * (cin + cout) + kk * kk * cin * cout) \
+            * x.element_size()
+        flops = 2 * b * h * w * kk * kk * cin * cout
+        peak = bf16_peak if dt == torch.bfloat16 else fp32_peak
+        bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / peak * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["tflops"] = flops / row["kernel_ms"] / 1e9
+        rows.append(row)
+        print(f"conv_same {row}", flush=True)
+    return rows
+
+
+def conv_probe():
+    """The TPU probe's port, once: its rows and the K4 launches it made."""
+    reset_launches()
+    rows = bench_conv_same.main()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"conv-probe launches: {launches}", flush=True)
+    if launches["conv_same"] == 0 or launches["deform_fwd"] != 0:
+        raise AssertionError(f"the probe ran with launches {launches}")
+    return rows, launches
+
+
+def expected_tiled_launches(p, shapes) -> int:
+    """K1 launches of one ``--infer <dir> --tile`` run over scenes of
+    ``shapes`` (one JSPSR forward per chunk): the sum over scene groups of
+    ceil(S * n / infer_tile_batch), S the padded group size and n the
+    tiles per scene."""
+    tile, cap = p.patch_size, int(p.get("infer_tile_batch") or 96)
+    sb = auto_scene_batch(shapes[0], tile=tile, n_scenes=len(shapes))
+    n = tile_grid(shapes[0][0], tile)[1] * tile_grid(shapes[0][1], tile)[1]
+    groups = -(-len(shapes) // sb)
+    return groups * -(-sb * n // cap)
+
+
+def _scenes_per_s(log: str) -> float:
+    m = re.findall(r"Inference: \d+ scenes -> .* \(([\d.]+) ms, ([\d.]+) "
+                   r"scenes/s\)", log)
+    return float(m[-1][1])
+
+
+def serve_tiled(work: Path, dev: torch.device, flagship):
+    """Phase 9: the flagship through ``--infer --tile`` (the pipelined
+    server over two directories, then one rectangular scene)."""
+    p, cfg_path, ckpt = flagship
+    dirs = {"334": TILED_SMALL, "1024": TILED_LARGE}
+    for seed, (name, scenes) in enumerate(dirs.items()):
+        write_scenes(work / name, scenes, seed=2 + seed)
+    write_scenes(work / "rect", [TILED_RECT], seed=4)
+    model = load_model_params(build_model(p), ckpt).to(dev)
+    out, launches, expected = {}, {}, {}
+
+    def served_vs_single(paths, scenes, root):
+        err = 0.0
+        for path, (name, _) in zip(paths, scenes):
+            sample, _ = load_scene(root / name, p)
+            single = tile_inference_device(model, sample, p, tile=p.patch_size,
+                                           device=dev)[0]
+            served = read_raster(path)
+            np.testing.assert_allclose(served, single, rtol=BATCH_RTOL,
+                                       atol=BATCH_ATOL,
+                                       err_msg=f"served vs single, {name}")
+            err = max(err, float(np.abs(served - single).max()))
+        return err
+
+    for name, scenes in dirs.items():
+        shapes = [(s, s) for _, s in scenes]
+        expected[name] = expected_tiled_launches(p, shapes)
+        rates = []
+        for run in range(2):
+            res_dir = work / f"result_{name}_{run}"
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches()
+            paths = run_cli(["--config", str(cfg_path), "--infer",
+                             str(work / name), "--tile", "--out",
+                             str(work / f"out_{name}_{run}"),
+                             "--result-dir", str(res_dir)])
+            torch.cuda.synchronize()
+            got = launch_counts()
+            if run == 0:
+                launches[f"tiled_{name}"] = got
+            want = {"deform_fwd": expected[name], "deform_bwd": 0,
+                    "deform_bwd_dx": 0, "conv_same": 0}
+            if got != want:
+                raise AssertionError(f"tiled {name}: launches {got}, "
+                                     f"expected {want}")
+            rates.append(_scenes_per_s((res_dir / "train.log").read_text()))
+            peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        check_outputs(paths, scenes, work / name, near_input=True)
+        out[name] = {"scenes": len(scenes), "scene_batch": auto_scene_batch(
+                         shapes[0], tile=p.patch_size, n_scenes=len(scenes)),
+                     "scenes_per_s": rates, "warm_scenes_per_s": rates[1],
+                     "peak_mb": peak,
+                     "served_vs_single_max_abs_err": served_vs_single(
+                         paths, scenes, work / name)}
+
+    # (c) one rectangular scene on its own
+    rect = work / "rect" / TILED_RECT[0]
+    reset_launches()
+    path = run_cli(["--config", str(cfg_path), "--infer", str(rect), "--tile",
+                    "--out", str(work / "out_rect.npy"), "--result-dir",
+                    str(work / "result_rect")])
+    torch.cuda.synchronize()
+    launches["tiled_rect"] = launch_counts()
+    expected["rect"] = expected_tiled_launches(p, [TILED_RECT[1]])
+    if launches["tiled_rect"]["deform_fwd"] != expected["rect"]:
+        raise AssertionError(f"rect: launches {launches['tiled_rect']}")
+    check_outputs([path], [TILED_RECT], work / "rect", near_input=True)
+    out["rect"] = {"shape": list(TILED_RECT[1]),
+                   "served_vs_single_max_abs_err": served_vs_single(
+                       [path], [TILED_RECT], work / "rect")}
+    print(f"tiled-serving launches: {launches}, expected K1 {expected}",
+          flush=True)
+
+    # the card against the port on the CPU, in metres
+    cpu_model = load_model_params(build_model(p), ckpt)
+    cpu_err = {}
+    for key, scene in (("334", work / "334" / TILED_SMALL[0][0]),
+                       ("rect", rect)):
+        sample, _ = load_scene(scene, p)
+        got = tile_inference_device(model, sample, p, tile=p.patch_size,
+                                    device=dev)[0]
+        ref = tile_inference_device(cpu_model, sample, p, tile=p.patch_size,
+                                    device="cpu")[0]
+        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-2,
+                                   err_msg=f"tiled card vs CPU, {key}")
+        cpu_err[key] = float(np.abs(got - ref).max())
+    out["cpu_max_abs_err_m"] = cpu_err
+
+    # one 1024^2 scene end to end (read, run, write), tiled and whole
+    big = work / "1024" / TILED_LARGE[0][0]
+    e2e = {}
+    for tile in (True, False):
+        times, peaks = [], []
+        for i in range(5):
+            t0 = time.perf_counter()
+            _, _, peak = run_scene_inference(
+                model, p, big, work / f"e2e_{tile}_{i}.npy", tile=tile,
+                device=dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(peak)
+        e2e["tiled" if tile else "whole"] = {"best_ms": min(times),
+                                             "ms": times,
+                                             "peak_mb": max(peaks)}
+    out["e2e_1024"] = e2e
+    out["launches"] = launches
+    out["expected_k1"] = expected
+    return out, launches
+
+
+def phase(n: int, t_start: float) -> None:
+    print(f"phase {n} starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -743,15 +986,16 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}",
           flush=True)
     set_strict_fp32()
-    card, (bandwidth, fp32_peak) = card_peaks(kind)
+    card, (bandwidth, fp32_peak, bf16_peak) = card_peaks(kind)
 
     # 2. build every kernel of the paths, one nvcc per source, together
     t0 = time.perf_counter()
-    built = deform_cuda.build(verbose=True)
+    built = cuda_build.build(verbose=True)
     for name, (lib, nvcc_s) in built.items():
         print(f"built {lib.name}: nvcc {nvcc_s:.2f} s", flush=True)
     print(f"build total {time.perf_counter() - t0:.2f} s", flush=True)
 
+    phase(3, t_start)
     # 3. each kernel against its plain version
     fwd_rows = check_deform_kernel(dev, bandwidth, fp32_peak)
     bwd_rows = check_deform_backward(dev, bandwidth, fp32_peak)
@@ -760,9 +1004,14 @@ def main() -> int:
     paths = {}
     with tempfile.TemporaryDirectory(prefix="jspsr_chip_smoke_") as tmp:
         tmp = Path(tmp)
+        phase(4, t_start)
         # 4. serving the flagship through the CLI
-        serving, paths["serving"] = serve(tmp / "serve", dev)
+        flagship = seeded_checkpoint(tmp / "flagship", "jspsr_r8_img_msk",
+                                     "JSPSR", {"num_block": 2,
+                                               "num_feature": 32})
+        serving, paths["serving"] = serve(tmp / "serve", dev, flagship)
         serving["peak_source"] = "torch.cuda.max_memory_allocated per scene"
+        phase(5, t_start)
         # 5. training the flagship through the Trainer
         root = tmp / "DFC30_8m"
         data_s = make_train_tree(root)
@@ -770,18 +1019,30 @@ def main() -> int:
             FLAGSHIP, root, tmp / "train", dev, compare_batch=4,
             perturbed=False)
         training["data_gen_s"] = data_s
+        phase(6, t_start)
         # 6. training CompletionFormer through the Trainer
         cf_training, paths["cf_training"] = train(
             CF_CONFIG, root, tmp / "train_cf", dev, compare_batch=2,
             perturbed=True)
+        phase(7, t_start)
         # 7. serving CompletionFormer through the CLI
         cf_serving, paths["cf_serving"] = serve_cf(tmp / "serve_cf", dev)
-    for result in (serving, training, cf_training, cf_serving):
+        phase(8, t_start)
+        # 8. K4 against its plain version, then the TPU probe's port
+        conv_rows = check_conv_same(dev, bandwidth, fp32_peak, bf16_peak)
+        probe_rows, paths["conv_probe"] = conv_probe()
+        phase(9, t_start)
+        # 9. tiled serving of the flagship through the CLI
+        tiled, tiled_paths = serve_tiled(tmp / "tiled", dev, flagship)
+        paths.update(tiled_paths)
+    tiled["conv_probe"] = probe_rows
+    for result in (serving, training, cf_training, cf_serving, tiled):
         result["card"] = card
 
     def kernel_line(name, source, replaces, tpu_kernel, rows, main_shape):
         main = next(r for r in rows if r["shape"] == main_shape)
-        by_path = {path: launches[name] for path, launches in paths.items()}
+        by_path = {path: launches.get(name, 0)
+                   for path, launches in paths.items()}
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
@@ -807,11 +1068,16 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=True, d_x at :227-242)", dx_rows,
                     [16, 1, 128, 128]),
+        kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same.cu",
+                    "scripts/bench_pallas_conv.py:38",
+                    "scripts/bench_pallas_conv.py::pallas_conv_same",
+                    conv_rows, [16, 128, 128, 64, 64, 3]),
     ]
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"cf_training": cf_training}), flush=True)
     print(json.dumps({"cf_serving": cf_serving}), flush=True)
+    print(json.dumps({"tiled_serving": tiled}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -2,14 +2,20 @@
 
   python -m jspsr_torch.cli.main --config c.yml --infer <scene> [--out o.npy]
   python -m jspsr_torch.cli.main --config c.yml --infer <dir of scenes>
+  python -m jspsr_torch.cli.main --config c.yml --infer <scene|dir> --tile
 
---infer runs whole-scene inference on a raster, a scene directory (one
-raster per modality) or a directory of scene directories (one after the
-other), and writes the upscaled DEM in metres. It runs on the card
-(``--device cuda``, the default) unless ``--device cpu`` is given.
---tile, --val, --export and training through the CLI (which needs the
-eval loop for ``Trainer.fit``) are not yet ported and raise; the epoch
-loop is ``jspsr_torch.train.trainer.Trainer(p).train_one_epoch``.
+--infer runs inference on a raster, a scene directory (one raster per
+modality) or a directory of scene directories, and writes the upscaled DEM
+in metres. Without --tile each scene runs whole, one after the other. With
+--tile a scene runs device-tiled (``eval/scene.py``) and a directory of
+scenes goes through the pipelined server (``eval/serve.py``), batching
+``infer_scene_batch`` scenes per run (default: ``auto_scene_batch``); a
+config the device-tiled path does not cover falls back to the host tiled
+path, scene by scene. It runs on the card (``--device cuda``, the default)
+unless ``--device cpu`` is given. --val, --export and training through the
+CLI (which needs the eval loop for ``Trainer.fit``) are not yet ported and
+raise; the epoch loop is
+``jspsr_torch.train.trainer.Trainer(p).train_one_epoch``.
 """
 
 from __future__ import annotations
@@ -31,13 +37,14 @@ def parse_args(argv=None):
                     help="validate only (not yet ported)")
     ap.add_argument("--result-dir", default=None)
     ap.add_argument("--infer", default=None, metavar="SCENE",
-                    help="whole-scene inference: LR-DEM raster, scene dir or "
-                         "dir of scene dirs (needs model_kwargs.checkpoint)")
+                    help="inference: LR-DEM raster, scene dir or dir of "
+                         "scene dirs (needs model_kwargs.checkpoint)")
     ap.add_argument("--out", default=None,
                     help="--infer output: raster path for a single scene, "
                          "output DIRECTORY for a batch of scenes")
     ap.add_argument("--tile", action="store_true",
-                    help="tile-parallel inference (not yet ported)")
+                    help="device-tiled inference; pipelined batch serving "
+                         "for a directory of scenes")
     ap.add_argument("--export", default=None, metavar="PATH",
                     help="deployment artifact (not yet ported)")
     ap.add_argument("--device", default="cuda",
@@ -47,7 +54,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in ("tile", "val", "export"):
+    for flag in ("val", "export"):
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not yet ported")
     if not args.infer:
@@ -60,7 +67,14 @@ def main(argv=None):
         raise ValueError("--infer requires model_kwargs.checkpoint")
 
     from jspsr_torch.eval.inference import run_scene_inference
-    from jspsr_torch.eval.serve import discover_scenes, scene_ext
+    from jspsr_torch.eval.scene import device_tiling_supported
+    from jspsr_torch.eval.serve import (
+        auto_scene_batch,
+        discover_scenes,
+        probe_scene_hw,
+        scene_ext,
+        serve_scenes,
+    )
     from jspsr_torch.models.factory import build_model
     from jspsr_torch.train.checkpoint import load_model_params
     from jspsr_torch.utils.device import resolve_device
@@ -73,28 +87,48 @@ def main(argv=None):
     sys.stdout = Logger(result_dir / "train.log")
 
     model = load_model_params(build_model(p), ckpt)
+    tile = p.get("patch_size", 128)
 
     scenes = discover_scenes(args.infer)
     if scenes:
-        # a directory of scene directories: whole-scene inference per scene
         out_dir = Path(args.out or result_dir / "predictions")
-        t0 = time.perf_counter_ns()
-        paths = []
-        for s in scenes:
-            path, ms, mem = run_scene_inference(
-                model, p, s, out_dir / f"{s.name}_sr{scene_ext(s)}",
+        if (args.tile and device_tiling_supported(p)
+                and p.get("infer_device_tiling", True)):
+            # the pipelined server; infer_scene_batch overrides the
+            # size-aware default
+            sb = int(p.get("infer_scene_batch") or 0)
+            if not sb:
+                try:
+                    sb = auto_scene_batch(probe_scene_hw(scenes[0]),
+                                          tile=tile, n_scenes=len(scenes))
+                except Exception as e:
+                    print(f"[serve] scene probe failed ({e}); "
+                          f"scene_batch=4")
+                    sb = min(4, len(scenes))
+            paths, t_ms, sps = serve_scenes(
+                model, p, scenes, out_dir, tile=tile, scene_batch=sb,
+                loader_threads=int(p.get("infer_loader_threads") or 1),
                 device=device)
-            print(f"Scene {s.name}: {ms:.1f} ms, peak {mem:.0f} MB")
-            paths.append(path)
-        t_ms = (time.perf_counter_ns() - t0) // 1000 / 1000
-        sps = len(paths) / max(t_ms, 1e-9) * 1000
+        else:
+            # whole-scene per scene (no --tile), or the host tiled path
+            # for config surfaces the device-tiled path does not cover
+            t0 = time.perf_counter_ns()
+            paths = []
+            for s in scenes:
+                path, ms, mem = run_scene_inference(
+                    model, p, s, out_dir / f"{s.name}_sr{scene_ext(s)}",
+                    tile=args.tile, device=device)
+                print(f"Scene {s.name}: {ms:.1f} ms, peak {mem:.0f} MB")
+                paths.append(path)
+            t_ms = (time.perf_counter_ns() - t0) // 1000 / 1000
+            sps = len(paths) / max(t_ms, 1e-9) * 1000
         print(f"Inference: {len(paths)} scenes -> {out_dir} "
               f"({t_ms:.1f} ms, {sps:.2f} scenes/s)")
         return paths
 
     out = args.out or str(result_dir / "upscaled_dem.tif")
     path, t_ms, mem = run_scene_inference(model, p, args.infer, out,
-                                          device=device)
+                                          tile=args.tile, device=device)
     print(f"Inference: {path} ({t_ms:.1f} ms, peak {mem:.0f} MB)")
     return path
 

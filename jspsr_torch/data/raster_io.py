@@ -1,5 +1,5 @@
-"""Host-side raster IO (copy of the reading, writing and naming half of
-``jspsr_tpu/data/raster_io.py``).
+"""Host-side raster IO (copy of the reading, probing, writing and naming
+half of ``jspsr_tpu/data/raster_io.py``).
 
 rasterio when available (keeps real GeoTIFF profiles), tifffile or cv2
 otherwise, and a pure-numpy ``.npy`` format with a JSON sidecar profile
@@ -114,6 +114,25 @@ def read_raster(path, with_profile: bool = False):
         return arr
     return arr, default_profile(arr.shape[0], arr.shape[1], arr.shape[2],
                                 str(arr.dtype))
+
+
+def probe_shape(path):
+    """(h, w) of a raster without reading its pixels where the backend
+    allows it (``.npy`` through an mmap, the rasterio header, the tifffile
+    page); the pre-flight input of ``eval/serve.auto_scene_batch``."""
+    path = Path(path)
+    if path.suffix == ".npy":
+        arr = np.load(path, mmap_mode="r")
+        return int(arr.shape[0]), int(arr.shape[1])
+    if HAS_RASTERIO:
+        with rasterio.open(path) as ds:
+            return int(ds.height), int(ds.width)
+    if HAS_TIFFFILE:
+        with tifffile.TiffFile(str(path)) as tf:
+            shape = tf.pages[0].shape
+            return int(shape[0]), int(shape[1])
+    arr = read_raster(path)
+    return int(arr.shape[0]), int(arr.shape[1])
 
 
 def write_raster(path, arr: np.ndarray, profile: dict | None = None):

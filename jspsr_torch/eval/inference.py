@@ -1,15 +1,18 @@
-"""Whole-scene inference (counterpart of ``jspsr_tpu/eval/inference.py``;
+"""Scene inference (counterpart of ``jspsr_tpu/eval/inference.py``;
 reference utils/utils.py:1501-1655).
 
 - ``upscale_dem``: pad one raw HWC sample to the encoder's stride multiple,
   normalize it, run the eval forward, crop back; reports latency and the
   device's peak memory;
+- ``tile_inference``: the host tiled path for the square reference grids
+  (normalize on the host, one batched forward over the tile grid, numpy
+  feathered mosaic), for configs the device-tiled path
+  (``eval/scene.py``) does not cover;
 - ``load_scene`` / ``run_scene_inference``: the CLI ``--infer`` driver
-  (load rasters, run, descale to metres, write).
+  (load rasters, run whole or tiled, descale to metres, write).
 
 Public functions take and return HWC numpy arrays, like the JAX package's;
 tensors are NCHW only between ``_model_inputs`` and the forward's output.
-The device-tiled path (``tile=True``) is not yet ported.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from jspsr_torch.config.loader import get_tile
 from jspsr_torch.data.loader import model_inputs
 from jspsr_torch.data.transforms import ToArray, TransformCtx
+from jspsr_torch.eval.mosaic import merge_tiles
 from jspsr_torch.utils.device import resolve_device, set_strict_fp32
 
 
@@ -36,13 +41,24 @@ def _normalize_sample(sample: dict, p) -> dict:
     return to_array(s, TransformCtx())
 
 
-def _model_inputs(sample: dict, p, device) -> list:
-    """HWC numpy modalities -> list of contiguous (1, C, H, W) tensors in
-    the model's input layout (``data.loader.model_inputs``)."""
-    batch = {k: v[None] for k, v in sample.items() if k != "meta"}
+def _model_inputs(sample: dict, p, device, batched: bool = False) -> list:
+    """HWC numpy modalities (NHWC with ``batched``) -> list of contiguous
+    (B, C, H, W) tensors in the model's input layout
+    (``data.loader.model_inputs``)."""
+    batch = {k: v if batched else v[None] for k, v in sample.items()
+             if k != "meta"}
     arrays = model_inputs(batch, p.model_name, p.get("input_data") or {})
     return [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
             .to(device) for a in arrays]
+
+
+def device_peak_memory_mb(device) -> float:
+    """The allocator's peak on a CUDA ``device`` since the last
+    ``torch.cuda.reset_peak_memory_stats``, in MB; NaN on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated(device) / 1024 / 1024
 
 
 def _pad_hwc(img: np.ndarray, pads):
@@ -112,12 +128,34 @@ def upscale_dem(forward_fn, sample: dict, p, device=None):
     if cuda:
         torch.cuda.synchronize(device)
     t_infer = (time.perf_counter_ns() - t0) // 1000 / 1000  # ms
-    mem = (torch.cuda.max_memory_allocated(device) / 1024 / 1024 if cuda
-           else float("nan"))
+    mem = device_peak_memory_mb(device)
 
     y = y[0].permute(1, 2, 0).cpu().numpy()
     t, b, l, r = pads
     return y[t:y.shape[0] - b, l:y.shape[1] - r, :], t_infer, mem
+
+
+def tile_inference(forward_fn, sample: dict, p, tile: int = 128,
+                   n_tile: int | None = None, device=None):
+    """Tiled scene inference on the host's reference grid: normalize the
+    square scene, cut the overlapping tile grid (``get_tile``), one batched
+    forward on ``device`` (default cuda), feathered numpy mosaic. Returns
+    the (H, W, 1) prediction in [0,1] scale space, unclipped."""
+    device = resolve_device(device)
+    s = _normalize_sample(dict(sample), p)
+    h, w, _ = s["lr_dem"].shape
+    if h != w:
+        raise ValueError(f"the host tiled path takes square scenes only, "
+                         f"got {h}x{w}")
+    stride, n = get_tile(h, tile, n_tile)
+    n_x = int(round(n**0.5))
+    batch = {k: np.stack([v[stride * (t // n_x):stride * (t // n_x) + tile,
+                            stride * (t % n_x):stride * (t % n_x) + tile]
+                          for t in range(n)])
+             for k, v in s.items() if k != "meta"}
+    pred = forward_fn(_model_inputs(batch, p, device, batched=True))
+    pred = pred.permute(0, 2, 3, 1).cpu().numpy()  # (n, tile, tile, 1)
+    return merge_tiles([pred[i] for i in range(n)], full_size=h)
 
 
 # ---------------------------------------------------------------------------
@@ -220,25 +258,46 @@ def run_scene_inference(model, p, scene_path, out_path, tile: bool = False,
     """CLI --infer driver: load scene, run on ``device`` (default cuda),
     descale to metres, write raster. ``model`` is moved to ``device``.
 
+    With ``tile``: the device-tiled path (``eval/scene.py``, the whole
+    pipeline on the card, output already in metres) where
+    ``device_tiling_supported(p)`` and ``infer_device_tiling`` (default
+    true) allow it, else the host tiled path (``tile_inference``).
+
     Returns (output path, latency ms, peak device MB)."""
     from jspsr_torch.data.normalize import descale_data
     from jspsr_torch.data.raster_io import write_raster
+    from jspsr_torch.eval.scene import (device_tiling_supported,
+                                        tile_inference_device)
 
-    if tile:
-        raise NotImplementedError("--tile (device-tiled inference) is not "
-                                  "yet ported")
     device = resolve_device(device)
     # every ported config is fp32: no TF32 in cuDNN convs or matmuls
     set_strict_fp32()
     sample, profile = load_scene(scene_path, p)
     fwd = make_forward(model.to(device))
-    pred, t_ms, mem = upscale_dem(fwd, sample, p, device)
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if tile and device_tiling_supported(p) \
+            and p.get("infer_device_tiling", True):
+        arr, t_ms = tile_inference_device(model, sample, p,
+                                          tile=p.get("patch_size", 128),
+                                          device=device)
+        mem = device_peak_memory_mb(device)
+        write_raster(out_path, arr.astype(np.float32), dict(profile))
+        return out_path, t_ms, mem
+    if tile:
+        t0 = time.perf_counter_ns()
+        pred = tile_inference(fwd, sample, p, tile=p.get("patch_size", 128),
+                              device=device)
+        t_ms = (time.perf_counter_ns() - t0) // 1000 / 1000
+        mem = device_peak_memory_mb(device)
+    else:
+        pred, t_ms, mem = upscale_dem(fwd, sample, p, device)
     tk = p.get("tensor_kwargs") or {}
     base = float(np.min(sample["lr_dem"])) if p.get("relative") else 0.0
     arr = np.clip(pred, 0.0, 1.0)
     arr = descale_data(arr, tk.get("min", -80), tk.get("max", 929),
                        tk.get("log", False)) + base
-    out_path = Path(out_path)
-    out_path.parent.mkdir(parents=True, exist_ok=True)
     write_raster(out_path, arr.astype(np.float32), dict(profile))
     return out_path, t_ms, mem

@@ -63,6 +63,17 @@ def group_of(name: str) -> str:
     return "elementwise/other"
 
 
+def flagship_config() -> AttrDict:
+    """The serving keys of configs/jspsr_r8_img_msk.yml at its widths."""
+    return AttrDict({
+        "model_name": "JSPSR", "relative": True, "patch_size": 128,
+        "input_data": {"lr_dem": 1, "image": 3, "mask": 15},
+        "tensor_kwargs": {"log": True, "min": -80, "max": 929,
+                          "scale_mask": True},
+        "model_kwargs": {"num_block": 2, "num_feature": 32},
+    })
+
+
 def write_scene(root: Path, side: int, rng) -> Path:
     yy, xx = np.mgrid[0:side, 0:side].astype(np.float32) / side
     dem = 150 + 120 * np.sin(4 * np.pi * xx) * np.cos(3 * np.pi * yy) + 60 * xx
@@ -88,13 +99,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     set_strict_fp32()
-    p = AttrDict({
-        "model_name": "JSPSR", "relative": True,
-        "input_data": {"lr_dem": 1, "image": 3, "mask": 15},
-        "tensor_kwargs": {"log": True, "min": -80, "max": 929,
-                          "scale_mask": True},
-        "model_kwargs": {"num_block": 2, "num_feature": 32},
-    })
+    p = flagship_config()
     model = build_model(p, generator=torch.Generator().manual_seed(0)).to(dev)
     fwd = make_forward(model)
     rng = np.random.default_rng(0)

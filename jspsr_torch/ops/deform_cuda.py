@@ -9,12 +9,10 @@
   gradient d_x, scattered with float atomics.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
-shared library of its own with a plain C entry point, loaded with
-``ctypes``; ``build`` starts one ``nvcc`` per source, all at once. Nothing
-is built or loaded when this module is imported, so it imports on a host
-without CUDA. Every library's file name carries a hash of all the sources
-and flags, so an edited source is rebuilt and a stale build is never
-loaded.
+shared library of its own with a plain C entry point (``ops/cuda_build.py``
+builds every kernel of the port in one parallel pass), loaded with
+``ctypes``. Nothing is built or loaded when this module is imported, so it
+imports on a host without CUDA.
 
 ``LAUNCHES`` counts kernel launches by kernel name (one per wrapper call);
 a run resets it to show that its main path went through the kernels. The
@@ -24,20 +22,11 @@ two backward kernels share a library (``deform_bwd``) and count apart.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"deform_fwd": CSRC / "deform_fwd.cu",
-           "deform_bwd": CSRC / "deform_bwd.cu"}
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from jspsr_torch.ops.cuda_build import build
+
 TAPS = 9
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx")
@@ -49,62 +38,6 @@ _fns: dict = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("CUDA toolkit not found (torch CUDA_HOME is None); "
-                           "nvcc is needed to build the deform kernels")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"nvcc not found at {nvcc}")
-    return str(nvcc)
-
-
-def library_path(name: str) -> Path:
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES.values():
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
-
-
-def build(verbose: bool = False) -> dict:
-    """Compile every kernel whose library does not exist yet, one ``nvcc``
-    per source, all started together. Returns ``{name: (library path,
-    seconds compiling)}`` (0.0 for a cached library); with ``verbose`` it
-    prints each build's ``-Xptxas -v`` report."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc() if any(not library_path(n).exists() for n in SOURCES) \
-        else None
-    running = {}
-    for name, src in SOURCES.items():
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(src)]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.PIPE, text=True),
-                         tmp, time.perf_counter())
-    out = {n: (library_path(n), 0.0) for n in SOURCES if n not in running}
-    failed = []
-    for name, (proc, tmp, t0) in running.items():
-        _, err = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(f"{name}: {err.strip()}")
-        # atomic publish: a concurrent build never loads a half-written file
-        tmp.replace(library_path(name))
-        out[name] = (library_path(name), seconds)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
 
 
 # kernel -> (library, number of pointer arguments before batch, h, w, pad)

@@ -11,9 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from jspsr_torch.config.loader import AttrDict
+from jspsr_torch.data.raster_io import read_raster, write_raster
+from jspsr_torch.eval.inference import load_scene
+from jspsr_torch.eval.scene import tile_inference_device
+from jspsr_torch.eval.serve import discover_scenes, serve_scenes
 from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.completionformer import CompletionFormer
 from jspsr_torch.models.jspsr import JSPSR
+from jspsr_torch.ops import conv_same as K4
 from jspsr_torch.ops import deform_cuda
 from jspsr_torch.ops.deform_conv import (
     deform_conv2d,
@@ -324,3 +330,130 @@ def test_completionformer_train_step_on_gpu_matches_cpu(cuda_device,
             e_card = _rel_err(out["card"][i][name], ref)
             e_cpu = _rel_err(out["cpu"][i][name], ref)
             assert e_card <= 3 * e_cpu + 5e-3, (name, e_card, e_cpu)
+
+
+# K4: the probe's four cases, kk 1, ragged H and W, and the widest channels
+K4_CASES = [(16, 128, 128, 64, 64, 3, torch.bfloat16),
+            (16, 128, 128, 64, 64, 3, torch.float32),
+            (16, 128, 128, 32, 64, 3, torch.bfloat16),
+            (16, 128, 128, 64, 32, 3, torch.bfloat16),
+            (2, 13, 37, 16, 16, 1, torch.bfloat16),
+            (2, 13, 37, 8, 8, 3, torch.float32),
+            (3, 21, 19, 32, 48, 3, torch.bfloat16),
+            (1, 5, 5, 3, 24, 1, torch.float32),
+            (2, 9, 130, 128, 128, 3, torch.bfloat16),
+            (2, 9, 130, 128, 128, 3, torch.float32)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,kk,dtype", K4_CASES)
+def test_conv_same_kernel_matches_plain(cuda_device, b, h, w, cin, cout, kk,
+                                        dtype):
+    """The probe's tolerances (scripts/bench_pallas_conv.py:139-140): max
+    |err| <= 0.03 (bf16) or 1e-4 (fp32) times max(1, max |plain|). Both
+    sum exact products in fp32; in bf16 both round the sum once."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(b, h, w, cin, generator=g, device=cuda_device).to(dtype)
+    wt = (torch.randn(kk, kk, cin, cout, generator=g, device=cuda_device)
+          * 0.05).to(dtype)
+    launches = K4.LAUNCHES["conv_same"]
+    got = K4.conv_same(x, wt)
+    ref = K4.conv_same_plain(x, wt)
+    torch.cuda.synchronize()
+    assert K4.LAUNCHES["conv_same"] == launches + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, cout)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = 0.03 if dtype == torch.bfloat16 else 1e-4
+    assert err <= tol * max(1.0, ref.float().abs().max().item()), err
+
+
+def test_conv_same_kernel_empty_input_launches_nothing(cuda_device):
+    launches = K4.LAUNCHES["conv_same"]
+    out = K4.conv_same(torch.zeros(0, 8, 8, 16, device=cuda_device),
+                       torch.zeros(3, 3, 16, 16, device=cuda_device))
+    assert out.shape == (0, 8, 8, 16)
+    assert K4.LAUNCHES["conv_same"] == launches
+
+
+def test_conv_same_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="kk must be 1 or 3"):
+        K4.conv_same(x, torch.zeros(5, 5, 16, 16, device=cuda_device))
+    with pytest.raises(TypeError, match="float32 or"):
+        K4.conv_same(x.half(), torch.zeros(3, 3, 16, 16, device=cuda_device,
+                                           dtype=torch.half))
+    with pytest.raises(TypeError, match="float32 or"):
+        K4.conv_same(x, torch.zeros(3, 3, 16, 16, device=cuda_device,
+                                    dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K4.conv_same(x[..., :8].contiguous().bfloat16(),
+                     torch.zeros(3, 3, 8, 16, device=cuda_device,
+                                 dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.conv_same(x.transpose(1, 2), torch.zeros(3, 3, 16, 16,
+                                                    device=cuda_device))
+    with pytest.raises(ValueError, match="must be on"):
+        K4.conv_same(x, torch.zeros(3, 3, 16, 16))
+
+
+TILED_P = {
+    "model_name": "JSPSR", "relative": True, "normalize": False,
+    "mask_channel": None, "patch_size": 64,
+    "input_data": {"lr_dem": 1, "image": 3, "mask": 15},
+    "tensor_kwargs": {"log": True, "min": -80, "max": 929,
+                      "scale_mask": True},
+}
+
+
+def _tiled_scenes(root, sizes, seed):
+    rng = np.random.default_rng(seed)
+    for i, (h, w) in enumerate(sizes):
+        d = root / f"scene{i}"
+        write_raster(d / "lr_dem.npy",
+                     rng.uniform(10, 200, (h, w, 1)).astype(np.float32))
+        write_raster(d / "image.npy",
+                     rng.integers(0, 255, (h, w, 3)).astype(np.uint8))
+        write_raster(d / "mask.npy", np.eye(15, dtype=np.uint8)[
+            rng.integers(0, 15, (h, w))])
+    return discover_scenes(root)
+
+
+def _tiled_model():
+    return perturb_weights(JSPSR(
+        {"lr_dem": 1, "image": 3, "mask": 15}, num_feature=8,
+        layers=(1, 1, 1, 1), generator=torch.Generator().manual_seed(9)),
+        seed=10)
+
+
+def test_tiled_scene_on_gpu_matches_cpu(cuda_device, tmp_path):
+    """A rectangular scene (an exact grid down, a padded one across) with
+    a bit-packed mask, device-tiled on the card (one K1 launch per chunk)
+    against the CPU, in metres at rtol 1e-3 / atol 1e-2 m."""
+    p = AttrDict(dict(TILED_P))
+    (scene,) = _tiled_scenes(tmp_path, [(160, 200)], seed=1)
+    sample, _ = load_scene(scene, p)
+    model = _tiled_model()
+    ref, _ = tile_inference_device(model, sample, p, tile=64, device="cpu")
+    launches = deform_cuda.LAUNCHES["deform_fwd"]
+    got, _ = tile_inference_device(model, sample, p, tile=64, cap=8,
+                                   device=cuda_device)
+    assert deform_cuda.LAUNCHES["deform_fwd"] == launches + 2  # 12 tiles
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-2)
+
+
+def test_serve_on_gpu_matches_single_scene(cuda_device, tmp_path):
+    """The pipelined server at scene_batch 2 (streams, pinned staging)
+    against one scene at a time, at the JAX suite's tolerance between tile
+    batch sizes (rtol 2e-4 / atol 5e-3 m)."""
+    p = AttrDict(dict(TILED_P))
+    scenes = _tiled_scenes(tmp_path / "batch", [(96, 96)] * 3 + [(130, 96)],
+                           seed=2)
+    model = _tiled_model().to(cuda_device)
+    paths, _, sps = serve_scenes(model, p, scenes, tmp_path / "out",
+                                 tile=64, scene_batch=2, device=cuda_device)
+    assert sps > 0
+    for scene, path in zip(scenes, paths):
+        sample, _ = load_scene(scene, p)
+        single, _ = tile_inference_device(model, sample, p, tile=64,
+                                          device=cuda_device)
+        np.testing.assert_allclose(read_raster(path), single, rtol=2e-4,
+                                   atol=5e-3)

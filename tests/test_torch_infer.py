@@ -176,9 +176,11 @@ def test_entry_points_need_cuda_or_explicit_cpu(fixture_dir, monkeypatch):
     assert not (root / "never.npy").exists()
 
 
-@pytest.mark.parametrize("flags", [["--tile"], ["--val"], ["--export", "x"],
-                                   []])
+@pytest.mark.parametrize("flags", [["--tile", "--val"], ["--val"],
+                                   ["--export", "x"], []])
 def test_cli_unported_modes_raise(fixture_dir, flags):
+    """--val, --export and training through the CLI still raise; --tile is
+    ported (tests/test_torch_serve.py) and does not lift --val's refusal."""
     root, *_ = fixture_dir
     argv = ["--config", str(root / "c.yml"), "--device", "cpu", *flags]
     if flags:
