@@ -32,8 +32,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (float atomics, summed in an order that changes from run to run)
    within 1e-5 of the sums of their terms' magnitudes; timed as K2, the
    library yardstick being autograd's backward through the
-   ``grid_sample`` form with ``x`` requiring grad; the atomics this run's
-   data needs are counted and printed beside the byte bound;
+   ``grid_sample`` form with ``x`` requiring grad; where this run's d_x
+   contributions go (``deform_cuda.dx_atomics``: into the block's
+   shared-memory window, or global, and the window's flush) is counted at
+   every offset scale and printed per shape beside the one global atomic
+   per in-bounds corner that a scatter without the window sends;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -77,7 +80,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    32->64 and 64->32 in bf16), at the probe's tolerances (max |err| <=
    0.03 in bf16, 1e-4 in fp32, times max(1, max |plain|)), timed as K1
    beside the plain version, cuDNN's ``F.conv2d`` on the channels-last view
-   of the same bytes and the bound; then the probe's port
+   of the same bytes and the bound, with the kernel's time over cuDNN's
+   and both achieved TFLOP/s; then the probe's port
    (``jspsr_torch/scripts/bench_conv_same.py``) once, its launches counted
    on the path ``conv_probe``;
 9. tiled serving: the flagship with phase 4's checkpoint through the CLI's
@@ -134,7 +138,6 @@ from jspsr_torch.ops import conv_same as conv_same_mod
 from jspsr_torch.ops import cuda_build, deform_cuda
 from jspsr_torch.ops.conv_same import conv_same, conv_same_plain
 from jspsr_torch.ops.deform_conv import (
-    _corners,
     _positions,
     deform_conv2d_backward_plain,
     deform_conv2d_plain,
@@ -214,14 +217,22 @@ def card_peaks(name: str):
     raise RuntimeError(f"no published peaks for card {name!r}")
 
 
+# A spin on the card between the L2 flush and the start event, long enough
+# (about 0.5 ms) for the host to enqueue a whole wrapper call behind it.
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` runs (CUDA events), with
-    the L2 cache flushed before each run."""
+    the L2 cache flushed before each run. The spin keeps the card busy
+    while the host enqueues ``fn``, so the time is the device's, also where
+    the host takes longer to launch the call than the card to run it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -413,11 +424,15 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
                 row["d_weight_err_over_abs_sum"], w_err)
             row["d_x_err_over_abs_sum"] = max(row["d_x_err_over_abs_sum"],
                                               x_err)
+            # where this data's d_x contributions go: those inside the
+            # block's window to shared memory, plus one flush per cell, the
+            # rest global (without the window, every in-bounds corner)
+            counts = deform_cuda.dx_atomics(offset, h, w)
+            row.setdefault("dx_atomics_per_pixel", {})[str(scale)] = {
+                k: v / (b * h * w) for k, v in counts.items()}
             if scale == TIMED_SCALE:
-                # the scatter's atomics that this data needs: one per
-                # in-bounds corner of every tap
-                corners, _, _ = _corners(*_positions(offset, 1), h, w)
-                atomics = int(sum(valid.sum().item() for _, valid in corners))
+                atomics = counts["corners"]
+                row["dx_atomics"] = counts
                 row["kernel_ms"] = time_ms(lambda: deform_cuda.deform_bwd_dx(
                     x, offset, weight, mask, g), flush)
                 row["plain_ms"] = time_ms(
@@ -441,7 +456,14 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         row["atomics"] = atomics
         row["atomics_per_pixel"] = atomics / pixels
+        row["global_atomics_per_pixel"] = row["dx_atomics"]["global"] / pixels
+        row["shared_atomics_per_pixel"] = row["dx_atomics"]["shared"] / pixels
         row["atomics_per_us"] = atomics / (row["kernel_ms"] * 1e3)
+        row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
+        print(f"deform_bwd_dx atomics at {b} x {h} x {w}, {TIMED_SCALE} px: "
+              f"global {row['global_atomics_per_pixel']:.3f} per pixel "
+              f"(without the window {row['atomics_per_pixel']:.3f}), shared "
+              f"{row['shared_atomics_per_pixel']:.3f}", flush=True)
         rows.append(row)
         print(f"deform_bwd_dx {row}", flush=True)
     return rows
@@ -821,6 +843,9 @@ def check_conv_same(dev, bandwidth, fp32_peak, bf16_peak):
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         row["tflops"] = flops / row["kernel_ms"] / 1e9
+        row["library_tflops"] = flops / row["library_ms"] / 1e9
+        row["kernel_over_library"] = row["kernel_ms"] / row["library_ms"]
+        row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
         rows.append(row)
         print(f"conv_same {row}", flush=True)
     return rows
@@ -1039,11 +1064,16 @@ def main() -> int:
     for result in (serving, training, cf_training, cf_serving, tiled):
         result["card"] = card
 
-    def kernel_line(name, source, replaces, tpu_kernel, rows, main_shape):
-        main = next(r for r in rows if r["shape"] == main_shape)
+    def kernel_line(name, source, replaces, tpu_kernel, rows, main_shape,
+                    sources=None):
+        """One kernel's entry; with ``sources`` ({dtype: path}) the main
+        shape has a row per dtype: the first gives the line's numbers and
+        every one its own under ``main_by_dtype``."""
+        mains = [r for r in rows if r["shape"] == main_shape]
+        main = mains[0]
         by_path = {path: launches.get(name, 0)
                    for path, launches in paths.items()}
-        return {
+        line = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1053,6 +1083,14 @@ def main() -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shapes": rows,
         }
+        if sources:
+            line["main_by_dtype"] = {r["dtype"]: {
+                "source": sources[r["dtype"]],
+                **{k: r[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "tflops",
+                                     "kernel_over_library")}}
+                for r in mains}
+        return line
 
     kernels = [
         kernel_line("deform_fwd", "jspsr_torch/ops/csrc/deform_fwd.cu",
@@ -1068,10 +1106,12 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=True, d_x at :227-242)", dx_rows,
                     [16, 1, 128, 128]),
-        kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same.cu",
+        kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same_bf16.cu",
                     "scripts/bench_pallas_conv.py:38",
                     "scripts/bench_pallas_conv.py::pallas_conv_same",
-                    conv_rows, [16, 128, 128, 64, 64, 3]),
+                    conv_rows, [16, 128, 128, 64, 64, 3], sources={
+                        "bfloat16": "jspsr_torch/ops/csrc/conv_same_bf16.cu",
+                        "float32": "jspsr_torch/ops/csrc/conv_same_f32.cu"}),
     ]
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)

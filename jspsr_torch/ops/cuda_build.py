@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"deform_fwd": CSRC / "deform_fwd.cu",
            "deform_bwd": CSRC / "deform_bwd.cu",
-           "conv_same": CSRC / "conv_same.cu"}
+           "conv_same_bf16": CSRC / "conv_same_bf16.cu",
+           "conv_same_f32": CSRC / "conv_same_f32.cu"}
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

@@ -4,9 +4,11 @@
   ``jspsr_tpu/ops/pallas_deform.py::_fwd_kernel``;
 - ``deform_bwd`` (``csrc/deform_bwd.cu``), replacing ``_bwd_kernel`` with
   ``need_dx=False``: d_offset, d_mask and per-block d_weight partials;
-- ``deform_bwd_dx`` (the same source, its ``kNeedDx`` form), replacing
+- ``deform_bwd_dx`` (the same source, its own kernel), replacing
   ``_bwd_kernel`` with ``need_dx=True``: the same outputs plus the input
-  gradient d_x, scattered with float atomics.
+  gradient d_x, scattered into a shared-memory window around each 8 x 32
+  output tile and flushed with float atomics (``dx_atomics`` counts, from
+  the offsets, where this data's corners go).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -26,8 +28,13 @@ import ctypes
 import torch
 
 from jspsr_torch.ops.cuda_build import build
+from jspsr_torch.ops.deform_conv import _corners, _positions
 
 TAPS = 9
+# K3's output tile (rows, columns) and window margin: the constants of
+# csrc/deform_bwd.cu, checked against the library when it is loaded
+DX_TILE = (8, 32)
+DX_MARGIN = 4
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx")
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -47,7 +54,7 @@ _ENTRY = {"deform_fwd": ("deform_fwd", 6), "deform_bwd": ("deform_bwd", 8),
 
 def _load(name: str):
     """The kernel's ctypes function; for the backward kernels with the
-    threads per block, which sizes the d_weight partials."""
+    library's block count, which sizes the d_weight partials."""
     if name not in _fns:
         source, n_ptr = _ENTRY[name]
         lib = ctypes.CDLL(str(build()[source][0]))
@@ -57,10 +64,18 @@ def _load(name: str):
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         if source == "deform_bwd":
-            threads = lib.jspsr_deform_bwd_threads
-            threads.argtypes = []
-            threads.restype = ctypes.c_int
-            fn = (fn, threads())
+            blocks = lib.jspsr_deform_bwd_blocks
+            blocks.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_int]
+            blocks.restype = ctypes.c_int64
+            window = (ctypes.c_int * 3)()
+            lib.jspsr_deform_bwd_dx_window(window)
+            if tuple(window) != (*DX_TILE, DX_MARGIN):
+                raise RuntimeError(f"deform_bwd library's window "
+                                   f"{tuple(window)} != {DX_TILE}, "
+                                   f"{DX_MARGIN}")
+            need_dx = int(name == "deform_bwd_dx")
+            fn = (fn, lambda b, h, w: blocks(need_dx, b, h, w))
         _fns[name] = fn
     return _fns[name]
 
@@ -109,11 +124,11 @@ def _backward(name, x, offset, weight, mask, grad_out, padding):
         raise ValueError(f"grad_out must be {tuple(x.shape)}, got "
                          f"{tuple(grad_out.shape)}")
     b, _, h, w = x.shape
-    fn, threads = _load(name)
+    fn, blocks = _load(name)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    blocks = -(-b * h * w // threads)
-    partial = torch.empty(blocks, TAPS, device=x.device, dtype=torch.float32)
+    partial = torch.empty(blocks(b, h, w), TAPS, device=x.device,
+                          dtype=torch.float32)
     # the input gradient is accumulated with atomics: it starts at zero
     d_x = [torch.zeros_like(x)] if name == "deform_bwd_dx" else []
     with torch.cuda.device(x.device):
@@ -150,3 +165,40 @@ def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     run to run."""
     return _backward("deform_bwd_dx", x, offset, weight, mask, grad_out,
                      padding)
+
+
+def dx_atomics(offset: torch.Tensor, h: int, w: int, padding: int = 1,
+               tile=DX_TILE, margin: int = DX_MARGIN) -> dict:
+    """Where K3's d_x contributions go for these offsets (B, 18, H, W), on
+    their device: one per in-bounds corner of every tap (``corners``),
+    into the block's shared-memory window (``shared``) when the corner lies
+    within ``margin`` of its pixel's output tile, else straight to global
+    memory (``direct``). ``flush`` counts the in-image window cells that
+    receive a contribution, one global atomic each (an upper bound: the
+    kernel skips a cell whose sum is exactly 0); ``global`` is ``direct +
+    flush``. Plain PyTorch. Without the window every corner would go
+    global."""
+    b = offset.shape[0]
+    th, tw = tile
+    win_h, win_w = th + 2 * margin, tw + 2 * margin
+    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    dev = offset.device
+    yy = torch.arange(h, device=dev).view(1, 1, h, 1)
+    xx = torch.arange(w, device=dev).view(1, 1, 1, w)
+    # each output pixel's window origin and block
+    wy0, wx0 = (yy // th) * th - margin, (xx // tw) * tw - margin
+    block = (torch.arange(b, device=dev).view(b, 1, 1, 1) * tiles_y
+             + yy // th) * tiles_x + xx // tw
+    corners, _, _ = _corners(*_positions(offset, padding), h, w)
+    counts = {"corners": 0, "shared": 0, "direct": 0}
+    cells = []
+    for idx, valid in corners:
+        ry, rx = idx // w - wy0, idx % w - wx0
+        inside = valid & (ry >= 0) & (ry < win_h) & (rx >= 0) & (rx < win_w)
+        counts["corners"] += int(valid.sum())
+        counts["shared"] += int(inside.sum())
+        cells.append(((block * win_h + ry) * win_w + rx)[inside])
+    counts["direct"] = counts["corners"] - counts["shared"]
+    counts["flush"] = int(torch.unique(torch.cat(cells)).numel())
+    counts["global"] = counts["direct"] + counts["flush"]
+    return counts

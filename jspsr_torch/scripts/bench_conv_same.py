@@ -18,7 +18,8 @@ Pallas kernel against XLA's conv on a TPU. Its four cases (16 x 128^2 at
    place of ``xla_conv``, and both chains use cuDNN for the 1x1 back
    projection.
 
-Prints one JSON line per case. The probe's decision rule stands: an
+Prints the card's name and power limit (``nvidia-smi``), then one JSON line
+per case, which repeats them. The probe's decision rule stands: an
 op-level win below about 1.3x does not ship, and none is wired into a model
 layer here (the JAX models do not use the Pallas kernel either). Needs a
 CUDA card.
@@ -27,6 +28,7 @@ CUDA card.
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 
@@ -105,11 +107,20 @@ def timed(fn, x0, iters: int = 30, trials: int = 3, warmup: int = 2) -> float:
     return best
 
 
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> list:
     del argv
     dev = resolve_device(None)
     set_strict_fp32()
-    card = torch.cuda.get_device_name(dev)
+    card = card_line()
+    print(card, flush=True)
     rows = []
     for tag, b, h, w, cin, cout, kk, dt in CASES:
         x, w1, wb = case_inputs(b, h, w, cin, cout, kk, dt, dev)

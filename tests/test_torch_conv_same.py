@@ -120,3 +120,115 @@ def test_probe_port_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_conv_same.main([])
+
+
+# The bf16 kernel's launch plan (``plan_bf16``), over every shape its
+# wrapper accepts: Cin and Cout multiples of 16 up to 128, kk 1 and 3.
+BF16_CHANNELS = range(16, K4.MAX_CHANNELS + 1, 16)
+
+
+def _bf16_smem(cin, cout, kk, stages):
+    """Shared memory of a block that keeps ``cout`` channels' weights beside
+    ``stages`` halo stages (alignment slack, mbarriers, ring, weights,
+    staging)."""
+    halo = (K4.BF16_ROWS + kk - 1) * (K4.BF16_TILE_W + kk - 1) * 16
+    pitch = -(-halo // 128) * 128
+    return 128 + 128 + stages * (cin // 8) * pitch \
+        + kk * kk * cin * cout * 2 + K4.BF16_WARPS * 16 * (2 * cout + 16)
+
+
+@pytest.mark.parametrize("kk", [1, 3])
+@pytest.mark.parametrize("cin", BF16_CHANNELS)
+def test_bf16_plan_fits_shared_memory(cin, kk):
+    """For every Cout: the slices cover Cout in multiples of 16, the layout
+    (mbarriers, ring, weights, staging, in that order, 128-byte aligned
+    where TMA and the descriptors need it) fits the 232,448 bytes a block
+    may have, the ring has two to four stages unless not even a 16-channel
+    slice leaves room for two (then one), and the weights stay whole
+    wherever they fit beside that ring."""
+    least = 2 if _bf16_smem(cin, 16, kk, 2) <= K4.SMEM_LIMIT else 1
+    assert least == 2 or (cin, kk) == (128, 3)
+    for cout in BF16_CHANNELS:
+        p = K4.plan_bf16(16, 128, 128, cin, cout, kk, n_sms=132)
+        assert p.ns * p.n_split == cout and p.ns % 16 == 0
+        assert least <= p.stages <= K4.MAX_STAGES
+        halo = (K4.BF16_ROWS + kk - 1) * (K4.BF16_TILE_W + kk - 1) * 16
+        assert p.pitch >= halo and p.pitch % 128 == 0
+        assert p.ring >= 2 * 8 * p.stages and p.ring % 128 == 0
+        assert p.weights >= p.ring + p.stages * (cin // 8) * p.pitch
+        assert p.staging >= p.weights + kk * kk * cin * p.ns * 2
+        assert p.weights % 128 == 0 and p.staging % 128 == 0
+        staging = K4.BF16_WARPS * 16 * (2 * p.ns + 16)
+        assert 128 + p.staging + staging <= p.smem <= K4.SMEM_LIMIT
+        assert p.smem == _bf16_smem(cin, p.ns, kk, p.stages)
+        whole = _bf16_smem(cin, cout, kk, least) <= K4.SMEM_LIMIT
+        assert (p.n_split == 1) == whole
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,kk,n_sms", [
+    (16, 128, 128, 64, 64, 3, 132),   # the probe's shape
+    (1, 300, 128, 32, 32, 3, 132),    # a ragged last round
+    (2, 9, 130, 128, 128, 3, 132),    # Cout in 4 slices, W % 64 != 0
+    (1, 5, 70, 128, 112, 3, 132),     # 7 slices
+    (2, 1, 37, 16, 16, 1, 132),       # H = 1
+    (3, 7, 65, 16, 32, 3, 5),         # fewer SMs than tiles
+    (1, 2, 64, 16, 128, 1, 3),        # fewer SMs than slices would want
+])
+def test_bf16_plan_tiles_cover_each_output_once(b, h, w, cin, cout, kk,
+                                                n_sms):
+    """The schedule in ``PlanBf16``'s docstring, as the kernel walks it:
+    every output pixel of every Cout slice is written by exactly one
+    (block, tile, row), and no block is idle."""
+    p = K4.plan_bf16(b, h, w, cin, cout, kk, n_sms)
+    assert p.grid % p.n_split == 0 and p.grid <= max(n_sms, p.n_split)
+    count = np.zeros((p.n_split, b, h, w), np.int64)
+    step = p.grid // p.n_split
+    for block in range(p.grid):
+        s, first = block % p.n_split, block // p.n_split
+        tiles = range(first, p.n_tiles, step)
+        assert len(tiles) > 0
+        for t in tiles:
+            tx, ty, bi = t % p.tiles_x, t // p.tiles_x % p.tiles_y, \
+                t // (p.tiles_x * p.tiles_y)
+            for row in range(K4.BF16_ROWS):
+                y = K4.BF16_ROWS * ty + row
+                x0 = K4.BF16_TILE_W * tx
+                if y < h:
+                    count[s, bi, y, x0:x0 + K4.BF16_TILE_W] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("dtype,shape,match", [
+    (torch.bfloat16, (1, 8, 8, 8, 16, 3), "multiple of 16"),
+    (torch.bfloat16, (1, 8, 8, 16, 24, 3), "multiple of 16"),
+    (torch.bfloat16, (1, 8, 8, 144, 16, 3), "multiple of 16"),
+    (torch.float32, (1, 8, 8, 16, 12, 3), "multiple of 8"),
+    (torch.float32, (1, 8, 8, 129, 16, 3), r"Cin in \[1, 128\]"),
+    (torch.float32, (1, 8, 8, 16, 16, 5), "kk must be 1 or 3"),
+    (torch.bfloat16, (2**16, 256, 128, 16, 16, 3), "fewer than 2"),
+    (torch.float32, (1, 2**16, 2**15, 4, 8, 1), "fewer than 2"),
+])
+def test_kernel_shape_refusals(dtype, shape, match):
+    """What the CUDA kernels do not take raises before any launch; B*H*W
+    of 2^31 or more is new (the kernels index pixels in 32 bits and the
+    bf16 grid is persistent, so the batch is no longer capped at 65535)."""
+    with pytest.raises(ValueError, match=match):
+        K4.check_kernel_shape(dtype, *shape)
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (70000, 4, 4, 16, 16, 3)),
+    (torch.bfloat16, (1, 1, 1, 128, 128, 1)),
+    (torch.float32, (1, 5, 5, 3, 24, 1)),
+    (torch.float32, (70000, 4, 4, 1, 8, 3)),
+])
+def test_kernel_shape_accepts(dtype, shape):
+    K4.check_kernel_shape(dtype, *shape)
+
+
+def test_kernel_profile_needs_cuda(monkeypatch):
+    from jspsr_torch.scripts import profile_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_kernels.main([])

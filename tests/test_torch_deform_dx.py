@@ -187,3 +187,71 @@ def test_bilinear_sample_matches_jax_one_by_one_deform():
     np.testing.assert_allclose(_nhwc(confn.grad),
                                np.asarray(vjp(jnp.asarray(g))[0]),
                                rtol=TOL, atol=TOL)
+
+
+def _dx_atomics_brute(off, h, w, tile, margin, pad=1):
+    """K3's scatter walked pixel by pixel, tap by tap, corner by corner, in
+    float32 as the kernel computes positions: where each in-bounds corner's
+    contribution goes, and which window cells the flush visits."""
+    b = off.shape[0]
+    th, tw = tile
+    counts = {"corners": 0, "shared": 0, "direct": 0}
+    cells = set()
+    for bi in range(b):
+        for y in range(h):
+            for x in range(w):
+                wy0, wx0 = y // th * th - margin, x // tw * tw - margin
+                blk = (bi, y // th, x // tw)
+                for t in range(9):
+                    py = np.float32(y - pad + t // 3) + off[bi, 2 * t, y, x]
+                    px = np.float32(x - pad + t % 3) + off[bi, 2 * t + 1, y, x]
+                    y0, x0 = int(np.floor(py)), int(np.floor(px))
+                    for yc, xc in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0),
+                                   (y0 + 1, x0 + 1)):
+                        if not (0 <= yc < h and 0 <= xc < w):
+                            continue
+                        counts["corners"] += 1
+                        ry, rx = yc - wy0, xc - wx0
+                        if 0 <= ry < th + 2 * margin and \
+                                0 <= rx < tw + 2 * margin:
+                            counts["shared"] += 1
+                            cells.add((blk, ry, rx))
+                        else:
+                            counts["direct"] += 1
+    counts["flush"] = len(cells)
+    counts["global"] = counts["direct"] + counts["flush"]
+    return counts
+
+
+@pytest.mark.parametrize("scale", [0.0, 1.5, 20.0])
+@pytest.mark.parametrize("b,h,w,tile,margin", [
+    (2, 13, 37, deform_cuda.DX_TILE, deform_cuda.DX_MARGIN),
+    (1, 9, 20, (4, 8), 2),
+])
+def test_dx_atomics_matches_brute_force(b, h, w, tile, margin, scale):
+    """``deform_cuda.dx_atomics`` against a loop over every corner, on
+    tiles that divide neither H nor W (corners at the image edge, in the
+    margin, across the window's edge and, at 20 px, off the image)."""
+    rng = np.random.default_rng(int(scale * 10) + h)
+    off = (rng.normal(size=(b, 18, h, w)) * scale).astype(np.float32)
+    got = deform_cuda.dx_atomics(torch.from_numpy(off), h, w, tile=tile,
+                                 margin=margin)
+    want = _dx_atomics_brute(off, h, w, tile, margin)
+    assert got == want
+    assert got["corners"] == got["shared"] + got["direct"]
+    if scale == 0.0:  # every corner within a pixel of its own: no escape
+        assert got["direct"] == 0
+
+
+def test_dx_atomics_at_nlspn_offsets_stay_below_a_tenth():
+    """At 1.5 px, the train batch's 128² images send about 2 global atomics
+    per pixel through the window (at most 2.5 flushes plus the few corners
+    that leave it) where a scatter without the window sends every corner,
+    about 35."""
+    rng = np.random.default_rng(0)
+    off = torch.from_numpy((rng.normal(size=(2, 18, 128, 128)) * 1.5)
+                           .astype(np.float32))
+    got = deform_cuda.dx_atomics(off, 128, 128)
+    pixels = 2 * 128 * 128
+    assert got["global"] / pixels <= 0.1 * got["corners"] / pixels
+    assert got["flush"] <= 2 * 16 * 4 * (8 + 8) * (32 + 8)

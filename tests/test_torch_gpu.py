@@ -93,8 +93,13 @@ def test_backward_kernel_matches_plain(cuda_device, b, h, w, scale):
 
 
 # K3 at NLSPN's shapes: a narrow odd width, integer positions (NLSPN's
-# zero-offset init) and the CompletionFormer train batch far off the image
-DX_CASES = [(1, 12, 20, 2.0), (2, 32, 32, 0.0), (16, 128, 128, 20.0)]
+# zero-offset init) and the CompletionFormer train batch far off the image;
+# then the window scatter's edges on tiles (8 x 32) that divide neither H
+# nor W: corners in the 4-pixel margin (1.5 px), across the window's edge
+# (3 and 5 px) and off the image (20 px)
+DX_CASES = [(1, 12, 20, 2.0), (2, 32, 32, 0.0), (16, 128, 128, 20.0),
+            (1, 7, 130, 1.5), (1, 7, 130, 3.0), (3, 33, 65, 1.5),
+            (3, 33, 65, 5.0), (3, 33, 65, 20.0)]
 
 
 @pytest.mark.parametrize("b,h,w,scale", DX_CASES)
@@ -332,7 +337,12 @@ def test_completionformer_train_step_on_gpu_matches_cpu(cuda_device,
             assert e_card <= 3 * e_cpu + 5e-3, (name, e_card, e_cpu)
 
 
-# K4: the probe's four cases, kk 1, ragged H and W, and the widest channels
+# K4: the probe's four cases, kk 1, ragged H and W, and the widest channels;
+# then the edges of the bf16 design (64-pixel rows, 2-row tiles, a
+# persistent grid, Cout slices) and of the fp32 one (128-pixel tiles, Cin
+# not a multiple of 4 or 16): W not a multiple of 64 (37, 130), H = 1, one
+# image whose 300 tiles leave a ragged last round on 132 SMs, Cout in 7
+# slices (128 -> 112) and in pieces of 64 + 16 (80), kk 1 in both types
 K4_CASES = [(16, 128, 128, 64, 64, 3, torch.bfloat16),
             (16, 128, 128, 64, 64, 3, torch.float32),
             (16, 128, 128, 32, 64, 3, torch.bfloat16),
@@ -342,7 +352,17 @@ K4_CASES = [(16, 128, 128, 64, 64, 3, torch.bfloat16),
             (3, 21, 19, 32, 48, 3, torch.bfloat16),
             (1, 5, 5, 3, 24, 1, torch.float32),
             (2, 9, 130, 128, 128, 3, torch.bfloat16),
-            (2, 9, 130, 128, 128, 3, torch.float32)]
+            (2, 9, 130, 128, 128, 3, torch.float32),
+            (1, 6, 37, 64, 64, 3, torch.bfloat16),
+            (1, 6, 37, 64, 64, 3, torch.float32),
+            (2, 1, 64, 32, 32, 3, torch.bfloat16),
+            (2, 1, 50, 12, 24, 3, torch.float32),
+            (1, 300, 128, 32, 32, 3, torch.bfloat16),
+            (1, 37, 41, 20, 16, 3, torch.float32),
+            (1, 5, 70, 128, 112, 3, torch.bfloat16),
+            (1, 4, 66, 48, 80, 3, torch.bfloat16),
+            (1, 33, 70, 64, 64, 1, torch.bfloat16),
+            (1, 33, 70, 64, 64, 1, torch.float32)]
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,kk,dtype", K4_CASES)
