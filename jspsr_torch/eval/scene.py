@@ -332,9 +332,10 @@ def scene_dispatch_batch(model, prepared_list, p, cap: int | None = None,
                          mesh=None, device=None, copy_stream=None):
     """Upload S same-shape PreparedScenes and enqueue ONE stacked run
     without waiting for it: returns the (S, H, W, 1) metres mosaics on the
-    device. All scenes must share (keys, hw, enc, tile); group first
-    (``serve._compat_key``). The model is moved to ``device`` and put in
-    eval mode; on CUDA, TF32 is turned off (fp32 means fp32)."""
+    device. All scenes must share (keys, hw, enc, tile, min_overlap);
+    group first (``serve._compat_key``). The model is moved to ``device``
+    and put in eval mode; on CUDA, TF32 is turned off (fp32 means
+    fp32)."""
     if mesh is not None:
         raise NotImplementedError("mesh (tile-parallel scene inference over "
                                   "several devices) is not yet ported")
@@ -343,10 +344,13 @@ def scene_dispatch_batch(model, prepared_list, p, cap: int | None = None,
     S = len(prepared_list)
     if not all(pr.keys == first.keys and pr.hw == first.hw
                and pr.enc == first.enc and pr.tile == first.tile
+               and pr.min_overlap == first.min_overlap
                for pr in prepared_list):
         raise ValueError("scene batch must be homogeneous")
     tk = p.get("tensor_kwargs") or {}
-    key = (id(model), tuple(first.keys), first.hw, first.tile, cap, S,
+    # min_overlap sets the grid: scenes of two overlaps never share a runner
+    key = (id(model), tuple(first.keys), first.hw, first.tile,
+           first.min_overlap, cap, S,
            tuple(sorted(first.enc.items())), tk.get("min"), tk.get("max"),
            tk.get("log", False), tk.get("scale_mask", False),
            bool(p.get("relative")),

@@ -99,9 +99,11 @@ def auto_scene_batch(hw, tile: int = 128, n_scenes: int | None = None,
 
 
 def _compat_key(prepared):
-    """Scenes sharing this key can stack into one batched run."""
+    """Scenes sharing this key can stack into one batched run (the
+    overlap sets the grid, as the tile does)."""
     return (tuple(prepared.keys), prepared.hw,
-            tuple(sorted(prepared.enc.items())), prepared.tile)
+            tuple(sorted(prepared.enc.items())), prepared.tile,
+            prepared.min_overlap)
 
 
 def _fetch(dev_out: torch.Tensor, ready, stream) -> np.ndarray:

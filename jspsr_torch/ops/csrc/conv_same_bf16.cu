@@ -28,10 +28,10 @@
 //     Where the whole of Cout does not fit beside a ring of two halos
 //     (128->128 is 295 KB), the plan gives each block one slice of Cout,
 //     and the tiles are walked once per slice.
-//   - Halos by TMA: one producer thread loads each tile's (4+kk-1) x
-//     (64+kk-1) x Cin input halo into a ring of stages (2-4; 1 where two
-//     do not fit, Cin 128 at kk 3), one box per 8 channels, so that
-//     shared memory holds [Cin/8][halo pixel][8]. The
+//   - Halos by TMA (tma.cuh): one producer thread loads each tile's
+//     (4+kk-1) x (64+kk-1) x Cin input halo into a ring of stages (2-4;
+//     1 where two do not fit, Cin 128 at kk 3), one box per 8 channels,
+//     so that shared memory holds [Cin/8][halo pixel][8]. The
 //     tensor map fills out-of-bounds elements with zero: that fill is the
 //     "same" padding and the ragged edge, and box coordinates may be
 //     negative. Completion goes through one full and one empty mbarrier
@@ -54,7 +54,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
+
+using jspsr::encode_tiled;
+using jspsr::EncodeTiled;
+using jspsr::mbar_arrive;
+using jspsr::mbar_expect_tx;
+using jspsr::mbar_init;
+using jspsr::mbar_init_fence;
+using jspsr::mbar_wait;
+using jspsr::smem_u32;
+using jspsr::tma_load_4d;
 
 constexpr int kTileW = 64;      // output pixels per row: wgmma's M
 constexpr int kWarpgroups = 2;  // consumers
@@ -73,50 +85,6 @@ struct Layout {
   int weights;  // [tap][Cin/8][NS][8] bf16
   int staging;  // 8 warps x 16 pixels x (2 NS + 16) bytes
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// the spin loop stays inside the asm: a loop the compiler sees would make
-// the warpgroup divergent before the wgmma that follows, and ptxas then
-// serialises the wgmma
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(bar),
-      "r"(parity) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3), "r"(bar) : "memory");
-}
 
 // wgmma shared-memory descriptor, no swizzle: start address, LBO (the
 // stride between the two 8-element K halves of a k16 slab) and SBO (the
@@ -245,7 +213,7 @@ conv_same_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
       mbar_init(smem_u32(full + s), 1);
       mbar_init(smem_u32(empty + s), kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   // the block's slice of every tap's weights, once, into K-major core
   // matrices: element e of [tap][Cin/8][NS] is the 16-byte row of channels
@@ -371,33 +339,6 @@ conv_same_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
       __syncwarp();
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so that
-// this library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 template <int NS, int KK>

@@ -5,8 +5,9 @@ its own with a plain C entry point, loaded with ``ctypes`` by its wrapper
 module (``ops/deform_cuda.py``, ``ops/conv_same.py``). ``build`` starts one
 ``nvcc`` per source, all at once. Nothing is built when this module is
 imported, so it imports on a host without CUDA. Every library's file name
-carries a hash of all the sources and flags, so an edited source is rebuilt
-and a stale build is never loaded.
+carries a hash of the flags and of every file under ``csrc/`` (``*.cu``
+and the headers they share, ``*.cuh``), so an edited source or header is
+rebuilt and a stale build is never loaded.
 """
 
 from __future__ import annotations
@@ -39,9 +40,16 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
+def sources() -> list:
+    """Every kernel source and shared header under ``CSRC``, by name."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")],
+                  key=lambda p: p.name)
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES.values():
+    for src in sources():
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 

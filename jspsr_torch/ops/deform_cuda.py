@@ -1,7 +1,11 @@
 """Build, bind and launch the deformable-conv kernels:
 
 - ``deform_fwd`` (``csrc/deform_fwd.cu``), replacing
-  ``jspsr_tpu/ops/pallas_deform.py::_fwd_kernel``;
+  ``jspsr_tpu/ops/pallas_deform.py::_fwd_kernel``: a persistent grid over
+  4 x 64 output tiles, each tile's offset and mask planes and a window of
+  the image around it brought into shared memory by TMA (or, for shapes a
+  tensor map cannot take, by cp.async); ``fwd_window`` counts, from the
+  offsets, the corners it reads from that window and from global memory;
 - ``deform_bwd`` (``csrc/deform_bwd.cu``), replacing ``_bwd_kernel`` with
   ``need_dx=False``: d_offset, d_mask and per-block d_weight partials;
 - ``deform_bwd_dx`` (the same source, its own kernel), replacing
@@ -31,6 +35,10 @@ from jspsr_torch.ops.cuda_build import build
 from jspsr_torch.ops.deform_conv import _corners, _positions
 
 TAPS = 9
+# K1's output tile (rows, columns) and window margin: the constants of
+# csrc/deform_fwd.cu, checked against the library when it is loaded
+FWD_TILE = (4, 64)
+FWD_MARGIN = 4
 # K3's output tile (rows, columns) and window margin: the constants of
 # csrc/deform_bwd.cu, checked against the library when it is loaded
 DX_TILE = (8, 32)
@@ -63,6 +71,18 @@ def _load(name: str):
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if name == "deform_fwd":
+            window = (ctypes.c_int * 5)()
+            lib.jspsr_deform_fwd_window(window)
+            want = (*FWD_TILE, FWD_MARGIN,
+                    *fwd_window_shape(FWD_TILE, FWD_MARGIN))
+            if tuple(window) != want:
+                raise RuntimeError(f"deform_fwd library's window "
+                                   f"{tuple(window)} != {want}")
+            path = lib.jspsr_deform_fwd_path
+            path.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+            path.restype = ctypes.c_int
+            _fns["deform_fwd_path"] = path
         if source == "deform_bwd":
             blocks = lib.jspsr_deform_bwd_blocks
             blocks.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
@@ -104,6 +124,9 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     _check({"x": x, "offset": offset, "weight": weight, "bias": bias,
             "mask": mask}, x)
     b, _, h, w = x.shape
+    if max(h, w) >= 2**22:
+        raise ValueError(f"deform_fwd: H, W = {h}, {w}: each must be below "
+                         f"2^22")
     out = torch.empty_like(x)
     fn = _load("deform_fwd")
     with torch.cuda.device(x.device):
@@ -115,6 +138,17 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
         raise RuntimeError(f"deform_fwd launch failed: cudaError {rc}")
     LAUNCHES["deform_fwd"] += 1
     return out
+
+
+def fwd_path(x: torch.Tensor, offset: torch.Tensor,
+             mask: torch.Tensor) -> str:
+    """Which load path K1 takes for these CUDA tensors: ``"tma"``, or
+    ``"copy"`` where a tensor map cannot take them (a row pitch or a base
+    that is not a multiple of 16 bytes)."""
+    _load("deform_fwd")
+    use = _fns["deform_fwd_path"](x.data_ptr(), offset.data_ptr(),
+                                  mask.data_ptr(), x.shape[-1])
+    return "tma" if use else "copy"
 
 
 def _backward(name, x, offset, weight, mask, grad_out, padding):
@@ -202,3 +236,50 @@ def dx_atomics(offset: torch.Tensor, h: int, w: int, padding: int = 1,
     counts["flush"] = int(torch.unique(torch.cat(cells)).numel())
     counts["global"] = counts["direct"] + counts["flush"]
     return counts
+
+
+def fwd_window_shape(tile=FWD_TILE, margin: int = FWD_MARGIN):
+    """K1's window (rows, columns) around a ``tile``: every corner of every
+    tap whose offsets are within ``margin``; its left edge lies on a
+    multiple of 4 columns (16-byte groups, up to 3 columns further out),
+    its width is a whole number of groups."""
+    th, tw = tile
+    return th + 2 * margin + 3, (tw + 2 * margin + 9) // 4 * 4
+
+
+def fwd_window_origin(y, x, padding: int = 1, tile=FWD_TILE,
+                      margin: int = FWD_MARGIN):
+    """The image row and column of the window's first cell for the tile
+    that holds pixel (y, x) (integer tensors or ints)."""
+    th, tw = tile
+    return (y // th * th - padding - margin,
+            (x // tw * tw - padding - margin) // 4 * 4)
+
+
+def fwd_window(offset: torch.Tensor, h: int, w: int, padding: int = 1,
+               tile=FWD_TILE, margin: int = FWD_MARGIN) -> dict:
+    """Where K1 reads its corners for these offsets (B, 18, H, W), on their
+    device. A tap whose 2 x 2 block of corners lies in the window of its
+    pixel's tile reads all four from shared memory (``window``, off-image
+    cells included: they hold 0); any other tap reads its in-image corners
+    from global memory (``global``). ``corners`` counts the in-image
+    corners of every tap, what a plain gather reads; ``taps`` and
+    ``window_taps`` count taps. Plain PyTorch."""
+    win_h, win_w = fwd_window_shape(tile, margin)
+    dev = offset.device
+    wy0, wx0 = fwd_window_origin(torch.arange(h, device=dev).view(1, 1, h, 1),
+                                 torch.arange(w, device=dev).view(1, 1, 1, w),
+                                 padding, tile, margin)
+    py, px = _positions(offset, padding)
+    # each pixel's window origin, in float as the kernel tests it
+    ry = torch.floor(py) - wy0.float()
+    rx = torch.floor(px) - wx0.float()
+    inside = ((ry >= 0) & (ry <= win_h - 2) & (rx >= 0)
+              & (rx <= win_w - 2))
+    corners, _, _ = _corners(py, px, h, w)
+    in_image = sum(valid.to(torch.int64) for _, valid in corners)
+    window_taps = int(inside.sum())
+    return {"taps": inside.numel(), "window_taps": window_taps,
+            "window": 4 * window_taps,
+            "global": int(in_image[~inside].sum()),
+            "corners": int(in_image.sum())}

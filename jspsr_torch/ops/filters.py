@@ -27,10 +27,20 @@ def _depthwise(x: torch.Tensor, kernel: torch.Tensor,
     return F.conv2d(x, w, padding=padding, groups=c)
 
 
+def replicate_pad1(x: torch.Tensor) -> torch.Tensor:
+    """``F.pad(x, (1, 1, 1, 1), mode="replicate")`` of NCHW ``x`` from its
+    edge rows and columns. The values are the same; the backward is a sum
+    of slices in a fixed order, where replicate padding's CUDA backward
+    sums with atomics (non-deterministic unless
+    ``torch.use_deterministic_algorithms`` is on)."""
+    x = torch.cat([x[..., :1, :], x, x[..., -1:, :]], dim=-2)
+    return torch.cat([x[..., :1], x, x[..., -1:]], dim=-1)
+
+
 def spatial_gradient(x: torch.Tensor):
     """kornia-style normalized Sobel gradient: NCHW -> (gx, gy), each NCHW.
     Replicate-padded, kernels divided by sum(|k|) = 8."""
-    xp = F.pad(x, (1, 1, 1, 1), mode="replicate")
+    xp = replicate_pad1(x)
     gx = _depthwise(xp, torch.tensor(_SOBEL_X, device=x.device) / 8.0)
     gy = _depthwise(xp, torch.tensor(_SOBEL_Y, device=x.device) / 8.0)
     return gx, gy

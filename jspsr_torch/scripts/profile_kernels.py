@@ -5,9 +5,10 @@ wrapper launches around it.
     python -m jspsr_torch.scripts.profile_kernels
 
 ``chip_smoke.py`` times a whole wrapper call: for K2 and K3 that includes
-the d_x zero fill and the d_weight and d_bias reductions, for K4 nothing
-else. This script runs each wrapper 20 times at its main shape (K2 at 50
-x 128², K3 at 16 x 128², offsets of 1.5 px; K4 at the TPU probe's four
+the d_x zero fill and the d_weight and d_bias reductions, for K1 the
+output's allocation, for K4 nothing else. This script runs each wrapper
+20 times at its main shapes (K1 at 16 x 128² and 1 x 1024², K2 at 50 x
+128², K3 at 16 x 128², offsets of 1.5 px; K4 at the TPU probe's four
 cases, beside cuDNN's ``F.conv2d``), the L2 cache flushed before each
 call, under ``torch.profiler``, and prints the card's name and power limit
 and then one JSON line per case: the mean device µs per call of every
@@ -73,6 +74,14 @@ def main(argv=None) -> list:
     print(bench.card_line(), flush=True)
     flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
     rows = []
+    for shape in ((16, 128, 128), (1, 1024, 1024)):
+        x, offset, weight, mask, _ = deform_case(*shape, dev)
+        bias = torch.zeros(1, device=dev)
+        with torch.inference_mode():
+            us = device_us(lambda: deform_cuda.deform_fwd(
+                x, offset, weight, bias, mask), flush)
+        rows.append({"kernel": "deform_fwd", "shape": list(shape),
+                     "device_us": us})
     for name, shape in (("deform_bwd", (50, 128, 128)),
                         ("deform_bwd_dx", (16, 128, 128))):
         args = deform_case(*shape, dev)

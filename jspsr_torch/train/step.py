@@ -18,7 +18,13 @@ step.
 
 ``generator`` is handed to the model's forward for its random draws
 (CompletionFormer's drop path; JSPSR draws nothing), as the JAX package
-hands its model a per-step key.
+hands its model a per-step key. Before each step the caller reseeds it
+with ``seed_step_generator(generator, seed, step)``: the draws of global
+step ``step`` are then a function of (seed, step) alone, as JAX's are
+(``jax.random.fold_in(PRNGKey(seed), state.step)``), so a run brought to
+step k and a run resumed at step k draw the same masks. They are not
+JAX's bits: torch's generator is another generator. LRRU's StoDepth, when
+it is ported, follows the same rule.
 
 ``remat`` is not yet ported: ``torch.utils.checkpoint`` re-runs the
 forward, and with it BatchNorm's in-place running-statistics update, in the
@@ -28,7 +34,18 @@ functional there). The eval step comes with the eval slice.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def seed_step_generator(generator: torch.Generator | None, seed: int,
+                        step: int) -> None:
+    """Reseed ``generator`` (nothing without one) for global step ``step``
+    of a run seeded with ``seed``, from a 64-bit hash of the pair:
+    neighbouring steps, and neighbouring seeds, start unrelated streams."""
+    if generator is not None:
+        generator.manual_seed(int(np.random.SeedSequence(
+            [int(seed), int(step)]).generate_state(1, np.uint64)[0]))
 
 
 def _bn_modules(model: torch.nn.Module) -> list:

@@ -5,8 +5,10 @@ reference main.py:47-315): the constructor and the epoch loop.
 ``p.seed``), the criterion, the optimizer and its per-epoch schedule, the
 train and valid datasets and loaders, the result directory and its
 ``config.json``. ``train_one_epoch(epoch)`` sets the epoch's learning rate
-and runs one train step per batch, handing the model a generator seeded
-from ``p.seed`` for its random draws (CompletionFormer's drop path):
+and runs one train step per batch, handing the model a generator
+reseeded before every step from ``p.seed`` and the global step
+``global_step`` (CompletionFormer's drop path; ``step.seed_step_generator``),
+so that a step's draws do not depend on the steps before it:
 
 - the host stages each batch on a prefetch thread: the loader's NHWC numpy
   arrays become NCHW tensors in pinned memory, copied to the card with
@@ -15,9 +17,11 @@ from ``p.seed`` for its random draws (CompletionFormer's drop path):
   summed on the device and read back once at the end of the epoch.
 
 It runs on the card unless ``device='cpu'`` is given, with TF32 off (the
-config is fp32). ``fit``, ``evaluate`` and ``finish`` need the eval loop
-and meters and are not yet ported; nor are the options in
-``NOT_PORTED``, which raise instead of being ignored.
+config is fp32) and cuDNN's deterministic algorithms
+(``set_deterministic_cudnn``). ``fit``, ``evaluate`` and ``finish`` need
+the eval loop and meters and are not yet ported; nor are the options in
+``NOT_PORTED``, nor turning off those in ``NOT_PORTED_OFF`` (the port
+always does them), which raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -36,8 +40,12 @@ from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
 from jspsr_torch.train.optim import build_lr_schedule, build_optimizer, \
     set_learning_rate
-from jspsr_torch.train.step import make_train_step
-from jspsr_torch.utils.device import resolve_device, set_strict_fp32
+from jspsr_torch.train.step import make_train_step, seed_step_generator
+from jspsr_torch.utils.device import (
+    resolve_device,
+    set_deterministic_cudnn,
+    set_strict_fp32,
+)
 from jspsr_torch.utils.logging import serialize_config
 from jspsr_torch.utils.summary import count_parameters
 
@@ -46,6 +54,10 @@ _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
 # config keys of the JAX Trainer whose port has not landed
 NOT_PORTED = ("device_normalize", "pack_mask", "device_cache",
               "save_every_steps", "profile_steps", "remat")
+# config keys of the JAX Trainer (default on) that the port always does:
+# turning one off is not yet ported (``prefetch_split``: the numpy
+# assembly and the copy to the device on threads of their own)
+NOT_PORTED_OFF = ("prefetch_split",)
 
 
 def _is_monitor_key(k: str) -> bool:
@@ -65,6 +77,9 @@ class Trainer:
         for key in NOT_PORTED:
             if p.get(key):
                 raise NotImplementedError(f"{key} is not yet ported")
+        for key in NOT_PORTED_OFF:
+            if not p.get(key, True):
+                raise NotImplementedError(f"{key}: false is not yet ported")
         if (p.get("checkpoint_backend") or "npz") == "orbax":
             raise NotImplementedError("checkpoint_backend: orbax is not yet "
                                       "ported")
@@ -77,6 +92,7 @@ class Trainer:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_strict_fp32()
+            set_deterministic_cudnn()
         self.verbose = p.get("verbose", True) if verbose is None else verbose
         self.result_dir = Path(
             result_dir or Path(p.get("work_root", ".")) / "results" / p.name)
@@ -90,9 +106,13 @@ class Trainer:
         self.criterion = build_criterion(dict(p.loss))
         self.optimizer = build_optimizer(p, self.model)
         self.lr_schedule = build_lr_schedule(p)
-        # the model's random draws in training (drop path), seeded as the
-        # JAX Trainer seeds its per-step keys
-        self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        # the model's random draws in training (drop path), reseeded from
+        # (seed, global_step) before every step, as the JAX Trainer folds
+        # the step into its key
+        self.generator = torch.Generator(self.device)
+        # optimizer steps taken since the run began: the counter that a
+        # resumed run restores
+        self.global_step = 0
         self.train_step = make_train_step(
             self.model, self.criterion, self.optimizer,
             accum_steps=int(p.get("accum_steps") or 1),
@@ -100,7 +120,7 @@ class Trainer:
 
         # stage batches on prefetch threads (default on): numpy assembly
         # in one, the copy to the device in another (the JAX package's
-        # ``prefetch_split``, here always on)
+        # ``prefetch_split``, here always on: see NOT_PORTED_OFF)
         self.prefetch_to_device = bool(p.get("device_prefetch", True))
         train_tf, eval_tf = build_transforms(p)
         data_kwargs = {k: v for k, v in p.items() if k != "seed"}
@@ -169,7 +189,9 @@ class Trainer:
                 # memory from being reused before this stream is done
                 for t in (*inputs, gt):
                     t.record_stream(stream)
+            seed_step_generator(self.generator, self.seed, self.global_step)
             losses = self.train_step(inputs, gt)
+            self.global_step += 1
             step_losses = {k: v for k, v in losses.items()
                            if not _is_monitor_key(k)}
             if loss_sums is None:

@@ -28,3 +28,14 @@ def set_strict_fp32() -> None:
     matmuls."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def set_deterministic_cudnn() -> None:
+    """Ask cuDNN for deterministic algorithms only, and no benchmark search
+    (which may pick another algorithm from run to run), so that a train
+    step on the card is reproducible as the JAX package's is. The port's
+    own kernels on the JSPSR path (the deform forward and its backward
+    without the input gradient) use no atomics; the backward with the input
+    gradient sums it with float atomics and stays non-reproducible."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

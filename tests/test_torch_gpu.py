@@ -27,7 +27,7 @@ from jspsr_torch.ops.deform_conv import (
     deform_conv2d_plain,
 )
 from jspsr_torch.train.step import make_train_step
-from jspsr_torch.utils.device import set_strict_fp32
+from jspsr_torch.utils.device import set_deterministic_cudnn, set_strict_fp32
 from jspsr_torch.utils.perturb import perturb_weights
 
 pytestmark = pytest.mark.gpu
@@ -67,6 +67,43 @@ def test_kernel_matches_plain(cuda_device, b, h, w, scale):
         ref = deform_conv2d_plain(*args)
     torch.cuda.synchronize()
     assert deform_cuda.LAUNCHES["deform_fwd"] == launches + 1
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+# K1's load paths: sides its 4 x 64 tile does not divide, one smaller
+# than a tile (TMA), W % 4 != 0 (the copy path), at integer positions,
+# sub-pixel offsets and far off the image
+K1_PATH_CASES = [(b, h, w, scale) for b, h, w in ((2, 13, 20), (1, 333, 335),
+                                                  (2, 13, 21))
+                 for scale in (0.0, 1.5, 20.0)]
+
+
+@pytest.mark.parametrize("b,h,w,scale", K1_PATH_CASES)
+def test_kernel_load_paths_match_plain(cuda_device, b, h, w, scale):
+    """A row pitch that is a multiple of 16 bytes takes TMA, any other the
+    copy path; both hold the plain version as the main shapes do."""
+    args = _args(b, h, w, scale, cuda_device)
+    assert deform_cuda.fwd_path(args[0], args[1], args[4]) == \
+        ("tma" if w % 4 == 0 else "copy")
+    with torch.inference_mode():
+        got = deform_cuda.deform_fwd(*args)
+        ref = deform_conv2d_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_misaligned_base_takes_the_copy_path(cuda_device):
+    """A contiguous view whose base is not 16-byte aligned cannot have a
+    tensor map: it takes the copy path and gives the same result."""
+    x, offset, weight, bias, mask = _args(2, 16, 128, 1.5, cuda_device)
+    moved = torch.empty(offset.numel() + 1, device=cuda_device)[1:]
+    moved = moved.view_as(offset).copy_(offset)
+    assert deform_cuda.fwd_path(x, offset, mask) == "tma"
+    assert deform_cuda.fwd_path(x, moved, mask) == "copy"
+    with torch.inference_mode():
+        got = deform_cuda.deform_fwd(x, moved, weight, bias, mask)
+        ref = deform_cuda.deform_fwd(x, offset, weight, bias, mask)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -247,6 +284,41 @@ def test_jspsr_train_step_on_gpu_matches_cpu(cuda_device):
         assert _rel_err(g_gpu[name], g_cpu[name]) < 1e-3, name
     for name in bn_cpu:
         assert _rel_err(bn_gpu[name], bn_cpu[name]) < 1e-4, name
+
+
+def test_jspsr_train_step_is_bit_reproducible(cuda_device):
+    """With cuDNN held to deterministic algorithms (the Trainer's
+    ``set_deterministic_cudnn``), K1 and K2 free of atomics and the Grad
+    loss's padding built from slices, one JSPSR step from the same state
+    and batch gives bit-equal weights, optimizer moments and BatchNorm
+    statistics."""
+    set_deterministic_cudnn()
+    in_channels = {"lr_dem": 1, "image": 3, "mask": 15}
+    rng = np.random.default_rng(7)
+    inputs = [torch.from_numpy(rng.uniform(0.05, 0.95, (4, c, 64, 64))
+                               .astype(np.float32)).to(cuda_device)
+              for c in in_channels.values()]
+    gt = torch.from_numpy(rng.uniform(0.05, 0.95, (4, 1, 64, 64))
+                          .astype(np.float32)).to(cuda_device)
+    state = JSPSR(dict(in_channels), num_feature=8,
+                  layers=(1, 1, 1, 1)).state_dict()
+    after = []
+    for _ in range(2):
+        model = JSPSR(dict(in_channels), num_feature=8, layers=(1, 1, 1, 1))
+        model.load_state_dict(state)
+        model = model.to(cuda_device)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+        make_train_step(model, build_criterion(
+            {"L1": 1, "L2": 1, "Grad": 0.1}), opt)(inputs, gt)
+        torch.cuda.synchronize()
+        after.append({**{n: t.detach().clone() for n, t in
+                         [*model.named_parameters(),
+                          *model.named_buffers()]},
+                      **{f"exp_avg_sq.{i}": opt.state[q]["exp_avg_sq"]
+                         for i, q in enumerate(model.parameters())}})
+    unequal = [n for n in after[0] if not torch.equal(after[0][n],
+                                                      after[1][n])]
+    assert not unequal
 
 
 CF_INPUTS = {"lr_dem": 1, "image": 3, "mask": 15}

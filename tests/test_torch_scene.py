@@ -349,3 +349,50 @@ def test_run_scene_inference_host_tiled_route_matches_jax(tiny, tmp_path):
                               tmp_path / "jax.npy", tile=True)
     np.testing.assert_allclose(read_raster(got), read_raster(ref), rtol=1e-3,
                                atol=1e-2)
+
+
+def _dispatch(port, s, p, min_overlap):
+    prepared = scene.prepare_scene(s, p, tile=128, min_overlap=min_overlap)
+    return scene.scene_dispatch_batch(port, [prepared], p,
+                                      device="cpu")[0].numpy()
+
+
+@pytest.mark.parametrize("side", [301, 303])
+def test_runner_cache_separates_overlaps(tiny, side):
+    """A scene asked for with ``min_overlap`` 64 after one with 16 gets a
+    runner of its own (at 301^2 the two overlaps pad to one shape, 3x3
+    tiles against 4x4; at 303^2 they pad to two). Its mosaic equals the
+    JAX package's runner built fresh for overlap 64 (a cold cache, where
+    JAX is right) at the suite's tolerance, and the port's own runner on a
+    cold cache bit for bit."""
+    port, (jm, params, bn) = tiny
+    p, jp = _p()
+    s = _scene(side, side, seed=10)
+    scene._RUNNER_CACHE.clear()
+    _dispatch(port, s, p, 16)
+    got = _dispatch(port, s, p, 64)
+    assert len(scene._RUNNER_CACHE) == 2
+    scene._RUNNER_CACHE.clear()
+    cold = _dispatch(port, s, p, 64)
+    np.testing.assert_array_equal(got, cold)
+
+    prepared = jax_scene.prepare_scene(s, jp, tile=128, min_overlap=64)
+    run = jax_scene.make_scene_runner(
+        jm, jp, prepared.keys, prepared.hw, tile=128, min_overlap=64,
+        encodings=prepared.enc)
+    ref = run(params, bn, {k: jnp.asarray(prepared.arrays[k][None])
+                           for k in prepared.keys},
+              jnp.asarray([prepared.base], jnp.float32))[0]
+    assert got.shape == (side, side, 1)
+    np.testing.assert_allclose(got, np.asarray(ref), **METRES)
+
+
+def test_mixed_overlaps_are_not_one_batch(tiny):
+    port, _ = tiny
+    p, _ = _p()
+    s = _scene(160, 160, seed=11)
+    batch = [scene.prepare_scene(s, p, tile=64, min_overlap=o)
+             for o in (16, 32)]
+    assert batch[0].arrays["lr_dem"].shape == batch[1].arrays["lr_dem"].shape
+    with pytest.raises(ValueError, match="homogeneous"):
+        scene.scene_dispatch_batch(port, batch, p, device="cpu")

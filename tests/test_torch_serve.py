@@ -246,3 +246,19 @@ def test_cli_tile_matches_jax_cli(tiny, tmp_path):
         np.testing.assert_allclose(a, b, **CLI)
     log = (tmp_path / "res_port" / "train.log").read_text()
     assert "Inference: 5 scenes" in log and "scenes/s" in log
+
+
+def test_compat_key_separates_overlaps():
+    """The overlap sets the grid: scenes of two overlaps never stack into
+    one batched run, even where their padded arrays share a shape."""
+    from jspsr_torch.eval.scene import prepare_scene
+
+    p, _ = _p()
+    rng = np.random.default_rng(12)
+    s = {"lr_dem": rng.uniform(10, 200, (160, 160, 1)).astype(np.float32),
+         "image": rng.integers(0, 255, (160, 160, 3)).astype(np.float32)}
+    a, b, c = (prepare_scene(s, p, tile=64, min_overlap=o)
+               for o in (16, 32, 16))
+    assert a.arrays["lr_dem"].shape == b.arrays["lr_dem"].shape
+    assert serve._compat_key(a) != serve._compat_key(b)
+    assert serve._compat_key(a) == serve._compat_key(c)

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import optax
 import torch
+import torch.nn.functional as F
 
 from jspsr_tpu.config.loader import AttrDict as JaxAttrDict
 from jspsr_tpu.losses import build_criterion as jax_build_criterion
@@ -73,6 +74,32 @@ def test_loss_matches_jax(name):
     want = float(JAX_LOSSES[name](jnp.asarray(pred), jnp.asarray(gt)))
     got = float(get_loss(name)(_nchw(pred), _nchw(gt)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+def test_replicate_pad_is_torch_replicate_without_its_backward():
+    """The Grad loss's padding: the values of ``F.pad(mode="replicate")``,
+    its gradient to rounding, and no replication-pad node in the graph
+    (its CUDA backward sums with atomics, which made the JSPSR step differ
+    from run to run on the card)."""
+    from jspsr_torch.ops.filters import replicate_pad1
+
+    x = torch.randn(3, 2, 7, 9, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    got, want = replicate_pad1(x), F.pad(x, (1, 1, 1, 1), mode="replicate")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    g = torch.randn_like(got)
+    torch.testing.assert_close(torch.autograd.grad(got, x, g)[0],
+                               torch.autograd.grad(want, x, g)[0],
+                               rtol=1e-6, atol=1e-6)
+    seen, todo = set(), [get_loss("grad")(x, x.detach() * 0.5).grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        todo.extend(n for n, _ in node.next_functions)
+    names = {type(n).__name__ for n in seen}
+    assert not any("Pad" in n for n in names), names
 
 
 @pytest.mark.parametrize("cfg", [{"L1": 1}, {"L1": 1, "L2": 1, "Grad": 0.1},
@@ -395,3 +422,111 @@ def test_monitor_reports_ranges():
     assert float(out["input_max"]) == pytest.approx(inputs[0].max())
     assert float(out["grad_min"]) < 0 < float(out["grad_max"])
     assert float(out["pred_min"]) <= float(out["pred_max"])
+
+
+# ------------------------------------------------- trainer: drop-path draws
+
+@pytest.fixture(scope="module")
+def cf_cfg(tmp_path_factory):
+    """A CompletionFormer run on a miniature DFC30 tree: 3 batches of 2
+    per epoch at 32^2 (the backbone's /32)."""
+    from jspsr_torch.data.synthetic import generate_mini_dfc30
+
+    root, train, valid = generate_mini_dfc30(
+        tmp_path_factory.mktemp("DFC30_8m"), train_cities=("Brest", "Caen"),
+        valid_cities=("Vannes",), n_per_city=3, size=32)
+    return {
+        "name": "torch_drop_path_test", "dataset": "DFC30",
+        "dataset_path": str(root), "resolution": 8,
+        "train_set": train, "valid_set": valid,
+        "input_data": {"COP30": 1, "image": 3, "mask": 15},
+        "relative": True, "augment": False, "patch_size": 32,
+        "crop_mode": "random", "patches_per_image": 1, "workers": 1,
+        "tensor_kwargs": {"log": True, "min": -80, "max": 929,
+                          "scale_mask": True},
+        "model_name": "CompletionFormer",
+        "model_kwargs": {"prop_time": 2, "pretrained": False,
+                         "checkpoint": None},
+        "loss": {"L1": 1},
+        "optimizer": "AdamW",
+        "optimizer_kwargs": {"lr": 1e-4, "weight_decay": 1e-6,
+                             "momentum": 0.9, "diff_lr": False},
+        "scheduler": "WarmupStepLR",
+        "scheduler_kwargs": {"max_lr": 1e-4, "step_size": 100, "gamma": 0.5,
+                             "warmup_epoch": 1},
+        "train_batch_size": 2, "epochs": 1, "verbose": False, "seed": 7,
+    }
+
+
+def _tiny_backbone(model, generator=None):
+    """CompletionFormer with its PVT cut to one block per stage (drop-path
+    rates 0, 1/30, 2/30, 0.1), at the widths its decoder takes."""
+    from jspsr_torch.models.pvt import PVT
+
+    model.backbone.former = PVT(in_chans=128, patch_size=2, depths=(1, 1, 1, 1))
+    return model
+
+
+class _Enough(Exception):
+    """Ends a recorded epoch early."""
+
+
+def _drop_path_masks(cfg, tmp_path, monkeypatch, start_step, n_steps):
+    """The drop-path keep masks drawn at each of ``n_steps`` train steps of
+    a Trainer whose global step starts at ``start_step``."""
+    from jspsr_torch.models.pvt import PVT
+    from jspsr_torch.train import trainer as trainer_mod
+
+    build = trainer_mod.build_model
+    monkeypatch.setattr(trainer_mod, "build_model",
+                        lambda p: _tiny_backbone(build(p)))
+    drawn = []
+    keep = PVT.drop_path_keep
+
+    def recording_keep(self, *args):
+        mask = keep(self, *args)
+        if mask is not None:
+            drawn.append(mask.clone())
+        return mask
+
+    monkeypatch.setattr(PVT, "drop_path_keep", recording_keep)
+    t = trainer_mod.Trainer(AttrDict(cfg), result_dir=tmp_path, device="cpu")
+    t.global_step = start_step
+    inner, per_step = t.train_step, []
+
+    def step(inputs, gt):
+        drawn.clear()
+        losses = inner(inputs, gt)
+        per_step.append(torch.cat([m.flatten() for m in drawn]))
+        if len(per_step) == n_steps:
+            raise _Enough
+        return losses
+
+    t.train_step = step
+    with pytest.raises(_Enough):
+        t.train_one_epoch(0)
+    return per_step
+
+
+def test_drop_path_draws_depend_on_seed_and_step_alone(cf_cfg, tmp_path,
+                                                       monkeypatch):
+    """A run brought to global step 2 and a run that starts at step 2 draw
+    the same drop-path masks there (the JAX step folds ``state.step`` into
+    its key); steps 2 and 3 draw different ones."""
+    through = _drop_path_masks(cf_cfg, tmp_path / "a", monkeypatch, 0, 3)
+    resumed = _drop_path_masks(cf_cfg, tmp_path / "b", monkeypatch, 2, 2)
+    assert through[2].numel() == 3 * 2  # 3 blocks with a rate > 0, batch 2
+    torch.testing.assert_close(resumed[0], through[2], rtol=0, atol=0)
+    assert not torch.equal(resumed[0], resumed[1])
+
+
+def test_trainer_refuses_prefetch_split_off(cf_cfg, tmp_path):
+    """The port always splits the batch staging over two threads; a config
+    that turns ``prefetch_split`` off is refused, not silently run."""
+    from jspsr_torch.train.trainer import NOT_PORTED_OFF, Trainer
+
+    assert "prefetch_split" in NOT_PORTED_OFF
+    for off in (False, None, 0):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            Trainer(AttrDict(dict(cf_cfg, prefetch_split=off)),
+                    result_dir=tmp_path, device="cpu")
