@@ -9,14 +9,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    version; TF32 off for cuDNN and matmul (fp32 means fp32);
 2. build: compile every kernel of the served and trained paths from the
    sources in the checkout, one ``nvcc`` per source, all at once (sm_90a),
-   printing each one's ``-Xptxas -v`` report (registers, spills);
+   printing each one's ``-Xptxas -v`` report (registers, spills); the
+   atomic instructions of each kernel of ``deform_bwd.cu``, read from its
+   SASS (``cuda_build.sass_atomics``), asserting that none holds a
+   compare-and-swap loop (``ATOMS.CAST.SPIN*``: K3's window adds 32-bit
+   words, which sm_90a adds natively);
 3. kernel check, forward (K1): against its plain PyTorch version on the
    card at the main paths' shapes (336^2 and 1024^2 JSPSR scenes, the
    50 and 16 x 128^2 train batches, a 352^2 CompletionFormer scene, the
-   tiled server's chunks of 72, 81 and 28 x 128^2) and two
-   correctness-only shapes that its tile does not divide (2 x 13 x 20,
-   and 1 x 333 x 335, whose W % 4 != 0 takes the copy path in place of
-   TMA), offsets at 0, 1.5 and 20 px (rtol = atol = 1e-5: the same fp32
+   tiled server's chunks of 72, 81 and 28 x 128^2), untimed at the eval
+   loop's (each config's valid batch of 128^2 samples, phase 10) and at
+   two shapes that its tile does not divide (2 x 13 x 20, and 1 x 333 x
+   335, whose W % 4 != 0 takes the copy path in place of TMA), offsets at
+   0, 1.5 and 20 px (rtol = atol = 1e-5: the same fp32
    arithmetic, only the order of the 9-term sum differs); at each, the
    share of corners read from the tile's shared-memory window and from
    global memory (``deform_cuda.fwd_window``); the main shapes timed with
@@ -35,14 +40,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    plain backward at the CompletionFormer train batch (16 x 128^2),
    2 x 128^2 and one 334^2 scene padded to 352^2, offsets at 0, 1.5 and
    20 px; d_offset and d_mask at rtol = atol = 1e-5; d_weight and d_x
-   (float atomics, summed in an order that changes from run to run)
-   within 1e-5 of the sums of their terms' magnitudes; timed as K2, the
-   library yardstick being autograd's backward through the
-   ``grid_sample`` form with ``x`` requiring grad; where this run's d_x
-   contributions go (``deform_cuda.dx_atomics``: into the block's
-   shared-memory window, or global, and the window's flush) is counted at
-   every offset scale and printed per shape beside the one global atomic
-   per in-bounds corner that a scatter without the window sends;
+   within 1e-5 of the sums of their terms' magnitudes (``DX_ERR_LIMIT``:
+   d_weight sums in another order, d_x in fixed point), each shape's d_x
+   error printed beside that limit; and against itself: two launches on
+   the same inputs must give bit-equal d_x, d_offset, d_mask, d_weight
+   and d_bias; then, at 20 px, a heavy-tailed g (``HEAVY_TAILS``: a few
+   entries 10^4 and 10^6 times the rest, which set the fixed point's
+   scale), d_x and d_weight within the same limit and bit-equal across
+   two launches; timed as K2, the library yardstick being autograd's
+   backward through the ``grid_sample`` form with ``x`` requiring grad,
+   and, after phase 10, the device time of each of its three kernels (the
+   bounds pass that sets the fixed point's scale, the scatter, the pass
+   back to fp32) read by name from ``torch.profiler``
+   (``profile_kernels.device_us``); where this run's d_x contributions go
+   (``deform_cuda.dx_atomics``: into the block's shared-memory window, or
+   global, and the window's flush) is counted at every offset scale and
+   printed per shape beside the one global atomic per in-bounds corner
+   that a scatter without the window sends;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -80,9 +94,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``SA_CONV_FLOOR``), from the seeded weights with NLSPN's
    offset/affinity conv perturbed away from its zero init (which makes the
    propagation the identity); then one step run twice from one state, as
-   in phase 5, whose difference is printed, not asserted: K3 sums d_x with
-   float atomics, and the backward of the PVT's bilinear resize uses
-   atomics on CUDA;
+   in phase 5, which must come out bit-equal in all 783 parameters and
+   buffers (K3 sums d_x in fixed point, the resizes' backward is two
+   matrix products, NLSPN's confidence sampling differentiates through
+   sorted indexing);
 7. CompletionFormer serving: one 334^2 scene (padded to 352^2, the
    backbone's /32) through the CLI's ``--infer`` with a seeded checkpoint
    whose BatchNorm statistics and offset/affinity conv are perturbed:
@@ -111,13 +126,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    reduction order); one 334^2 scene and scene (c) on the card against the
    port on the CPU at rtol 1e-3 / atol 1e-2 m (test_torch_infer.py's
    rtol for metres); warm scenes/s, one 1024^2 scene's warm end-to-end ms
-   through ``--tile`` against whole-scene (best of 5) and the peaks.
+   through ``--tile`` against whole-scene (best of 5) and the peaks;
+10. fit: the flagship config as it is but its epochs (300 -> 2, printed
+   as a cut) on phase 5's tree (its 3 valid cities at 4 samples each)
+   through ``Trainer(p, device="cuda").fit(initial_eval=True)``: the best
+   checkpoint named with its RMSE, one raster per valid sample under
+   ``predictions/``, ``summary.json`` and ``summary.csv``, one
+   ``metrics.jsonl`` line per epoch, and exactly one K1 and one K2 per
+   step plus one K1 per sample of each of the 4 eval passes; then --val
+   through the port's CLI on that checkpoint (its scores equal to the
+   final eval's at rtol 1e-5), the checkpoint evaluated by the port on
+   the CPU (rtol 1e-4, the JAX package's reload tolerance); then the
+   resume gate for the flagship and for CompletionFormer: a fit of 2
+   epochs against a fit of 1 whose checkpoint a new Trainer resumes to
+   epoch 2, their last parameters and buffers, best result and epoch
+   losses bit-equal; each epoch's and each eval pass's seconds.
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
-...}`` and ``{"kernels": [...]}`` lines, and ends with ``{"ok": true,
-"device": {...}}``. Without CUDA it exits non-zero before printing any
-result.
+...}``, ``{"fit": ...}`` (with the card's name and power limit) and
+``{"kernels": [...]}`` lines, and ends with ``{"ok": true, "device":
+{...}}``. Without CUDA it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -167,6 +196,7 @@ from jspsr_torch.scripts.bench_deform_fwd import (
     k1_bound,
     time_ms,
 )
+from jspsr_torch.scripts.profile_kernels import device_us
 from jspsr_torch.train.checkpoint import load_model_params
 from jspsr_torch.train.optim import build_optimizer
 from jspsr_torch.train.profile_step import random_batch
@@ -185,6 +215,18 @@ CF_CONFIG = REPO / "configs" / "completionformer_r8_img_msk.yml"
 CHECK_SHAPES = [(2, 13, 20), (1, 333, 335)]
 BWD_SHAPES = [(50, 128, 128), (16, 128, 128), (1, 336, 336)]
 DX_SHAPES = [(16, 128, 128), (2, 128, 128), (1, 352, 352)]
+# K3's d_weight and d_x against the plain backward: the largest error
+# relative to the sum of the terms' magnitudes (the sums run in another
+# order; d_x's fixed point resolves about 2^-61 of its image's L1 norm of
+# contributions)
+DX_ERR_LIMIT = 1e-5
+# K3 with a heavy-tailed g: HEAVY_COUNT entries of g, anywhere in the
+# batch, scaled by each factor (they set their images' fixed-point scale),
+# at this offset scale
+HEAVY_TAILS, HEAVY_COUNT, HEAVY_SCALE = (1e4, 1e6), 4, 20.0
+# K3's three kernels, by the names the profiler gives them
+DX_PASSES = {"bounds": "dx_bounds_kernel", "scatter": "deform_bwd_dx_kernel",
+             "fixed_to_float": "dx_fixed_to_float_kernel"}
 OFFSET_SCALES = (0.0, 1.5, 20.0)
 SCENES = [("scene_0", 334), ("scene_1", 334), ("scene_2", 334),
           ("scene_3", 334), ("scene_4", 1024)]
@@ -198,7 +240,13 @@ TILED_RECT = ("rect", (500, 700))
 # suite's tolerance for that (tests/test_scene_device.py), in metres.
 BATCH_RTOL, BATCH_ATOL = 2e-4, 5e-3
 TRAIN_SCENES_PER_CITY = 12  # x 13 cities = 156 samples: 3 steps of 50
+VALID_SCENES_PER_CITY = 4  # x 3 cities = 12 samples per eval pass
 TRAIN_SIDE = 128  # an 8 m DFC30 sample
+# fit on the card: the configs' 300 epochs cut to 2
+FIT_EPOCHS = 2
+# K1 launches per eval sample (valid batch 1): the flagship's SPN head once,
+# NLSPN's 6 propagation steps
+PER_EVAL_SAMPLE = {"JSPSR": 1, "CompletionFormer": 6}
 # One train step, per tensor (relative L2): the card's distance from
 # float64 may be three times the CPU fp32 run's, plus a floor. At init the
 # step is ill-conditioned in fp32 (the CPU's own fp32 gradients are up to
@@ -225,14 +273,21 @@ PER_STEP = {"JSPSR": {"deform_fwd": 1, "deform_bwd": 1, "deform_bwd_dx": 0},
 NONDETERMINISTIC_STEP_MS = {"JSPSR": 546.0, "CompletionFormer": 162.0}
 
 
+def eval_shapes() -> list:
+    """K1's shapes in the eval loop of phase 10: each config's valid
+    batch of TRAIN_SIDE^2 samples (a remainder batch is padded to it)."""
+    return sorted({(create_config(c).valid_batch_size, TRAIN_SIDE,
+                    TRAIN_SIDE) for c in (FLAGSHIP, CF_CONFIG)})
+
+
 def check_deform_kernel(dev, bandwidth, fp32_peak):
-    """K1 against its plain version at the main path's shapes (timed) and
-    the correctness-only shapes; returns one row per shape and the
-    wrapper's host µs per call."""
+    """K1 against its plain version at the main path's shapes (timed), the
+    eval loop's and the correctness-only shapes; returns one row per shape
+    and the wrapper's host µs per call."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
     rows = []
-    for b, h, w in KERNEL_SHAPES + CHECK_SHAPES:
+    for b, h, w in KERNEL_SHAPES + eval_shapes() + CHECK_SHAPES:
         row = {"shape": [b, 1, h, w], "max_abs_err": 0.0, "window": {}}
         for scale in OFFSET_SCALES:
             args = deform_inputs(b, h, w, scale, gen, dev)
@@ -354,21 +409,86 @@ def _err_over_abs_sum(got, ref, abs_sum) -> float:
     return ((got - ref).abs() / abs_sum.clamp_min(1e-30)).max().item()
 
 
+def dx_pass_times(dev, rows) -> None:
+    """The device time of each of K3's three kernels at each of its rows'
+    shapes (offsets of TIMED_SCALE), read by name from ``torch.profiler``,
+    into the row's ``pass_device_ms``. It runs after every other phase:
+    once the profiler has traced the card, the CompletionFormer step, which
+    waits on its host's launches, ran slower in this script."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(64 * 2**20, device=dev)
+    for row in rows:
+        b, _, h, w = row["shape"]
+        x, offset, weight, _, mask = deform_inputs(b, h, w, TIMED_SCALE, gen,
+                                                   dev)
+        g = torch.randn(b, 1, h, w, generator=gen, device=dev)
+        us = device_us(lambda: deform_cuda.deform_bwd_dx(
+            x, offset, weight, mask, g), flush)
+        row["pass_device_ms"] = {
+            part: sum(t for k, t in us.items() if kernel in k) / 1e3
+            for part, kernel in DX_PASSES.items()}
+        print(f"deform_bwd_dx at {b} x {h} x {w}: device ms by kernel "
+              f"{row['pass_device_ms']}", flush=True)
+
+
+def heavy_tails(b, h, w, gen) -> dict:
+    """K3 with HEAVY_COUNT entries of g scaled by each of HEAVY_TAILS:
+    bit-equal across two launches, and d_x and d_weight within
+    DX_ERR_LIMIT of the terms' magnitude sums against the plain backward,
+    as at the other scales (a reference in float64 would differ by the
+    fp32 rounding of the sample positions, which both versions share);
+    returns each factor's two errors."""
+    dev = gen.device
+    x, offset, weight, _, mask = deform_inputs(b, h, w, HEAVY_SCALE, gen, dev)
+    out = {}
+    for factor in HEAVY_TAILS:
+        g = torch.randn(b, 1, h, w, generator=gen, device=dev)
+        idx = torch.randint(0, g.numel(), (HEAVY_COUNT,), generator=gen,
+                            device=dev)
+        g.view(-1)[idx] *= factor
+        got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+        again = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+        ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                           need_dx=True)
+        abs_sum = deform_conv2d_backward_plain(
+            x.abs(), offset, weight.abs(), mask.abs(), g.abs(), need_dx=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"deform_bwd_dx at {(b, h, w)}, g with "
+                                 f"{factor:g} tails: two launches differ")
+        w_err = _err_over_abs_sum(got[2], ref[2], abs_sum[2])
+        x_err = _err_over_abs_sum(got[4], ref[4], abs_sum[4])
+        print(f"deform_bwd_dx at {b} x {h} x {w}, {HEAVY_SCALE:g} px, g with "
+              f"{HEAVY_COUNT} entries x {factor:g}: bit-equal across two "
+              f"launches; d_x error {x_err:.3e}, d_weight error "
+              f"{w_err:.3e} of the terms' magnitude sums (limit "
+              f"{DX_ERR_LIMIT:g})", flush=True)
+        if w_err > DX_ERR_LIMIT or x_err > DX_ERR_LIMIT:
+            raise AssertionError(f"deform_bwd_dx at {(b, h, w)}, g with "
+                                 f"{factor:g} tails: d_weight error {w_err}, "
+                                 f"d_x error {x_err}")
+        out[f"{factor:g}"] = {"d_x_err_over_abs_sum": x_err,
+                              "d_weight_err_over_abs_sum": w_err}
+    return out
+
+
 def check_deform_backward_dx(dev, bandwidth, fp32_peak):
-    """K3 against its plain backward at NLSPN's shapes; returns one row per
-    shape."""
+    """K3 against its plain backward at NLSPN's shapes, and against itself:
+    two launches on the same inputs must agree bit for bit; returns one
+    row per shape."""
     gen = torch.Generator(device=dev).manual_seed(2)
     flush = torch.empty(64 * 2**20, device=dev)
     rows = []
     for b, h, w in DX_SHAPES:
         row = {"shape": [b, 1, h, w], "max_abs_err": 0.0,
                "d_weight_err_over_abs_sum": 0.0,
-               "d_x_err_over_abs_sum": 0.0}
+               "d_x_err_over_abs_sum": 0.0, "bit_equal_twice": True}
         for scale in OFFSET_SCALES:
             x, offset, weight, bias, mask = deform_inputs(b, h, w, scale, gen,
                                                           dev)
             g = torch.randn(b, 1, h, w, generator=gen, device=dev)
             got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+            again = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
             ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
                                                need_dx=True)
             # d_weight and d_x bounded by the sums of their terms' magnitudes
@@ -376,6 +496,14 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
                 x.abs(), offset, weight.abs(), mask.abs(), g.abs(),
                 need_dx=True)
             torch.cuda.synchronize()
+            unequal = [name for name, a, c in zip(
+                ("d_offset", "d_mask", "d_weight", "d_bias", "d_x"), got,
+                again) if not torch.equal(a, c)]
+            if unequal:
+                raise AssertionError(
+                    f"deform_bwd_dx at {(b, h, w)} offset scale {scale}: "
+                    f"{unequal} differ between two launches on the same "
+                    f"inputs")
             for name, a, r in zip(("d_offset", "d_mask", "d_bias"),
                                   got[:2] + got[3:4], ref[:2] + ref[3:4]):
                 if not torch.allclose(a, r, rtol=1e-5, atol=1e-5):
@@ -385,11 +513,15 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
                         f"|err| {(a - r).abs().max().item()}")
             w_err = _err_over_abs_sum(got[2], ref[2], abs_sum[2])
             x_err = _err_over_abs_sum(got[4], ref[4], abs_sum[4])
-            if w_err > 1e-5 or x_err > 1e-5:
+            if w_err > DX_ERR_LIMIT or x_err > DX_ERR_LIMIT:
                 raise AssertionError(
                     f"deform_bwd_dx at {(b, h, w)} offset scale {scale}: "
                     f"d_weight error {w_err}, d_x error {x_err} of the "
                     f"terms' magnitude sums")
+            print(f"deform_bwd_dx at {b} x {h} x {w}, {scale} px: bit-equal "
+                  f"across two launches; d_x error {x_err:.3e} of its "
+                  f"terms' magnitude sum (limit {DX_ERR_LIMIT:g})",
+                  flush=True)
             row["max_abs_err"] = max(
                 row["max_abs_err"], (got[0] - ref[0]).abs().max().item(),
                 (got[1] - ref[1]).abs().max().item(),
@@ -438,6 +570,7 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
               f"global {row['global_atomics_per_pixel']:.3f} per pixel "
               f"(without the window {row['atomics_per_pixel']:.3f}), shared "
               f"{row['shared_atomics_per_pixel']:.3f}", flush=True)
+        row["heavy_tails"] = heavy_tails(b, h, w, gen)
         rows.append(row)
         print(f"deform_bwd_dx {row}", flush=True)
     return rows
@@ -734,25 +867,26 @@ def step_twice(p, dev, state, batch: int) -> dict:
 
 def make_train_tree(root: Path) -> float:
     """The synthetic DFC30 tree of the r8 configs' 13 train cities (12
-    samples of 128^2 each) and 3 valid cities; returns the seconds taken."""
+    samples of 128^2 each) and 3 valid cities (4 samples each); returns the
+    seconds taken."""
     p = create_config(FLAGSHIP)
     t0 = time.perf_counter()
     generate_mini_dfc30(root, train_cities=p.train_set, valid_cities=(),
                         n_per_city=TRAIN_SCENES_PER_CITY, size=TRAIN_SIDE)
     for city in p.valid_set:
-        generate_city(root, city, 1, size=TRAIN_SIDE)
+        generate_city(root, city, VALID_SCENES_PER_CITY, size=TRAIN_SIDE)
     return time.perf_counter() - t0
 
 
 def train(config: Path, root: Path, work: Path, dev: torch.device,
-          compare_batch: int, perturbed: bool, reproducible: bool):
+          compare_batch: int, perturbed: bool):
     """A training path: ``config`` as it is, on the synthetic tree at
     ``root``, through the port's Trainer for epochs 0 and 1, with exactly
     ``PER_STEP`` launches per step; then one train step on the card held
     against the CPU and float64 (from the seeded weights, ``perturbed``
     or not); then one step at the train batch run twice from the same
-    state (``step_twice``): with ``reproducible`` every tensor must come
-    out bit-equal, else the difference is printed."""
+    state (``step_twice``): every parameter and buffer must come out
+    bit-equal."""
     p = create_config(config)
     p.dataset_path = str(root)
     trainer = Trainer(p, result_dir=work, device=dev)
@@ -805,7 +939,7 @@ def train(config: Path, root: Path, work: Path, dev: torch.device,
           f"|diff| {twice['max_abs_diff']}; warm step median {warm:.1f} ms "
           f"(cuDNN free to choose its algorithms: "
           f"{NONDETERMINISTIC_STEP_MS[p.model_name]} ms)", flush=True)
-    if reproducible and twice["unequal"]:
+    if twice["unequal"]:
         raise AssertionError(f"{p.model_name}: the same step from the same "
                              f"state is not bit-equal: {twice}")
     return {
@@ -1006,6 +1140,181 @@ def serve_tiled(work: Path, dev: torch.device, flagship):
     return out, launches
 
 
+def fit_config(config: Path, root: Path, epochs: int = FIT_EPOCHS):
+    """``config`` as it is on the synthetic tree at ``root``, but for its
+    epochs (the one cut)."""
+    p = create_config(config)
+    p.dataset_path = str(root)
+    p.epochs = epochs
+    return p
+
+
+class FitRecorder:
+    """Wraps a Trainer's ``train_one_epoch``, ``evaluate`` and ``finish``:
+    each epoch's seconds and losses, each eval pass's seconds, and every
+    parameter and buffer as ``finish`` starts (the state the last epoch
+    left, before the best checkpoint is reloaded)."""
+
+    def __init__(self, trainer):
+        self.epoch_s, self.eval_s, self.losses = [], [], []
+        self.final_state = None
+        train_one_epoch, evaluate = trainer.train_one_epoch, trainer.evaluate
+        finish = trainer.finish
+
+        def timed_epoch(epoch):
+            t0 = time.perf_counter()
+            out = train_one_epoch(epoch)
+            torch.cuda.synchronize()
+            self.epoch_s.append(time.perf_counter() - t0)
+            self.losses.append(dict(trainer.last_epoch_losses))
+            return out
+
+        def timed_eval(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = evaluate(*args, **kwargs)
+            self.eval_s.append(time.perf_counter() - t0)
+            return out
+
+        def snapshot_finish():
+            self.final_state = {
+                n: t.detach().clone() for n, t in
+                [*trainer.model.named_parameters(),
+                 *trainer.model.named_buffers()]}
+            return finish()
+
+        trainer.train_one_epoch = timed_epoch
+        trainer.evaluate = timed_eval
+        trainer.finish = snapshot_finish
+
+
+def fit_run(config: Path, root: Path, work: Path, dev: torch.device,
+            epochs: int = FIT_EPOCHS, initial_eval: bool = False,
+            resume_from=None):
+    """``Trainer(p, device=dev).fit(initial_eval)`` for ``epochs`` (after
+    ``load(resume_from, resume=True)`` when given): (fit's result, its
+    recorder, the trainer)."""
+    trainer = Trainer(fit_config(config, root, epochs), result_dir=work,
+                      device=dev)
+    if resume_from is not None:
+        trainer.load(resume_from, resume=True)
+    rec = FitRecorder(trainer)
+    return trainer.fit(initial_eval=initial_eval), rec, trainer
+
+
+def resume_gate(config: Path, root: Path, work: Path, dev: torch.device):
+    """Run A fits FIT_EPOCHS epochs; run B fits 1 (its checkpoint, saved at
+    the end of epoch 0 as the first best, is renamed by ``finish``), then a
+    new Trainer loads it with ``resume=True`` and fits to FIT_EPOCHS. A's
+    and B's last parameters and buffers, best result and epoch losses must
+    be bit-equal: no tolerance."""
+    _, rec_a, a = fit_run(config, root, work / "A", dev)
+    out_b1, rec_b1, _ = fit_run(config, root, work / "B1", dev, epochs=1)
+    _, rec_b2, b2 = fit_run(config, root, work / "B2", dev,
+                            resume_from=out_b1["checkpoint"])
+    unequal = [n for n in rec_a.final_state
+               if not torch.equal(rec_a.final_state[n], rec_b2.final_state[n])]
+    b_losses = rec_b1.losses + rec_b2.losses
+    gate = {"tensors": len(rec_a.final_state), "unequal": len(unequal),
+            "unequal_names": unequal[:8],
+            "best_result_equal": a.best_result == b2.best_result,
+            "epoch_losses_equal": rec_a.losses == b_losses,
+            "start_epoch_after_load": b2.start_epoch,
+            "global_step": [a.global_step, b2.global_step]}
+    print(f"resume gate {a.p.model_name}: {gate}", flush=True)
+    if (unequal or not gate["best_result_equal"]
+            or not gate["epoch_losses_equal"]
+            or a.global_step != b2.global_step):
+        raise AssertionError(f"{a.p.model_name}: a resumed fit is not "
+                             f"bit-equal to an uninterrupted one: {gate}, "
+                             f"A {a.best_result} {rec_a.losses}, B "
+                             f"{b2.best_result} {b_losses}")
+    return gate
+
+
+def fit(root: Path, work: Path, dev: torch.device, smi: str):
+    """Phase 10: the flagship's ``fit`` on the card on phase 5's tree (its
+    config as it is but for the epochs), with the exact launches of its
+    steps and eval samples; the best checkpoint validated through the CLI's
+    --val, and on the CPU; then the resume gate for both families."""
+    p = fit_config(FLAGSHIP, root)
+    print(f"fit: {FLAGSHIP.relative_to(REPO)} as it is but epochs "
+          f"{create_config(FLAGSHIP).epochs} -> {FIT_EPOCHS} (a cut)",
+          flush=True)
+    reset_launches()
+    out, rec, trainer = fit_run(FLAGSHIP, root, work / "run", dev,
+                                initial_eval=True)
+    torch.cuda.synchronize()
+    launches = dict(deform_cuda.LAUNCHES)
+    n_valid = len(p.valid_set) * VALID_SCENES_PER_CITY
+    steps = FIT_EPOCHS * (len(p.train_set) * TRAIN_SCENES_PER_CITY
+                          // p.train_batch_size)
+    evals = len(rec.eval_s)  # initial, one per epoch, final
+    want = {k: v * steps for k, v in PER_STEP["JSPSR"].items()}
+    want["deform_fwd"] += PER_EVAL_SAMPLE["JSPSR"] * n_valid * evals
+    print(f"fit-path launches: {launches} for {steps} steps and {evals} eval "
+          f"passes of {n_valid} samples", flush=True)
+    if launches != want or evals != FIT_EPOCHS + 2:
+        raise AssertionError(f"fit launches {launches}, expected {want}")
+    run = work / "run"
+    ckpt = Path(out["checkpoint"])
+    preds = [f for f in (run / "predictions").iterdir()
+             if f.suffix in (".tif", ".npy")]
+    lines = (run / "metrics.jsonl").read_text().splitlines()
+    if ("RMSE" not in ckpt.name or not ckpt.exists()
+            or len(preds) != n_valid or len(lines) != FIT_EPOCHS
+            or not (run / "summary.json").exists()
+            or not (run / "summary.csv").exists()):
+        raise AssertionError(f"fit products: {ckpt.name}, {len(preds)} "
+                             f"predictions, {len(lines)} metrics lines, "
+                             f"{sorted(f.name for f in run.iterdir())}")
+    scores = {k: v for k, v in out["result"].items() if k != "input"}
+    if not all(np.isfinite(list(scores.values()))):
+        raise AssertionError(f"fit final eval {scores}")
+    del trainer
+
+    # --val through the CLI on the best checkpoint
+    cfg = dict(fit_config(FLAGSHIP, root))
+    # the loader derives dataset_path from data_root (root is its DFC30_8m)
+    cfg["data_root"] = str(root.parent)
+    cfg["model_kwargs"] = dict(cfg["model_kwargs"], checkpoint=str(ckpt))
+    cfg_path = work / "val.json"
+    cfg_path.write_text(json.dumps(cfg, default=str))
+    val = run_cli(["--config", str(cfg_path), "--val", "--result-dir",
+                   str(work / "val")])
+    for k, v in scores.items():
+        np.testing.assert_allclose(val[k], v, rtol=1e-5,
+                                   err_msg=f"--val {k} vs fit's final eval")
+
+    # the same checkpoint evaluated by the port on the CPU
+    cpu = Trainer(fit_config(FLAGSHIP, root), result_dir=work / "cpu",
+                  device="cpu", verbose=False)
+    cpu.load(ckpt)
+    cpu_scores = cpu.evaluate()
+    for k, v in scores.items():
+        np.testing.assert_allclose(cpu_scores[k], v, rtol=1e-4,
+                                   err_msg=f"CPU {k} vs the card's")
+    del cpu
+
+    gates = {name: resume_gate(config, root, work / f"gate_{name}", dev)
+             for name, config in (("JSPSR", FLAGSHIP),
+                                  ("CompletionFormer", CF_CONFIG))}
+    return {
+        "config": str(FLAGSHIP.relative_to(REPO)),
+        "cut": {"epochs": [create_config(FLAGSHIP).epochs, FIT_EPOCHS]},
+        "train_samples": len(p.train_set) * TRAIN_SCENES_PER_CITY,
+        "valid_samples": n_valid, "steps": steps,
+        "epoch_s": rec.epoch_s, "eval_pass_s": rec.eval_s,
+        "eval_ms_per_sample": [t / n_valid * 1e3 for t in rec.eval_s],
+        "checkpoint": ckpt.name, "final_eval": scores,
+        "best_result": out["best_result"],
+        "offline_summary": out["summary"]["offline"] if out["summary"]
+        else None,
+        "val_cli": {k: val[k] for k in scores},
+        "cpu_eval": {k: cpu_scores[k] for k in scores},
+        "launches": launches, "resume_gate": gates, "card": smi,
+    }, launches
+
+
 def phase(n: int, t_start: float) -> None:
     print(f"phase {n} starts at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1022,7 +1331,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(smi_line, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}",
           flush=True)
@@ -1035,6 +1345,14 @@ def main() -> int:
     for name, (lib, nvcc_s) in built.items():
         print(f"built {lib.name}: nvcc {nvcc_s:.2f} s", flush=True)
     print(f"build total {time.perf_counter() - t0:.2f} s", flush=True)
+    sass = cuda_build.sass_atomics(cuda_build.library_path("deform_bwd"))
+    for kernel, ops in sass.items():
+        print(f"SASS atomics of {kernel}: {ops}", flush=True)
+    spins = {k: o for k, o in sass.items()
+             if any(op.startswith("ATOMS.CAST.SPIN") for op in o)}
+    if spins:
+        raise AssertionError(f"deform_bwd.cu compiles a shared-memory "
+                             f"atomic to a compare-and-swap loop: {spins}")
 
     phase(3, t_start)
     # 3. each kernel against its plain version
@@ -1058,13 +1376,13 @@ def main() -> int:
         data_s = make_train_tree(root)
         training, paths["training"] = train(
             FLAGSHIP, root, tmp / "train", dev, compare_batch=4,
-            perturbed=False, reproducible=True)
+            perturbed=False)
         training["data_gen_s"] = data_s
         phase(6, t_start)
         # 6. training CompletionFormer through the Trainer
         cf_training, paths["cf_training"] = train(
             CF_CONFIG, root, tmp / "train_cf", dev, compare_batch=2,
-            perturbed=True, reproducible=False)
+            perturbed=True)
         # the Trainer asked cuDNN for deterministic algorithms, a
         # process-wide setting; serving runs as a process of its own, with
         # cuDNN's defaults, as in phase 4
@@ -1080,6 +1398,11 @@ def main() -> int:
         # 9. tiled serving of the flagship through the CLI
         tiled, tiled_paths = serve_tiled(tmp / "tiled", dev, flagship)
         paths.update(tiled_paths)
+        phase(10, t_start)
+        # 10. fit, --val, the CPU's scores and the resume gate
+        fitted, paths["fit"] = fit(root, tmp / "fit", dev, smi_line)
+    # K3's three kernels apart, under the profiler, after every phase
+    dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
     for result in (serving, training, cf_training, cf_serving, tiled):
         result["card"] = card
@@ -1139,6 +1462,7 @@ def main() -> int:
     print(json.dumps({"cf_training": cf_training}), flush=True)
     print(json.dumps({"cf_serving": cf_serving}), flush=True)
     print(json.dumps({"tiled_serving": tiled}), flush=True)
+    print(json.dumps({"fit": fitted}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -1,5 +1,7 @@
 """CLI entry point (counterpart of ``jspsr_tpu/cli/main.py``):
 
+  python -m jspsr_torch.cli.main --config c.yml            # train (fit)
+  python -m jspsr_torch.cli.main --config c.yml --val      # validate only
   python -m jspsr_torch.cli.main --config c.yml --infer <scene> [--out o.npy]
   python -m jspsr_torch.cli.main --config c.yml --infer <dir of scenes>
   python -m jspsr_torch.cli.main --config c.yml --infer <scene|dir> --tile
@@ -12,10 +14,14 @@ scenes goes through the pipelined server (``eval/serve.py``), batching
 ``infer_scene_batch`` scenes per run (default: ``auto_scene_batch``); a
 config the device-tiled path does not cover falls back to the host tiled
 path, scene by scene. It runs on the card (``--device cuda``, the default)
-unless ``--device cpu`` is given. --val, --export and training through the
-CLI (which needs the eval loop for ``Trainer.fit``) are not yet ported and
-raise; the epoch loop is
-``jspsr_torch.train.trainer.Trainer(p).train_one_epoch``.
+unless ``--device cpu`` is given.
+
+Without --infer it trains: ``Trainer(p).fit()``, after
+``trainer.load(model_kwargs.checkpoint, resume=p.resume)`` when the config
+names a checkpoint. --val (or ``val_weight: true`` in the config)
+validates that checkpoint instead: the eval with the bicubic-input
+baseline, the predictions saved, then the whole-split summary. --export is
+not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser("jspsr-torch")
     ap.add_argument("--config", required=True, help="experiment yaml/json")
     ap.add_argument("--val", action="store_true",
-                    help="validate only (not yet ported)")
+                    help="validate model_kwargs.checkpoint only")
     ap.add_argument("--result-dir", default=None)
     ap.add_argument("--infer", default=None, metavar="SCENE",
                     help="inference: LR-DEM raster, scene dir or dir of "
@@ -54,15 +60,21 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag in ("val", "export"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not yet ported")
-    if not args.infer:
-        raise NotImplementedError(
-            "training through the CLI is not yet ported (Trainer.fit needs "
-            "the eval loop); use --infer, or Trainer(p).train_one_epoch")
+    if args.export:
+        raise NotImplementedError("--export is not yet ported")
     p = create_config(args.config)
     ckpt = p.model_kwargs.get("checkpoint")
+
+    from jspsr_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    stamp = datetime.now().strftime("%m%d_%H%M")
+    result_dir = Path(args.result_dir or
+                      Path(p.get("work_root", ".")) / "results" / f"{stamp}_{p.name}")
+    result_dir.mkdir(parents=True, exist_ok=True)
+    sys.stdout = Logger(result_dir / "train.log")
+    if not args.infer:
+        return _train_or_validate(p, args, ckpt, result_dir, device)
     if not ckpt:
         raise ValueError("--infer requires model_kwargs.checkpoint")
 
@@ -77,14 +89,6 @@ def main(argv=None):
     )
     from jspsr_torch.models.factory import build_model
     from jspsr_torch.train.checkpoint import load_model_params
-    from jspsr_torch.utils.device import resolve_device
-
-    device = resolve_device(args.device)
-    stamp = datetime.now().strftime("%m%d_%H%M")
-    result_dir = Path(args.result_dir or
-                      Path(p.get("work_root", ".")) / "results" / f"{stamp}_{p.name}")
-    result_dir.mkdir(parents=True, exist_ok=True)
-    sys.stdout = Logger(result_dir / "train.log")
 
     model = load_model_params(build_model(p), ckpt)
     tile = p.get("patch_size", 128)
@@ -131,6 +135,28 @@ def main(argv=None):
                                           tile=args.tile, device=device)
     print(f"Inference: {path} ({t_ms:.1f} ms, peak {mem:.0f} MB)")
     return path
+
+
+def _train_or_validate(p, args, ckpt, result_dir, device):
+    """Training (``Trainer.fit``), or with --val / ``val_weight`` the
+    validation of ``ckpt`` (reference main.py:148-161)."""
+    from jspsr_torch.train.trainer import Trainer
+
+    if args.val or p.get("val_weight"):
+        if not ckpt:
+            raise ValueError(
+                "val_weight/--val requires model_kwargs.checkpoint")
+        trainer = Trainer(p, result_dir=result_dir, device=device)
+        trainer.load(ckpt, resume=False)
+        pred_dir = result_dir / "predictions"
+        result = trainer.evaluate(compare_input=True, save_dir=pred_dir)
+        print(f"Validation: {result}")
+        trainer.summarise(pred_dir)
+        return result
+    trainer = Trainer(p, result_dir=result_dir, device=device)
+    if ckpt:
+        trainer.load(ckpt, resume=bool(p.get("resume")))
+    return trainer.fit()
 
 
 if __name__ == "__main__":

@@ -155,9 +155,13 @@ class CBAMBasicBlock(nn.Module):
         return F.relu(out + residual)
 
 
-def Downsample(cin, cout, stride) -> nn.Sequential:
-    """conv1x1 + BN shortcut projection."""
-    return nn.Sequential(conv1x1(cin, cout, stride), nn.BatchNorm2d(cout))
+class Downsample(nn.Sequential):
+    """conv1x1 + BN shortcut projection: keys ``0`` / ``1``, the JAX
+    module's ``conv`` / ``bn`` (``utils/weights.py`` maps them by this
+    class)."""
+
+    def __init__(self, cin, cout, stride):
+        super().__init__(conv1x1(cin, cout, stride), nn.BatchNorm2d(cout))
 
 
 class Guide(nn.Module):

@@ -89,3 +89,46 @@ def build(verbose: bool = False) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return out
+
+
+def build_source(name: str, text: str) -> Path:
+    """A shared library built with ``nvcc`` (``NVCC_FLAGS``) from the CUDA
+    source ``text``, under ``BUILD_DIR`` and a name that hashes the text;
+    built once. For the measurement scripts' kernels built on the fly."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode() + text.encode())
+    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = lib.with_suffix(".cu")
+        src.write_text(text)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       check=True)
+        tmp.replace(lib)
+    return lib
+
+
+def sass_atomics(lib: Path) -> dict:
+    """The atomic instructions in the machine code (SASS) of the library
+    ``lib``, by kernel: ``{kernel: {opcode: count}}`` for every opcode that
+    starts with ``ATOM`` or ``RED`` (``ATOMS.ADD`` a native shared add,
+    ``ATOMS.CAST.SPIN*`` the compare-and-swap of a loop), read with the
+    toolkit's ``cuobjdump -sass``."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            out[kernel] = {}
+            continue
+        if kernel is None or "*/" not in line:
+            continue
+        # "/*0a10*/  @P0 ATOMS.ADD RZ, [R3], R4 ;  /* 0x... */"
+        words = line.split("*/", 1)[1].strip().split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words and words[0].startswith(("ATOM", "RED")):
+            out[kernel][words[0]] = out[kernel].get(words[0], 0) + 1
+    return out

@@ -84,12 +84,18 @@ def _corners(py, px, h: int, w: int):
 def _bilinear_corners(x: torch.Tensor, py, px):
     """The corner values around every position, 0 off the image, and the
     fractional parts: (v00, v01, v10, v11, ty, tx), each shaped like
-    ``py``."""
+    ``py``. The corners are read by indexing the flat image, whose
+    backward (``index_put_`` with accumulation) sorts the indices on CUDA
+    and sums each target's terms in one order on every run, where
+    ``torch.gather``'s backward (``scatter_add_``) sums with atomics (the
+    confidence sampling of NLSPN's affinities differentiates through
+    this)."""
     b, _, h, w = x.shape
     corners, ty, tx = _corners(py, px, h, w)
-    img = x.reshape(b, h * w)
-    vals = [torch.gather(img, 1, idx.reshape(b, -1)).view(py.shape)
-            * valid.to(x.dtype) for idx, valid in corners]
+    base = (torch.arange(b, device=x.device) * (h * w)).view(
+        b, *([1] * (py.dim() - 1)))
+    img = x.reshape(-1)
+    vals = [img[idx + base] * valid.to(x.dtype) for idx, valid in corners]
     return (*vals, ty, tx)
 
 

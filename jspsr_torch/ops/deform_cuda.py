@@ -10,9 +10,12 @@
   ``need_dx=False``: d_offset, d_mask and per-block d_weight partials;
 - ``deform_bwd_dx`` (the same source, its own kernel), replacing
   ``_bwd_kernel`` with ``need_dx=True``: the same outputs plus the input
-  gradient d_x, scattered into a shared-memory window around each 8 x 32
-  output tile and flushed with float atomics (``dx_atomics`` counts, from
-  the offsets, where this data's corners go).
+  gradient d_x, scattered in 64-bit fixed point (scaled per image from
+  the L1 norm of its contributions, which a first pass sums in a fixed
+  order) into a shared-memory window around each 8 x 32 output tile and
+  flushed with integer atomics, then turned back into fp32 by a last pass:
+  bitwise reproducible (``dx_atomics`` counts, from the offsets, where
+  this data's corners go).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -57,12 +60,13 @@ def reset_launches() -> None:
 
 # kernel -> (library, number of pointer arguments before batch, h, w, pad)
 _ENTRY = {"deform_fwd": ("deform_fwd", 6), "deform_bwd": ("deform_bwd", 8),
-          "deform_bwd_dx": ("deform_bwd", 9)}
+          "deform_bwd_dx": ("deform_bwd", 10)}
 
 
 def _load(name: str):
     """The kernel's ctypes function; for the backward kernels with the
-    library's block count, which sizes the d_weight partials."""
+    library's block count, which sizes the d_weight partials, and K3's
+    scratch size in int64 words."""
     if name not in _fns:
         source, n_ptr = _ENTRY[name]
         lib = ctypes.CDLL(str(build()[source][0]))
@@ -94,8 +98,11 @@ def _load(name: str):
                 raise RuntimeError(f"deform_bwd library's window "
                                    f"{tuple(window)} != {DX_TILE}, "
                                    f"{DX_MARGIN}")
+            scratch = lib.jspsr_deform_bwd_dx_scratch
+            scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+            scratch.restype = ctypes.c_int64
             need_dx = int(name == "deform_bwd_dx")
-            fn = (fn, lambda b, h, w: blocks(need_dx, b, h, w))
+            fn = (fn, lambda b, h, w: blocks(need_dx, b, h, w), scratch)
         _fns[name] = fn
     return _fns[name]
 
@@ -158,19 +165,23 @@ def _backward(name, x, offset, weight, mask, grad_out, padding):
         raise ValueError(f"grad_out must be {tuple(x.shape)}, got "
                          f"{tuple(grad_out.shape)}")
     b, _, h, w = x.shape
-    fn, blocks = _load(name)
+    fn, blocks, scratch = _load(name)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
     partial = torch.empty(blocks(b, h, w), TAPS, device=x.device,
                           dtype=torch.float32)
-    # the input gradient is accumulated with atomics: it starts at zero
-    d_x = [torch.zeros_like(x)] if name == "deform_bwd_dx" else []
+    tail, d_x = [], []
+    if name == "deform_bwd_dx":
+        # the fixed-point accumulator, summed with atomics, starts at zero;
+        # the bounds pass's partials after it are written whole
+        d_x = [torch.empty_like(x)]
+        tail = [torch.zeros(scratch(b, h, w), device=x.device,
+                            dtype=torch.int64), d_x[0]]
+    ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, partial,
+            *tail]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                weight.data_ptr(), grad_out.data_ptr(), d_offset.data_ptr(),
-                d_mask.data_ptr(), partial.data_ptr(),
-                *(t.data_ptr() for t in d_x), b, h, w, int(padding), stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -195,8 +206,8 @@ def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                   padding: int = 1):
     """Launch the backward kernel with the input gradient: as
     ``deform_bwd``, and returns ``(d_offset, d_mask, d_weight, d_bias,
-    d_x)``. d_x is summed with float atomics, so its low bits change from
-    run to run."""
+    d_x)``. d_x is summed in fixed point, scaled per image on the device,
+    so every output is the same, bit for bit, on every run."""
     return _backward("deform_bwd_dx", x, offset, weight, mask, grad_out,
                      padding)
 

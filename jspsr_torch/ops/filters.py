@@ -1,10 +1,9 @@
 """Fixed-kernel depthwise image filters on NCHW tensors (counterpart of
 ``jspsr_tpu/ops/filters.py``): the normalized Sobel gradient of the
-``Grad`` loss and the gaussian-window SSIM of the ``SSIM`` loss.
-
-The metric-only filters of the JAX module (``sobel_magnitude``, the
-reference's exponential window, the skimage row SSIM, Horn slope) come with
-the eval slice.
+``Grad`` loss and the gaussian-window SSIM of the ``SSIM`` loss, and the
+metric-only filters of the meters (``metrics/meters.py``): the reference's
+2x Sobel magnitude, its exponential SSIM window, skimage's row SSIM and
+Horn's slope.
 """
 
 from __future__ import annotations
@@ -46,10 +45,33 @@ def spatial_gradient(x: torch.Tensor):
     return gx, gy
 
 
+def sobel_magnitude(x: torch.Tensor) -> torch.Tensor:
+    """The reference's 'local' slope operator: 2x-scaled Sobel, valid
+    padding (the output shrinks by 2), magnitude sqrt(gx^2 + gy^2)."""
+    kx = torch.tensor(((2.0, 0.0, -2.0), (4.0, 0.0, -4.0), (2.0, 0.0, -2.0)),
+                      device=x.device)
+    ky = torch.tensor(((2.0, 4.0, 2.0), (0.0, 0.0, 0.0), (-2.0, -4.0, -2.0)),
+                      device=x.device)
+    gx, gy = _depthwise(x, kx), _depthwise(x, ky)
+    return torch.sqrt(gx * gx + gy * gy)
+
+
 def gaussian_window(size: int = 11, sigma: float = 1.5,
                     device=None) -> torch.Tensor:
     """Normalized 2D gaussian window (size, size), fp32."""
     g = torch.tensor([math.exp(-((i - size // 2) ** 2) / (2 * sigma**2))
+                      for i in range(size)], device=device)
+    g = g / g.sum()
+    return g[:, None] @ g[None, :]
+
+
+def reference_exp_window(size: int = 11, sigma: float = 1.5,
+                         device=None) -> torch.Tensor:
+    """The reference's 'gaussian' SSIM window, with its bug: ``exp(-(x -
+    size//2) * 2 / (2*sigma*2))`` is linear in x, not squared, so the
+    window is a one-sided decaying exponential (what the 'local' SSIM
+    package computes)."""
+    g = torch.tensor([math.exp(-(i - size // 2) * 2 / float(2 * sigma * 2))
                       for i in range(size)], device=device)
     g = g / g.sum()
     return g[:, None] @ g[None, :]
@@ -81,3 +103,69 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor, data_range: float = 1.0,
     if per_sample:
         return ssim_map.mean(dim=(1, 2, 3))
     return ssim_map.mean()
+
+
+def _uniform_filter_w(x: torch.Tensor, size: int = 7) -> torch.Tensor:
+    """scipy.ndimage.uniform_filter along W of NCHW, mode 'reflect' (the
+    edge value repeated: numpy's 'symmetric')."""
+    half = size // 2
+    xp = torch.cat([x[..., :half].flip(-1), x, x[..., -half:].flip(-1)],
+                   dim=-1)
+    k = torch.full((1, size), 1.0 / size, device=x.device)
+    return _depthwise(xp, k)
+
+
+def ssim_skimage_rows(pred: torch.Tensor, gt: torch.Tensor,
+                      data_range: float = 1.0, win_size: int = 7,
+                      per_sample: bool = False) -> torch.Tensor:
+    """skimage's SSIM as the reference calls it on an (H, W) array with
+    ``channel_axis=0``: every ROW is a channel, so it is a 1-D SSIM along W
+    per row (uniform 7-tap filter, sample covariance N/(N-1), borders
+    cropped by (win-1)//2), averaged. ``per_sample`` returns (B,)."""
+    cov_norm = win_size / (win_size - 1.0)
+
+    def uf(v):
+        return _uniform_filter_w(v, win_size)
+
+    ux, uy = uf(pred), uf(gt)
+    uxx, uyy, uxy = uf(pred * pred), uf(gt * gt), uf(pred * gt)
+    vx = cov_norm * (uxx - ux * ux)
+    vy = cov_norm * (uyy - uy * uy)
+    vxy = cov_norm * (uxy - ux * uy)
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / (
+        (ux * ux + uy * uy + c1) * (vx + vy + c2))
+    half = (win_size - 1) // 2
+    s = s[..., half: s.shape[-1] - half]
+    if per_sample:
+        return s.mean(dim=(1, 2, 3))
+    return s.mean()
+
+
+def horn_slope(dem: torch.Tensor, cell_x: float,
+               cell_y: float) -> torch.Tensor:
+    """Horn (1981) slope_riserun of NCHW ``dem`` (richdem's
+    ``TerrainAttribute(attrib='slope_riserun')``):
+
+        dz/dx = ((c + 2f + i) - (a + 2d + g)) / (8 cell_x)
+        dz/dy = ((g + 2h + i) - (a + 2b + c)) / (8 cell_y)
+
+    with neighbours off the grid taking the focal cell's value."""
+    h, w = dem.shape[-2:]
+    rows = torch.arange(h, device=dem.device)
+    cols = torch.arange(w, device=dem.device)
+
+    def nb(dy, dx):
+        # nb[r, c] = dem[r+dy, c+dx], the focal value off the grid
+        v = torch.roll(dem, shifts=(-dy, -dx), dims=(-2, -1))
+        ok = (((rows + dy >= 0) & (rows + dy < h))[:, None]
+              & ((cols + dx >= 0) & (cols + dx < w))[None, :])
+        return torch.where(ok, v, dem)
+
+    a, b, c = nb(-1, -1), nb(-1, 0), nb(-1, 1)
+    d, f = nb(0, -1), nb(0, 1)
+    g, hh, i = nb(1, -1), nb(1, 0), nb(1, 1)
+    dzdx = ((c + 2 * f + i) - (a + 2 * d + g)) / (8.0 * cell_x)
+    dzdy = ((g + 2 * hh + i) - (a + 2 * b + c)) / (8.0 * cell_y)
+    return torch.sqrt(dzdx * dzdx + dzdy * dzdy)

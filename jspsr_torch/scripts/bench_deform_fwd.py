@@ -192,18 +192,10 @@ def read_ceiling():
     kernel built with ``nvcc`` for sm_90a into the port's build directory.
     Takes W % 4 == 0."""
     import ctypes
-    import hashlib
 
     from jspsr_torch.ops import cuda_build
 
-    digest = hashlib.sha1(CEILING_SRC.encode()).hexdigest()[:12]
-    lib_path = cuda_build.BUILD_DIR / f"libread_ceiling_{digest}.so"
-    if not lib_path.exists():
-        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        src = lib_path.with_suffix(".cu")
-        src.write_text(CEILING_SRC)
-        subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                        str(lib_path), str(src)], check=True)
+    lib_path = cuda_build.build_source("read_ceiling", CEILING_SRC)
     fn = ctypes.CDLL(str(lib_path)).read_planes_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [
         ctypes.c_void_p]

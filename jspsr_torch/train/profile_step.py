@@ -66,8 +66,8 @@ CONV_KEYS = ("conv", "xmma", "gemm", "cutlass", "sm80", "sm90", "winograd",
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 GROUPS = (  # first match wins; names are CUDA kernel names
     ("K1 deform_fwd", ("deform_fwd",)),
-    ("K3 deform_bwd_dx", ("deform_bwd_kernel<true>",
-                          "deform_bwd_kernel<(bool)1>")),
+    ("K3 deform_bwd_dx", ("deform_bwd_dx_kernel", "dx_bounds_kernel",
+                          "dx_fixed_to_float_kernel")),
     ("K2 deform_bwd", ("deform_bwd",)),
     ("optimizer (foreach AdamW)", ("multi_tensor_apply",)),
     ("conv wgrad", ("wgrad",)),

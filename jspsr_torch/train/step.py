@@ -29,7 +29,10 @@ it is ported, follows the same rule.
 ``remat`` is not yet ported: ``torch.utils.checkpoint`` re-runs the
 forward, and with it BatchNorm's in-place running-statistics update, in the
 backward, where ``jax.checkpoint`` updates them once (the state is
-functional there). The eval step comes with the eval slice.
+functional there).
+
+``make_eval_step`` is the eval-mode forward with the losses, among them
+the per-sample totals that the eval loop reads.
 """
 
 from __future__ import annotations
@@ -133,3 +136,26 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
         return out
 
     return train_step
+
+
+def make_eval_step(model: torch.nn.Module, criterion=None):
+    """Returns ``eval_step(inputs, gt=None) -> (pred, loss dict)``: an
+    eval-mode forward without autograd and, given a criterion and ``gt``,
+    its losses, with ``_total_per_sample`` (B,): the criterion's total on
+    each sample alone. The eval loop averages those, so a padded remainder
+    batch and a batch-statistic loss (BerHu's threshold) give what one
+    sample at a time gives (the JAX package's vmap of the criterion)."""
+
+    @torch.no_grad()
+    def eval_step(inputs, gt=None):
+        model.eval()
+        pred = model(inputs)
+        losses = {}
+        if criterion is not None and gt is not None:
+            losses = {k: v.detach() for k, v in criterion(pred, gt).items()}
+            losses["_total_per_sample"] = torch.stack(
+                [criterion(pred[i:i + 1], gt[i:i + 1])["Total"]
+                 for i in range(pred.shape[0])])
+        return pred, losses
+
+    return eval_step

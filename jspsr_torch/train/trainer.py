@@ -1,5 +1,5 @@
 """Training orchestration (counterpart of ``jspsr_tpu/train/trainer.py``;
-reference main.py:47-315): the constructor and the epoch loop.
+reference main.py:47-315).
 
 ``Trainer(p, device=...)`` builds the model from the factory (seeded from
 ``p.seed``), the criterion, the optimizer and its per-epoch schedule, the
@@ -16,12 +16,23 @@ so that a step's draws do not depend on the steps before it:
 - the epoch loss is the batch-weighted mean of every step's losses,
   summed on the device and read back once at the end of the epoch.
 
+``fit`` runs the run: an optional initial eval with the bicubic-input
+baseline, then per epoch ``train_one_epoch``, an eval at the cadence of
+``do_eval``, the best checkpoint (``best_metric``) saved with the
+optimizer and ``global_step``, the early stop (after epoch 200, as the
+reference), one ``metrics.jsonl`` line; then ``finish``: the best
+checkpoint renamed with its scores, reloaded, a final eval that saves the
+predictions, and the whole-split summary (``eval/summarise.py``).
+``load(path, resume=True)`` restores what a resumed run needs to draw and
+compute what an uninterrupted one does: the weights and BatchNorm state,
+the optimizer, ``start_epoch``, ``best_result`` and ``global_step``.
+
 It runs on the card unless ``device='cpu'`` is given, with TF32 off (the
 config is fp32) and cuDNN's deterministic algorithms
-(``set_deterministic_cudnn``). ``fit``, ``evaluate`` and ``finish`` need
-the eval loop and meters and are not yet ported; nor are the options in
-``NOT_PORTED``, nor turning off those in ``NOT_PORTED_OFF`` (the port
-always does them), which raise instead of being ignored.
+(``set_deterministic_cudnn``): a step is the same, bit for bit, from the
+same state. The options in ``NOT_PORTED``, and turning off those in
+``NOT_PORTED_OFF`` (the port always does them), raise instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -36,17 +47,27 @@ from jspsr_torch.data.dfc30 import DFC30
 from jspsr_torch.data.loader import DataLoader, build_batch_inputs, \
     device_prefetch
 from jspsr_torch.data.transforms import build_transforms
+from jspsr_torch.eval.loop import eval_model
 from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
+from jspsr_torch.train.checkpoint import (
+    has_optimizer_state,
+    load_model_state,
+    load_optimizer_state,
+    save_checkpoint,
+)
+from jspsr_torch.train.early_stop import EarlyStopper, do_eval, \
+    validate_results
 from jspsr_torch.train.optim import build_lr_schedule, build_optimizer, \
     set_learning_rate
-from jspsr_torch.train.step import make_train_step, seed_step_generator
+from jspsr_torch.train.step import make_eval_step, make_train_step, \
+    seed_step_generator
 from jspsr_torch.utils.device import (
     resolve_device,
     set_deterministic_cudnn,
     set_strict_fp32,
 )
-from jspsr_torch.utils.logging import serialize_config
+from jspsr_torch.utils.logging import MetricLogger, serialize_config
 from jspsr_torch.utils.summary import count_parameters
 
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
@@ -117,6 +138,7 @@ class Trainer:
             self.model, self.criterion, self.optimizer,
             accum_steps=int(p.get("accum_steps") or 1),
             monitor=bool(p.get("monitor_value")), generator=self.generator)
+        self.eval_step = make_eval_step(self.model, self.criterion)
 
         # stage batches on prefetch threads (default on): numpy assembly
         # in one, the copy to the device in another (the JAX package's
@@ -140,6 +162,42 @@ class Trainer:
         p["num_train_sample"] = len(self.train_set)
         p["num_val_sample"] = len(self.valid_set)
         serialize_config(dict(p), self.result_dir / "config.json")
+
+        self.start_epoch = 0
+        self.best_result = None
+        self.metrics = MetricLogger(self.result_dir,
+                                    p.get("monitor_app") == "tensorboard")
+        es = p.get("early_stop") or {}
+        self.early_stopper = EarlyStopper(es.get("patience"),
+                                          es.get("monitor") or "val_loss")
+
+    # ------------------------------------------------------------------
+    def load(self, path, resume: bool = False):
+        """Load a ``.npz`` (the JAX package's or the port's; shape-filtered)
+        or a reference ``.pt`` / ``.pth`` (strict) checkpoint. With
+        ``resume`` it also restores ``start_epoch`` and ``best_result``
+        and, from a port checkpoint, the optimizer and ``global_step``;
+        other checkpoints carry no optimizer state of the port, so the
+        optimizer starts fresh (optimizer state is not portable)."""
+        flat, meta = load_model_state(self.model, path)
+        if resume:
+            if meta.get("epoch") is not None:
+                self.start_epoch = meta["epoch"] + 1
+                self.best_result = meta.get("best_result")
+            if has_optimizer_state(flat):
+                load_optimizer_state(self.model, self.optimizer, flat, meta)
+                self.global_step = int(meta.get("global_step", 0))
+            else:
+                print(f"[checkpoint] {path} holds no optimizer state of the "
+                      f"port (optimizer state is not portable): the "
+                      f"optimizer starts fresh at global step "
+                      f"{self.global_step}")
+        if self.verbose:
+            print(f"Loaded checkpoint {path} (epoch {meta.get('epoch')}, "
+                  f"resume={resume})")
+
+    def _ckpt_path(self) -> Path:
+        return self.result_dir / f"_tmp_{self.p.model_name}.npz"
 
     # ------------------------------------------------------------------
     def _batches(self):
@@ -222,14 +280,97 @@ class Trainer:
         return epoch_loss, lr
 
     # ------------------------------------------------------------------
-    def evaluate(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.evaluate is not yet ported (it "
-                                  "needs the eval loop and meters)")
+    def evaluate(self, compare_input: bool = False, save_dir=None,
+                 visual_dir=None):
+        if visual_dir is None and self.p.get("val_save_visual"):
+            visual_dir = self.result_dir / "visuals"
+        return eval_model(self.p, self.valid_loader, self.eval_step,
+                          self.device, compare_input=compare_input,
+                          save_dir=save_dir, visual_dir=visual_dir,
+                          verbose=self.verbose)
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.fit is not yet ported (it needs "
-                                  "the eval loop and meters)")
+    def fit(self, initial_eval: bool = True):
+        p = self.p
+        if initial_eval:
+            result = self.evaluate(compare_input=True)
+            if self.verbose:
+                print(f"Initial eval: "
+                      f"{ {k: v for k, v in result.items() if k != 'input'} }")
+        warmup = (p.get("scheduler_kwargs") or {}).get("warmup_epoch", 0)
+        for epoch in range(self.start_epoch, p.epochs):
+            train_loss, lr = self.train_one_epoch(epoch)
+            scalars = {"lr": lr, "train_loss": train_loss,
+                       "train_tiles_per_sec": self.last_throughput}
+            if do_eval(epoch, p.epochs, p.get("val_interval", 1),
+                       p.get("val_start_epoch", 1), warmup):
+                result = self.evaluate()
+                scalars.update({f"val_{k.lower()}": v
+                                for k, v in result.items() if k != "input"})
+                cur = {k: v for k, v in result.items()
+                       if k not in ("loss", "input")}
+                if validate_results(self.best_result, cur,
+                                    p.get("best_metric", "RMSE")):
+                    self.best_result = cur
+                    save_checkpoint(self._ckpt_path(), self.model,
+                                    self.optimizer, epoch=epoch,
+                                    best_result=self.best_result,
+                                    extra={"global_step": self.global_step})
+                # early stop only late in training (reference main.py:256)
+                if epoch > 200:
+                    metric = self.early_stopper.metric_from(
+                        result["loss"], cur, train_loss)
+                    if self.early_stopper(metric):
+                        print(f"Early stop at epoch {epoch}")
+                        break
+            self.metrics.log(epoch, **scalars)
+        return self.finish()
 
-    def finish(self, *args, **kwargs):
-        raise NotImplementedError("Trainer.finish is not yet ported (it "
-                                  "needs the eval loop and meters)")
+    def summarise(self, pred_dir: Path):
+        """The whole-split summary of the predictions in ``pred_dir``
+        against every public product found beside the ground truth
+        (``eval.summarise.summarise_run``), or None, reported, when it
+        fails: the scores are in, and the run keeps them."""
+        try:
+            from jspsr_torch.eval.summarise import summarise_run
+
+            lr_files = dict(zip(self.valid_set.id,
+                                self.valid_set.files["lr_dem"]))
+            summary = summarise_run(self.p, self.valid_set, pred_dir,
+                                    self.result_dir, plots=True,
+                                    lr_files=lr_files)
+        except Exception as e:  # the scores are in: report, do not lose them
+            print(f"[summarise] skipped: {e}")
+            return None
+        if self.verbose:
+            print(f"Offline summary: {summary['offline']}")
+        return summary
+
+    def finish(self):
+        """The run's end (reference main.py:275-311): the best checkpoint
+        renamed with its scores in the name and reloaded, a final eval that
+        saves the predictions (without the input baseline, as the
+        reference), then the whole-split summary against every public
+        product found beside the ground truth."""
+        p = self.p
+        tmp = self._ckpt_path()
+        final_path = tmp
+        if tmp.exists() and self.best_result:
+            inputs_s = "_".join(
+                k for k in ("image", "mask", "canopy", "coord")
+                if p.input_data.get(k)) or "dem"
+            parts = [p.model_name, f"r{p.resolution}", inputs_s]
+            for k in ("RMSE", "PSNR"):
+                if k in self.best_result:
+                    parts.append(f"{k}{self.best_result[k]:.4f}")
+            final_path = self.result_dir / ("_".join(parts) + tmp.suffix)
+            tmp.replace(final_path)
+            self.load(final_path, resume=False)
+        pred_dir = self.result_dir / "predictions"
+        result = self.evaluate(compare_input=False, save_dir=pred_dir)
+        if self.verbose:
+            print(f"Final eval: "
+                  f"{ {k: v for k, v in result.items() if k != 'input'} }")
+        summary = self.summarise(pred_dir)
+        self.metrics.close()
+        return {"checkpoint": str(final_path), "result": result,
+                "best_result": self.best_result, "summary": summary}

@@ -33,9 +33,12 @@ def set_strict_fp32() -> None:
 def set_deterministic_cudnn() -> None:
     """Ask cuDNN for deterministic algorithms only, and no benchmark search
     (which may pick another algorithm from run to run), so that a train
-    step on the card is reproducible as the JAX package's is. The port's
-    own kernels on the JSPSR path (the deform forward and its backward
-    without the input gradient) use no atomics; the backward with the input
-    gradient sums it with float atomics and stays non-reproducible."""
+    step on the card is reproducible as the JAX package's is. The rest of
+    both train steps sums in one order on every run too: the port's own
+    kernels (the deform forward, and its backward without and with the
+    input gradient, which sums that gradient in fixed point), the Grad
+    loss's replicate padding (``ops/filters.replicate_pad1``), the resizes'
+    backward (``nn/layers.py``, matrix products) and the confidence sampling
+    of NLSPN (``ops/deform_conv._bilinear_corners``, sorted indexing)."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False

@@ -26,6 +26,17 @@ and the port module it lands on decides both the name and the layout:
 ``state_dict_from_jax_tree(tree, model)`` does the same for any tree shaped
 like the JAX parameters (its gradients, AdamW's ``mu``/``nu``): nested
 dicts of arrays, flattened to ``params/...`` keys first.
+
+``jax_flat_from_state_dict(model)`` is the inverse: the port's state_dict
+as the flat ``params/...`` and ``bn/...`` numpy arrays of the JAX layout
+(the port's ``.npz`` checkpoints, which the JAX package loads). A port
+name is walked down ``model`` the other way: the same renames and
+layouts, inverted; ``Downsample``'s ``0`` / ``1`` are the JAX ``conv`` /
+``bn`` (a ``Downsample`` is the one ``nn.Sequential`` whose JAX
+counterpart names its children), a bare parameter of ``PostProcessor`` is
+a plain leaf (``w``, ``b``) and any other bare parameter a JAX
+``ParamLeaf`` (``<name>/value``); ``num_batches_tracked`` has no JAX
+counterpart.
 """
 
 from __future__ import annotations
@@ -40,8 +51,9 @@ from jspsr_torch.models.components import (
     Basic2d,
     Basic2dTrans,
     ChannelAttention,
+    Downsample,
 )
-from jspsr_torch.models.spn import Generator
+from jspsr_torch.models.spn import Generator, PostProcessor
 
 _NORMS = (nn.BatchNorm2d, nn.LayerNorm)
 _NORM_LEAVES = {"scale": "weight", "bias": "bias"}
@@ -145,3 +157,71 @@ def state_dict_from_jax_tree(tree, model: nn.Module,
     BatchNorm state (``prefix='bn'``), in ``model``'s key names and
     layouts."""
     return state_dict_from_jax(flatten_jax_tree(tree, prefix), model)
+
+
+# port child names (two segments) -> the JAX child, by the port module
+_PAIRS = ((Basic2dTrans, {("dconv", "0"): "conv", ("dconv", "1"): "dconv",
+                          ("dconv", "bn"): "bn"}),
+          (Basic2d, {("conv", "0"): "conv", ("conv", "bn"): "bn"}),
+          (ChannelAttention, {("fc", "0"): "fc1", ("fc", "2"): "fc2"}),
+          (Generator, {("conv_weight", "0"): "conv_weight"}))
+_STATE_NAMES = {v: k for k, v in _STATE_LEAVES.items()}
+_NORM_NAMES = {v: k for k, v in _NORM_LEAVES.items()}
+
+
+def _jax_path(model: nn.Module, name: str):
+    """Port parameter or buffer name -> (JAX module path segments, the
+    port module that holds it, its own name)."""
+    segs, module, jax = name.split("."), model, []
+    *parents, leaf = segs
+    i = 0
+    while i < len(parents):
+        pair = tuple(parents[i:i + 2])
+        for cls, table in _PAIRS:
+            if isinstance(module, cls) and pair in table:
+                jax.append(table[pair])
+                i += 2
+                break
+        else:
+            if isinstance(module, Downsample):
+                jax.append({"0": "conv", "1": "bn"}[parents[i]])
+            else:
+                jax.append(parents[i])
+            i += 1
+        module = model.get_submodule(".".join(parents[:i]))
+    return jax, module, leaf
+
+
+def jax_flat_from_state_dict(model: nn.Module, state_dict=None) -> dict:
+    """The port module ``model``'s state_dict (or ``state_dict``, in its
+    key layout) as ``{"params/...": ndarray, "bn/...": ndarray}`` in the
+    JAX package's key names and layouts (fp32; the inverse of
+    ``state_dict_from_jax``)."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    out = {}
+    for name, t in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        path, module, leaf = _jax_path(model, name)
+        if leaf in _STATE_NAMES:
+            out["/".join(["bn", *path, _STATE_NAMES[leaf]])] = arr
+            continue
+        if isinstance(module, nn.ConvTranspose2d):
+            jleaf = "w" if leaf == "weight" else "b"
+            if leaf == "weight":
+                arr = np.flip(arr.transpose(2, 3, 0, 1), (0, 1))
+        elif isinstance(module, (nn.Conv2d, nn.Linear)):
+            jleaf = "w" if leaf == "weight" else "b"
+            if leaf == "weight":
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        elif isinstance(module, _NORMS):
+            jleaf = _NORM_NAMES[leaf]
+        else:  # a bare parameter: a plain leaf of PostProcessor, else a
+            # ParamLeaf named by its own path
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            jleaf = leaf if isinstance(module, PostProcessor) \
+                else f"{leaf}/value"
+        out["/".join(["params", *path, jleaf])] = np.ascontiguousarray(arr)
+    return out

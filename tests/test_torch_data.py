@@ -7,6 +7,8 @@ shuffle, crops, flips and scaling from the same seeds), and the port's
 steps' losses.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -145,9 +147,24 @@ def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
 
 @pytest.mark.parametrize("method", ["fit", "evaluate", "finish"])
 def test_trainer_eval_methods_are_not_yet_ported(cfg, tmp_path, method):
-    t = Trainer(AttrDict(cfg), result_dir=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        getattr(t, method)()
+    """``fit``, ``evaluate`` and ``finish`` were refused until the eval loop
+    and meters were ported; each now runs on the CPU: ``evaluate`` scores
+    the valid split, ``finish`` saves a prediction per valid sample and
+    the summary, ``fit`` does both around its epochs."""
+    p = AttrDict(dict(cfg, epochs=1, metric={
+        "RMSE": {"package": "local", "min": -80, "max": 929}}))
+    t = Trainer(p, result_dir=tmp_path, device="cpu")
+    out = getattr(t, method)()
+    result = out if method == "evaluate" else out["result"]
+    assert set(result) == {"loss", "RMSE"}
+    assert np.isfinite(list(result.values())).all()
+    if method != "evaluate":
+        assert len(list((tmp_path / "predictions").iterdir())) == \
+            2 * len(t.valid_set)  # a raster and its profile per sample
+        assert (tmp_path / "summary.json").exists()
+    if method == "fit":
+        assert "RMSE" in Path(out["checkpoint"]).name
+        assert t.global_step == len(t.train_set) // p.train_batch_size
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(cfg, tmp_path,

@@ -141,22 +141,27 @@ DX_CASES = [(1, 12, 20, 2.0), (2, 32, 32, 0.0), (16, 128, 128, 20.0),
 
 @pytest.mark.parametrize("b,h,w,scale", DX_CASES)
 def test_backward_dx_kernel_matches_plain(cuda_device, b, h, w, scale):
-    """K3: d_offset and d_mask as K2's; d_x is summed with float atomics
-    in an order that changes from run to run, so its error is held to 1e-5
-    of the sum of its terms' magnitudes (the same scatter on |g w m|),
-    as d_weight's is."""
+    """K3: d_offset and d_mask as K2's; d_x is summed in fixed point, in
+    another order than the plain version's float sum, so its error is held
+    to 1e-5 of the sum of its terms' magnitudes (the same scatter on
+    |g w m|), as d_weight's is; a second launch on the same inputs gives
+    every output bit for bit."""
     x, offset, weight, _, mask = _args(b, h, w, scale, cuda_device)
     g = torch.randn(b, 1, h, w, generator=torch.Generator().manual_seed(3))
     g = g.to(cuda_device)
     launches = dict(deform_cuda.LAUNCHES)
     got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    torch.cuda.synchronize()
+    assert {k: deform_cuda.LAUNCHES[k] - launches[k] for k in launches} == \
+        {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 1}
+    again = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    launches = dict(deform_cuda.LAUNCHES)
     ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
                                        need_dx=True)
     abs_sum = deform_conv2d_backward_plain(x.abs(), offset, weight.abs(),
                                            mask.abs(), g.abs(), need_dx=True)
     torch.cuda.synchronize()
-    assert {k: deform_cuda.LAUNCHES[k] - launches[k] for k in launches} == \
-        {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 1}
     assert ref[4].abs().max() > 0
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
@@ -407,6 +412,89 @@ def test_completionformer_train_step_on_gpu_matches_cpu(cuda_device,
             e_card = _rel_err(out["card"][i][name], ref)
             e_cpu = _rel_err(out["cpu"][i][name], ref)
             assert e_card <= 3 * e_cpu + 5e-3, (name, e_card, e_cpu)
+
+
+@pytest.mark.parametrize("mode,size", [("bilinear", (37, 53)),
+                                       ("bilinear_ac", (64, 64)),
+                                       ("bicubic", (96, 80))])
+def test_resize_backward_and_k3_are_bit_reproducible(cuda_device, mode,
+                                                     size):
+    """The resize's backward (two transposed matrix products) and K3 (d_x
+    in fixed point) give the same bits on every launch: the two sums that
+    made a CompletionFormer step differ from run to run."""
+    from jspsr_torch.nn.layers import bicubic_resize, bilinear_resize
+
+    x = torch.randn(4, 8, 32, 32, generator=torch.Generator().manual_seed(5))
+    g = torch.randn(4, 8, *size, generator=torch.Generator().manual_seed(6))
+    grads = []
+    for _ in range(2):
+        leaf = x.to(cuda_device).requires_grad_(True)
+        y = (bicubic_resize(leaf, *size) if mode == "bicubic" else
+             bilinear_resize(leaf, *size, align_corners=mode.endswith("ac")))
+        y.backward(g.to(cuda_device))
+        grads.append(leaf.grad)
+    assert torch.equal(grads[0], grads[1])
+
+    x, offset, weight, _, mask = _args(16, 128, 128, 1.5, cuda_device)
+    g = torch.randn(16, 1, 128, 128,
+                    generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    first = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    second = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("b,factor", [(16, 1e4), (16, 1e6), (2, 1e6)])
+def test_backward_dx_kernel_heavy_tailed_gradient(cuda_device, b, factor):
+    """K3 with a g whose 4 largest entries are ``factor`` times the rest:
+    they set their images' fixed-point scale, and d_x still holds 1e-5 of
+    the sum of its terms' magnitudes against the plain backward, as
+    without them, bit-equal across two launches. (A reference in float64
+    would differ from both by the fp32 rounding of the sample positions.)"""
+    x, offset, weight, _, mask = _args(b, 128, 128, 20.0, cuda_device)
+    gen = torch.Generator().manual_seed(11)
+    g = torch.randn(b, 1, 128, 128, generator=gen)
+    g.view(-1)[torch.randint(0, g.numel(), (4,), generator=gen)] *= factor
+    g = g.to(cuda_device)
+    got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    again = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                       need_dx=True)[4]
+    abs_sum = deform_conv2d_backward_plain(x.abs(), offset, weight.abs(),
+                                           mask.abs(), g.abs(),
+                                           need_dx=True)[4]
+    assert ((got[4] - ref).abs() <= 1e-5 * abs_sum + 1e-7).all()
+
+
+def test_completionformer_train_step_is_bit_reproducible(cuda_device,
+                                                         completionformer):
+    """With cuDNN held to deterministic algorithms, K3's fixed-point d_x,
+    the resizes' backward as matrix products and NLSPN's confidence
+    sampling through sorted indexing, one train-mode forward and backward
+    at 2 x 64² from the same state gives every gradient and BatchNorm
+    statistic bit for bit. cuDNN's flags are process-wide: they are put
+    back as they were for the legs after this one."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    set_deterministic_cudnn()
+    try:
+        inputs, gt = _cf_batch(2, 64, seed=9)
+        crit = build_criterion({"L1": 1, "L2": 1, "Grad": 0.1})
+        after = []
+        for _ in range(2):
+            model = _cf(completionformer, cuda_device).train()
+            crit(model([x.float().to(cuda_device) for x in inputs]),
+                 gt.float().to(cuda_device))["Total"].backward()
+            torch.cuda.synchronize()
+            after.append({**{n: q.grad for n, q in model.named_parameters()
+                             if q.grad is not None},
+                          **dict(model.named_buffers())})
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    unequal = [n for n in after[0] if not torch.equal(after[0][n],
+                                                      after[1][n])]
+    assert not unequal
 
 
 # K4: the probe's four cases, kk 1, ragged H and W, and the widest channels;

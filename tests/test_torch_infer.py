@@ -9,6 +9,7 @@ by about ln(1009) * (z + 80).
 """
 
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from jspsr_tpu.utils.torch_import import import_torch_state_dict
 from jspsr_torch.cli.main import main as port_cli_main
 from jspsr_torch.config.loader import create_config
 from jspsr_torch.data.raster_io import read_raster, write_raster
+from jspsr_torch.data.synthetic import generate_mini_dfc30
 from jspsr_torch.eval.inference import (
     load_scene,
     make_forward,
@@ -178,12 +180,41 @@ def test_entry_points_need_cuda_or_explicit_cpu(fixture_dir, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--tile", "--val"], ["--val"],
                                    ["--export", "x"], []])
-def test_cli_unported_modes_raise(fixture_dir, flags):
-    """--val, --export and training through the CLI still raise; --tile is
-    ported (tests/test_torch_serve.py) and does not lift --val's refusal."""
+def test_cli_unported_modes_raise(fixture_dir, tmp_path, flags):
+    """Of the CLI's modes only --export still raises. --val is ported:
+    with --infer, inference goes first (as the JAX CLI), whole or --tile;
+    without --infer (``[]``) the CLI trains: ``Trainer.fit`` on a DFC30
+    tree, ending in a best checkpoint named with its RMSE."""
     root, *_ = fixture_dir
-    argv = ["--config", str(root / "c.yml"), "--device", "cpu", *flags]
+    argv = ["--config", str(root / "c.yml"), "--device", "cpu",
+            "--result-dir", str(tmp_path / "res"), *flags]
     if flags:
-        argv += ["--infer", str(root / "scenes")]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _run_cli(port_cli_main, argv)
+        argv += ["--infer", str(root / "scenes"), "--out",
+                 str(tmp_path / "out")]
+    if flags and flags[0] == "--export":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            _run_cli(port_cli_main, argv)
+        return
+    if flags:
+        if "--tile" in flags:  # tiles of 32 px: the scenes are 44 x 52
+            cfg = yaml.safe_load((root / "c.yml").read_text())
+            (tmp_path / "c32.yml").write_text(yaml.safe_dump(
+                dict(cfg, patch_size=32)))
+            argv[1] = str(tmp_path / "c32.yml")
+        paths = _run_cli(port_cli_main, argv)
+        assert [q.name for q in paths] == ["scene_a_sr.npy", "scene_b_sr.npy"]
+        assert all(np.isfinite(read_raster(q)).all() for q in paths)
+        return
+    tree, train, valid = generate_mini_dfc30(
+        tmp_path / "DFC30_8m", train_cities=("Brest",),
+        valid_cities=("Vannes",), n_per_city=2, size=32)
+    cfg = yaml.safe_load((root / "c.yml").read_text())
+    cfg.update(data_root=str(tmp_path), train_set=train, valid_set=valid,
+               patch_size=32, crop_mode="random", workers=1, verbose=False,
+               metric={"RMSE": {"package": "local", "min": -80, "max": 929}})
+    cfg["model_kwargs"]["checkpoint"] = None
+    (tmp_path / "train.yml").write_text(yaml.safe_dump(cfg))
+    argv[1] = str(tmp_path / "train.yml")
+    out = _run_cli(port_cli_main, argv)
+    assert "RMSE" in Path(out["checkpoint"]).name
+    assert np.isfinite(out["result"]["RMSE"])
