@@ -16,9 +16,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    words, which sm_90a adds natively);
 3. kernel check, forward (K1): against its plain PyTorch version on the
    card at the main paths' shapes (336^2 and 1024^2 JSPSR scenes, the
-   50 and 16 x 128^2 train batches, a 352^2 CompletionFormer scene, the
+   50, 70 (EDSR, LRRU) and 16 x 128^2 train batches, a 352^2
+   CompletionFormer scene, the
    tiled server's chunks of 72, 81 and 28 x 128^2), untimed at the eval
-   loop's (each config's valid batch of 128^2 samples, phase 10) and at
+   loop's (each config's valid batch of 128^2 samples, phase 10), at the
+   whole scenes of phases 11-12 as their models pad them (EDSR+SPN's 334^2,
+   unpadded, and LRRU's 500 x 700 scene at 512 x 704) and at
    two shapes that its tile does not divide (2 x 13 x 20, and 1 x 333 x
    335, whose W % 4 != 0 takes the copy path in place of TMA), offsets at
    0, 1.5 and 20 px (rtol = atol = 1e-5: the same fp32
@@ -30,7 +33,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    that computes the same function, and its bound on this card; then the
    wrapper's host µs per call (1,000 calls, no synchronise);
 3b. kernel check, backward (K2): against its plain backward at the train
-   batch (50 x 128^2), 16 x 128^2 and one 334^2 scene, offsets at 0, 1.5
+   batches (50 and 70 x 128^2), 16 x 128^2 and one 334^2 scene, offsets
+   at 0, 1.5
    and 20 px; d_offset and d_mask at rtol = atol = 1e-5 (the same fp32
    arithmetic per element); the batch-summed d_weight within 1e-5 of the
    sum of its terms' magnitudes (it sums B*H*W terms in another order);
@@ -81,8 +85,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    from the same weights and batch: with cuDNN held to deterministic
    algorithms (the Trainer's ``set_deterministic_cudnn``) and K1 and K2
    free of atomics, every parameter and BatchNorm buffer must come out
-   bit-equal; the warm step median is printed beside the one measured
-   while cuDNN chose freely;
+   bit-equal; the warm step median is printed beside the one of a further
+   epoch through the same Trainer with cuDNN free to choose
+   non-deterministic algorithms (in every training phase);
 6. CompletionFormer training: configs/completionformer_r8_img_msk.yml as
    it is (PVT backbone + NLSPN, 83,689,176 parameters, batch 16, drop
    path on) on the same synthetic tree (9 steps of 16 per epoch) through
@@ -140,12 +145,48 @@ Phases, in order; any failure ends the run with a non-zero exit:
    resume gate for the flagship and for CompletionFormer: a fit of 2
    epochs against a fit of 1 whose checkpoint a new Trainer resumes to
    epoch 2, their last parameters and buffers, best result and epoch
-   losses bit-equal; each epoch's and each eval pass's seconds.
+   losses bit-equal; each epoch's and each eval pass's seconds;
+11. EDSR: configs/edsr_r8_img.yml (16 blocks x 64, batch 70) as shipped
+   and with ``spn: true``, each trained one epoch (``CUT_EPOCHS``) on
+   phase 5's tree
+   through the Trainer (no K1/K2 launch as shipped; one K1 and one K2 per
+   step with the head), its step against the CPU and float64 and twice
+   from one state (bit-equal), as in phase 5; then a seeded checkpoint of
+   each served through the CLI's ``--infer`` over phase 4's directory
+   (K1 once per scene with the head) and ``--infer --tile`` over phase
+   9's 8 x 334^2 (K1 once per chunk with the head), the card against the
+   CPU in float64 (``hold_to_float64``: the tolerance plus three times the
+   CPU fp32 run's distance from float64) at rtol 1e-4 / atol 2e-5 (the
+   first whole scene, the scaled output, atol times its largest
+   magnitude, at least 1) and phase 9's rtol 1e-3 / atol 1e-2 m (the first
+   and last served rasters), and every served raster against its scene
+   alone as in phase 9;
+12. LRRU: configs/lrru_r8_img.yml as shipped (20,843,342 parameters,
+   batch 70) trained the same way, with exactly 4 K1 + 1 K2 per step and
+   no K3; its step against the CPU and float64 and twice from one state
+   on DEMs with 3 % of their pixels at no data (``LRRU_HOLES``: where the
+   DEM is > 0, ``preserve`` puts the input back before each round, and
+   rounds 1-3 could not show); after one step, every parameter of the
+   heads of rounds 1-3 with a zero gradient and AdamW's step taken on
+   every parameter; then a seeded checkpoint served, on scenes with 3 %
+   of their DEM in contiguous voids at -80 m (0 on the serving config's
+   linear scale), by
+   ``--infer`` over 4 x 334^2 and 1 x 1024^2, then one 500 x 700 scene
+   (padded to 512 x 704, LRRU's /16), 4 K1 per scene, and ``--infer
+   --tile`` over 8 x 334^2 (4 K1 per chunk), held as in phase 11 at the
+   LRRU tolerance, rtol 1e-4 / atol 3e-5 (scaled, times the output's
+   largest magnitude; in metres atol x 1009 m, the served rasters being
+   clipped to [0, 1]), on two whole scenes and the first and last served
+   rasters, and every served raster against its scene alone at twice the
+   atol those two were held to float64 at (both are card runs held that
+   close to float64; a batch of 72 tiles and one of 9 take other cuDNN
+   algorithms, ``LRRU_ATOL``).
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
-...}``, ``{"fit": ...}`` (with the card's name and power limit) and
-``{"kernels": [...]}`` lines, and ends with ``{"ok": true, "device":
+...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}`` (with
+the card's name and power limit) and ``{"kernels": [...]}`` lines, and
+ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
 """
 
@@ -170,6 +211,8 @@ from jspsr_torch.data.synthetic import generate_city, generate_mini_dfc30
 from jspsr_torch.eval.inference import (
     load_scene,
     make_forward,
+    model_stride_multiple,
+    pads_for_multiple,
     run_scene_inference,
     upscale_dem,
 )
@@ -202,18 +245,21 @@ from jspsr_torch.train.optim import build_optimizer
 from jspsr_torch.train.profile_step import random_batch
 from jspsr_torch.train.step import make_train_step, seed_step_generator
 from jspsr_torch.train.trainer import Trainer
-from jspsr_torch.utils.device import set_strict_fp32
+from jspsr_torch.utils.device import set_deterministic_cudnn, set_strict_fp32
 from jspsr_torch.utils.perturb import perturb_weights
 
 REPO = Path(__file__).resolve().parent
 FLAGSHIP = REPO / "configs" / "jspsr_r8_img_msk.yml"
 CF_CONFIG = REPO / "configs" / "completionformer_r8_img_msk.yml"
+EDSR_CONFIG = REPO / "configs" / "edsr_r8_img.yml"
+LRRU_CONFIG = REPO / "configs" / "lrru_r8_img.yml"
 
 # K1's correctness-only shapes: sides that are not multiples of its 4 x 64
 # tile, the first smaller than one tile (TMA), the second with W % 4 != 0
 # (a row pitch a tensor map cannot take: the copy path)
 CHECK_SHAPES = [(2, 13, 20), (1, 333, 335)]
-BWD_SHAPES = [(50, 128, 128), (16, 128, 128), (1, 336, 336)]
+BWD_SHAPES = [(50, 128, 128), (70, 128, 128), (16, 128, 128),
+              (1, 336, 336)]
 DX_SHAPES = [(16, 128, 128), (2, 128, 128), (1, 352, 352)]
 # K3's d_weight and d_x against the plain backward: the largest error
 # relative to the sum of the terms' magnitudes (the sums run in another
@@ -266,11 +312,49 @@ SA_CONV_SUFFIX, SA_CONV_FLOOR = ".sa.conv1.weight", 2.5e-2
 # NLSPN propagates 6 times a feature that needs its gradient (K3).
 PER_STEP = {"JSPSR": {"deform_fwd": 1, "deform_bwd": 1, "deform_bwd_dx": 0},
             "CompletionFormer": {"deform_fwd": 6, "deform_bwd": 0,
-                                 "deform_bwd_dx": 6}}
-# Warm step medians through the Trainer while cuDNN was free to choose
-# non-deterministic algorithms (this script, NVIDIA H100 80GB HBM3 at
-# 700 W), beside which the deterministic steps' are printed.
-NONDETERMINISTIC_STEP_MS = {"JSPSR": 546.0, "CompletionFormer": 162.0}
+                                 "deform_bwd_dx": 6},
+            # EDSR as shipped runs no SPN head; with it, JSPSR's head on
+            # the detached DEM. LRRU runs its post-process in each of 4
+            # rounds on a detached depth; only round 4's output reaches
+            # the loss undetached.
+            "EDSR": {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 0},
+            "EDSR+SPN": {"deform_fwd": 1, "deform_bwd": 1,
+                         "deform_bwd_dx": 0},
+            "LRRU": {"deform_fwd": 4, "deform_bwd": 1, "deform_bwd_dx": 0}}
+# Phases 11-12 train one epoch each (2 steps of 70), a cut: with two, as
+# phases 5-6 train, the whole script ran 359.5 s (NVIDIA H100 80GB HBM3,
+# 700 W), where phases 1-10 alone had taken 227.9 s
+CUT_EPOCHS = (0,)
+# K1 launches per forward (a served scene, a tile chunk, an eval sample)
+PER_FORWARD = {"EDSR": 0, "EDSR+SPN": 1, "LRRU": 4}
+# LRRU's heads of rounds 1-3: their outputs enter the loss only detached
+UNREACHED = ("upproj0.", "upproj1.", "upproj2.", "weight_offset0.",
+             "weight_offset1.", "weight_offset2.")
+# The share of LRRU's input DEM pixels set to no data (0 once scaled)
+# wherever its output is compared: ``preserve`` puts the input back at
+# every pixel where the DEM is > 0 before each round, so elsewhere rounds
+# 1-3 would not reach the output and a fault there could not show.
+LRRU_HOLES = 0.03
+# LRRU's tolerance, the JAX suite's (tests/test_parity_lrru.py:45), in
+# its scaled output (atol times the output's largest magnitude, at least
+# 1), and carried into metres by the linear descale of the serving config
+# below (x 1009 m; a served raster is clipped to [0, 1] before it, so its
+# magnitude is at most 1). The full-width LRRU with random weights is
+# ill-conditioned in fp32: on these scenes the CPU's own fp32 output is
+# 0.3-0.75 of this tolerance from float64 and the card's up to 1.1 of it,
+# so two fp32 runs may differ by more than it. The card is held to float64
+# on the CPU, with three times the CPU fp32 run's distance added
+# (``hold_to_float64``), as phase 5 holds a train step.
+LRRU_RTOL, LRRU_ATOL = 1e-4, 3e-5
+# The serving inputs of the image-only configs (configs/edsr_r8_img.yml,
+# configs/lrru_r8_img.yml)
+IMG_ONLY = {"COP30": 1, "image": 3}
+# LRRU serves with the linear elevation scale and no relative base, so a
+# no-data pixel at the range's minimum (-80 m) scales to 0 and
+# ``preserve`` leaves it to rounds 1-3 (configs/lrru_r8_img.yml's log scale
+# maps every elevation above 0.63, so no pixel would be left to them)
+LRRU_SCALING = {"relative": False,
+                "tensor_kwargs": {"log": False, "min": -80, "max": 929}}
 
 
 def eval_shapes() -> list:
@@ -280,14 +364,31 @@ def eval_shapes() -> list:
                     TRAIN_SIDE) for c in (FLAGSHIP, CF_CONFIG)})
 
 
+def serving_shapes() -> list:
+    """K1's shapes on the whole-scene serving paths of phases 11-12: each
+    scene served whole, padded to its model's stride multiple (EDSR's 1,
+    LRRU's 16); the tiled paths' chunks are in KERNEL_SHAPES."""
+    shapes = set()
+    for config, scenes in ((EDSR_CONFIG, SCENES),
+                           (LRRU_CONFIG, SCENES + [TILED_RECT])):
+        mult = model_stride_multiple(create_config(config))
+        for _, side in scenes:
+            h, w = (side, side) if isinstance(side, int) else side
+            t, b, l, r = pads_for_multiple(h, w, mult)
+            shapes.add((1, h + t + b, w + l + r))
+    return sorted(shapes)
+
+
 def check_deform_kernel(dev, bandwidth, fp32_peak):
     """K1 against its plain version at the main path's shapes (timed), the
-    eval loop's and the correctness-only shapes; returns one row per shape
-    and the wrapper's host µs per call."""
+    eval loop's, the whole-scene serving paths' of phases 11-12 and the
+    correctness-only shapes, each once; returns one row per shape and the
+    wrapper's host µs per call."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
     rows = []
-    for b, h, w in KERNEL_SHAPES + eval_shapes() + CHECK_SHAPES:
+    for b, h, w in dict.fromkeys(KERNEL_SHAPES + eval_shapes()
+                                 + serving_shapes() + CHECK_SHAPES):
         row = {"shape": [b, 1, h, w], "max_abs_err": 0.0, "window": {}}
         for scale in OFFSET_SCALES:
             args = deform_inputs(b, h, w, scale, gen, dev)
@@ -576,10 +677,12 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
     return rows
 
 
-def write_scenes(root: Path, scenes, seed: int = 0):
+def write_scenes(root: Path, scenes, seed: int = 0, holes: float = 0.0):
     """Smooth synthetic terrain in metres, a 0-255 RGB orthophoto and a
     15-channel one-hot land-use mask per scene, as .npy rasters in the
-    DFC30 subdirectory layout."""
+    DFC30 subdirectory layout; the share ``holes`` of the DEM's pixels at
+    -80 m (no data, the configs' minimum elevation), in contiguous voids
+    (DEM voids are regions: radar shadow, water)."""
     rng = np.random.default_rng(seed)
     for name, side in scenes:
         h, w = (side, side) if isinstance(side, int) else side
@@ -589,6 +692,11 @@ def write_scenes(root: Path, scenes, seed: int = 0):
         dem = (150 + 120 * np.sin(fx * np.pi * xx + ph)
                * np.cos(fy * np.pi * yy) + 60 * xx
                + rng.normal(0, 0.5, (h, w)))
+        if holes:
+            fv = rng.uniform(3, 9, 2)
+            voids = (np.sin(fv[0] * np.pi * xx + ph)
+                     * np.sin(fv[1] * np.pi * yy))
+            dem[voids > np.quantile(voids, 1.0 - holes)] = -80.0
         img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
         mask = np.eye(15, dtype=np.uint8)[rng.integers(0, 15, (h, w))]
         scene = root / name
@@ -598,8 +706,9 @@ def write_scenes(root: Path, scenes, seed: int = 0):
 
 
 def serving_config(name: str, model_name: str, model_kwargs: dict,
-                   ckpt: Path) -> dict:
-    """The serving keys of the r8 configs (configs/*_r8_img_msk.yml)."""
+                   ckpt: Path, **keys) -> dict:
+    """The serving keys of the r8 configs (configs/*_r8_img_msk.yml), with
+    ``keys`` in place of theirs."""
     return {
         "name": f"chip_smoke_{name}", "dataset": "DFC30",
         "resolution": 8, "input_data": {"COP30": 1, "image": 3, "mask": 15},
@@ -608,19 +717,21 @@ def serving_config(name: str, model_name: str, model_kwargs: dict,
                           "scale_mask": True},
         "model_name": model_name,
         "model_kwargs": {**model_kwargs, "checkpoint": str(ckpt)},
-        "optimizer_kwargs": {"lr": 0.001}, "metric": {},
+        "optimizer_kwargs": {"lr": 0.001}, "metric": {}, **keys,
     }
 
 
 def seeded_checkpoint(work: Path, name: str, model_name: str,
-                      model_kwargs: dict):
-    """A serving config and a checkpoint of its model's seeded weights,
-    perturbed; returns (config, config path, checkpoint path)."""
+                      model_kwargs: dict, **keys):
+    """A serving config (``serving_config``'s, ``keys`` in place of its
+    own) and a checkpoint of its model's seeded weights, perturbed;
+    returns (config, config path, checkpoint path)."""
     work.mkdir(parents=True, exist_ok=True)
     ckpt = work / f"{name}.pt"
     cfg_path = work / f"{name}.json"
     cfg_path.write_text(json.dumps(serving_config(name, model_name,
-                                                  model_kwargs, ckpt)))
+                                                  model_kwargs, ckpt,
+                                                  **keys)))
     p = create_config(cfg_path)
     model = perturb_weights(
         build_model(p, generator=torch.Generator().manual_seed(0)), seed=1)
@@ -641,12 +752,15 @@ def run_cli(argv):
             logger.close()
 
 
-def check_outputs(paths, scenes, scene_root: Path, near_input: bool):
+def check_outputs(paths, scenes, scene_root: Path, near_input: bool,
+                  relative: bool = True):
     """One finite raster of each scene's shape in metres: with
     ``near_input`` its mean within the input's elevation range (JSPSR's
     SPN head refines the input even at random weights), else every value
     within the range the configs' descaling gives the clipped [0, 1]
-    prediction above the scene's base (random weights need not refine)."""
+    prediction above the scene's base (random weights need not refine);
+    without ``relative`` (LRRU's serving scale) the base is 0 m and the
+    descaling linear."""
     if len(paths) != len(scenes):
         raise AssertionError(f"{len(paths)} rasters for {len(scenes)} scenes")
     for path, (name, side) in zip(paths, scenes):
@@ -659,9 +773,11 @@ def check_outputs(paths, scenes, scene_root: Path, near_input: bool):
         if near_input and not (lo - 50 < float(arr.mean()) < hi + 50):
             raise AssertionError(f"{path}: mean {arr.mean()} outside the "
                                  f"input's range [{lo}, {hi}] m")
-        # log-minmax over [-80, 929] m: descale(0) = -79, descale(1) = 929
-        if not (lo - 79.5 <= float(arr.min()) and
-                float(arr.max()) <= lo + 929.5):
+        # log-minmax over [-80, 929] m: descale(0) = -79, descale(1) = 929;
+        # linear: -80 and 929
+        base, bottom = (lo, 79.5) if relative else (0.0, 80.5)
+        if not (base - bottom <= float(arr.min()) and
+                float(arr.max()) <= base + 929.5):
             raise AssertionError(f"{path}: values [{arr.min()}, {arr.max()}]"
                                  f" outside the descaled range above {lo} m")
 
@@ -684,6 +800,55 @@ def card_vs_cpu_scene(p, ckpt, scene_dir, dev, rtol, atol,
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
                                err_msg=f"card vs CPU, {scene_dir.name}")
     return float(np.abs(got - ref).max()), warm_ms, scale
+
+
+class Float64(torch.nn.Module):
+    """``model`` in float64 behind its fp32 interface: the inputs cast up,
+    the output cast back (a rounding of 6e-8, far below the checks)."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model.double()
+
+    def forward(self, inputs, generator=None):
+        return self.model([x.double() for x in inputs]).float()
+
+
+def hold_to_float64(got, fp32, ref, rtol, atol, what: str) -> dict:
+    """``got`` (the card's fp32) against ``ref`` (the CPU's float64) at
+    rtol ``rtol`` and an atol of ``atol`` plus three times the largest
+    distance of ``fp32`` (the CPU's fp32 on the same input) from
+    ``ref``: the elementwise form of phase 5's rule. A random-weight
+    LRRU is ill-conditioned in fp32 (``LRRU_ATOL``); the distances are
+    returned and printed."""
+    cpu = float(np.abs(fp32 - ref).max())
+    out = {"card_vs_fp64_max_abs": float(np.abs(got - ref).max()),
+           "cpu_fp32_vs_fp64_max_abs": cpu,
+           "card_vs_cpu_max_abs": float(np.abs(got - fp32).max()),
+           "atol": atol + 3 * cpu}
+    print(f"{what} against float64: {out}", flush=True)
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol + 3 * cpu,
+                               err_msg=f"card vs float64, {what}")
+    return out
+
+
+def card_vs_float64_scene(p, ckpt, scene_dir, dev, rtol, atol) -> dict:
+    """One scene through ``upscale_dem`` on the card, and on the CPU in
+    float64 and in fp32, from the same checkpoint, held by
+    ``hold_to_float64`` with ``atol`` times the output's largest magnitude
+    (at least 1); with the warm card ms (best of 3) and that
+    magnitude."""
+    sample, _ = load_scene(scene_dir, p)
+    fwd_gpu = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    got = upscale_dem(fwd_gpu, sample, p, dev)[0]
+    warm_ms = min(upscale_dem(fwd_gpu, sample, p, dev)[1] for _ in range(3))
+    cpu = load_model_params(build_model(p), ckpt)
+    fp32 = upscale_dem(make_forward(cpu), sample, p, "cpu")[0]
+    ref = upscale_dem(make_forward(Float64(cpu)), sample, p, "cpu")[0]
+    scale = max(1.0, float(np.abs(ref).max()))
+    out = hold_to_float64(got, fp32, ref, rtol, atol * scale,
+                          f"{p.model_name} {scene_dir.name}")
+    return {**out, "warm_ms": warm_ms, "output_max_abs": scale}
 
 
 def reset_launches() -> None:
@@ -790,14 +955,25 @@ def fp64_floor(name: str) -> float:
     return SA_CONV_FLOOR if name.endswith(SA_CONV_SUFFIX) else CARD_FP64_FLOOR
 
 
-def compare_train_step(p, dev, state, batch: int):
+def train_batch(p, batch: int, seed: int, holes: float = 0.0):
+    """``random_batch``'s batch of ``batch`` x 128^2 on the CPU, with the
+    share ``holes`` of the DEM's pixels set to 0 (no data)."""
+    inputs, gt = random_batch(p, batch, 128, "cpu", seed=seed)
+    if holes:
+        gen = torch.Generator().manual_seed(seed)
+        inputs[0] = inputs[0].masked_fill(
+            torch.rand(inputs[0].shape, generator=gen) < holes, 0.0)
+    return inputs, gt
+
+
+def compare_train_step(p, dev, state, batch: int, holes: float = 0.0):
     """One train step on ``batch`` x 128^2 on the card against the port on
     the CPU, both against float64 on the CPU, from the weights ``state``:
     the loss, and every gradient and BatchNorm running statistic no
     further (relative L2) from float64 than three times the CPU fp32
     run's distance plus its floor (``fp64_floor``). Returns the errors,
     the tensors furthest beyond three times the CPU's distance first."""
-    inputs, gt = random_batch(p, batch, 128, "cpu", seed=3)
+    inputs, gt = train_batch(p, batch, 3, holes)
     card = step_state(p, state, dev, torch.float32, inputs, gt)
     cpu = step_state(p, state, "cpu", torch.float32, inputs, gt)
     f64 = step_state(p, state, "cpu", torch.float64, inputs, gt)
@@ -817,6 +993,9 @@ def compare_train_step(p, dev, state, batch: int):
             rows.append((e_card - 3 * e_fp32, e_card, e_fp32,
                          _rel_err(card[i][name], cpu[i][name]), name))
         rows.sort(reverse=True)  # the furthest beyond the rule first
+        if not rows:  # EDSR as shipped holds no BatchNorm
+            out[what] = {"tensors": 0}
+            continue
         out[what] = {
             "tensors": len(rows),
             "card_vs_fp64_max": max(r[1] for r in rows),
@@ -835,13 +1014,13 @@ def compare_train_step(p, dev, state, batch: int):
     return out
 
 
-def step_twice(p, dev, state, batch: int) -> dict:
+def step_twice(p, dev, state, batch: int, holes: float = 0.0) -> dict:
     """The same train step twice on the card, each time from a fresh model
     holding the weights ``state`` and a fresh optimizer, on one batch of
     ``batch`` x 128^2, the model's generator seeded for global step 0 both
     times: how many parameters and BatchNorm buffers differ after the two
     steps, and by how much at most."""
-    inputs, gt = random_batch(p, batch, 128, "cpu", seed=4)
+    inputs, gt = train_batch(p, batch, 4, holes)
     after = []
     for _ in range(2):
         model = build_model(p)
@@ -878,19 +1057,57 @@ def make_train_tree(root: Path) -> float:
     return time.perf_counter() - t0
 
 
+def unreached_heads(p, dev, state) -> dict:
+    """One LRRU train step on the card from the weights ``state``: every
+    parameter of the heads of rounds 1-3 (``UNREACHED``) must hold a zero
+    gradient, and AdamW must have taken its step on every parameter (the
+    step count of each is 1), as optax's does on the JAX package's exact
+    zero gradients."""
+    model = build_model(p)
+    model.load_state_dict(state)
+    model = model.to(dev)
+    opt = build_optimizer(p, model)
+    step = make_train_step(model, build_criterion(dict(p.loss)), opt)
+    inputs, gt = train_batch(p, 4, 5, LRRU_HOLES)
+    step([x.to(dev) for x in inputs], gt.to(dev))
+    heads = [(n, q) for n, q in model.named_parameters()
+             if n.startswith(UNREACHED)]
+    nonzero = [n for n, q in heads if bool(q.grad.any())]
+    steps = sorted({int(opt.state[q]["step"]) for q in model.parameters()
+                    if q in opt.state})
+    out = {"head_tensors": len(heads), "nonzero_grads": nonzero,
+           "adam_state_tensors": len(opt.state),
+           "parameters": len(list(model.parameters())), "adam_steps": steps}
+    print(f"LRRU unreached heads after one step: {out}", flush=True)
+    if (nonzero or not heads or steps != [1]
+            or out["adam_state_tensors"] != out["parameters"]):
+        raise AssertionError(f"LRRU's unreached heads: {out}")
+    return out
+
+
 def train(config: Path, root: Path, work: Path, dev: torch.device,
-          compare_batch: int, perturbed: bool):
-    """A training path: ``config`` as it is, on the synthetic tree at
-    ``root``, through the port's Trainer for epochs 0 and 1, with exactly
-    ``PER_STEP`` launches per step; then one train step on the card held
-    against the CPU and float64 (from the seeded weights, ``perturbed``
-    or not); then one step at the train batch run twice from the same
-    state (``step_twice``): every parameter and buffer must come out
-    bit-equal."""
+          compare_batch: int, perturbed: bool, label: str | None = None,
+          model_kwargs: dict | None = None, holes: float = 0.0,
+          epochs: tuple = (0, 1)):
+    """A training path: ``config`` as it is (``model_kwargs`` over its
+    own), on the synthetic tree at ``root``, through the port's Trainer
+    for ``epochs``, with exactly ``PER_STEP[label]`` launches per step
+    (``label`` defaults to the model's name); then one more epoch through
+    the same Trainer with cuDNN free to choose non-deterministic
+    algorithms (PyTorch's defaults), whose warm steps are printed beside
+    the deterministic ones; then one train step on the
+    card held against the CPU and float64 (from the seeded weights,
+    ``perturbed`` or not); then one step at the train batch run twice from
+    the same state (``step_twice``): every parameter and buffer must come
+    out bit-equal. The two checks' DEMs have the share ``holes`` of their
+    pixels set to 0."""
     p = create_config(config)
     p.dataset_path = str(root)
+    p.model_kwargs.update(model_kwargs or {})
+    label = label or p.model_name
     trainer = Trainer(p, result_dir=work, device=dev)
     inner, steps = trainer.train_step, []
+    timed = steps
 
     def timed_step(inputs, gt):
         start = torch.cuda.Event(enable_timing=True)
@@ -898,61 +1115,76 @@ def train(config: Path, root: Path, work: Path, dev: torch.device,
         start.record()
         losses = inner(inputs, gt)
         end.record()
-        steps.append((start, end, losses["Total"]))
+        timed.append((start, end, losses["Total"]))
         return losses
 
     trainer.train_step = timed_step
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    epochs = []
-    for epoch in (0, 1):
+    ran = []
+    for epoch in epochs:
         loss, lr = trainer.train_one_epoch(epoch)
-        epochs.append({"epoch": epoch, "loss": loss, "lr": lr,
-                       "tiles_per_s": trainer.last_throughput})
+        ran.append({"epoch": epoch, "loss": loss, "lr": lr,
+                    "tiles_per_s": trainer.last_throughput})
     torch.cuda.synchronize()
     launches = dict(deform_cuda.LAUNCHES)
     n_steps = len(steps)
-    print(f"{p.model_name} training-path launches: {launches} in {n_steps} "
+    print(f"{label} training-path launches: {launches} in {n_steps} "
           f"steps", flush=True)
     n_samples = len(p.train_set) * TRAIN_SCENES_PER_CITY
-    want = {k: v * n_steps for k, v in PER_STEP[p.model_name].items()}
-    if n_steps != 2 * (n_samples // p.train_batch_size) or launches != want:
+    want = {k: v * n_steps for k, v in PER_STEP[label].items()}
+    if (n_steps != len(epochs) * (n_samples // p.train_batch_size)
+            or launches != want):
         raise AssertionError(f"launches {launches} for {n_steps} steps")
     step_losses = [float(t) for _, _, t in steps]
-    if not all(np.isfinite(step_losses + [e["loss"] for e in epochs])):
-        raise AssertionError(f"non-finite loss: {step_losses} {epochs}")
+    if not all(np.isfinite(step_losses + [e["loss"] for e in ran])):
+        raise AssertionError(f"non-finite loss: {step_losses} {ran}")
     step_ms = [s.elapsed_time(e) for s, e, _ in steps]
     peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
     n_params = sum(q.numel() for q in trainer.model.parameters())
     batch = p.train_batch_size
+    # the same Trainer's next epoch with cuDNN free (its first step carries
+    # the new algorithms' set-up: the warm steps follow)
+    timed = []
+    torch.backends.cudnn.deterministic = False
+    trainer.train_one_epoch(max(epochs) + 1)
+    torch.cuda.synchronize()
+    set_deterministic_cudnn()
+    free = statistics.median(s.elapsed_time(e) for s, e, _ in timed[1:])
     del trainer
 
     model = build_model(p)
     state = (perturb_weights(model, seed=2) if perturbed
              else model).state_dict()
-    errs = compare_train_step(p, dev, state, compare_batch)
+    errs = compare_train_step(p, dev, state, compare_batch, holes)
     # epoch 0's first step carries cuDNN's set-up: the warm steps follow
     warm = statistics.median(step_ms[1:])
-    twice = step_twice(p, dev, state, batch)
-    print(f"{p.model_name} step twice from one state at batch {batch}: "
+    twice = step_twice(p, dev, state, batch, holes)
+    print(f"{label} step twice from one state at batch {batch}: "
           f"{twice['unequal']} of {twice['tensors']} tensors differ, max "
-          f"|diff| {twice['max_abs_diff']}; warm step median {warm:.1f} ms "
-          f"(cuDNN free to choose its algorithms: "
-          f"{NONDETERMINISTIC_STEP_MS[p.model_name]} ms)", flush=True)
+          f"|diff| {twice['max_abs_diff']}; warm step median {warm:.1f} ms, "
+          f"{batch / warm * 1e3:.1f} tiles/s, peak {peak_mb:.0f} MB (cuDNN "
+          f"free to choose its algorithms, the next epoch: {free:.1f} ms)",
+          flush=True)
     if twice["unequal"]:
-        raise AssertionError(f"{p.model_name}: the same step from the same "
+        raise AssertionError(f"{label}: the same step from the same "
                              f"state is not bit-equal: {twice}")
-    return {
-        "config": str(config.relative_to(REPO)), "model": p.model_name,
+    out = {
+        "config": str(config.relative_to(REPO)), "model": label,
+        "model_kwargs_over_config": model_kwargs or {},
         "parameters": n_params, "batch": batch, "patch": p.patch_size,
         "train_samples": n_samples, "steps": n_steps,
         "step_losses": step_losses, "step_ms": step_ms,
         "step_ms_warm_median": warm, "tiles_per_s_warm": batch / warm * 1e3,
-        "epochs": epochs, "peak_mb": peak_mb,
-        "peak_source": "torch.cuda.max_memory_allocated over both epochs",
+        "step_ms_warm_median_cudnn_free": free,
+        "epochs": ran, "peak_mb": peak_mb,
+        "peak_source": "torch.cuda.max_memory_allocated over the epochs",
         "launches": launches, "card_vs_cpu_step": errs,
         "step_twice": twice,
-    }, launches
+    }
+    if label == "LRRU":
+        out["unreached_heads"] = unreached_heads(p, dev, state)
+    return out, launches
 
 
 def check_conv_same(dev, bandwidth, fp32_peak, bf16_peak):
@@ -1138,6 +1370,185 @@ def serve_tiled(work: Path, dev: torch.device, flagship):
     out["launches"] = launches
     out["expected_k1"] = expected
     return out, launches
+
+
+def serve_family(work: Path, dev: torch.device, label: str,
+                 model_name: str, model_kwargs: dict, whole, tiled,
+                 rect=None, tol_scaled=(1e-4, 2e-5), tol_tiled=(1e-3, 1e-2),
+                 tol_batch=(BATCH_RTOL, BATCH_ATOL), **keys):
+    """A seeded checkpoint of ``model_name`` (``label`` a key of
+    PER_FORWARD) through the port's CLI: ``--infer`` over ``whole`` (a
+    scene directory and its scenes), then over ``rect`` (one scene, a
+    directory and its scene) alone, then ``--infer --tile`` over ``tiled``
+    twice; exactly ``PER_FORWARD[label]`` K1 launches per whole scene and
+    per tile chunk. Every comparison holds the card to the port on the CPU
+    in float64 by ``hold_to_float64``: the first scene of ``whole`` and
+    ``rect`` (scaled outputs, ``tol_scaled``, atol times the output's
+    largest magnitude, at least 1) and the first and last served rasters
+    (metres, ``tol_tiled``: the rasters are clipped to [0, 1] before the
+    descale, so their magnitude is at most 1). Every served raster is also
+    held to its scene through ``tile_inference_device`` on the card alone
+    at ``tol_batch`` (rtol, atol in metres; ``None``: rtol
+    ``tol_tiled[0]`` and twice the largest atol the served rasters were
+    held to float64 at, as the two are card runs each held that close to
+    float64). ``keys`` go into the serving config."""
+    p, cfg_path, ckpt = seeded_checkpoint(
+        work, label.lower().replace("+", "_"), model_name, model_kwargs,
+        input_data=dict(IMG_ONLY), **keys)
+    relative = bool(p.get("relative"))
+    k1 = PER_FORWARD[label]
+    none = {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 0,
+            "conv_same": 0}
+    launches, out = {}, {"config": dict(model_kwargs)}
+
+    runs = [("whole", whole)] + ([("rect", rect)] if rect else [])
+    for tag, (root, scenes) in runs:
+        res_dir = work / f"result_{tag}"
+        target = root / scenes[0][0] if tag == "rect" else root
+        reset_launches()
+        got_paths = run_cli(["--config", str(cfg_path), "--infer",
+                             str(target), "--out",
+                             str(work / (f"out_{tag}.npy" if tag == "rect"
+                                         else f"out_{tag}")),
+                             "--result-dir", str(res_dir)])
+        torch.cuda.synchronize()
+        got = launch_counts()
+        launches[f"{label}_{tag}"] = got
+        if got != dict(none, deform_fwd=k1 * len(scenes)):
+            raise AssertionError(f"{label} {tag}: launches {got} for "
+                                 f"{len(scenes)} scenes")
+        got_paths = got_paths if isinstance(got_paths, list) else [got_paths]
+        check_outputs(got_paths, scenes, root, near_input=False,
+                      relative=relative)
+        log = (res_dir / "train.log").read_text()
+        out[tag] = {
+            "scenes": [list(s) if isinstance(s, tuple) else [s, s]
+                       for _, s in scenes],
+            "per_scene": {m[1]: {"ms": float(m[2]), "peak_mb": float(m[3])}
+                          for m in re.finditer(
+                              r"Scene (\S+): ([\d.]+) ms, peak ([\d.]+) MB",
+                              log)}}
+        total = re.search(r"Inference: \d+ scenes -> .* \(([\d.]+) ms, "
+                          r"([\d.]+) scenes/s\)", log)
+        if total:
+            out[tag]["scenes_per_s"] = float(total[2])
+        else:  # one scene: its cold ms and peak
+            one = re.search(r"Inference: .* \(([\d.]+) ms, peak "
+                            r"([\d.]+|nan) MB\)", log)
+            out[tag].update(cold_ms=float(one[1]), peak_mb=float(one[2]))
+        out[tag].update(card_vs_float64_scene(
+            p, ckpt, root / scenes[0][0], dev, *tol_scaled))
+
+    root, scenes = tiled
+    shapes = [(s, s) for _, s in scenes]
+    want = dict(none, deform_fwd=k1 * expected_tiled_launches(p, shapes))
+    rates = []
+    for run in range(2):
+        res_dir = work / f"result_tiled_{run}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        paths = run_cli(["--config", str(cfg_path), "--infer", str(root),
+                         "--tile", "--out", str(work / f"out_tiled_{run}"),
+                         "--result-dir", str(res_dir)])
+        torch.cuda.synchronize()
+        got = launch_counts()
+        if run == 0:
+            launches[f"{label}_tiled"] = got
+        if got != want:
+            raise AssertionError(f"{label} tiled: launches {got}, expected "
+                                 f"{want}")
+        rates.append(_scenes_per_s((res_dir / "train.log").read_text()))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    check_outputs(paths, scenes, root, near_input=False, relative=relative)
+    model = load_model_params(build_model(p), ckpt).to(dev)
+    cpu_model = load_model_params(build_model(p), ckpt)
+    f64_model = Float64(load_model_params(build_model(p), ckpt))
+    tiled = {"scenes": len(scenes), "scenes_per_s": rates,
+             "warm_scenes_per_s": rates[1], "peak_mb": peak,
+             "against_float64": {}}
+    samples = [load_scene(root / name, p)[0] for name, _ in scenes]
+    for i in (0, len(scenes) - 1):
+        fp32, ref = (tile_inference_device(m, samples[i], p,
+                                           tile=p.patch_size,
+                                           device="cpu")[0]
+                     for m in (cpu_model, f64_model))
+        tiled["against_float64"][scenes[i][0]] = hold_to_float64(
+            read_raster(paths[i]), fp32, ref, *tol_tiled,
+            f"{label} served {scenes[i][0]}")
+    if tol_batch is None:
+        tol_batch = (tol_tiled[0], 2 * max(
+            h["atol"] for h in tiled["against_float64"].values()))
+    served_err = 0.0
+    for path, (name, _), sample in zip(paths, scenes, samples):
+        served = read_raster(path)
+        single = tile_inference_device(model, sample, p, tile=p.patch_size,
+                                       device=dev)[0]
+        np.testing.assert_allclose(
+            served, single, rtol=tol_batch[0], atol=tol_batch[1],
+            err_msg=f"{label} served vs single {name}")
+        served_err = max(served_err, float(np.abs(served - single).max()))
+    tiled.update(served_vs_single_max_abs_err_m=served_err,
+                 served_vs_single_tol=list(tol_batch),
+                 expected_k1=want["deform_fwd"])
+    out["tiled"] = tiled
+    out["launches"] = launches
+    print(f"{label} serving: launches {launches}; "
+          + ", ".join(f"{tag} {out[tag]['scenes_per_s']} scenes/s"
+                      if "scenes_per_s" in out[tag]
+                      else f"{tag} {out[tag]['cold_ms']} ms cold"
+                      for tag, _ in runs)
+          + f", tiled {rates[1]:.2f} scenes/s (peak {peak:.0f} MB); "
+          f"served vs single {served_err:.4g} m (tolerance {tol_batch})",
+          flush=True)
+    return out, launches
+
+
+def phase_edsr(work: Path, root: Path, dev: torch.device, scenes_dir: Path,
+               tiled_dir: Path):
+    """Phase 11: configs/edsr_r8_img.yml as shipped and with its SPN head,
+    trained (one epoch each, ``CUT_EPOCHS``) and served whole and
+    tiled."""
+    out, paths = {}, {}
+    shipped = {k: v for k, v in create_config(EDSR_CONFIG).model_kwargs.items()
+               if k not in ("checkpoint", "pretrained")}
+    for label, over in (("EDSR", {}), ("EDSR+SPN", {"spn": True})):
+        key = label.lower().replace("+", "_")
+        mk = {**shipped, **over}
+        out[f"{key}_training"], paths[f"{key}_training"] = train(
+            EDSR_CONFIG, root, work / f"train_{key}", dev, compare_batch=2,
+            perturbed=False, label=label, model_kwargs=over,
+            epochs=CUT_EPOCHS)
+        torch.backends.cudnn.deterministic = False  # serving, as phase 7
+        out[f"{key}_serving"], launches = serve_family(
+            work / f"serve_{key}", dev, label, "EDSR", mk,
+            (scenes_dir, SCENES), (tiled_dir, TILED_SMALL))
+        paths.update(launches)
+    return out, paths
+
+
+def phase_lrru(work: Path, root: Path, dev: torch.device):
+    """Phase 12: configs/lrru_r8_img.yml as shipped, trained (one epoch),
+    then served whole (4 x 334^2 and 1 x 1024^2, then one 500 x 700 scene
+    padded to 512 x 704) and tiled (8 x 334^2) on DEMs with LRRU_HOLES of
+    their pixels at no data."""
+    paths = {}
+    training, paths["lrru_training"] = train(
+        LRRU_CONFIG, root, work / "train", dev, compare_batch=2,
+        perturbed=True, holes=LRRU_HOLES, epochs=CUT_EPOCHS)
+    torch.backends.cudnn.deterministic = False  # serving, as phase 7
+    write_scenes(work / "scenes", SCENES, seed=5, holes=LRRU_HOLES)
+    write_scenes(work / "rect", [TILED_RECT], seed=6, holes=LRRU_HOLES)
+    write_scenes(work / "tiled", TILED_SMALL, seed=7, holes=LRRU_HOLES)
+    mk = {k: v for k, v in create_config(LRRU_CONFIG).model_kwargs.items()
+          if k not in ("checkpoint", "pretrained")}
+    serving, launches = serve_family(
+        work / "serve", dev, "LRRU", "LRRU", mk, (work / "scenes", SCENES),
+        (work / "tiled", TILED_SMALL), rect=(work / "rect", [TILED_RECT]),
+        tol_scaled=(LRRU_RTOL, LRRU_ATOL),
+        tol_tiled=(LRRU_RTOL, LRRU_ATOL * 1009.0), tol_batch=None,
+        **LRRU_SCALING)
+    paths.update(launches)
+    return {"lrru_training": training, "lrru_serving": serving}, paths
 
 
 def fit_config(config: Path, root: Path, epochs: int = FIT_EPOCHS):
@@ -1401,10 +1812,21 @@ def main() -> int:
         phase(10, t_start)
         # 10. fit, --val, the CPU's scores and the resume gate
         fitted, paths["fit"] = fit(root, tmp / "fit", dev, smi_line)
+        phase(11, t_start)
+        # 11. EDSR, as shipped and with its SPN head: train and serve
+        edsr, edsr_paths = phase_edsr(tmp / "edsr", root, dev,
+                                      tmp / "serve" / "scenes",
+                                      tmp / "tiled" / "334")
+        paths.update(edsr_paths)
+        phase(12, t_start)
+        # 12. LRRU: train and serve
+        lrru, lrru_paths = phase_lrru(tmp / "lrru", root, dev)
+        paths.update(lrru_paths)
     # K3's three kernels apart, under the profiler, after every phase
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
-    for result in (serving, training, cf_training, cf_serving, tiled):
+    for result in (serving, training, cf_training, cf_serving, tiled,
+                   *edsr.values(), *lrru.values()):
         result["card"] = card
 
     def kernel_line(name, source, replaces, tpu_kernel, rows, main_shape,
@@ -1463,6 +1885,8 @@ def main() -> int:
     print(json.dumps({"cf_serving": cf_serving}), flush=True)
     print(json.dumps({"tiled_serving": tiled}), flush=True)
     print(json.dumps({"fit": fitted}, default=float), flush=True)
+    print(json.dumps({"edsr": edsr}, default=float), flush=True)
+    print(json.dumps({"lrru": lrru}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

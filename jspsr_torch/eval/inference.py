@@ -73,10 +73,11 @@ def _pad_hwc(img: np.ndarray, pads):
 
 def model_stride_multiple(p) -> int:
     """Smallest H/W divisor the model's encoder/decoder round-trip needs
-    (stride product of the downsampling path): JSPSR/LRRU encoders are
-    s1,s2,s2,s2 (/8); CompletionFormer's backbone goes to /32; EDSR never
-    downsamples."""
-    return {"jspsr": 8, "lrru": 8, "completionformer": 32,
+    (stride product of the downsampling path): JSPSR's encoder is
+    s1,s2,s2,s2 (/8); LRRU's s1,s2,s2,s2,s2 (/16: at a multiple of 8 that
+    is not one of 16 its decoder's sums would not line up);
+    CompletionFormer's backbone goes to /32; EDSR never downsamples."""
+    return {"jspsr": 8, "lrru": 16, "completionformer": 32,
             "edsr": 1}.get(p.model_name.lower(), 8)
 
 

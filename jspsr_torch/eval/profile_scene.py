@@ -2,11 +2,13 @@
 """Where the time of one whole-scene ``--infer`` goes in the PyTorch port,
 on one CUDA card.
 
-    python -m jspsr_torch.eval.profile_scene [--sides 334 1024] [--reps 5]
+    python -m jspsr_torch.eval.profile_scene [--config <yml>]
+                                             [--sides 334 1024] [--reps 5]
 
 Builds the flagship JSPSR (configs/jspsr_r8_img_msk.yml widths: 3
-branches, num_feature 32, num_block 2) with seeded random weights, then for
-each scene side:
+branches, num_feature 32, num_block 2), or the model of ``--config`` (any
+shipped config, e.g. configs/lrru_r8_img.yml or configs/edsr_r8_img.yml,
+at its widths), with seeded random weights, then for each scene side:
 
 - times ``run_scene_inference`` end to end (raster read, pad, normalize,
   host->device, forward, device->host, descale, write) and the forward
@@ -34,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from jspsr_torch.config.loader import AttrDict
+from jspsr_torch.config.loader import AttrDict, create_config
 from jspsr_torch.data.raster_io import write_raster
 from jspsr_torch.eval.inference import (
     load_scene,
@@ -89,6 +91,8 @@ def write_scene(root: Path, side: int, rng) -> Path:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", default=None,
+                    help="default: the flagship JSPSR's serving keys")
     ap.add_argument("--sides", type=int, nargs="+", default=[334, 1024])
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
@@ -99,7 +103,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     set_strict_fp32()
-    p = flagship_config()
+    p = flagship_config() if args.config is None \
+        else create_config(args.config)
     model = build_model(p, generator=torch.Generator().manual_seed(0)).to(dev)
     fwd = make_forward(model)
     rng = np.random.default_rng(0)
@@ -134,6 +139,7 @@ def main(argv=None) -> int:
             top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
             print(json.dumps({
                 "side": side, "card": torch.cuda.get_device_name(0),
+                "model": p.model_name,
                 "end_to_end_ms": best_e2e, "forward_ms": best_fwd,
                 "peak_mb": peak, "traced_forward_ms": traced_ms,
                 "kernel_busy_ms": busy_ms,

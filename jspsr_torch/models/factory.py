@@ -1,13 +1,11 @@
-"""Model registry (counterpart of ``jspsr_tpu/models/factory.py``).
-JSPSR and CompletionFormer are ported; the other families raise until
-their slices land."""
+"""Model registry (counterpart of ``jspsr_tpu/models/factory.py``): the
+four families, with the JAX factory's arguments."""
 
 from __future__ import annotations
 
 import torch
 
 BRANCH_KEYS = ("lr_dem", "image", "mask", "canopy", "coord")
-NOT_YET_PORTED = ("edsr", "lrru")
 
 
 def _branch_channels(input_data: dict) -> dict:
@@ -37,6 +35,30 @@ def build_model(p, generator: torch.Generator | None = None):
             generator=generator,
             **{k: mk.get(k) for k in NOT_PORTED},
         )
+    if name == "edsr":
+        from jspsr_torch.models.edsr import EDSR
+
+        return EDSR(
+            in_channels=sum(_branch_channels(p.input_data).values()),
+            out_channels=1,
+            n_resblocks=mk.get("num_block", 16),
+            n_features=mk.get("num_feature", 64),
+            scale=1,
+            spn=mk.get("spn", False),
+            generator=generator,
+        )
+    if name == "lrru":
+        from jspsr_torch.models.lrru import LRRU
+
+        return LRRU(
+            in_channels=_branch_channels(p.input_data),
+            out_channels=1,
+            kernel_size=mk.get("kernel_size", 3),
+            bc=mk.get("bc", 16),
+            prob=mk.get("prob", 1.0),
+            dkn_residual=mk.get("dkn_residual", True),
+            generator=generator,
+        )
     if name == "completionformer":
         from jspsr_torch.models.completionformer import CompletionFormer
 
@@ -50,6 +72,4 @@ def build_model(p, generator: torch.Generator | None = None):
             affinity_gamma=mk.get("affinity_gamma", 0.5),
             generator=generator,
         )
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"model {p.model_name} is not yet ported")
     raise NotImplementedError(f"Unsupported model name {p.model_name}")

@@ -5,7 +5,7 @@ at the main paths' shapes.
     python -m jspsr_torch.scripts.bench_deform_fwd [--reps N]
 
 For each shape of ``KERNEL_SHAPES`` (whole JSPSR scenes of 336^2 and
-1024^2, the 16 and 50 x 128^2 train batches, a 352^2 CompletionFormer
+1024^2, the 16, 50 and 70 x 128^2 train batches, a 352^2 CompletionFormer
 scene, the tiled server's chunks of 72, 81 and 28 x 128^2), offsets of
 1.5 px: the wrapper's device time (``time_ms``: median of 25, the L2
 flushed before each call), one ``grid_sample`` call computing the same
@@ -54,8 +54,8 @@ CARDS = {
 # CompletionFormer scene, and the tiled server's chunks of 128^2 tiles
 # (8 x 334^2 in one run, one 1024^2 scene, the 500 x 700 scene)
 KERNEL_SHAPES = [(1, 336, 336), (1, 1024, 1024), (16, 128, 128),
-                 (50, 128, 128), (1, 352, 352), (72, 128, 128),
-                 (81, 128, 128), (28, 128, 128)]
+                 (50, 128, 128), (70, 128, 128), (1, 352, 352),
+                 (72, 128, 128), (81, 128, 128), (28, 128, 128)]
 TIMED_SCALE = 1.5
 HOST_SHAPE, HOST_CALLS = (1, 128, 128), 1000
 # A spin on the card between the L2 flush and the start event, long enough

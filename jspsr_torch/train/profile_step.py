@@ -6,8 +6,9 @@ card.
                                              [--side 128] [--steps 10]
 
 Builds the model, criterion and optimizer of a config (by default the
-flagship JSPSR of configs/jspsr_r8_img_msk.yml; any model the port
-supports) with seeded random weights, fp32 with TF32 off, and a resident
+flagship JSPSR of configs/jspsr_r8_img_msk.yml; any shipped config of the
+four families: configs/edsr_r8_img.yml and configs/lrru_r8_img.yml train at
+batch 70) with seeded random weights, fp32 with TF32 off, and a resident
 batch of random tiles on the card in the model's input order
 (``data.loader.build_batch_inputs``), of the config's train batch size
 unless ``--batch`` is given. Then:
@@ -56,7 +57,7 @@ from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
 from jspsr_torch.ops import deform_cuda
 from jspsr_torch.train.optim import build_optimizer
-from jspsr_torch.train.step import make_train_step
+from jspsr_torch.train.step import fill_unreached_grads, make_train_step
 from jspsr_torch.utils.device import set_strict_fp32
 
 DEFAULT_CONFIG = Path(__file__).resolve().parents[2] / "configs" \
@@ -207,6 +208,7 @@ def main(argv=None) -> int:
         traces = [("forward", prof)]
         with torch.profiler.profile(activities=acts) as prof:
             total.backward()
+            fill_unreached_grads(model.parameters())
             torch.cuda.synchronize()
         traces.append(("backward", prof))
         with torch.profiler.profile(activities=acts) as prof:

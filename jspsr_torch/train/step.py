@@ -23,8 +23,15 @@ with ``seed_step_generator(generator, seed, step)``: the draws of global
 step ``step`` are then a function of (seed, step) alone, as JAX's are
 (``jax.random.fold_in(PRNGKey(seed), state.step)``), so a run brought to
 step k and a run resumed at step k draw the same masks. They are not
-JAX's bits: torch's generator is another generator. LRRU's StoDepth, when
-it is ported, follows the same rule.
+JAX's bits: torch's generator is another generator. LRRU's StoDepth
+draws nothing: the JAX package's LRRU passes no key to its blocks, so a
+block is always kept in training (``models/lrru.py``).
+
+A parameter that the loss does not reach gets a zero gradient after the
+backward, as ``jax.grad`` gives it (LRRU's heads of rounds 1-3, whose
+outputs enter only detached): the optimizer then decays it and carries its
+state, as optax does. Where every parameter has a gradient this changes
+nothing.
 
 ``remat`` is not yet ported: ``torch.utils.checkpoint`` re-runs the
 forward, and with it BatchNorm's in-place running-statistics update, in the
@@ -49,6 +56,14 @@ def seed_step_generator(generator: torch.Generator | None, seed: int,
     if generator is not None:
         generator.manual_seed(int(np.random.SeedSequence(
             [int(seed), int(step)]).generate_state(1, np.uint64)[0]))
+
+
+def fill_unreached_grads(params) -> None:
+    """A zero gradient for every parameter the backward did not reach
+    (``grad is None``), as ``jax.grad`` gives one."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
 
 
 def _bn_modules(model: torch.nn.Module) -> list:
@@ -122,10 +137,11 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
             losses, pred = step_accum(inputs, gt)
         else:
             losses, pred = step_full(inputs, gt)
+        fill_unreached_grads(params)
         out = {k: v.detach() for k, v in losses.items()}
         if monitor:
             with torch.no_grad():
-                grads = [p.grad for p in params if p.grad is not None]
+                grads = [p.grad for p in params]
                 out["grad_min"] = torch.stack([g.min() for g in grads]).min()
                 out["grad_max"] = torch.stack([g.max() for g in grads]).max()
                 out["input_min"] = inputs[0].min()

@@ -68,6 +68,7 @@ from jspsr_torch.utils.device import (
     set_strict_fp32,
 )
 from jspsr_torch.utils.logging import MetricLogger, serialize_config
+from jspsr_torch.utils.pretrained import apply_pretrained
 from jspsr_torch.utils.summary import count_parameters
 
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
@@ -104,11 +105,6 @@ class Trainer:
         if (p.get("checkpoint_backend") or "npz") == "orbax":
             raise NotImplementedError("checkpoint_backend: orbax is not yet "
                                       "ported")
-        mk = p.model_kwargs
-        for key in ("pretrained", "pvt_pretrained", "resnet_pretrained"):
-            if mk.get(key):
-                raise NotImplementedError(f"model_kwargs.{key} is not yet "
-                                          "ported")
         self.p = p
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -120,7 +116,10 @@ class Trainer:
         self.result_dir.mkdir(parents=True, exist_ok=True)
         self.seed = p.get("seed", 0)
 
-        self.model = build_model(p).to(self.device)
+        # the configured pretrained weights, on the CPU, before the
+        # optimizer sees the parameters
+        self.model = apply_pretrained(p, build_model(p),
+                                      verbose=self.verbose).to(self.device)
         if self.verbose:
             print(f"Model {p.model_name}: {count_parameters(self.model):,} "
                   f"parameters")

@@ -13,9 +13,12 @@ and the port module it lands on decides both the name and the layout:
   ``Basic2dTrans`` -> ``dconv.0`` / ``dconv.1`` / ``dconv.bn``;
   ``ChannelAttention`` fc1 / fc2 -> ``fc.0`` / ``fc.2``; a (L)Downsample's
   conv / bn -> ``0`` / ``1``; ``Generator.conv_weight`` ->
-  ``conv_weight.0``; a bare parameter (the JAX ``ParamLeaf``'s ``value``:
-  ``pos_embed{i}``, NLSPN's ``aff_scale_const``, ``w``, ``b``, ``w_conf``)
-  -> its own name;
+  ``conv_weight.0``; EDSR's ``ResBlock`` conv1 / conv2 -> ``body.0`` /
+  ``body.2`` and ``Upscaler`` conv1 / conv2 -> ``0`` / ``2``; a bare
+  parameter (the JAX ``ParamLeaf``'s ``value``: ``pos_embed{i}``, NLSPN's
+  ``aff_scale_const``, ``w``, ``b``, ``w_conf``) -> its own name (the JAX
+  LRRU's ``LBasic2d`` is the port's ``Basic2d`` and its ``PostProcess`` a
+  ``PostProcessor``; its ``LBasic2dTrans`` keeps ``conv`` / ``bn``);
 - layouts: ``Conv2d`` HWIO -> OIHW; ``ConvTranspose2d`` (the JAX
   equivalent-forward HWIO kernel) -> torch (Cin, Cout, kh, kw) with its
   spatial flip undone; ``Linear`` (in, out) -> (out, in); BatchNorm and
@@ -32,9 +35,10 @@ as the flat ``params/...`` and ``bn/...`` numpy arrays of the JAX layout
 (the port's ``.npz`` checkpoints, which the JAX package loads). A port
 name is walked down ``model`` the other way: the same renames and
 layouts, inverted; ``Downsample``'s ``0`` / ``1`` are the JAX ``conv`` /
-``bn`` (a ``Downsample`` is the one ``nn.Sequential`` whose JAX
-counterpart names its children), a bare parameter of ``PostProcessor`` is
-a plain leaf (``w``, ``b``) and any other bare parameter a JAX
+``bn`` and ``Upscaler``'s ``0`` / ``2`` its ``conv1`` / ``conv2`` (the
+``nn.Sequential``s whose JAX counterparts name their children), a bare
+parameter of ``PostProcessor`` (LRRU's post-process among them) is a
+plain leaf (``w``, ``b``) and any other bare parameter a JAX
 ``ParamLeaf`` (``<name>/value``); ``num_batches_tracked`` has no JAX
 counterpart.
 """
@@ -53,6 +57,7 @@ from jspsr_torch.models.components import (
     ChannelAttention,
     Downsample,
 )
+from jspsr_torch.models.edsr import ResBlock, Upscaler
 from jspsr_torch.models.spn import Generator, PostProcessor
 
 _NORMS = (nn.BatchNorm2d, nn.LayerNorm)
@@ -68,6 +73,10 @@ def _child(module: nn.Module, seg: str) -> str:
         return {"conv": "conv.0", "bn": "conv.bn"}[seg]
     if isinstance(module, ChannelAttention):
         return {"fc1": "fc.0", "fc2": "fc.2"}[seg]
+    if isinstance(module, ResBlock):
+        return {"conv1": "body.0", "conv2": "body.2"}[seg]
+    if isinstance(module, Upscaler):
+        return {"conv1": "0", "conv2": "2"}[seg]
     if isinstance(module, nn.Sequential) and seg in ("conv", "bn"):
         return {"conv": "0", "bn": "1"}[seg]  # Downsample, LDownsample
     if isinstance(module, Generator) and seg == "conv_weight":
@@ -164,6 +173,7 @@ _PAIRS = ((Basic2dTrans, {("dconv", "0"): "conv", ("dconv", "1"): "dconv",
                           ("dconv", "bn"): "bn"}),
           (Basic2d, {("conv", "0"): "conv", ("conv", "bn"): "bn"}),
           (ChannelAttention, {("fc", "0"): "fc1", ("fc", "2"): "fc2"}),
+          (ResBlock, {("body", "0"): "conv1", ("body", "2"): "conv2"}),
           (Generator, {("conv_weight", "0"): "conv_weight"}))
 _STATE_NAMES = {v: k for k, v in _STATE_LEAVES.items()}
 _NORM_NAMES = {v: k for k, v in _NORM_LEAVES.items()}
@@ -185,6 +195,8 @@ def _jax_path(model: nn.Module, name: str):
         else:
             if isinstance(module, Downsample):
                 jax.append({"0": "conv", "1": "bn"}[parents[i]])
+            elif isinstance(module, Upscaler):
+                jax.append({"0": "conv1", "2": "conv2"}[parents[i]])
             else:
                 jax.append(parents[i])
             i += 1

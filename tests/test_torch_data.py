@@ -134,14 +134,19 @@ def test_train_one_epoch_loss_is_batch_weighted_mean(cfg, tmp_path):
 @pytest.mark.parametrize("key", NOT_PORTED + ("checkpoint_backend",
                                               "pretrained"))
 def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
+    """Each option not yet ported raises; ``pretrained`` is ported now, and
+    the Trainer reads its file: an absent one raises."""
     p = dict(cfg)
+    error, match = NotImplementedError, "not yet ported"
     if key == "checkpoint_backend":
         p[key] = "orbax"
     elif key == "pretrained":
-        p["model_kwargs"] = dict(p["model_kwargs"], pretrained="edsr.pt")
+        p["model_kwargs"] = dict(p["model_kwargs"],
+                                 pretrained=str(tmp_path / "edsr.pt"))
+        error, match = FileNotFoundError, "edsr.pt"
     else:
         p[key] = 4
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(error, match=match):
         Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
 
 

@@ -637,3 +637,96 @@ def test_serve_on_gpu_matches_single_scene(cuda_device, tmp_path):
                                           device=cuda_device)
         np.testing.assert_allclose(read_raster(path), single, rtol=2e-4,
                                    atol=5e-3)
+
+
+# EDSR with the SPN head and LRRU, at the shipped configs' widths
+# (configs/edsr_r8_img.yml with spn: true, configs/lrru_r8_img.yml):
+# K1 launches per forward, and K1 + K2 per train step
+FAMILIES = {"edsr_spn": ("configs/edsr_r8_img.yml", 1),
+            "lrru": ("configs/lrru_r8_img.yml", 4)}
+
+
+def _family_model(name, state, device, dtype=torch.float32):
+    from jspsr_torch.config.loader import create_config
+    from jspsr_torch.models.factory import build_model
+
+    p = create_config(FAMILIES[name][0])
+    p.model_kwargs.spn = name == "edsr_spn"
+    model = build_model(p, generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    return model.to(device=device, dtype=dtype)
+
+
+def _family_batch(name, b, side, seed):
+    """A DEM of smooth terrain with a tenth of its pixels 0 (where LRRU's
+    rounds reach the output), an RGB image and the target; EDSR takes the
+    two stacked."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    phase = rng.uniform(0, 6, (b, 1, 1, 1))
+    dem = 0.5 + 0.3 * np.sin(3 * np.pi * xx + phase) * np.cos(2 * np.pi * yy)
+    dem = np.where(rng.uniform(size=dem.shape) < 0.1, 0.0, dem)
+    img = rng.uniform(0, 1, (b, 3, side, side))
+    gt = dem + rng.normal(0, 0.02, dem.shape)
+    inputs = [dem, img] if name == "lrru" else [np.concatenate([dem, img], 1)]
+    return [torch.from_numpy(a) for a in inputs], torch.from_numpy(gt)
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_forward_and_step_on_gpu_match_cpu(cuda_device, name):
+    """The eval forward at 1 x 64² against the CPU at the JAX suite's
+    tolerances (EDSR rtol 1e-4 / atol 2e-5, LRRU rtol 1e-4 / atol 3e-5,
+    atol times the output's largest magnitude, at least 1); then one
+    train-mode forward and backward at 2 x 64² (L1 + L2 + 0.1 Grad) with
+    exactly one K2 and no K3 (both detach the DEM), each gradient and
+    running statistic of the card no further from float64 (relative L2)
+    than three times the CPU's fp32 one plus 5e-3, as for
+    CompletionFormer."""
+    state = perturb_weights(_family_model(name, None, "cpu"), seed=1
+                            ).state_dict()
+    k1 = FAMILIES[name][1]
+    inputs, gt = _family_batch(name, 1, 64, seed=3)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = _family_model(name, state, dev).eval()
+        launches = dict(deform_cuda.LAUNCHES)
+        with torch.inference_mode():
+            out[str(dev)] = model([x.float().to(dev) for x in inputs]).cpu()
+        if dev != "cpu":
+            assert {k: deform_cuda.LAUNCHES[k] - launches[k]
+                    for k in launches} == {"deform_fwd": k1, "deform_bwd": 0,
+                                           "deform_bwd_dx": 0}
+    ref = out["cpu"].numpy()
+    atol = (3e-5 if name == "lrru" else 2e-5) * max(1.0,
+                                                    float(np.abs(ref).max()))
+    np.testing.assert_allclose(out[str(cuda_device)].numpy(), ref, rtol=1e-4,
+                               atol=atol)
+
+    inputs, gt = _family_batch(name, 2, 64, seed=4)
+    crit = build_criterion({"L1": 1, "L2": 1, "Grad": 0.1})
+    out = {}
+    for key, dev, dtype in (("cpu", "cpu", torch.float32),
+                            ("f64", "cpu", torch.float64),
+                            ("card", cuda_device, torch.float32)):
+        model = _family_model(name, state, dev, dtype).train()
+        launches = dict(deform_cuda.LAUNCHES)
+        loss = crit(model([x.to(dev, dtype) for x in inputs]),
+                    gt.to(dev, dtype))["Total"]
+        loss.backward()
+        if key == "card":
+            assert {k: deform_cuda.LAUNCHES[k] - launches[k]
+                    for k in launches} == {"deform_fwd": k1, "deform_bwd": 1,
+                                           "deform_bwd_dx": 0}
+        out[key] = (loss.item(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None},
+                    {n: b.cpu() for n, b in model.named_buffers()
+                     if "running" in n})
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for i in (1, 2):
+        assert set(out["card"][i]) == set(out["f64"][i])
+        for n, ref in out["f64"][i].items():
+            e_card = _rel_err(out["card"][i][n], ref)
+            e_cpu = _rel_err(out["cpu"][i][n], ref)
+            assert e_card <= 3 * e_cpu + 5e-3, (n, e_card, e_cpu)

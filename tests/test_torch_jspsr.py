@@ -130,15 +130,19 @@ def test_unported_options_raise(option):
 
 @pytest.mark.parametrize("name", ["EDSR", "LRRU", "CompletionFormer"])
 def test_unported_models_raise(name):
-    """EDSR and LRRU raise until their slices land; CompletionFormer, the
-    family that left this list last, builds (its forward and train step are
-    held against JAX in tests/test_torch_completionformer.py)."""
+    """The three families that raised until their slices landed now build
+    (each one's forward and train step are held against JAX in
+    tests/test_torch_{completionformer,edsr,lrru}.py); an unknown name
+    still raises."""
     cfg = AttrDict({"model_name": name, "input_data": {"lr_dem": 1, "image": 3},
                     "model_kwargs": {"prop_time": 2}})
+    model = build_model(cfg)
     if name == "CompletionFormer":
-        model = build_model(cfg)
         assert model.input_keys() == ["lr_dem", "guidance"]
         assert model.prop_layer.prop_time == 2
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg)
+    elif name == "LRRU":
+        assert model.input_keys() == ["lr_dem", "image"]
+    else:
+        assert model.entry.in_channels == 4 and not model.spn
+    with pytest.raises(NotImplementedError, match="Unsupported model"):
+        build_model(AttrDict(dict(cfg, model_name=f"{name}x")))

@@ -11,15 +11,20 @@ import pytest
 import jax
 import torch
 
+from jspsr_tpu.models.edsr import EDSR as JaxEDSR
 from jspsr_tpu.models.jspsr import JSPSR as JaxJSPSR
+from jspsr_tpu.models.lrru import LRRU as JaxLRRU
 from jspsr_tpu.nn.module import param_count
 from jspsr_tpu.train.checkpoint import flatten_tree
 from jspsr_tpu.utils.torch_import import (
     expected_torch_keys,
     import_torch_state_dict,
 )
+from jspsr_torch.models.edsr import EDSR
 from jspsr_torch.models.jspsr import JSPSR
-from jspsr_torch.utils.weights import state_dict_from_jax
+from jspsr_torch.models.lrru import LRRU
+from jspsr_torch.utils.weights import jax_flat_from_state_dict, \
+    state_dict_from_jax
 
 torch.set_num_threads(2)
 
@@ -112,3 +117,45 @@ def test_bridge_inverts_importer(variant):
         if not k.endswith("num_batches_tracked"):
             torch.testing.assert_close(fresh.state_dict()[k], v, rtol=0,
                                        atol=0, msg=k)
+
+
+def _family(name):
+    """(port model, JAX twin) of EDSR (with or without its SPN head) and
+    LRRU, narrow."""
+    if name.startswith("edsr"):
+        kw = dict(in_channels=4, out_channels=1, n_resblocks=2,
+                  n_features=8, spn=name == "edsr_spn")
+        return (EDSR(**kw, generator=torch.Generator().manual_seed(2)),
+                JaxEDSR(**kw))
+    kw = dict(bc=4, layers=(2, 1, 1, 1, 1), prob=0.8)
+    return (LRRU({"lr_dem": 1, "image": 3}, **kw,
+                 generator=torch.Generator().manual_seed(2)),
+            JaxLRRU({"lr_dem": 1, "image": 3}, **kw))
+
+
+@pytest.mark.parametrize("family", ["edsr", "edsr_spn", "lrru"])
+def test_family_round_trip(family):
+    """JAX parameters (the port's init, BatchNorm perturbed) -> port
+    (``state_dict_from_jax``, strict) -> JAX (the importer, and the port's
+    own ``jax_flat_from_state_dict``): bit-equal, with the importer's key
+    list and the JAX parameter count. EDSR's ``ResBlock`` (``body.0`` /
+    ``body.2``), LRRU's ``LBasic2dTrans`` (``conv`` / ``bn``), its plain
+    ``conv_weight`` / ``conv_offset`` heads and the post-process's bare
+    ``w`` / ``b`` each have their own mapping."""
+    seeded, jax_model = _family(family)
+    params, bn = import_torch_state_dict(jax_model, seeded.state_dict())
+    rng = np.random.default_rng(4)
+    params, bn = _perturb_bn(params, rng), _perturb_bn(bn, rng)
+    flat = _flat(params, bn)
+
+    port, _ = _family(family)
+    port.load_state_dict(state_dict_from_jax(flat, port), strict=True)
+    assert _port_keys(port) == expected_torch_keys(jax_model)
+    assert sum(p.numel() for p in port.parameters()) == param_count(params)
+    back_p, back_bn = import_torch_state_dict(jax_model, port.state_dict())
+    _assert_same_flat(back_p, params)
+    _assert_same_flat(back_bn, bn)
+    mine = jax_flat_from_state_dict(port)
+    assert sorted(mine) == sorted(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(mine[k], np.asarray(v), err_msg=k)
