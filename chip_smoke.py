@@ -32,6 +32,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    flushed before each) beside its plain version, a PyTorch library call
    that computes the same function, and its bound on this card; then the
    wrapper's host µs per call (1,000 calls, no synchronise);
+   K1's bf16-sampling mode (``spn_sample_dtype``, ``deform_fwd_bf16``)
+   the same way (``check_deform_kernel(..., sample_dtype)``) at 336^2,
+   1024^2, 50 and 16 x 128^2, 1 x 333 x 335 (the copy path) and the eval
+   loops' shapes (phase 13's 1 x 128^2), offsets at 0, 1.5 and 20 px,
+   rtol = atol = 1e-5 (the same roundings), its distance from the fp32
+   mode at 1.5 px
+   above that tolerance (the mode really rounds), the four main shapes
+   timed beside the fp32 mode on the same inputs, the plain version, the
+   fp32 ``grid_sample`` form and K1's bound (the same bytes move);
 3b. kernel check, backward (K2): against its plain backward at the train
    batches (50 and 70 x 128^2), 16 x 128^2 and one 334^2 scene, offsets
    at 0, 1.5
@@ -39,7 +48,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    arithmetic per element); the batch-summed d_weight within 1e-5 of the
    sum of its terms' magnitudes (it sums B*H*W terms in another order);
    timed as K1, the library yardstick being autograd's backward through
-   the ``grid_sample`` form;
+   the ``grid_sample`` form; then its bf16-sampling mode
+   (``deform_bwd_bf16``) the same way at 50 and 16 x 128^2 and one 334^2
+   scene, beside the fp32 mode on the same inputs, from which its
+   d_offset must differ by more than the tolerance;
 3c. kernel check, backward with the input gradient (K3): against its
    plain backward at the CompletionFormer train batch (16 x 128^2),
    2 x 128^2 and one 334^2 scene padded to 352^2, offsets at 0, 1.5 and
@@ -180,11 +192,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rasters, and every served raster against its scene alone at twice the
    atol those two were held to float64 at (both are card runs held that
    close to float64; a batch of 72 tiles and one of 9 take other cuDNN
-   algorithms, ``LRRU_ATOL``).
+   algorithms, ``LRRU_ATOL``);
+13. the mixed-precision flagship: configs/jspsr_r8_img_msk_bf16.yml as
+   shipped (43,869,763 parameters, bf16 body, ``device_normalize``,
+   ``pack_mask``, ``device_cache``), on phase 5's tree: (a) ``fit`` for
+   2 epochs (a cut of 300) with the initial eval, the train split
+   resident in the device cache (no fallback line), exactly one K1 and
+   one K2 per step and one K1 per eval sample in the fp32 sampling mode;
+   the warm step, tiles/s, the peak memory and the cache's resident
+   bytes printed; (b) one step at batch 50 twice from one state with
+   deterministic cuDNN, bit-equal in every tensor (the phase names any
+   that differ); (c) the first batch of epoch 0 from the device cache
+   against the raw host feed's (``device_cache: false``): raw crops and
+   bases bit-equal, normalised within 2e-6; then one epoch of each, the
+   losses at rtol 2e-4; (d) (a) and (b) with ``spn_sample_dtype:
+   bfloat16`` at one epoch: K1 and K2 launch only in their bf16 modes;
+   (e) a seeded checkpoint of the bf16 model through ``--infer`` over
+   phase 4's directory and ``--infer --tile`` over phase 9's 8 x 334^2,
+   held in the scaled domain to the float64 forward of the same weights
+   with the fp32 body by ``hold_to_float64`` (``BF16_TOL_SCALED``), and
+   every served raster to its scene alone on the card
+   (``BF16_SERVED_ATOL``).
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
-...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}`` (with
+...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}``,
+``{"bf16": ...}`` (with
 the card's name and power limit) and ``{"kernels": [...]}`` lines, and
 ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
@@ -192,6 +225,8 @@ ends with ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import re
 import statistics
@@ -206,6 +241,9 @@ import torch
 
 from jspsr_torch.cli.main import main as cli_main
 from jspsr_torch.config.loader import create_config
+from jspsr_torch.data.loader import build_batch_inputs, input_kinds, \
+    pack_mask_np
+from jspsr_torch.data.normalize import scale_data
 from jspsr_torch.data.raster_io import read_raster, write_raster
 from jspsr_torch.data.synthetic import generate_city, generate_mini_dfc30
 from jspsr_torch.eval.inference import (
@@ -216,7 +254,11 @@ from jspsr_torch.eval.inference import (
     run_scene_inference,
     upscale_dem,
 )
-from jspsr_torch.eval.scene import tile_grid, tile_inference_device
+from jspsr_torch.eval.scene import (
+    prepare_scene,
+    tile_grid,
+    tile_inference_device,
+)
 from jspsr_torch.eval.serve import auto_scene_batch
 from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
@@ -253,6 +295,7 @@ FLAGSHIP = REPO / "configs" / "jspsr_r8_img_msk.yml"
 CF_CONFIG = REPO / "configs" / "completionformer_r8_img_msk.yml"
 EDSR_CONFIG = REPO / "configs" / "edsr_r8_img.yml"
 LRRU_CONFIG = REPO / "configs" / "lrru_r8_img.yml"
+BF16_CONFIG = REPO / "configs" / "jspsr_r8_img_msk_bf16.yml"
 
 # K1's correctness-only shapes: sides that are not multiples of its 4 x 64
 # tile, the first smaller than one tile (TMA), the second with W % 4 != 0
@@ -261,6 +304,15 @@ CHECK_SHAPES = [(2, 13, 20), (1, 333, 335)]
 BWD_SHAPES = [(50, 128, 128), (70, 128, 128), (16, 128, 128),
               (1, 336, 336)]
 DX_SHAPES = [(16, 128, 128), (2, 128, 128), (1, 352, 352)]
+# The bf16-sampling modes (``spn_sample_dtype``): K1's at whole scenes of
+# 336^2 and 1024^2, the train batches of 50 and 16 x 128^2 and the copy
+# path's 333 x 335, and at the eval loops' shapes (``eval_shapes``, where
+# phase 13 (d) launches it most); K2's at the train batches and one 334^2
+# scene
+BF16 = "bfloat16"
+BF16_SHAPES = [(1, 336, 336), (1, 1024, 1024), (50, 128, 128),
+               (16, 128, 128), (1, 333, 335)]
+BF16_BWD_SHAPES = [(50, 128, 128), (16, 128, 128), (1, 334, 334)]
 # K3's d_weight and d_x against the plain backward: the largest error
 # relative to the sum of the terms' magnitudes (the sums run in another
 # order; d_x's fixed point resolves about 2^-61 of its image's L1 norm of
@@ -307,20 +359,26 @@ CARD_FP64_FLOOR = 5e-3
 # (an excess over 3x the CPU's of up to 1.6e-2 on an H100). With cuDNN off
 # they hold CARD_FP64_FLOOR, as every other tensor does with it on.
 SA_CONV_SUFFIX, SA_CONV_FLOOR = ".sa.conv1.weight", 2.5e-2
+
+
+def deform_counts(**counts) -> dict:
+    """Every deform kernel's launch count (each mode under its own name),
+    0 but for ``counts``."""
+    return {**dict.fromkeys(deform_cuda.KERNELS, 0), **counts}
+
+
 # Launches per train step: JSPSR's SPN head runs one deform forward and,
 # as it detaches the DEM, the backward without the input gradient (K2);
 # NLSPN propagates 6 times a feature that needs its gradient (K3).
-PER_STEP = {"JSPSR": {"deform_fwd": 1, "deform_bwd": 1, "deform_bwd_dx": 0},
-            "CompletionFormer": {"deform_fwd": 6, "deform_bwd": 0,
-                                 "deform_bwd_dx": 6},
+PER_STEP = {"JSPSR": deform_counts(deform_fwd=1, deform_bwd=1),
+            "CompletionFormer": deform_counts(deform_fwd=6, deform_bwd_dx=6),
             # EDSR as shipped runs no SPN head; with it, JSPSR's head on
             # the detached DEM. LRRU runs its post-process in each of 4
             # rounds on a detached depth; only round 4's output reaches
             # the loss undetached.
-            "EDSR": {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 0},
-            "EDSR+SPN": {"deform_fwd": 1, "deform_bwd": 1,
-                         "deform_bwd_dx": 0},
-            "LRRU": {"deform_fwd": 4, "deform_bwd": 1, "deform_bwd_dx": 0}}
+            "EDSR": deform_counts(),
+            "EDSR+SPN": deform_counts(deform_fwd=1, deform_bwd=1),
+            "LRRU": deform_counts(deform_fwd=4, deform_bwd=1)}
 # Phases 11-12 train one epoch each (2 steps of 70), a cut: with two, as
 # phases 5-6 train, the whole script ran 359.5 s (NVIDIA H100 80GB HBM3,
 # 700 W), where phases 1-10 alone had taken 227.9 s
@@ -346,6 +404,23 @@ LRRU_HOLES = 0.03
 # on the CPU, with three times the CPU fp32 run's distance added
 # (``hold_to_float64``), as phase 5 holds a train step.
 LRRU_RTOL, LRRU_ATOL = 1e-4, 3e-5
+# Phase 13 holds the bf16 flagship's served outputs to the float64 forward
+# of the same weights with the fp32 body, in the model's scaled domain (the
+# whole scene's output; the served rasters mapped back by
+# ``scaled_raster``), at phase 4's serving tolerance (atol times the
+# output's largest magnitude, at least 1) plus three times the CPU bf16
+# port's own distance from float64 (``hold_to_float64``): a bf16 body is
+# that far from float64 by design, and the card's bf16 convs round in
+# other places than the CPU's.
+BF16_TOL_SCALED = (1e-4, 2e-5)
+# Every served raster against its scene served alone on the card, scaled:
+# the two differ only where cuDNN's bf16 convs at a batch of 72 tiles
+# round otherwise than at 9 (up to 0.0133 on an NVIDIA H100 80GB HBM3; the
+# card against the CPU's bf16 run 0.0098): three times that, as
+# ``hold_to_float64`` allows three times a run's own distance. The phase
+# asserts that a raster swapped with another scene's, or shifted by one
+# tile stride, would exceed it.
+BF16_SERVED_ATOL = 4e-2
 # The serving inputs of the image-only configs (configs/edsr_r8_img.yml,
 # configs/lrru_r8_img.yml)
 IMG_ONLY = {"COP30": 1, "image": 3}
@@ -358,10 +433,11 @@ LRRU_SCALING = {"relative": False,
 
 
 def eval_shapes() -> list:
-    """K1's shapes in the eval loop of phase 10: each config's valid
-    batch of TRAIN_SIDE^2 samples (a remainder batch is padded to it)."""
+    """K1's shapes in the eval loops of phases 10 and 13: each config's
+    valid batch of TRAIN_SIDE^2 samples (a remainder batch is padded to
+    it)."""
     return sorted({(create_config(c).valid_batch_size, TRAIN_SIDE,
-                    TRAIN_SIDE) for c in (FLAGSHIP, CF_CONFIG)})
+                    TRAIN_SIDE) for c in (FLAGSHIP, CF_CONFIG, BF16_CONFIG)})
 
 
 def serving_shapes() -> list:
@@ -379,53 +455,76 @@ def serving_shapes() -> list:
     return sorted(shapes)
 
 
-def check_deform_kernel(dev, bandwidth, fp32_peak):
-    """K1 against its plain version at the main path's shapes (timed), the
-    eval loop's, the whole-scene serving paths' of phases 11-12 and the
-    correctness-only shapes, each once; returns one row per shape and the
-    wrapper's host µs per call."""
-    gen = torch.Generator(device=dev).manual_seed(0)
+def check_deform_kernel(dev, bandwidth, fp32_peak, sample_dtype=None,
+                        seed: int = 0):
+    """K1 against its plain version, in the mode ``sample_dtype`` asks for,
+    with offsets at each of OFFSET_SCALES, at rtol = atol = 1e-5: in the
+    fp32 mode at the main path's shapes (timed), the whole-scene serving
+    paths' of phases 11-12 and the correctness-only shapes; in the bf16
+    mode at BF16_SHAPES (both compute the same roundings; only the order of
+    the 9-term sum differs), where at TIMED_SCALE its distance from the
+    fp32 mode must exceed that tolerance (the mode really rounds) and the
+    timed rows also give the fp32 mode's time on the same inputs; in both
+    at the eval loop's shapes. The bound is the fp32 mode's (the same
+    bytes move) and the library yardstick the fp32 ``grid_sample`` form.
+    Returns one row per shape and, in the fp32 mode, the wrapper's host µs
+    per call."""
+    name = "deform_fwd_bf16" if sample_dtype else "deform_fwd"
+    shapes = ((BF16_SHAPES + eval_shapes()) if sample_dtype else
+              (KERNEL_SHAPES + eval_shapes() + serving_shapes()
+               + CHECK_SHAPES))
+    gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
     rows = []
-    for b, h, w in dict.fromkeys(KERNEL_SHAPES + eval_shapes()
-                                 + serving_shapes() + CHECK_SHAPES):
-        row = {"shape": [b, 1, h, w], "max_abs_err": 0.0, "window": {}}
+    for b, h, w in dict.fromkeys(shapes):
+        row = {"shape": [b, 1, h, w], "max_abs_err": 0.0}
         for scale in OFFSET_SCALES:
             args = deform_inputs(b, h, w, scale, gen, dev)
             row["path"] = deform_cuda.fwd_path(args[0], args[1], args[4])
             with torch.inference_mode():
-                got = deform_cuda.deform_fwd(*args)
-                ref = deform_conv2d_plain(*args)
-                lib = deform_library(*args)
+                got = deform_cuda.deform_fwd(*args, sample_dtype=sample_dtype)
+                ref = deform_conv2d_plain(*args, sample_dtype=sample_dtype)
+                other = (deform_cuda.deform_fwd(*args) if sample_dtype
+                         else deform_library(*args))
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5):
                 raise AssertionError(
-                    f"deform_fwd disagrees with its plain version at "
+                    f"{name} disagrees with its plain version at "
                     f"{(b, h, w)} offset scale {scale}: max |err| {err}")
             row["max_abs_err"] = max(row["max_abs_err"], err)
-            row.setdefault("library_max_abs_err", 0.0)
-            row["library_max_abs_err"] = max(
-                row["library_max_abs_err"], (lib - ref).abs().max().item())
-            # where this data's corners are read: per pixel, from the
-            # tile's shared-memory window or from global memory
-            counts = deform_cuda.fwd_window(args[1], h, w)
-            row["window"][str(scale)] = {
-                k: counts[k] / (b * h * w)
-                for k in ("window", "global", "corners")}
-            print(f"deform_fwd window at {b} x {h} x {w}, {scale} px: "
-                  f"{counts['window_taps'] / counts['taps']:.4f} of taps in "
-                  f"the window; corners per pixel: window "
-                  f"{row['window'][str(scale)]['window']:.3f}, global "
-                  f"{row['window'][str(scale)]['global']:.3f} (a direct "
-                  f"gather {row['window'][str(scale)]['corners']:.3f})",
-                  flush=True)
+            if sample_dtype:
+                row.setdefault("vs_fp32_mode_max_abs", {})[str(scale)] = (
+                    got - other).abs().max().item()
+                if (scale == TIMED_SCALE
+                        and row["vs_fp32_mode_max_abs"][str(scale)] <= 1e-5):
+                    raise AssertionError(f"{name} at {(b, h, w)} equals the "
+                                         f"fp32 mode: {row}")
+            else:
+                row["library_max_abs_err"] = max(
+                    row.get("library_max_abs_err", 0.0),
+                    (other - ref).abs().max().item())
+                # where this data's corners are read: per pixel, from the
+                # tile's shared-memory window or from global memory
+                counts = deform_cuda.fwd_window(args[1], h, w)
+                window = row.setdefault("window", {})[str(scale)] = {
+                    k: counts[k] / (b * h * w)
+                    for k in ("window", "global", "corners")}
+                print(f"deform_fwd window at {b} x {h} x {w}, {scale} px: "
+                      f"{counts['window_taps'] / counts['taps']:.4f} of taps "
+                      f"in the window; corners per pixel: window "
+                      f"{window['window']:.3f}, global {window['global']:.3f}"
+                      f" (a direct gather {window['corners']:.3f})",
+                      flush=True)
             if scale == TIMED_SCALE and (b, h, w) in KERNEL_SHAPES:
                 with torch.inference_mode():
-                    row["kernel_ms"] = time_ms(
-                        lambda: deform_cuda.deform_fwd(*args), flush)
-                    row["plain_ms"] = time_ms(
-                        lambda: deform_conv2d_plain(*args), flush)
+                    row["kernel_ms"] = time_ms(lambda: deform_cuda.deform_fwd(
+                        *args, sample_dtype=sample_dtype), flush)
+                    if sample_dtype:
+                        row["fp32_mode_ms"] = time_ms(
+                            lambda: deform_cuda.deform_fwd(*args), flush)
+                    row["plain_ms"] = time_ms(lambda: deform_conv2d_plain(
+                        *args, sample_dtype=sample_dtype), flush)
                     row["library_ms"] = time_ms(
                         lambda: deform_library(*args), flush)
         row["bound_ms"], row["bound_by"] = k1_bound(b, h, w, bandwidth,
@@ -433,7 +532,9 @@ def check_deform_kernel(dev, bandwidth, fp32_peak):
         if "kernel_ms" in row:
             row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
         rows.append(row)
-        print(f"deform_fwd {row}", flush=True)
+        print(f"{name} {row}", flush=True)
+    if sample_dtype:
+        return rows, None
     args = deform_inputs(*HOST_SHAPE, TIMED_SCALE, gen, dev)
     with torch.inference_mode():
         host = host_us(lambda: deform_cuda.deform_fwd(*args))
@@ -442,48 +543,67 @@ def check_deform_kernel(dev, bandwidth, fp32_peak):
     return rows, host
 
 
-def check_deform_backward(dev, bandwidth, fp32_peak):
-    """K2 against its plain backward at the train path's shapes; returns
-    one row per shape."""
-    gen = torch.Generator(device=dev).manual_seed(1)
+def check_deform_backward(dev, bandwidth, fp32_peak, shapes=BWD_SHAPES,
+                          sample_dtype=None, seed: int = 1):
+    """K2 against its plain backward at ``shapes`` (the train path's), in
+    the mode ``sample_dtype`` asks for; in the bf16 mode also the fp32
+    mode's time on the same inputs, and its distance from it, which must
+    exceed the tolerance (the mode really rounds); returns one row per
+    shape."""
+    name = "deform_bwd_bf16" if sample_dtype else "deform_bwd"
+    gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 * 2**20, device=dev)
     rows = []
-    for b, h, w in BWD_SHAPES:
+    for b, h, w in shapes:
         row = {"shape": [b, 1, h, w], "max_abs_err": 0.0,
                "d_weight_err_over_abs_sum": 0.0}
         for scale in OFFSET_SCALES:
             x, offset, weight, bias, mask = deform_inputs(b, h, w, scale, gen,
                                                           dev)
             g = torch.randn(b, 1, h, w, generator=gen, device=dev)
-            got = deform_cuda.deform_bwd(x, offset, weight, mask, g)
-            ref = deform_conv2d_backward_plain(x, offset, weight, mask, g)
+            got = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                         sample_dtype=sample_dtype)
+            ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                               sample_dtype=sample_dtype)
             # |d_weight| <= this bound on the sum of the terms' magnitudes
             abs_sum = deform_conv2d_backward_plain(
-                x.abs(), offset, weight, mask.abs(), g.abs())[2]
+                x.abs(), offset, weight, mask.abs(), g.abs(),
+                sample_dtype=sample_dtype)[2]
             torch.cuda.synchronize()
-            for name, a, r in zip(("d_offset", "d_mask", "d_bias"),
+            for part, a, r in zip(("d_offset", "d_mask", "d_bias"),
                                   got[:2] + got[3:], ref[:2] + ref[3:]):
                 if not torch.allclose(a, r, rtol=1e-5, atol=1e-5):
                     raise AssertionError(
-                        f"deform_bwd {name} disagrees with the plain backward"
+                        f"{name} {part} disagrees with the plain backward"
                         f" at {(b, h, w)} offset scale {scale}: max |err| "
                         f"{(a - r).abs().max().item()}")
             w_err = ((got[2] - ref[2]).abs() / abs_sum).max().item()
             if w_err > 1e-5:
                 raise AssertionError(
-                    f"deform_bwd d_weight at {(b, h, w)} offset scale "
+                    f"{name} d_weight at {(b, h, w)} offset scale "
                     f"{scale}: error {w_err} of the terms' magnitude sum")
             row["max_abs_err"] = max(
                 row["max_abs_err"], (got[0] - ref[0]).abs().max().item(),
                 (got[1] - ref[1]).abs().max().item())
             row["d_weight_err_over_abs_sum"] = max(
                 row["d_weight_err_over_abs_sum"], w_err)
+            if sample_dtype and scale == TIMED_SCALE:
+                fp32 = deform_cuda.deform_bwd(x, offset, weight, mask, g)
+                row["d_offset_vs_fp32_mode_max_abs"] = (
+                    got[0] - fp32[0]).abs().max().item()
+                if row["d_offset_vs_fp32_mode_max_abs"] <= 1e-5:
+                    raise AssertionError(f"{name} at {(b, h, w)} equals the "
+                                         f"fp32 mode: {row}")
+                row["fp32_mode_ms"] = time_ms(lambda: deform_cuda.deform_bwd(
+                    x, offset, weight, mask, g), flush)
             if scale == TIMED_SCALE:
                 row["kernel_ms"] = time_ms(lambda: deform_cuda.deform_bwd(
-                    x, offset, weight, mask, g), flush)
+                    x, offset, weight, mask, g, sample_dtype=sample_dtype),
+                    flush)
                 row["plain_ms"] = time_ms(
-                    lambda: deform_conv2d_backward_plain(x, offset, weight,
-                                                         mask, g), flush)
+                    lambda: deform_conv2d_backward_plain(
+                        x, offset, weight, mask, g,
+                        sample_dtype=sample_dtype), flush)
                 leaves = [t.detach().clone().requires_grad_(True)
                           for t in (offset, weight, bias, mask)]
                 out = deform_library(x, *leaves)
@@ -500,7 +620,7 @@ def check_deform_backward(dev, bandwidth, fp32_peak):
         row["bound_ms"] = max(bytes_ms, ops_ms)
         row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
         rows.append(row)
-        print(f"deform_bwd {row}", flush=True)
+        print(f"{name} {row}", flush=True)
     return rows
 
 
@@ -814,22 +934,36 @@ class Float64(torch.nn.Module):
         return self.model([x.double() for x in inputs]).float()
 
 
-def hold_to_float64(got, fp32, ref, rtol, atol, what: str) -> dict:
-    """``got`` (the card's fp32) against ``ref`` (the CPU's float64) at
+def hold_to_float64(got, fp32, ref, rtol, atol, what: str,
+                    cpu: str = "fp32") -> dict:
+    """``got`` (the card's output) against ``ref`` (the CPU's float64) at
     rtol ``rtol`` and an atol of ``atol`` plus three times the largest
-    distance of ``fp32`` (the CPU's fp32 on the same input) from
-    ``ref``: the elementwise form of phase 5's rule. A random-weight
-    LRRU is ill-conditioned in fp32 (``LRRU_ATOL``); the distances are
-    returned and printed."""
-    cpu = float(np.abs(fp32 - ref).max())
+    distance of ``fp32`` (the CPU's run of the same model on the same
+    input, named ``cpu``: fp32, or bf16 for phase 13) from ``ref``: the
+    elementwise form of phase 5's rule. A random-weight LRRU is
+    ill-conditioned in fp32 (``LRRU_ATOL``); the distances are returned
+    and printed."""
+    dist = float(np.abs(fp32 - ref).max())
     out = {"card_vs_fp64_max_abs": float(np.abs(got - ref).max()),
-           "cpu_fp32_vs_fp64_max_abs": cpu,
+           f"cpu_{cpu}_vs_fp64_max_abs": dist,
            "card_vs_cpu_max_abs": float(np.abs(got - fp32).max()),
-           "atol": atol + 3 * cpu}
+           "atol": atol + 3 * dist}
     print(f"{what} against float64: {out}", flush=True)
-    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol + 3 * cpu,
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol + 3 * dist,
                                err_msg=f"card vs float64, {what}")
     return out
+
+
+def scaled_raster(raster: np.ndarray, sample: dict, p) -> np.ndarray:
+    """A served raster (metres) back in the model's scaled domain, the
+    inverse of the server's descale above the scene's base (float64; the
+    served values were clipped to [0, 1] first): the log descale
+    multiplies a scaled error by up to 7 x 1009 m, so a comparison in
+    metres resolves little."""
+    tk = p.get("tensor_kwargs")
+    base = prepare_scene(sample, p, tile=p.patch_size).base
+    return scale_data(raster.astype(np.float64), tk["min"], tk["max"],
+                      tk["log"], base_elev=base)
 
 
 def card_vs_float64_scene(p, ckpt, scene_dir, dev, rtol, atol) -> dict:
@@ -873,8 +1007,7 @@ def serve(work: Path, dev: torch.device, flagship):
                      "--result-dir", str(res_dir)])
     launches = dict(deform_cuda.LAUNCHES)
     print(f"serving-path launches: {launches}", flush=True)
-    if launches != {"deform_fwd": len(SCENES), "deform_bwd": 0,
-                    "deform_bwd_dx": 0}:
+    if launches != deform_counts(deform_fwd=len(SCENES)):
         raise AssertionError(f"launches {launches} for {len(SCENES)} scenes")
     check_outputs(paths, SCENES, work / "scenes", near_input=True)
 
@@ -913,7 +1046,7 @@ def serve_cf(work: Path, dev: torch.device):
                     "--out", str(out), "--result-dir", str(res_dir)])
     launches = dict(deform_cuda.LAUNCHES)
     print(f"cf-serving-path launches: {launches}", flush=True)
-    if launches != {"deform_fwd": 6, "deform_bwd": 0, "deform_bwd_dx": 0}:
+    if launches != deform_counts(deform_fwd=6):
         raise AssertionError(f"launches {launches} for one scene")
     check_outputs([path], [CF_SCENE], work / "scenes", near_input=False)
     m = re.search(r"Inference: .* \(([\d.]+) ms, peak ([\d.]+) MB\)",
@@ -1303,8 +1436,8 @@ def serve_tiled(work: Path, dev: torch.device, flagship):
             got = launch_counts()
             if run == 0:
                 launches[f"tiled_{name}"] = got
-            want = {"deform_fwd": expected[name], "deform_bwd": 0,
-                    "deform_bwd_dx": 0, "conv_same": 0}
+            want = {**deform_counts(deform_fwd=expected[name]),
+                    "conv_same": 0}
             if got != want:
                 raise AssertionError(f"tiled {name}: launches {got}, "
                                      f"expected {want}")
@@ -1397,8 +1530,7 @@ def serve_family(work: Path, dev: torch.device, label: str,
         input_data=dict(IMG_ONLY), **keys)
     relative = bool(p.get("relative"))
     k1 = PER_FORWARD[label]
-    none = {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 0,
-            "conv_same": 0}
+    none = {**deform_counts(), "conv_same": 0}
     launches, out = {}, {"config": dict(model_kwargs)}
 
     runs = [("whole", whole)] + ([("rect", rect)] if rect else [])
@@ -1562,12 +1694,12 @@ def fit_config(config: Path, root: Path, epochs: int = FIT_EPOCHS):
 
 class FitRecorder:
     """Wraps a Trainer's ``train_one_epoch``, ``evaluate`` and ``finish``:
-    each epoch's seconds and losses, each eval pass's seconds, and every
-    parameter and buffer as ``finish`` starts (the state the last epoch
-    left, before the best checkpoint is reloaded)."""
+    each epoch's seconds, losses and tiles/s, each eval pass's seconds,
+    and every parameter and buffer as ``finish`` starts (the state the
+    last epoch left, before the best checkpoint is reloaded)."""
 
     def __init__(self, trainer):
-        self.epoch_s, self.eval_s, self.losses = [], [], []
+        self.epoch_s, self.eval_s, self.losses, self.rates = [], [], [], []
         self.final_state = None
         train_one_epoch, evaluate = trainer.train_one_epoch, trainer.evaluate
         finish = trainer.finish
@@ -1578,6 +1710,7 @@ class FitRecorder:
             torch.cuda.synchronize()
             self.epoch_s.append(time.perf_counter() - t0)
             self.losses.append(dict(trainer.last_epoch_losses))
+            self.rates.append(trainer.last_throughput)
             return out
 
         def timed_eval(*args, **kwargs):
@@ -1726,6 +1859,278 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
     }, launches
 
 
+def bf16_fit(root: Path, work: Path, dev: torch.device, sample=None,
+             epochs: int = FIT_EPOCHS) -> tuple:
+    """Phase 13 (a) or, with ``sample``, (d): the shipped bf16 config
+    (with ``model_kwargs.spn_sample_dtype: sample``) as it is but for its
+    epochs, through ``Trainer.fit`` with the initial eval: the split must
+    be resident in the device cache (no fallback line printed), and the
+    launches exactly one K1 and one K2 per step and one K1 per eval
+    sample, each in the mode asked for; then one step at the train batch
+    twice from one state, bit-equal in every tensor."""
+    p = fit_config(BF16_CONFIG, root, epochs)
+    if sample:
+        p.model_kwargs["spn_sample_dtype"] = sample
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        trainer = Trainer(p, result_dir=work, device=dev)
+    print(printed.getvalue(), end="", flush=True)
+    if (trainer.scene_cache is None
+            or "falling back" in printed.getvalue()):
+        raise AssertionError(f"bf16 fit: the device cache fell back: "
+                             f"{printed.getvalue()}")
+    rec = FitRecorder(trainer)
+    inner, steps = trainer.train_step, []
+
+    def timed_step(inputs, gt):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = inner(inputs, gt)
+        end.record()
+        steps.append((start, end))
+        return losses
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    out = trainer.fit(initial_eval=True)
+    torch.cuda.synchronize()
+    launches = dict(deform_cuda.LAUNCHES)
+    n_valid = len(p.valid_set) * VALID_SCENES_PER_CITY
+    n_steps = epochs * (len(p.train_set) * TRAIN_SCENES_PER_CITY
+                        // p.train_batch_size)
+    evals = len(rec.eval_s)  # initial, one per epoch, final
+    fwd, bwd = (("deform_fwd_bf16", "deform_bwd_bf16") if sample
+                else ("deform_fwd", "deform_bwd"))
+    want = deform_counts(**{fwd: n_steps + n_valid * evals, bwd: n_steps})
+    label = f"bf16 fit (spn_sample_dtype {sample})"
+    print(f"{label} launches: {launches} for {n_steps} steps and {evals} "
+          f"eval passes of {n_valid} samples", flush=True)
+    if launches != want or len(steps) != n_steps:
+        raise AssertionError(f"{label}: launches {launches} in {len(steps)} "
+                             f"steps, expected {want}")
+    scores = {k: v for k, v in out["result"].items() if k != "input"}
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    losses = [e.get("Total") for e in rec.losses]
+    if not np.isfinite(list(scores.values()) + losses).all():
+        raise AssertionError(f"{label}: scores {scores}, losses {losses}")
+    warm = statistics.median(step_ms[1:])
+    batch = p.train_batch_size
+    peak_mb = torch.cuda.max_memory_allocated(dev) / 2**20
+    resident = trainer.scene_cache.nbytes
+    n_params = sum(q.numel() for q in trainer.model.parameters())
+    print(f"{label}: warm step {warm:.1f} ms, {batch / warm * 1e3:.1f} "
+          f"tiles/s, peak {peak_mb:.0f} MB, device cache {resident} bytes "
+          f"resident, no fallback", flush=True)
+    del trainer
+    set_deterministic_cudnn()
+    twice = step_twice(p, dev, build_model(p).state_dict(), batch)
+    print(f"{label} step twice from one state at batch {batch}: "
+          f"{twice['unequal']} of {twice['tensors']} tensors differ "
+          f"{twice['unequal_names']}", flush=True)
+    if twice["unequal"]:
+        raise AssertionError(f"{label}: the same step from the same state "
+                             f"is not bit-equal: {twice}")
+    return {
+        "config": str(BF16_CONFIG.relative_to(REPO)),
+        "spn_sample_dtype": sample, "parameters": n_params,
+        "cut": {"epochs": [create_config(BF16_CONFIG).epochs, epochs]},
+        "batch": batch, "steps": n_steps, "step_ms": step_ms,
+        "step_ms_warm_median": warm, "tiles_per_s_warm": batch / warm * 1e3,
+        "epoch_tiles_per_s": rec.rates, "epoch_s": rec.epoch_s,
+        "eval_pass_s": rec.eval_s, "epoch_losses": rec.losses,
+        "peak_mb": peak_mb,
+        "peak_source": "torch.cuda.max_memory_allocated over fit",
+        "device_cache_bytes": resident, "final_eval": scores,
+        "launches": launches, "step_twice": twice,
+    }, launches
+
+
+def bf16_cache_vs_host(root: Path, work: Path, dev: torch.device) -> dict:
+    """Phase 13 (c): the first batch of epoch 0 from the device cache
+    against the raw host feed's (``device_cache: false``): the raw crops
+    (uint8 image and mask, fp32 DEMs) and the bases bit-equal, the
+    normalised batch within 2e-6; then one epoch from each, the epoch
+    losses at rtol 2e-4 (tests/test_device_cache.py's)."""
+    trainers = {}
+    for key, cache in (("cache", True), ("host", False)):
+        p = fit_config(BF16_CONFIG, root, 1)
+        p.device_cache = cache
+        trainers[key] = Trainer(p, result_dir=work / key, device=dev,
+                                verbose=False)
+    cached, host = trainers["cache"], trainers["host"]
+    if cached.scene_cache is None or host.scene_cache is not None:
+        raise AssertionError("bf16 cache vs host: the feeds are not the "
+                             "ones asked for")
+    p = cached.p
+    cached.train_loader.set_epoch(0)
+    host.train_loader.set_epoch(0)
+    idx = next(cached.train_loader._batches())
+    crops, base = cached.scene_cache.raw_batch(idx, 0)
+    # the host feed's first batch: the same indices (one seed, one
+    # shuffle), read and transformed by its dataset
+    batch = host.train_set.collate([host.train_set[int(i)] for i in idx])
+    inputs_np, gt_np, base_np, _ = build_batch_inputs(batch, p.model_name,
+                                                      p.input_data)
+    kinds = input_kinds(p.input_data)
+    raw_equal = {k: bool(np.array_equal(crops[k].cpu().numpy(), x))
+                 for k, x in zip(kinds + ["hr_dem"],
+                                 list(inputs_np) + [gt_np])}
+    raw_equal["base"] = bool(np.array_equal(base.cpu().numpy(), base_np))
+    dtypes = {k: str(crops[k].dtype) for k in crops}
+    got_in, got_gt = cached.scene_cache.sample_batch(idx, 0)
+    # what the host feed ships: the mask bit-packed (pack_mask)
+    shipped = [pack_mask_np(x) if k == "mask" else x
+               for k, x in zip(kinds, inputs_np)]
+    ref_in, ref_gt = host.normalize_batch(
+        [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in shipped], torch.from_numpy(gt_np).to(dev),
+        torch.from_numpy(base_np).to(dev))
+    norm_err = max((a - b).abs().max().item() for a, b in
+                   zip([*got_in, got_gt], [*ref_in, ref_gt]))
+    cached.train_one_epoch(0)
+    host.train_one_epoch(0)
+    out = {"raw_bit_equal": raw_equal, "raw_dtypes": dtypes,
+           "normalised_max_abs_diff": norm_err,
+           "epoch_losses": {"cache": cached.last_epoch_losses,
+                            "host": host.last_epoch_losses}}
+    print(f"bf16 cache vs host feed: {out}", flush=True)
+    if not all(raw_equal.values()) or norm_err > 2e-6:
+        raise AssertionError(f"bf16 cache vs host: first batch {out}")
+    for k, v in host.last_epoch_losses.items():
+        np.testing.assert_allclose(cached.last_epoch_losses[k], v, rtol=2e-4,
+                                   err_msg=f"bf16 cache vs host epoch {k}")
+    return out
+
+
+def bf16_float64(cfg_path: Path, ckpt: Path):
+    """The float64 reference of a bf16 serving config's weights: the same
+    model with the fp32 body and sampling, in float64 (``Float64``)."""
+    p64 = create_config(cfg_path)
+    p64.model_kwargs.pop("compute_dtype", None)
+    p64.model_kwargs.pop("spn_sample_dtype", None)
+    return Float64(load_model_params(build_model(p64), ckpt))
+
+
+def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
+               tiled_dir: Path):
+    """Phase 13 (e): a seeded checkpoint of the bf16 flagship through the
+    CLI's ``--infer`` over phase 4's directory and ``--infer --tile`` over
+    phase 9's 8 x 334^2, one fp32-mode K1 per scene and per chunk; the
+    first whole scene and the first and last served rasters held, in the
+    scaled domain, to the float64 forward of the same weights with the
+    fp32 body (``hold_to_float64``: BF16_TOL_SCALED plus three times the
+    CPU bf16 port's distance to float64); every served raster to its
+    scene alone on the card (BF16_SERVED_ATOL, scaled), a limit that a
+    swapped or shifted raster must exceed."""
+    mk = {k: v for k, v in create_config(BF16_CONFIG).model_kwargs.items()
+          if k not in ("checkpoint", "pretrained")}
+    p, cfg_path, ckpt = seeded_checkpoint(work, "jspsr_r8_img_msk_bf16",
+                                          "JSPSR", mk)
+    launches, out = {}, {"model_kwargs": mk}
+    reset_launches()
+    paths = run_cli(["--config", str(cfg_path), "--infer", str(scenes_dir),
+                     "--out", str(work / "out"), "--result-dir",
+                     str(work / "result")])
+    torch.cuda.synchronize()
+    launches["bf16_serving"] = dict(deform_cuda.LAUNCHES)
+    if launches["bf16_serving"] != deform_counts(deform_fwd=len(SCENES)):
+        raise AssertionError(f"bf16 serving: launches {launches}")
+    check_outputs(paths, SCENES, scenes_dir, near_input=True)
+    sample, _ = load_scene(scenes_dir / SCENES[0][0], p)
+    got = upscale_dem(make_forward(load_model_params(build_model(p), ckpt)
+                                   .to(dev)), sample, p, dev)[0]
+    bf16_cpu = upscale_dem(make_forward(load_model_params(build_model(p),
+                                                          ckpt)),
+                           sample, p, "cpu")[0]
+    f64 = bf16_float64(cfg_path, ckpt)
+    ref = upscale_dem(make_forward(f64), sample, p, "cpu")[0]
+    scale = max(1.0, float(np.abs(ref).max()))
+    out["whole"] = hold_to_float64(
+        got, bf16_cpu, ref, BF16_TOL_SCALED[0], BF16_TOL_SCALED[1] * scale,
+        f"bf16 JSPSR {SCENES[0][0]}", cpu="bf16")
+    shapes = [(s, s) for _, s in TILED_SMALL]
+    want = deform_counts(deform_fwd=expected_tiled_launches(p, shapes))
+    reset_launches()
+    served = run_cli(["--config", str(cfg_path), "--infer", str(tiled_dir),
+                      "--tile", "--out", str(work / "out_tiled"),
+                      "--result-dir", str(work / "result_tiled")])
+    torch.cuda.synchronize()
+    launches["bf16_tiled"] = dict(deform_cuda.LAUNCHES)
+    if launches["bf16_tiled"] != want:
+        raise AssertionError(f"bf16 tiled: launches {launches}, expected "
+                             f"{want}")
+    check_outputs(served, TILED_SMALL, tiled_dir, near_input=True)
+    samples = [load_scene(tiled_dir / name, p)[0] for name, _ in TILED_SMALL]
+    scaled = [scaled_raster(read_raster(path), sample, p)
+              for path, sample in zip(served, samples)]
+    cpu = load_model_params(build_model(p), ckpt)
+    out["tiled"] = {}
+    for i in (0, len(TILED_SMALL) - 1):
+        name = TILED_SMALL[i][0]
+        bf, r64 = (scaled_raster(tile_inference_device(
+            m, samples[i], p, tile=p.patch_size, device="cpu")[0],
+            samples[i], p) for m in (cpu, f64))
+        out["tiled"][name] = hold_to_float64(
+            scaled[i], bf, r64, *BF16_TOL_SCALED,
+            f"bf16 JSPSR served {name} (scaled)", cpu="bf16")
+    # every served raster against its scene alone on the card
+    model = load_model_params(build_model(p), ckpt).to(dev)
+    served_err = {}
+    for (name, _), got, sample in zip(TILED_SMALL, scaled, samples):
+        single = scaled_raster(tile_inference_device(
+            model, sample, p, tile=p.patch_size, device=dev)[0], sample, p)
+        served_err[name] = float(np.abs(got - single).max())
+    # what a misplaced raster would be off by: another scene's raster, or
+    # its own shifted by one tile stride (a tile in its neighbour's slot)
+    d = tile_grid(TILED_SMALL[0][1], p.patch_size)[0]
+    faults = {
+        "swapped": min(float(np.abs(a - b).max())
+                       for a, b in zip(scaled, scaled[1:])),
+        f"shifted_{d}px": min(min(float(np.abs(a[d:] - a[:-d]).max()),
+                                  float(np.abs(a[:, d:] - a[:, :-d]).max()))
+                              for a in scaled)}
+    out.update(served_vs_single_scaled=served_err,
+               fault_distances_scaled=faults)
+    print(f"bf16 JSPSR served vs single (scaled): {served_err}, limit "
+          f"{BF16_SERVED_ATOL}; a misplaced raster would be off by {faults}",
+          flush=True)
+    if max(served_err.values()) > BF16_SERVED_ATOL:
+        raise AssertionError(f"bf16 served vs single, scaled: {served_err} "
+                             f"over {BF16_SERVED_ATOL}")
+    if min(faults.values()) <= BF16_SERVED_ATOL:
+        raise AssertionError(f"bf16 served vs single: the limit "
+                             f"{BF16_SERVED_ATOL} would pass a misplaced "
+                             f"raster: {faults}")
+    out["tolerances"] = {"scaled": list(BF16_TOL_SCALED),
+                         "served_vs_single_scaled": BF16_SERVED_ATOL}
+    out["launches"] = launches
+    return out, launches
+
+
+def bf16_phase(root: Path, work: Path, dev: torch.device, scenes_dir: Path,
+               tiled_dir: Path, smi: str):
+    """Phase 13: the mixed-precision flagship (configs/
+    jspsr_r8_img_msk_bf16.yml) fits, steps reproducibly, feeds from its
+    device cache as from the host, samples in bf16 with
+    ``spn_sample_dtype``, and serves."""
+    paths = {}
+    print(f"bf16: {BF16_CONFIG.relative_to(REPO)} as it is but epochs "
+          f"{create_config(BF16_CONFIG).epochs} -> {FIT_EPOCHS} (a cut), "
+          f"and {1} with spn_sample_dtype", flush=True)
+    fit_a, paths["bf16_fit"] = bf16_fit(root, work / "fit", dev)
+    cache = bf16_cache_vs_host(root, work / "feeds", dev)
+    fit_d, paths["bf16_fit_sampling"] = bf16_fit(
+        root, work / "fit_sampling", dev, sample=BF16, epochs=1)
+    torch.backends.cudnn.deterministic = False  # serving, as phase 7
+    serving, launches = serve_bf16(work / "serve", dev, scenes_dir,
+                                   tiled_dir)
+    paths.update(launches)
+    return {"fit": fit_a, "cache_vs_host": cache, "fit_sampling": fit_d,
+            "serving": serving, "card": smi}, paths
+
+
 def phase(n: int, t_start: float) -> None:
     print(f"phase {n} starts at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -1768,7 +2173,11 @@ def main() -> int:
     phase(3, t_start)
     # 3. each kernel against its plain version
     fwd_rows, fwd_host_us = check_deform_kernel(dev, bandwidth, fp32_peak)
+    fwd_bf16_rows, _ = check_deform_kernel(dev, bandwidth, fp32_peak, BF16,
+                                           seed=5)
     bwd_rows = check_deform_backward(dev, bandwidth, fp32_peak)
+    bwd_bf16_rows = check_deform_backward(dev, bandwidth, fp32_peak,
+                                          BF16_BWD_SHAPES, BF16, seed=6)
     dx_rows = check_deform_backward_dx(dev, bandwidth, fp32_peak)
 
     paths = {}
@@ -1822,6 +2231,13 @@ def main() -> int:
         # 12. LRRU: train and serve
         lrru, lrru_paths = phase_lrru(tmp / "lrru", root, dev)
         paths.update(lrru_paths)
+        phase(13, t_start)
+        # 13. the mixed-precision flagship: fit, feeds, sampling, serving
+        set_deterministic_cudnn()
+        bf16, bf16_paths = bf16_phase(root, tmp / "bf16", dev,
+                                      tmp / "serve" / "scenes",
+                                      tmp / "tiled" / "334", smi_line)
+        paths.update(bf16_paths)
     # K3's three kernels apart, under the profiler, after every phase
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
@@ -1866,6 +2282,16 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py:175",
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=False)", bwd_rows, [50, 1, 128, 128]),
+        kernel_line("deform_fwd_bf16", "jspsr_torch/ops/csrc/deform_fwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:108",
+                    "jspsr_tpu/ops/pallas_deform.py::_fwd_kernel "
+                    "(sample_dtype='bfloat16')", fwd_bf16_rows,
+                    [50, 1, 128, 128]),
+        kernel_line("deform_bwd_bf16", "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=False, sample_dtype='bfloat16')", bwd_bf16_rows,
+                    [50, 1, 128, 128]),
         kernel_line("deform_bwd_dx", "jspsr_torch/ops/csrc/deform_bwd.cu",
                     "jspsr_tpu/ops/pallas_deform.py:175",
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
@@ -1887,6 +2313,7 @@ def main() -> int:
     print(json.dumps({"fit": fitted}, default=float), flush=True)
     print(json.dumps({"edsr": edsr}, default=float), flush=True)
     print(json.dumps({"lrru": lrru}, default=float), flush=True)
+    print(json.dumps({"bf16": bf16}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

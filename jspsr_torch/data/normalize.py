@@ -6,9 +6,9 @@ data/data_utils.py:289-312,441-457).
 
 with an optional relative base (x -> x - base) applied before scaling.
 ``scale_data`` and ``descale_data`` take numpy arrays (the host pipeline)
-or torch tensors; ``modality_scale`` and ``unpack_mask_bits`` are the
-device half, on torch tensors. ``make_device_normalize`` (the Trainer's
-``device_normalize`` feed) is not yet ported.
+or torch tensors; ``modality_scale``, ``unpack_mask_bits`` and
+``make_device_normalize`` (the raw feed of ``device_normalize``) are the
+device half, on torch tensors.
 """
 
 from __future__ import annotations
@@ -62,9 +62,61 @@ def modality_scale(kind: str, x: torch.Tensor, base, *, emin, emax, elog,
     return x
 
 
+def modality_scaling(p) -> dict:
+    """``modality_scale``'s keyword arguments, from config ``p``."""
+    tk = p.tensor_kwargs or {}
+    return {"emin": tk.get("min"), "emax": tk.get("max"),
+            "elog": tk.get("log", False),
+            "scale_mask": tk.get("scale_mask", False),
+            "n_div": len(p.get("mask_channel") or list(range(15))) + 1,
+            "relative": bool(p.get("relative"))}
+
+
 def unpack_mask_bits(x: torch.Tensor, n_ch: int) -> torch.Tensor:
     """Inverse of np.packbits over the last axis: [..., ceil(C/8)] uint8
     bytes -> [..., C] {0, 1} uint8, big-endian (channel 0 in the MSB)."""
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=x.device)
     bits = (x[..., None] >> shifts) & 1
     return bits.reshape(*x.shape[:-1], x.shape[-1] * 8)[..., :n_ch]
+
+
+def make_device_normalize(p):
+    """The raw feed's normaliser (``device_normalize: true``; the JAX
+    package's ``make_device_normalize``): ``normalize(inputs, gt, base)``
+    takes a batch of RAW channels-last crops on the device, as the host
+    ships them (uint8 images, masks and canopy, fp32 DEMs; with
+    ``pack_mask`` the mask bit-packed by ``data.loader.pack_mask_np``),
+    in ``data.loader.input_kinds`` order, the (B, H, W, 1) ground truth and
+    the (B,) relative bases, and returns ``(inputs, gt)`` as NCHW fp32
+    tensors in [0, 1] with canonical strides: ToArray's arithmetic (/255 images, the
+    log-minmax elevation scaling with the relative base, the mask's
+    channel scaling, canopy /68) on the device, as ``modality_scale``.
+
+    Supported case (the Trainer asserts it): per-modality input models
+    (JSPSR, LRRU), no stats Normalize list, the default [0, 1] ranges."""
+    from jspsr_torch.data.loader import input_kinds
+
+    kinds = input_kinds(p.input_data)
+    scale = modality_scaling(p)
+    mask_ch = scale["n_div"] - 1
+    pack_mask = bool(p.get("pack_mask"))
+
+    def nchw(x):
+        # canonical NCHW strides: ``.contiguous()`` keeps a one-channel
+        # view's (H*W, 1, W, 1), which cuDNN reads as channels-last and
+        # then runs other algorithms than for the host feed's tensors
+        return x.permute(0, 3, 1, 2).clone(
+            memory_format=torch.contiguous_format)
+
+    def normalize(inputs, gt, base):
+        b = base.to(torch.float32).view(-1, 1, 1, 1)
+        out = []
+        for x, kind in zip(inputs, kinds):
+            if kind == "mask" and pack_mask:
+                x = unpack_mask_bits(x, mask_ch)
+            out.append(nchw(modality_scale(kind, x.to(torch.float32), b,
+                                           **scale)))
+        return out, nchw(modality_scale("hr_dem", gt.to(torch.float32), b,
+                                        **scale))
+
+    return normalize

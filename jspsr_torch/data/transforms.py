@@ -7,7 +7,9 @@ Every transform is a pure function of (sample, ctx): ``ctx.rng`` is a numpy
 Generator seeded from (seed, epoch, sample index) and ``ctx.tile_index``
 drives ``TileCrop``, so the draws, and the samples, are the JAX package's
 exactly. Samples stay HWC numpy; the trainer turns batches into NCHW
-tensors. The device-normalize feed and the YCbCr helpers are not ported.
+tensors. With ``device_normalize`` both loaders ship raw crops (uint8
+stays uint8) and ``data.normalize.make_device_normalize`` applies
+ToArray's arithmetic on the device. The YCbCr helpers are not ported.
 """
 
 from __future__ import annotations
@@ -305,17 +307,19 @@ def build_transforms(p):
     else:
         raise NotImplementedError(crop_mode)
 
-    if p.get("device_normalize"):
-        raise NotImplementedError("device_normalize is not yet ported")
     to_array = ToArray(p.get("normalize"), p.get("mask_channel"),
                        p.get("relative", False),
                        **(p.get("tensor_kwargs") or {}))
-    eval_tf = Compose([crop, to_array])
+    # device_normalize: both loaders ship raw crops and the device applies
+    # ToArray's arithmetic (data/normalize.make_device_normalize)
+    device_norm = bool(p.get("device_normalize"))
+    eval_tf = Compose([crop] if device_norm else [crop, to_array])
 
     train_list = [crop]
     if p.get("augment"):
         train_list.append(RandomFlipRotate90())
     if p.get("normalize"):
         train_list.insert(1, Normalize(p.normalize, p.get("resolution")))
-    train_list.append(to_array)
+    if not device_norm:
+        train_list.append(to_array)
     return Compose(train_list), eval_tf

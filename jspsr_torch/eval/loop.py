@@ -10,9 +10,13 @@ geo profile.
 Any ``valid_batch_size`` works: meters reduce per sample, the remainder
 batch is padded to the configured batch by repeating its last sample, and
 the padded samples are dropped through ``n_valid``, so the scores are those
-of one sample at a time. The JAX package's ``mesh`` (a batch sharded over
-devices) and ``device_normalize`` (a raw feed normalized on the device)
-are not yet ported and raise.
+of one sample at a time. With ``normalize`` (``device_normalize``:
+``data.normalize.make_device_normalize``) the loader ships raw crops,
+which go to the device as they are (the one-hot mask bit-packed with
+``pack_mask``) and are normalised there, inputs and ground truth; the
+bicubic-input baseline scales the raw input DEM there too and the visual
+panels on the host. The JAX package's ``mesh`` (a batch sharded over
+devices) is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from jspsr_torch.data.loader import build_batch_inputs
-from jspsr_torch.data.normalize import descale_data
+from jspsr_torch.data.loader import build_batch_inputs, input_kinds, \
+    pack_mask_np
+from jspsr_torch.data.normalize import descale_data, modality_scale, \
+    modality_scaling
 from jspsr_torch.data.raster_io import HAS_RASTERIO, write_raster
 from jspsr_torch.metrics.meters import PerformanceMeter
 from jspsr_torch.nn.layers import bicubic_resize
@@ -75,6 +81,11 @@ def _nchw(a: np.ndarray, device) -> torch.Tensor:
         np.asarray(a, np.float32).transpose(0, 3, 1, 2))).to(device)
 
 
+def _raw(a: np.ndarray, device) -> torch.Tensor:
+    """A raw-feed array on ``device`` as it is (NHWC, its own dtype)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
 def eval_model(p, loader, eval_step, device, compare_input: bool = False,
                save_dir=None, visual_dir=None, verbose: bool = False,
                mesh=None, normalize=None):
@@ -86,9 +97,12 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
     if mesh is not None:
         raise NotImplementedError("eval over a device mesh is not yet "
                                   "ported")
-    if normalize is not None:
-        raise NotImplementedError("device_normalize is not yet ported")
     device = torch.device(device)
+    scaling = modality_scaling(p)
+    mask_idx = None
+    if normalize is not None and p.get("pack_mask"):
+        kinds = input_kinds(p.input_data)
+        mask_idx = kinds.index("mask") if "mask" in kinds else None
     meter = PerformanceMeter({k: dict(v) for k, v in p.metric.items()})
     meter_in = (PerformanceMeter({k: dict(v) for k, v in p.metric.items()})
                 if compare_input else None)
@@ -104,9 +118,18 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
         inputs_np, gt_np, base_elev, meta = build_batch_inputs(
             batch, p.model_name, p.input_data)
         n_real = gt_np.shape[0]
-        inputs = [_nchw(pad_batch_to(x, batch_cfg), device)
-                  for x in inputs_np]
-        gt = _nchw(pad_batch_to(gt_np, batch_cfg), device)
+        if normalize is None:
+            inputs = [_nchw(pad_batch_to(x, batch_cfg), device)
+                      for x in inputs_np]
+            gt = _nchw(pad_batch_to(gt_np, batch_cfg), device)
+        else:
+            inputs_np = list(inputs_np)
+            if mask_idx is not None:
+                inputs_np[mask_idx] = pack_mask_np(inputs_np[mask_idx])
+            base_dev = _raw(pad_batch_to(base_elev, batch_cfg), device)
+            inputs, gt = normalize(
+                [_raw(pad_batch_to(x, batch_cfg), device) for x in inputs_np],
+                _raw(pad_batch_to(gt_np, batch_cfg), device), base_dev)
         pred, losses = eval_step(inputs, gt)
         if losses:
             per_sample = losses.get("_total_per_sample")
@@ -117,6 +140,13 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
         meter.update(pred, gt, meta, base_elev, elev_log, n_valid=n_real)
         if meter_in is not None:
             lr_dem = _nchw(pad_batch_to(batch["lr_dem"], batch_cfg), device)
+            if normalize is not None:
+                # the raw feed: ToArray's scaling of the input DEM (one
+                # channel, so NCHW serves), on the device, before the
+                # resize as on the host
+                lr_dem = modality_scale("lr_dem", lr_dem,
+                                        base_dev.view(-1, 1, 1, 1),
+                                        **scaling)
             if lr_dem.shape[-2:] != gt.shape[-2:]:
                 lr_dem = bicubic_resize(lr_dem, *gt.shape[-2:])
             meter_in.update(lr_dem, gt, meta, base_elev, elev_log,
@@ -133,6 +163,11 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
                     sample = {k: batch[k][i] for k in
                               ("lr_dem", "hr_dem", "image", "mask", "canopy")
                               if k in batch}
+                    if normalize is not None:  # ToArray's scaling
+                        sample = {k: modality_scale(
+                            k, torch.from_numpy(np.asarray(v, np.float32)),
+                            float(base_elev[i]), **scaling).numpy()
+                            for k, v in sample.items()}
                     display_predictions(
                         sample, pred[i].cpu().numpy().transpose(1, 2, 0),
                         dict(p.tensor_kwargs), base_elev=float(base_elev[i]),

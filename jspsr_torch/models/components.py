@@ -9,6 +9,12 @@ state_dict layout (the layout ``jspsr_tpu/utils/torch_import.py`` reads):
 ``ChannelAttention`` -> ``fc.0`` / ``fc.2``, ``SpatialAttention`` ->
 ``conv1``, ``CBAMBasicBlock`` -> ``conv1`` / ``bn1`` / ``conv2`` / ``bn2`` /
 ``ca`` / ``sa`` / ``downsample``.
+
+Their convs and BatchNorms are ``jspsr_torch.nn``'s ``Conv2d``,
+``ConvTranspose2d`` and ``BatchNorm2d``: torch's own on fp32 inputs, and
+on a bf16 input (JSPSR's ``compute_dtype``) the JAX package's mixed
+precision, parameters cast at use; every block then runs in its input's
+dtype, the attention's pools and means included.
 """
 
 from __future__ import annotations
@@ -23,11 +29,11 @@ from jspsr_torch import nn as jnn
 
 
 def conv1x1(cin, cout, stride=1):
-    return nn.Conv2d(cin, cout, 1, stride=stride, padding=0, bias=False)
+    return jnn.Conv2d(cin, cout, 1, stride=stride, padding=0, bias=False)
 
 
 def conv3x3(cin, cout, stride=1):
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+    return jnn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
 
 class ChannelAttention(nn.Module):
@@ -37,9 +43,9 @@ class ChannelAttention(nn.Module):
     def __init__(self, in_planes: int, ratio: int = 16):
         super().__init__()
         self.fc = nn.Sequential(
-            nn.Conv2d(in_planes, in_planes // ratio, 1, bias=False),
+            jnn.Conv2d(in_planes, in_planes // ratio, 1, bias=False),
             nn.ReLU(),
-            nn.Conv2d(in_planes // ratio, in_planes, 1, bias=False),
+            jnn.Conv2d(in_planes // ratio, in_planes, 1, bias=False),
         )
 
     def forward(self, x):
@@ -52,7 +58,7 @@ class SpatialAttention(nn.Module):
 
     def __init__(self, kernel_size: int = 7):
         super().__init__()
-        self.conv1 = nn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+        self.conv1 = jnn.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
                                bias=False)
 
     def forward(self, x):
@@ -71,10 +77,10 @@ class Basic2d(nn.Module):
         super().__init__()
         self.camb = ChannelAttention(in_channels, ratio=16) if camb else None
         layers = OrderedDict(
-            [("0", nn.Conv2d(in_channels, out_channels, kernel_size,
+            [("0", jnn.Conv2d(in_channels, out_channels, kernel_size,
                              padding=padding, bias=not bn))])
         if bn:
-            layers["bn"] = nn.BatchNorm2d(out_channels)
+            layers["bn"] = jnn.BatchNorm2d(out_channels)
         self.conv = nn.Sequential(layers)
         self.relu = relu
         self.leaky = leaky
@@ -96,12 +102,12 @@ class Basic2dTrans(nn.Module):
         super().__init__()
         layers = OrderedDict([
             ("0", Basic2d(in_channels, out_channels, 3, 1, bn=bn, camb=camb)),
-            ("1", nn.ConvTranspose2d(out_channels, out_channels, 3, stride=2,
+            ("1", jnn.ConvTranspose2d(out_channels, out_channels, 3, stride=2,
                                      padding=1, output_padding=1,
                                      bias=not bn)),
         ])
         if bn:
-            layers["bn"] = nn.BatchNorm2d(out_channels)
+            layers["bn"] = jnn.BatchNorm2d(out_channels)
         self.dconv = nn.Sequential(layers)
 
     def forward(self, x):
@@ -116,9 +122,9 @@ class BasicBlock(nn.Module):
                  scale: float = 1.0):
         super().__init__()
         self.conv1 = conv3x3(inplanes, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = jnn.BatchNorm2d(planes)
         self.conv2 = conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = jnn.BatchNorm2d(planes)
         self.downsample = downsample
         self.act = act
         self.scale = scale
@@ -139,9 +145,9 @@ class CBAMBasicBlock(nn.Module):
                  downsample: nn.Module | None = None, ratio: int = 16):
         super().__init__()
         self.conv1 = conv3x3(inplanes, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = jnn.BatchNorm2d(planes)
         self.conv2 = conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = jnn.BatchNorm2d(planes)
         self.ca = ChannelAttention(planes, ratio=ratio)
         self.sa = SpatialAttention()
         self.downsample = downsample
@@ -161,7 +167,7 @@ class Downsample(nn.Sequential):
     class)."""
 
     def __init__(self, cin, cout, stride):
-        super().__init__(conv1x1(cin, cout, stride), nn.BatchNorm2d(cout))
+        super().__init__(conv1x1(cin, cout, stride), jnn.BatchNorm2d(cout))
 
 
 class Guide(nn.Module):

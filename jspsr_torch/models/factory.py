@@ -32,6 +32,8 @@ def build_model(p, generator: torch.Generator | None = None):
             spn_scale=mk.get("spn_scale", 1.0),
             cat_only=mk.get("cat_only", True),
             generator_leaky=mk.get("generator_leaky", False),
+            compute_dtype=mk.get("compute_dtype"),
+            spn_sample_dtype=mk.get("spn_sample_dtype"),
             generator=generator,
             **{k: mk.get(k) for k in NOT_PORTED},
         )

@@ -14,7 +14,20 @@ Architecture (cat_only fusion, nf=32, nb = number of branches):
   PostProcessor (one modulated deformable conv over the raw DEM, residual)
 
 Branches: lr_dem (required) + optional image + at most one aux of
-{mask, canopy, coord}. NCHW; fp32 eval forward.
+{mask, canopy, coord}. NCHW.
+
+``compute_dtype="bfloat16"`` is the JAX package's mixed-precision body:
+the parameters stay fp32 and the stems take their inputs cast to bf16, so
+the encoder, decoder, ``conv0`` and the SPN Generator run in bf16 (convs
+cast their parameters at use, BatchNorm takes fp32 statistics,
+``jspsr_torch.nn``); the Generator gets the detached DEM cast to bf16, and
+its affinity and offsets are cast back to fp32 for the PostProcessor,
+which samples the DEM the caller passed, in fp32, and adds the residual
+in fp32. The casts are explicit, where the JAX package puts them
+(``jspsr_tpu/models/jspsr.py:376,425,433,437``), not ``torch.autocast``,
+whose per-op lists would also reach the head. ``spn_sample_dtype=
+"bfloat16"`` runs the PostProcessor's deformable conv in its
+bf16-sampling mode.
 """
 
 from __future__ import annotations
@@ -36,8 +49,8 @@ AUX_KEYS = ("mask", "canopy", "coord")
 
 # JAX-package options whose port has not landed: a config that asks for
 # one fails loudly instead of running something else.
-NOT_PORTED = ("remat_stages", "fuse_stems", "eval_grouped", "compute_dtype",
-              "spn_sample_dtype")
+NOT_PORTED = ("remat_stages", "fuse_stems", "eval_grouped")
+COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
 def _make_branch_layer(inplanes, planes, blocks, stride, res_scale, fused_in):
@@ -64,17 +77,26 @@ class JSPSR(nn.Module):
         spn_scale: float = 1.0,
         cat_only: bool = True,
         generator_leaky: bool = False,
+        compute_dtype: str | None = None,
+        spn_sample_dtype: str | None = None,
         generator: torch.Generator | None = None,
         **not_ported,
     ):
         """``generator`` seeds the init (the JAX package's truncated-normal
-        fan-in); ``None`` draws from a generator seeded with 0."""
+        fan-in); ``None`` draws from a generator seeded with 0.
+        ``compute_dtype`` (None, "float32" or "bfloat16") is the body's
+        dtype, ``spn_sample_dtype`` the SPN head's sampling mode."""
         super().__init__()
         for name, value in not_ported.items():
             if name not in NOT_PORTED:
                 raise TypeError(f"JSPSR got an unexpected argument {name!r}")
             if value:
                 raise NotImplementedError(f"JSPSR {name} is not yet ported")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"JSPSR compute_dtype must be one of "
+                             f"{list(COMPUTE_DTYPES)}, got {compute_dtype!r}")
+        # None: the body runs in its inputs' dtype (fp32, or float64)
+        self.compute_dtype = COMPUTE_DTYPES[compute_dtype]
         in_channels = dict(in_channels)
         if len(in_channels) < 2 or "lr_dem" not in in_channels:
             raise ValueError("JSPSR needs lr_dem and at least one guidance "
@@ -129,7 +151,8 @@ class JSPSR(nn.Module):
         if spn:
             self.generator = Generator(c0_ch, 3, bc=bc, leaky=generator_leaky)
             self.postprocessor = PostProcessor(3, residual=True,
-                                               scale=spn_scale)
+                                               scale=spn_scale,
+                                               sample_dtype=spn_sample_dtype)
         else:
             self.generator = None
             self.postprocessor = Basic2d(c0_ch, out_channels, 3, 1, bn=False,
@@ -157,11 +180,16 @@ class JSPSR(nn.Module):
         if len(inputs) != len(keys):
             raise ValueError(f"expected inputs {keys}, got {len(inputs)}")
         dem = inputs[0]
-        feats = {"dem": self.conv_dem(dem)}
+        cdt = self.compute_dtype
+
+        def body(x):
+            return x if cdt is None else x.to(cdt)
+
+        feats = {"dem": self.conv_dem(body(dem))}
         if self.has_img:
-            feats["img"] = self.conv_img(inputs[1])
+            feats["img"] = self.conv_img(body(inputs[1]))
         if self.aux_key:
-            feats["aux"] = self.conv_aux(inputs[-1])
+            feats["aux"] = self.conv_aux(body(inputs[-1]))
 
         fused = {}
         dem_in = feats["dem"]
@@ -184,7 +212,11 @@ class JSPSR(nn.Module):
             # The refinement head treats the raw DEM as data, not as a
             # learnable path (reference JSPSR.py:372).
             dem_sg = dem.detach()
-            weight, offset = self.generator(dem_sg, c0)
+            weight, offset = self.generator(body(dem_sg), c0)
             del c0
-            return self.postprocessor(dem_sg, weight, offset)
-        return self.postprocessor(c0)
+            # the sampling of the raw DEM is precision-critical: the
+            # affinity and offsets re-enter the DEM's dtype, the DEM itself
+            # never left it
+            return self.postprocessor(dem_sg, weight.to(dem.dtype),
+                                      offset.to(dem.dtype))
+        return self.postprocessor(c0).to(dem.dtype)

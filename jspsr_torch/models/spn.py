@@ -6,7 +6,13 @@
   is inserted at the center tap).
 - ``PostProcessor``: zero-sums the affinity (residual mode) and applies one
   modulated deformable conv to the raw DEM with a learnable 3x3 kernel
-  (initialized to ones) and bias, adding ``scale * dem`` back.
+  (initialized to ones) and bias, adding ``scale * dem`` back; with
+  ``sample_dtype="bfloat16"`` the conv's bf16-sampling mode
+  (``ops.deform_conv``).
+
+The Generator computes in its inputs' dtype (bf16 under JSPSR's
+``compute_dtype``, its two 1x1 heads and the sigmoid included); the
+caller casts the affinity and offsets to fp32 for the PostProcessor.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jspsr_torch import nn as jnn
 from jspsr_torch.models.components import Basic2d, BasicBlock
 from jspsr_torch.ops.deform_conv import deform_conv2d, insert_zero_center_offset
 
@@ -38,7 +45,7 @@ class Generator(nn.Module):
                             leaky=leaky)
         self.block = BasicBlock(bc * 4, bc * 4)
         self.conv_weight = nn.Sequential(
-            nn.Conv2d(bc * 4, kernel_size ** 2, 1, padding=0, bias=True))
+            jnn.Conv2d(bc * 4, kernel_size ** 2, 1, padding=0, bias=True))
         self.conv_offset = Basic2d(bc * 4, 2 * num, kernel_size=1, padding=0,
                                    bn=False, relu=False)
 
@@ -52,8 +59,9 @@ class Generator(nn.Module):
         # separate conv_weight / conv_offset modules.
         k2 = self.kernel_size ** 2
         head_w, off_conv = self.conv_weight[0], self.conv_offset.conv[0]
-        heads = F.conv2d(feat, torch.cat([head_w.weight, off_conv.weight]),
-                         torch.cat([head_w.bias, off_conv.bias]))
+        heads = F.conv2d(
+            feat, torch.cat([head_w.weight, off_conv.weight]).to(feat.dtype),
+            torch.cat([head_w.bias, off_conv.bias]).to(feat.dtype))
         weight = torch.sigmoid(heads[:, :k2])
         offset = insert_zero_center_offset(heads[:, k2:], self.kernel_size)
         return weight, offset
@@ -63,11 +71,12 @@ class PostProcessor(nn.Module):
     """Deformable refinement of the raw DEM (reference spn.py:79-118)."""
 
     def __init__(self, kernel_size: int = 3, residual: bool = True,
-                 scale: float = 1.0):
+                 scale: float = 1.0, sample_dtype: str | None = None):
         super().__init__()
         self.kernel_size = kernel_size
         self.residual = residual
         self.scale = scale
+        self.sample_dtype = sample_dtype
         self.w = nn.Parameter(torch.ones(1, 1, kernel_size, kernel_size))
         self.b = nn.Parameter(torch.zeros(1))
 
@@ -79,7 +88,8 @@ class PostProcessor(nn.Module):
             weight = weight / weight.sum(dim=1, keepdim=True)
         pad = (self.kernel_size - 1) // 2
         refined = deform_conv2d(init_dem.contiguous(), offset, self.w, self.b,
-                                weight, padding=pad)
+                                weight, padding=pad,
+                                sample_dtype=self.sample_dtype)
         if self.residual:
             refined = refined + self.scale * init_dem
         return refined

@@ -1,4 +1,7 @@
 from jspsr_torch.nn.layers import (
+    BatchNorm2d,
+    Conv2d,
+    ConvTranspose2d,
     bicubic_resize,
     bilinear_resize,
     global_avg_pool,
@@ -6,5 +9,6 @@ from jspsr_torch.nn.layers import (
     init_weights,
 )
 
-__all__ = ["bicubic_resize", "bilinear_resize", "global_avg_pool",
-           "global_max_pool", "init_weights"]
+__all__ = ["BatchNorm2d", "Conv2d", "ConvTranspose2d", "bicubic_resize",
+           "bilinear_resize", "global_avg_pool", "global_max_pool",
+           "init_weights"]

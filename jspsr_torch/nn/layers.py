@@ -3,10 +3,18 @@
 The port's models use torch's NCHW / OIHW ``nn.Conv2d``,
 ``nn.ConvTranspose2d``, ``nn.BatchNorm2d``, ``nn.Linear`` (the JAX
 ``Dense``, whose (in, out) weight is torch's transposed) and
-``nn.LayerNorm`` (eps 1e-5 unless a module says otherwise) directly: their
+``nn.LayerNorm`` (eps 1e-5 unless a module says otherwise): their
 padding, output-size and normalisation semantics are the ones the JAX
-package reproduces. What remains here is the JAX package's init, its global
-pools and its bilinear and bicubic resizes.
+package reproduces. The modules of a mixed-precision body (JSPSR's
+``compute_dtype``) take the subclasses ``Conv2d``, ``ConvTranspose2d`` and
+``BatchNorm2d`` here, which keep fp32 parameters and the same state_dict
+keys and, on a bf16 input, compute as the JAX layers do
+(``jspsr_tpu/nn/layers.py:242,264,319,326,355-385``): a conv casts its
+weight and bias to the input's dtype at use; BatchNorm takes its
+statistics in fp32 and normalises in the input's dtype. On fp32 (or
+float64) inputs each is its torch parent, unchanged. What remains here is
+the JAX package's init, its global pools and its bilinear and bicubic
+resizes.
 
 The JAX package's TPU lowering levers (space-to-depth stride-2 convs, the
 stride-1 conv custom VJP, the wgrad dot) are exact re-expressions of the
@@ -23,6 +31,70 @@ import torch.nn.functional as F
 from torch import nn
 
 from jspsr_torch.nn.initializers import trunc_normal_fan_in_
+
+
+def _bf16(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a bf16 activation (the parameters stay fp32)."""
+    return x.dtype == torch.bfloat16
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose weight and bias are cast to a bf16 input's dtype
+    at use (the parameters stay fp32, their gradients too)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not _bf16(x):
+            return super().forward(x)
+        return self._conv_forward(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` whose weight and bias are cast to a
+    bf16 input's dtype at use."""
+
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        if not _bf16(x) or output_size is not None:
+            return super().forward(x, output_size)
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``; on a bf16 input, the JAX package's
+    arithmetic: in training the batch statistics in fp32 (from the input
+    cast to fp32; the running statistics, fp32, updated as torch does, the
+    variance unbiased), then ``(x - mean) * inv + bias`` in the input's
+    dtype, with ``mean``, ``inv = rsqrt(var + eps) * weight`` and ``bias``
+    rounded to it. ``F.batch_norm`` on a bf16 input would normalise in
+    fp32 and round once; this rounds where the JAX package does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not _bf16(x) or not self.track_running_stats:
+            return super().forward(x)
+        if self.training:
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (self.momentum if self.momentum is not None
+                     else 1.0 / float(self.num_batches_tracked))
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(
+                    var * (n / max(n - 1, 1)), alpha=m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+
+        def c(t):
+            return t.to(x.dtype).view(1, -1, 1, 1)
+
+        return (x - c(mean)) * c(inv) + c(self.bias)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

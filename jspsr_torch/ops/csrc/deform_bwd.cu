@@ -119,7 +119,19 @@
 //
 // Positions are tested against the image in float before any float->int
 // conversion, exactly as in the forward.
+//
+// K2's bf16-sampling mode (kBf16; the TPU kernel's sample_dtype=
+// 'bfloat16' with need_dx=False, entry point jspsr_deform_bwd_bf16): the
+// forward's rounded row products (deform_fwd.cu), tmp_c = bf(v0c)
+// bf(1-ty) + bf(v1c) bf(ty), give val = tmp_0 (1 - tx) + tmp_1 tx for
+// d_mask and d_weight and d/dx = tmp_1 - tmp_0; d/dy takes the rounded
+// corners against the exact row derivative, (1 - tx)(bf(v10) - bf(v00))
+// + tx (bf(v11) - bf(v01)), as the TPU kernel's one-hot difference
+// matmul does. Explicit _rn operations keep each rounding the plain
+// version's. K3 has no such mode yet (no shipped model asks for it with
+// the input gradient).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -206,11 +218,17 @@ struct WindowScatter {
   }
 };
 
+// ``v`` rounded to bf16 (to nearest even) and back
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // One output pixel's 9 taps: writes d_offset and d_mask, accumulates
 // g m_t val_t into dw and hands every in-bounds corner's share of d_x to
-// ``scatter``. ``off``, ``msk``, ``doff`` and ``dmsk`` point at the pixel
+// ``scatter``; with kBf16 the bf16-sampling mode's values and
+// derivatives. ``off``, ``msk``, ``doff`` and ``dmsk`` point at the pixel
 // in channel 0 of its image.
-template <class Scatter>
+template <bool kBf16, class Scatter>
 __device__ __forceinline__ void pixel_backward(
     const float* __restrict__ img, const float* __restrict__ off,
     const float* __restrict__ msk, const float* __restrict__ weight,
@@ -249,14 +267,30 @@ __device__ __forceinline__ void pixel_backward(
       if (vy1 && vx0) scatter(y0 + 1, x0, gy1 * (1.f - tx));
       if (vy1 && vx1) scatter(y0 + 1, x0 + 1, gy1 * tx);
     }
-    const float top = (1.f - tx) * v00 + tx * v01;
-    const float bot = (1.f - tx) * v10 + tx * v11;
-    const float val = (1.f - ty) * top + ty * bot;
-    dmsk[t * hw] = gw * val;
-    doff[(2 * t) * hw] = gwm * (bot - top);
-    doff[(2 * t + 1) * hw] =
-        gwm * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
-    dw[t] = g * m * val;
+    if constexpr (kBf16) {
+      const float b00 = bf16_round(v00), b01 = bf16_round(v01);
+      const float b10 = bf16_round(v10), b11 = bf16_round(v11);
+      const float r0 = bf16_round(1.f - ty), r1 = bf16_round(ty);
+      const float tmp0 = __fadd_rn(__fmul_rn(b00, r0), __fmul_rn(b10, r1));
+      const float tmp1 = __fadd_rn(__fmul_rn(b01, r0), __fmul_rn(b11, r1));
+      const float cx = 1.f - tx;
+      const float val = __fadd_rn(__fmul_rn(tmp0, cx), __fmul_rn(tmp1, tx));
+      dmsk[t * hw] = __fmul_rn(gw, val);
+      doff[(2 * t) * hw] = __fmul_rn(
+          gwm, __fadd_rn(__fmul_rn(__fsub_rn(b10, b00), cx),
+                         __fmul_rn(__fsub_rn(b11, b01), tx)));
+      doff[(2 * t + 1) * hw] = __fmul_rn(gwm, __fsub_rn(tmp1, tmp0));
+      dw[t] = __fmul_rn(g * m, val);
+    } else {
+      const float top = (1.f - tx) * v00 + tx * v01;
+      const float bot = (1.f - tx) * v10 + tx * v11;
+      const float val = (1.f - ty) * top + ty * bot;
+      dmsk[t * hw] = gw * val;
+      doff[(2 * t) * hw] = gwm * (bot - top);
+      doff[(2 * t + 1) * hw] =
+          gwm * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
+      dw[t] = g * m * val;
+    }
   }
 }
 
@@ -284,7 +318,9 @@ __device__ __forceinline__ void block_dweight(const float (&dw)[kTaps],
   }
 }
 
-// K2: one thread per pixel of the flattened (B, H, W), no input gradient
+// K2: one thread per pixel of the flattened (B, H, W), no input gradient;
+// kBf16 the bf16-sampling mode
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                   const float* __restrict__ mask,
@@ -305,11 +341,11 @@ deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
     const int64_t p = i - b * hw;
     const int y = static_cast<int>(p / w);
     const int xo = static_cast<int>(p - static_cast<int64_t>(y) * w);
-    pixel_backward(x + b * hw, offset + b * (2 * kTaps) * hw + p,
-                   mask + b * kTaps * hw + p, weight,
-                   d_offset + b * (2 * kTaps) * hw + p,
-                   d_mask + b * kTaps * hw + p, grad_out[i], y, xo, h, w, hw,
-                   pad, dw, NoScatter{});
+    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hw + p,
+                          mask + b * kTaps * hw + p, weight,
+                          d_offset + b * (2 * kTaps) * hw + p,
+                          d_mask + b * kTaps * hw + p, grad_out[i], y, xo, h,
+                          w, hw, pad, dw, NoScatter{});
   }
   block_dweight(dw,
                 d_weight_partial + static_cast<int64_t>(blockIdx.x) * kTaps);
@@ -358,11 +394,11 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
     const int64_t p = static_cast<int64_t>(y) * w + xo;
     const WindowScatter scatter{win_lo, win_hi, dimg, fs.scale,
                                 ty0 - kMargin, tx0 - kMargin, w};
-    pixel_backward(x + b * hw, offset + b * (2 * kTaps) * hw + p,
-                   mask + b * kTaps * hw + p, weight,
-                   d_offset + b * (2 * kTaps) * hw + p,
-                   d_mask + b * kTaps * hw + p, grad_out[b * hw + p], y, xo,
-                   h, w, hw, pad, dw, scatter);
+    pixel_backward<false>(x + b * hw, offset + b * (2 * kTaps) * hw + p,
+                          mask + b * kTaps * hw + p, weight,
+                          d_offset + b * (2 * kTaps) * hw + p,
+                          d_mask + b * kTaps * hw + p, grad_out[b * hw + p],
+                          y, xo, h, w, hw, pad, dw, scatter);
   }
   // its __syncthreads also ends every scatter into the window
   block_dweight(dw, d_weight_partial + blk * kTaps);
@@ -461,6 +497,21 @@ int64_t k2_blocks(int64_t batch, int h, int w) {
   return (batch * h * w + kThreads - 1) / kThreads;
 }
 
+template <bool kBf16>
+int launch_k2(const float* x, const float* offset, const float* mask,
+              const float* weight, const float* grad_out, float* d_offset,
+              float* d_mask, float* d_weight_partial, int64_t batch, int h,
+              int w, int pad, void* stream) {
+  const int64_t n = batch * h * w;
+  if (n == 0) return 0;
+  deform_bwd_kernel<kBf16>
+      <<<static_cast<unsigned int>(k2_blocks(batch, h, w)), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(x, offset, mask, weight,
+                                              grad_out, d_offset, d_mask,
+                                              d_weight_partial, n, h, w, pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int64_t k3_tiles_x(int w) { return (w + kTileW - 1) / kTileW; }
 int64_t k3_tiles_y(int h) { return (h + kTileH - 1) / kTileH; }
 
@@ -495,13 +546,19 @@ extern "C" int jspsr_deform_bwd(const float* x, const float* offset,
                                 float* d_mask, float* d_weight_partial,
                                 int64_t batch, int h, int w, int pad,
                                 void* stream) {
-  const int64_t n = batch * h * w;
-  if (n == 0) return 0;
-  deform_bwd_kernel<<<static_cast<unsigned int>(k2_blocks(batch, h, w)),
-                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, offset, mask, weight, grad_out, d_offset, d_mask, d_weight_partial,
-      n, h, w, pad);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k2<false>(x, offset, mask, weight, grad_out, d_offset, d_mask,
+                          d_weight_partial, batch, h, w, pad, stream);
+}
+
+// K2's bf16-sampling mode: as jspsr_deform_bwd.
+extern "C" int jspsr_deform_bwd_bf16(const float* x, const float* offset,
+                                     const float* mask, const float* weight,
+                                     const float* grad_out, float* d_offset,
+                                     float* d_mask, float* d_weight_partial,
+                                     int64_t batch, int h, int w, int pad,
+                                     void* stream) {
+  return launch_k2<true>(x, offset, mask, weight, grad_out, d_offset, d_mask,
+                         d_weight_partial, batch, h, w, pad, stream);
 }
 
 // K3's scratch, in int64 words, all zeroed by the caller: the d_x

@@ -70,8 +70,21 @@
 // may be huge (tests use +-20 px scales) and converting an out-of-range
 // float to int is undefined. The mask is zero-sum and signed; it is used
 // as is.
+//
+// bf16-sampling mode (kBf16; the TPU kernel's sample_dtype='bfloat16',
+// entry point jspsr_deform_fwd_bf16): each tap's row product rounds the
+// four corners and the row weights (1 - ty, ty) to bf16, to nearest even,
+// and sums in fp32: tmp_c = bf(v0c) bf(1-ty) + bf(v1c) bf(ty), then
+// val = tmp_0 (1 - tx) + tmp_1 tx. A product of two bf16 values is exact
+// in fp32, and the explicit _rn operations keep nvcc from contracting
+// the column sum into an FMA, so val is the plain version's (ops/
+// deform_conv.py) bit for bit. On the TPU the mode buys MXU rate; here it
+// costs six conversions per tap and buys nothing: it exists so that a
+// model trained with it computes the same function. The fp32 mode's code
+// is untouched by the flag.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -150,8 +163,14 @@ __device__ __forceinline__ Tile tile_at(int t, const Params& p) {
           ((x0 - p.pad - kMargin) >> 2) << 2};
 }
 
+// ``v`` rounded to bf16 (to nearest even) and back
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // this consumer thread's pixels of tile ``tl`` from one stage: the 9 taps
 // added to ``acc`` in tap order
+template <bool kBf16>
 __device__ __forceinline__ void accumulate(float* acc, const float* st,
                                            const Tile& tl, const Params& p,
                                            const float* wt, int ctid) {
@@ -216,8 +235,18 @@ __device__ __forceinline__ void accumulate(float* acc, const float* st,
         if (vy1 && vx0) v10 = __ldg(row1 + x0);
         if (vy1 && vx1) v11 = __ldg(row1 + x0 + 1);
       }
-      const float val = (1.f - ty) * ((1.f - tx) * v00 + tx * v01) +
-                        ty * ((1.f - tx) * v10 + tx * v11);
+      float val;
+      if constexpr (kBf16) {
+        const float r0 = bf16_round(1.f - ty), r1 = bf16_round(ty);
+        const float tmp0 = __fadd_rn(__fmul_rn(bf16_round(v00), r0),
+                                     __fmul_rn(bf16_round(v10), r1));
+        const float tmp1 = __fadd_rn(__fmul_rn(bf16_round(v01), r0),
+                                     __fmul_rn(bf16_round(v11), r1));
+        val = __fadd_rn(__fmul_rn(tmp0, 1.f - tx), __fmul_rn(tmp1, tx));
+      } else {
+        val = (1.f - ty) * ((1.f - tx) * v00 + tx * v01) +
+              ty * ((1.f - tx) * v10 + tx * v11);
+      }
       acc[k] += wt[t] * (m * val);
     }
   }
@@ -269,7 +298,7 @@ __device__ __forceinline__ void copy_tile(float* st, const Tile& tl,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <bool kTma>
+template <bool kTma, bool kBf16>
 __global__ void __launch_bounds__(kTma ? kThreadsTma : kConsumers,
                                   kBlocksPerSm)
 deform_fwd_kernel(const __grid_constant__ CUtensorMap off_map,
@@ -333,7 +362,7 @@ deform_fwd_kernel(const __grid_constant__ CUtensorMap off_map,
     if constexpr (kTma) {
       const int s = i % kStages;
       mbar_wait(smem_u32(full + s), (i / kStages) & 1);
-      accumulate(acc, ring + s * kStageStride, tl, p, wt, tid);
+      accumulate<kBf16>(acc, ring + s * kStageStride, tl, p, wt, tid);
       // every lane's reads of the stage are done before lane 0 frees it
       __syncwarp();
       if (tid % 32 == 0) mbar_arrive(smem_u32(empty + s));
@@ -347,8 +376,8 @@ deform_fwd_kernel(const __grid_constant__ CUtensorMap off_map,
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       }
       __syncthreads();
-      accumulate(acc, ring + (i % kStages) * kStageStride, tl, p, wt,
-                 tid);
+      accumulate<kBf16>(acc, ring + (i % kStages) * kStageStride, tl, p, wt,
+                        tid);
       // the stage is refilled two tiles on
       __syncthreads();
     }
@@ -386,7 +415,7 @@ CUresult encode3d(EncodeTiled encode, CUtensorMap* map, const float* ptr,
 
 // the kernel's dynamic shared-memory allowance, set once per device, and
 // how many of its blocks one SM holds
-template <bool kTma>
+template <bool kTma, bool kBf16>
 cudaError_t prepare(int threads, int smem, int* blocks) {
   static int resident[64] = {};  // per device, 0 until asked
   int dev = 0;
@@ -396,12 +425,12 @@ cudaError_t prepare(int threads, int smem, int* blocks) {
     *blocks = resident[dev];
     return cudaSuccess;
   }
-  err = cudaFuncSetAttribute(deform_fwd_kernel<kTma>,
+  err = cudaFuncSetAttribute(deform_fwd_kernel<kTma, kBf16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, deform_fwd_kernel<kTma>, threads, smem);
+        blocks, deform_fwd_kernel<kTma, kBf16>, threads, smem);
   if (err == cudaSuccess && *blocks < 1) err = cudaErrorInvalidConfiguration;
   if (err == cudaSuccess && dev < 64) resident[dev] = *blocks;
   return err;
@@ -452,16 +481,17 @@ extern "C" int jspsr_deform_fwd_path(const void* x, const void* offset,
   return use_tma(x, offset, mask, w) ? 1 : 0;
 }
 
-// Plain C entry point, bound from Python with ctypes. All tensors are
-// contiguous fp32 on the current device: x (B,1,H,W), offset (B,18,H,W),
-// mask (B,9,H,W), weight (9,), bias (1,), out (B,1,H,W). Launches on
-// ``stream`` without synchronising and returns cudaGetLastError(), or
-// cudaErrorNotSupported where libcuda has no tensor-map encoder and the
-// shape needs one.
-extern "C" int jspsr_deform_fwd(const float* x, const float* offset,
-                                const float* mask, const float* weight,
-                                const float* bias, float* out, int64_t batch,
-                                int h, int w, int pad, void* stream) {
+namespace {
+
+// The launch of either mode. All tensors are contiguous fp32 on the
+// current device: x (B,1,H,W), offset (B,18,H,W), mask (B,9,H,W), weight
+// (9,), bias (1,), out (B,1,H,W). Launches on ``stream`` without
+// synchronising and returns cudaGetLastError(), or cudaErrorNotSupported
+// where libcuda has no tensor-map encoder and the shape needs one.
+template <bool kBf16>
+int launch(const float* x, const float* offset, const float* mask,
+           const float* weight, const float* bias, float* out, int64_t batch,
+           int h, int w, int pad, void* stream) {
   if (batch == 0 || h == 0 || w == 0) return 0;
   // the floor in accumulate() is exact below 2^22
   if (h >= (1 << 22) || w >= (1 << 22)) return cudaErrorInvalidValue;
@@ -478,8 +508,8 @@ extern "C" int jspsr_deform_fwd(const float* x, const float* offset,
   const bool tma = use_tma(x, offset, mask, w);
   int blocks = 0;
   const cudaError_t err =
-      tma ? prepare<true>(kThreadsTma, kSmem, &blocks)
-          : prepare<false>(kConsumers, kSmem, &blocks);
+      tma ? prepare<true, kBf16>(kThreadsTma, kSmem, &blocks)
+          : prepare<false, kBf16>(kConsumers, kSmem, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   // persistent: every block resident at once, none without a tile
   const int64_t slots = static_cast<int64_t>(sms) * blocks;
@@ -493,11 +523,32 @@ extern "C" int jspsr_deform_fwd(const float* x, const float* offset,
                  kTaps) != CUDA_SUCCESS ||
         encode_window(encode, &maps[2], x, w, h, batch) != CUDA_SUCCESS)
       return static_cast<int>(cudaErrorInvalidValue);
-    deform_fwd_kernel<true><<<grid, kThreadsTma, kSmem, s>>>(
+    deform_fwd_kernel<true, kBf16><<<grid, kThreadsTma, kSmem, s>>>(
         maps[0], maps[1], maps[2], p);
   } else {
-    deform_fwd_kernel<false><<<grid, kConsumers, kSmem, s>>>(
+    deform_fwd_kernel<false, kBf16><<<grid, kConsumers, kSmem, s>>>(
         maps[0], maps[1], maps[2], p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points, bound from Python with ctypes: the fp32 mode and
+// the bf16-sampling mode, each as ``launch`` above.
+extern "C" int jspsr_deform_fwd(const float* x, const float* offset,
+                                const float* mask, const float* weight,
+                                const float* bias, float* out, int64_t batch,
+                                int h, int w, int pad, void* stream) {
+  return launch<false>(x, offset, mask, weight, bias, out, batch, h, w, pad,
+                       stream);
+}
+
+extern "C" int jspsr_deform_fwd_bf16(const float* x, const float* offset,
+                                     const float* mask, const float* weight,
+                                     const float* bias, float* out,
+                                     int64_t batch, int h, int w, int pad,
+                                     void* stream) {
+  return launch<true>(x, offset, mask, weight, bias, out, batch, h, w, pad,
+                      stream);
 }

@@ -19,6 +19,20 @@ needs its gradient (NLSPN), ``deform_bwd`` where it does not (the SPN head
 detaches the DEM). On CPU tensors they are the plain versions
 ``deform_conv2d_plain`` and ``deform_conv2d_backward_plain``.
 
+``sample_dtype="bfloat16"`` is the TPU kernels' bf16-sampling mode
+(``spn_sample_dtype``): each tap's row product rounds the image's corners
+and the row weights to bf16 and sums in fp32,
+
+    tmp_c = bf16(v[y0, c]) bf16(1 - ty) + bf16(v[y0+1, c]) bf16(ty)
+    val   = tmp_x0 (1 - tx) + tmp_x1 tx
+
+(the products of two bf16 values are exact in fp32, so each tmp is one
+rounding); positions, the column weights, the mask, the weight and the
+9-tap sum stay fp32. The backward takes the same ``val`` for d_mask,
+d_weight and d_px (tmp_x1 - tmp_x0) and the rounded corners against the
+exact row derivative for d_py. On CUDA tensors it launches the two
+kernels' bf16 modes; with an input gradient (K3's mode) it raises.
+
 ``bilinear_sample`` is the plain bilinear gather at given positions, with
 autograd to the image: NLSPN's 1x1 confidence taps, which the JAX package
 also leaves to XLA. The JAX package's ``mxu`` form exists only to avoid
@@ -31,6 +45,21 @@ import torch
 
 KERNEL = 3
 TAPS = KERNEL * KERNEL
+SAMPLE_DTYPES = (None, "float32", "bfloat16")
+
+
+def bf16_sampling(sample_dtype) -> bool:
+    """Whether ``sample_dtype`` asks for the bf16-sampling mode (``None``
+    and ``"float32"`` ask for the exact fp32 one); raises on any other."""
+    if sample_dtype not in SAMPLE_DTYPES:
+        raise ValueError(f"sample_dtype must be one of {SAMPLE_DTYPES}, got "
+                         f"{sample_dtype!r}")
+    return sample_dtype == "bfloat16"
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and back to its type."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def check_deform_args(x, offset, weight, bias, mask) -> None:
@@ -116,18 +145,34 @@ def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     return bilinear_sample(x, *_positions(offset, padding)) * mask
 
 
-def deform_conv2d_plain(x, offset, weight, bias, mask,
-                        padding: int = 1) -> torch.Tensor:
+def _bf16_rows(v00, v01, v10, v11, ty):
+    """The bf16 mode's row products of the left and right corner columns:
+    (tmp_x0, tmp_x1), and the rounded corners."""
+    b00, b01, b10, b11 = (_bf16(v) for v in (v00, v01, v10, v11))
+    r0, r1 = _bf16(1.0 - ty), _bf16(ty)
+    return b00 * r0 + b10 * r1, b01 * r0 + b11 * r1, (b00, b01, b10, b11)
+
+
+def deform_conv2d_plain(x, offset, weight, bias, mask, padding: int = 1,
+                        sample_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: gather im2col, times the
-    mask, contracted with the 3x3 weight, plus bias. Any device."""
+    mask, contracted with the 3x3 weight, plus bias; with ``sample_dtype``
+    the bf16-sampling mode. Any device."""
     check_deform_args(x, offset, weight, bias, mask)
-    cols = deform_im2col(x, offset, mask, padding)  # (B, K, H, W)
+    if bf16_sampling(sample_dtype):
+        v00, v01, v10, v11, ty, tx = _bilinear_corners(
+            x, *_positions(offset, padding))
+        tmp0, tmp1, _ = _bf16_rows(v00, v01, v10, v11, ty)
+        cols = (tmp0 * (1.0 - tx) + tmp1 * tx) * mask
+    else:
+        cols = deform_im2col(x, offset, mask, padding)  # (B, K, H, W)
     y = torch.einsum("bkhw,k->bhw", cols, weight.reshape(TAPS))
     return (y + bias).unsqueeze(1)
 
 
 def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
-                                 padding: int = 1, need_dx: bool = False):
+                                 padding: int = 1, need_dx: bool = False,
+                                 sample_dtype=None):
     """Plain PyTorch version of the backward kernels, the same closed forms
     on tensors: returns (d_offset, d_mask, d_weight, d_bias) for
     ``grad_out`` (B,1,H,W), and with ``need_dx`` also d_x (B,1,H,W), each
@@ -135,17 +180,29 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
     corners with ``index_add_``. The offset derivative is floor-based (the
     corners stay fixed, only the fractional part moves), so at integer
     positions it is the forward difference; off-image corners read 0 and
-    receive nothing. Any device."""
+    receive nothing. With ``sample_dtype`` the bf16-sampling mode's
+    gradients (the module's docstring), without d_x: K3's bf16 mode is
+    not yet ported. Any device."""
+    bf16 = bf16_sampling(sample_dtype)
+    if bf16 and need_dx:
+        raise NotImplementedError("deform_conv2d: sample_dtype with the "
+                                  "input gradient is not yet ported")
     b, _, h, w = x.shape
     py, px = _positions(offset, padding)
     v00, v01, v10, v11, ty, tx = _bilinear_corners(x, py, px)
-    top = (1.0 - tx) * v00 + tx * v01
-    bot = (1.0 - tx) * v10 + tx * v11
-    val = (1.0 - ty) * top + ty * bot
     gw = grad_out * weight.reshape(1, TAPS, 1, 1)
     gwm = gw * mask
-    d_py = gwm * (bot - top)
-    d_px = gwm * ((1.0 - ty) * (v01 - v00) + ty * (v11 - v10))
+    if bf16:
+        tmp0, tmp1, (b00, b01, b10, b11) = _bf16_rows(v00, v01, v10, v11, ty)
+        val = tmp0 * (1.0 - tx) + tmp1 * tx
+        d_py = gwm * ((b10 - b00) * (1.0 - tx) + (b11 - b01) * tx)
+        d_px = gwm * (tmp1 - tmp0)
+    else:
+        top = (1.0 - tx) * v00 + tx * v01
+        bot = (1.0 - tx) * v10 + tx * v11
+        val = (1.0 - ty) * top + ty * bot
+        d_py = gwm * (bot - top)
+        d_px = gwm * ((1.0 - ty) * (v01 - v00) + ty * (v11 - v10))
     d_offset = torch.stack([d_py, d_px], dim=2).reshape(b, 2 * TAPS, h, w)
     d_weight = (grad_out * mask * val).sum(dim=(0, 2, 3)).view_as(weight)
     grads = (d_offset, gw * val, d_weight, grad_out.sum().view(1))
@@ -164,22 +221,25 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
 
 class DeformConv2dFunction(torch.autograd.Function):
     """Forward K1 on CUDA tensors, backward K3 where ``x`` needs its
-    gradient and K2 where it does not; the plain versions on CPU
-    tensors."""
+    gradient and K2 where it does not, each in the mode ``sample_dtype``
+    asks for; the plain versions on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, x, offset, weight, bias, mask, padding):
+    def forward(ctx, x, offset, weight, bias, mask, padding,
+                sample_dtype=None):
         if x.device.type == "cuda":
             from jspsr_torch.ops import deform_cuda
 
             out = deform_cuda.deform_fwd(x, offset, weight, bias, mask,
-                                         padding)
+                                         padding, sample_dtype=sample_dtype)
         elif x.device.type == "cpu":
-            out = deform_conv2d_plain(x, offset, weight, bias, mask, padding)
+            out = deform_conv2d_plain(x, offset, weight, bias, mask, padding,
+                                      sample_dtype=sample_dtype)
         else:
             raise ValueError(f"deform_conv2d: unsupported device {x.device}")
         ctx.save_for_backward(x, offset, weight, mask)
         ctx.padding = padding
+        ctx.sample_dtype = sample_dtype
         return out
 
     @staticmethod
@@ -188,35 +248,48 @@ class DeformConv2dFunction(torch.autograd.Function):
         need = ctx.needs_input_grad
         # autograd may hand over an expanded (stride-0) gradient
         grad_out = grad_out.contiguous()
+        if need[0] and bf16_sampling(ctx.sample_dtype):
+            raise NotImplementedError("deform_conv2d: sample_dtype with the "
+                                      "input gradient is not yet ported")
         if x.device.type == "cuda":
             from jspsr_torch.ops import deform_cuda
 
-            kernel = deform_cuda.deform_bwd_dx if need[0] \
-                else deform_cuda.deform_bwd
-            grads = kernel(x, offset, weight, mask, grad_out, ctx.padding)
+            if need[0]:
+                grads = deform_cuda.deform_bwd_dx(x, offset, weight, mask,
+                                                  grad_out, ctx.padding)
+            else:
+                grads = deform_cuda.deform_bwd(
+                    x, offset, weight, mask, grad_out, ctx.padding,
+                    sample_dtype=ctx.sample_dtype)
         else:
-            grads = deform_conv2d_backward_plain(x, offset, weight, mask,
-                                                 grad_out, ctx.padding,
-                                                 need_dx=need[0])
+            grads = deform_conv2d_backward_plain(
+                x, offset, weight, mask, grad_out, ctx.padding,
+                need_dx=need[0], sample_dtype=ctx.sample_dtype)
         d_offset, d_mask, d_weight, d_bias = grads[:4]
         return (grads[4] if need[0] else None,
                 d_offset if need[1] else None,
                 d_weight if need[2] else None, d_bias if need[3] else None,
-                d_mask if need[4] else None, None)
+                d_mask if need[4] else None, None, None)
 
 
-def deform_conv2d(x, offset, weight, bias, mask,
-                  padding: int = 1) -> torch.Tensor:
+def deform_conv2d(x, offset, weight, bias, mask, padding: int = 1,
+                  sample_dtype=None) -> torch.Tensor:
     """Modulated deformable conv: x (B,1,H,W), offset (B,18,H,W),
-    weight (1,1,3,3), bias (1,), mask (B,9,H,W) -> (B,1,H,W).
+    weight (1,1,3,3), bias (1,), mask (B,9,H,W) -> (B,1,H,W);
+    ``sample_dtype="bfloat16"`` the bf16-sampling mode.
 
     A CUDA tensor launches the kernels (``deform_cuda.deform_fwd``, and
-    ``deform_bwd_dx`` or ``deform_bwd`` in the backward) or raises; there is
-    no fallback. Only CPU tensors take the plain versions. Gradients flow
-    to every tensor argument that requires one."""
+    ``deform_bwd_dx`` or ``deform_bwd`` in the backward) in the mode asked
+    for, or raises; there is no fallback. Only CPU tensors take the plain
+    versions. Gradients flow to every tensor argument that requires one;
+    the bf16 mode with a gradient to ``x`` raises (not yet ported)."""
     check_deform_args(x, offset, weight, bias, mask)
+    if (bf16_sampling(sample_dtype) and x.requires_grad
+            and torch.is_grad_enabled()):
+        raise NotImplementedError("deform_conv2d: sample_dtype with the "
+                                  "input gradient is not yet ported")
     return DeformConv2dFunction.apply(x, offset, weight, bias, mask,
-                                      int(padding))
+                                      int(padding), sample_dtype)
 
 
 def insert_zero_center_offset(offset: torch.Tensor,

@@ -15,7 +15,13 @@
   order) into a shared-memory window around each 8 x 32 output tile and
   flushed with integer atomics, then turned back into fp32 by a last pass:
   bitwise reproducible (``dx_atomics`` counts, from the offsets, where
-  this data's corners go).
+  this data's corners go);
+- ``deform_fwd`` and ``deform_bwd`` with ``sample_dtype="bfloat16"``: the
+  two kernels' bf16-sampling mode (a template flag of each, entry points
+  ``jspsr_deform_fwd_bf16`` and ``jspsr_deform_bwd_bf16``), replacing
+  ``_fwd_kernel`` and ``_bwd_kernel`` (need_dx=False) with
+  ``sample_dtype='bfloat16'``: the row products in bf16, as
+  ``ops.deform_conv`` defines them.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -25,7 +31,9 @@ imports on a host without CUDA.
 
 ``LAUNCHES`` counts kernel launches by kernel name (one per wrapper call);
 a run resets it to show that its main path went through the kernels. The
-two backward kernels share a library (``deform_bwd``) and count apart.
+two backward kernels share a library (``deform_bwd``) and count apart;
+each bf16 mode counts under its own name (``deform_fwd_bf16``,
+``deform_bwd_bf16``).
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import ctypes
 import torch
 
 from jspsr_torch.ops.cuda_build import build
-from jspsr_torch.ops.deform_conv import _corners, _positions
+from jspsr_torch.ops.deform_conv import _corners, _positions, bf16_sampling
 
 TAPS = 9
 # K1's output tile (rows, columns) and window margin: the constants of
@@ -47,7 +55,8 @@ FWD_MARGIN = 4
 DX_TILE = (8, 32)
 DX_MARGIN = 4
 
-KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx")
+KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
+           "deform_bwd_bf16")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
@@ -60,7 +69,9 @@ def reset_launches() -> None:
 
 # kernel -> (library, number of pointer arguments before batch, h, w, pad)
 _ENTRY = {"deform_fwd": ("deform_fwd", 6), "deform_bwd": ("deform_bwd", 8),
-          "deform_bwd_dx": ("deform_bwd", 10)}
+          "deform_bwd_dx": ("deform_bwd", 10),
+          "deform_fwd_bf16": ("deform_fwd", 6),
+          "deform_bwd_bf16": ("deform_bwd", 8)}
 
 
 def _load(name: str):
@@ -75,7 +86,7 @@ def _load(name: str):
             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        if name == "deform_fwd":
+        if source == "deform_fwd":
             window = (ctypes.c_int * 5)()
             lib.jspsr_deform_fwd_window(window)
             want = (*FWD_TILE, FWD_MARGIN,
@@ -123,11 +134,13 @@ def _check(tensors: dict, like: torch.Tensor) -> None:
 
 
 def deform_fwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
-               bias: torch.Tensor, mask: torch.Tensor,
-               padding: int = 1) -> torch.Tensor:
+               bias: torch.Tensor, mask: torch.Tensor, padding: int = 1,
+               sample_dtype=None) -> torch.Tensor:
     """Launch the forward kernel on CUDA tensors of the shapes that
-    ``ops.deform_conv.check_deform_args`` admits; raises on anything
-    else. No autograd here: ``ops.deform_conv.deform_conv2d`` wraps it."""
+    ``ops.deform_conv.check_deform_args`` admits, in its bf16-sampling mode
+    where ``sample_dtype`` asks for it; raises on anything else. No
+    autograd here: ``ops.deform_conv.deform_conv2d`` wraps it."""
+    name = "deform_fwd_bf16" if bf16_sampling(sample_dtype) else "deform_fwd"
     _check({"x": x, "offset": offset, "weight": weight, "bias": bias,
             "mask": mask}, x)
     b, _, h, w = x.shape
@@ -135,15 +148,15 @@ def deform_fwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"deform_fwd: H, W = {h}, {w}: each must be below "
                          f"2^22")
     out = torch.empty_like(x)
-    fn = _load("deform_fwd")
+    fn = _load(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
                 weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
                 b, h, w, int(padding), stream)
     if rc != 0:
-        raise RuntimeError(f"deform_fwd launch failed: cudaError {rc}")
-    LAUNCHES["deform_fwd"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
     return out
 
 
@@ -191,14 +204,15 @@ def _backward(name, x, offset, weight, mask, grad_out, padding):
 
 def deform_bwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                mask: torch.Tensor, grad_out: torch.Tensor,
-               padding: int = 1):
+               padding: int = 1, sample_dtype=None):
     """Launch the backward kernel without the input gradient on CUDA
     tensors: x (B,1,H,W), offset (B,18,H,W), weight (1,1,3,3), mask
-    (B,9,H,W), grad_out (B,1,H,W). Returns ``(d_offset, d_mask, d_weight,
+    (B,9,H,W), grad_out (B,1,H,W), in its bf16-sampling mode where
+    ``sample_dtype`` asks for it. Returns ``(d_offset, d_mask, d_weight,
     d_bias)``; d_weight is the kernel's per-block partials summed here,
     d_bias the sum of ``grad_out``."""
-    return _backward("deform_bwd", x, offset, weight, mask, grad_out,
-                     padding)
+    name = "deform_bwd_bf16" if bf16_sampling(sample_dtype) else "deform_bwd"
+    return _backward(name, x, offset, weight, mask, grad_out, padding)
 
 
 def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,

@@ -13,6 +13,15 @@ so that a step's draws do not depend on the steps before it:
 - the host stages each batch on a prefetch thread: the loader's NHWC numpy
   arrays become NCHW tensors in pinned memory, copied to the card with
   ``non_blocking`` on a side stream that the step's stream waits on;
+- with ``device_normalize`` the loader ships raw crops (uint8 stays uint8;
+  with ``pack_mask`` the one-hot mask bit-packed), copied channels-last
+  and normalised on the device (``data.normalize.make_device_normalize``)
+  on that stream; with ``device_cache`` the train split is uploaded once
+  and each step's batch is cropped, augmented and normalised on the
+  device (``data.device_cache.DeviceSceneCache``), or, where the split
+  exceeds ``device_cache_budget_gb`` or its scenes differ in shape, the
+  Trainer prints ``[device_cache] falling back to the host feed`` and
+  trains on the raw host feed;
 - the epoch loss is the batch-weighted mean of every step's losses,
   summed on the device and read back once at the end of the epoch.
 
@@ -45,7 +54,8 @@ import torch
 
 from jspsr_torch.data.dfc30 import DFC30
 from jspsr_torch.data.loader import DataLoader, build_batch_inputs, \
-    device_prefetch
+    device_prefetch, input_kinds, pack_mask_np
+from jspsr_torch.data.normalize import make_device_normalize
 from jspsr_torch.data.transforms import build_transforms
 from jspsr_torch.eval.loop import eval_model
 from jspsr_torch.losses import build_criterion
@@ -74,8 +84,7 @@ from jspsr_torch.utils.summary import count_parameters
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
 
 # config keys of the JAX Trainer whose port has not landed
-NOT_PORTED = ("device_normalize", "pack_mask", "device_cache",
-              "save_every_steps", "profile_steps", "remat")
+NOT_PORTED = ("save_every_steps", "profile_steps", "remat")
 # config keys of the JAX Trainer (default on) that the port always does:
 # turning one off is not yet ported (``prefetch_split``: the numpy
 # assembly and the copy to the device on threads of their own)
@@ -92,6 +101,35 @@ def _nchw(a: np.ndarray, pin: bool) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(
         np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
     return t.pin_memory() if pin else t
+
+
+def _raw(a: np.ndarray, pin: bool) -> torch.Tensor:
+    """A raw-feed array as it is (NHWC, its own dtype)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if pin else t
+
+
+def check_device_normalize(p) -> None:
+    """The JAX Trainer's asserts on the raw feed's options."""
+    if p.get("pack_mask"):
+        assert p.get("device_normalize"), (
+            "pack_mask rides the raw device_normalize feed")
+        assert "mask" in input_kinds(p.input_data), (
+            "pack_mask set but no mask input")
+    if p.get("device_normalize"):
+        assert p.model_name.lower() in ("jspsr", "lrru"), (
+            "device_normalize supports the per-modality input models "
+            "(JSPSR/LRRU); channel-stacked models mix scalings in one "
+            "tensor")
+        assert not p.get("normalize"), (
+            "device_normalize does not cover the stats Normalize list")
+        tk = p.tensor_kwargs or {}
+        assert not tk.get("image_range") and not tk.get("label_range"), (
+            "device_normalize covers the default [0,1] ranges only")
+    if p.get("device_cache"):
+        assert p.get("device_normalize"), (
+            "device_cache requires device_normalize (it reuses the "
+            "on-device normaliser)")
 
 
 class Trainer:
@@ -143,6 +181,13 @@ class Trainer:
         # in one, the copy to the device in another (the JAX package's
         # ``prefetch_split``, here always on: see NOT_PORTED_OFF)
         self.prefetch_to_device = bool(p.get("device_prefetch", True))
+        # the raw feed: crops as they are read, normalised on the device
+        check_device_normalize(p)
+        self.device_normalize = bool(p.get("device_normalize"))
+        self.normalize_batch = (make_device_normalize(p)
+                                if self.device_normalize else None)
+        self._mask_idx = (input_kinds(p.input_data).index("mask")
+                          if p.get("pack_mask") else None)
         train_tf, eval_tf = build_transforms(p)
         data_kwargs = {k: v for k, v in p.items() if k != "seed"}
         self.train_set = DFC30(split="train", transform=train_tf,
@@ -155,6 +200,23 @@ class Trainer:
         self.valid_loader = DataLoader(
             self.valid_set, p.get("valid_batch_size", 1), shuffle=False,
             num_workers=1)
+
+        # device_cache: the train split on the device as raw scene stacks;
+        # a split over the budget, or of scenes of several shapes, trains
+        # on the raw host feed instead, as the JAX Trainer does
+        self.scene_cache = None
+        if p.get("device_cache"):
+            from jspsr_torch.data.device_cache import DeviceSceneCache
+
+            try:
+                self.scene_cache = DeviceSceneCache(self.train_set, p,
+                                                    self.device)
+            except (ValueError, AssertionError) as e:
+                print(f"[device_cache] falling back to the host feed: {e}")
+            if self.scene_cache is not None and self.verbose:
+                print(f"Device scene cache: {self.train_set.base_len} scenes"
+                      f" ({self.scene_cache.nbytes / 2**20:.0f} MiB raw) "
+                      f"resident on {self.device}")
 
         # the reference records the dataset sizes into the config before
         # dumping it (main.py:97-98)
@@ -199,24 +261,43 @@ class Trainer:
         return self.result_dir / f"_tmp_{self.p.model_name}.npz"
 
     # ------------------------------------------------------------------
-    def _batches(self):
+    def _batches(self, epoch: int):
         """(inputs, gt, batch size, copy-done event or None) per batch."""
         p, dev = self.p, self.device
+        if self.scene_cache is not None:
+            return ((inputs, gt, bs, None) for inputs, gt, bs in
+                    self.scene_cache.epoch_batches(self.train_loader, epoch))
         cuda = dev.type == "cuda"
         copy_stream = torch.cuda.Stream(dev) if cuda else None
+        normalize = self.normalize_batch
 
         def stage_host(batch):
-            inputs_np, gt_np, _, _ = build_batch_inputs(
+            inputs_np, gt_np, base, _ = build_batch_inputs(
                 batch, p.model_name, p.input_data)
-            return [_nchw(x, cuda) for x in inputs_np], _nchw(gt_np, cuda)
+            if normalize is None:
+                return ([_nchw(x, cuda) for x in inputs_np],
+                        _nchw(gt_np, cuda), None)
+            inputs_np = list(inputs_np)
+            if self._mask_idx is not None:
+                inputs_np[self._mask_idx] = pack_mask_np(
+                    inputs_np[self._mask_idx])
+            return ([_raw(x, cuda) for x in inputs_np], _raw(gt_np, cuda),
+                    _raw(base, cuda))
 
         def stage_transfer(staged):
-            inputs, gt = staged
+            inputs, gt, base = staged
             if not cuda:
+                if normalize is not None:
+                    inputs, gt = normalize(inputs, gt, base)
                 return inputs, gt, gt.shape[0], None
             with torch.cuda.stream(copy_stream):
                 inputs = [x.to(dev, non_blocking=True) for x in inputs]
                 gt = gt.to(dev, non_blocking=True)
+                if normalize is not None:
+                    # the raw crops in, [0, 1] NCHW batches out, on the
+                    # copy stream
+                    inputs, gt = normalize(
+                        inputs, gt, base.to(dev, non_blocking=True))
                 done = torch.cuda.Event()
                 done.record(copy_stream)
             return inputs, gt, gt.shape[0], done
@@ -238,7 +319,7 @@ class Trainer:
         # no per-step host sync.
         loss_sums = None
         t0 = time.perf_counter()
-        for inputs, gt, bs, done in self._batches():
+        for inputs, gt, bs, done in self._batches(epoch):
             if done is not None:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(done)
@@ -286,7 +367,8 @@ class Trainer:
         return eval_model(self.p, self.valid_loader, self.eval_step,
                           self.device, compare_input=compare_input,
                           save_dir=save_dir, visual_dir=visual_dir,
-                          verbose=self.verbose)
+                          verbose=self.verbose,
+                          normalize=self.normalize_batch)
 
     def fit(self, initial_eval: bool = True):
         p = self.p

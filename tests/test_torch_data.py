@@ -131,12 +131,25 @@ def test_train_one_epoch_loss_is_batch_weighted_mean(cfg, tmp_path):
     assert t2.train_one_epoch(0)[0] == pytest.approx(epoch_loss, rel=1e-6)
 
 
-@pytest.mark.parametrize("key", NOT_PORTED + ("checkpoint_backend",
-                                              "pretrained"))
+# the raw device feed's options, which raised until their slice ported them
+RAW_FEED = ("device_normalize", "pack_mask", "device_cache")
+
+
+@pytest.mark.parametrize("key", NOT_PORTED + RAW_FEED + (
+    "checkpoint_backend", "pretrained"))
 def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
     """Each option not yet ported raises; ``pretrained`` is ported now, and
-    the Trainer reads its file: an absent one raises."""
+    the Trainer reads its file: an absent one raises. The raw feed's
+    options are ported: each (on the raw feed it rides) builds a Trainer
+    that trains an epoch (tests/test_torch_device_cache.py holds them to
+    the host feed and to JAX)."""
     p = dict(cfg)
+    if key in RAW_FEED:
+        p.update({"device_normalize": True, key: True})
+        t = Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+        assert (t.scene_cache is not None) == (key == "device_cache")
+        assert np.isfinite(t.train_one_epoch(0)[0])
+        return
     error, match = NotImplementedError, "not yet ported"
     if key == "checkpoint_backend":
         p[key] = "orbax"

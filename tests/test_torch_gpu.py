@@ -32,6 +32,9 @@ from jspsr_torch.utils.perturb import perturb_weights
 
 pytestmark = pytest.mark.gpu
 
+# every kernel's count at 0, each mode under its own name
+NO_LAUNCHES = dict.fromkeys(deform_cuda.KERNELS, 0)
+
 # (batch, H, W, offset scale): integer positions, sub-pixel, far off the
 # image, a width that is not a multiple of the block, and a served scene
 CASES = [(2, 16, 16, 0.0), (2, 16, 16, 1.5), (2, 16, 16, 20.0),
@@ -129,6 +132,43 @@ def test_backward_kernel_matches_plain(cuda_device, b, h, w, scale):
     torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("b,h,w,scale", [(2, 16, 16, 1.5), (1, 13, 21, 1.5)],
+                         ids=["tma", "copy"])
+def test_bf16_sampling_kernels_match_plain(cuda_device, b, h, w, scale):
+    """K1's and K2's bf16-sampling modes against their plain versions, on
+    K1's TMA and copy paths: the same roundings, so rtol = atol = 1e-5;
+    each launches under its own name, and the mode differs from fp32."""
+    x, offset, weight, bias, mask = _args(b, h, w, scale, cuda_device, seed=9)
+    g = torch.randn(b, 1, h, w, generator=torch.Generator().manual_seed(1))
+    g = g.to(cuda_device)
+    before = dict(deform_cuda.LAUNCHES)
+    with torch.inference_mode():
+        got = deform_cuda.deform_fwd(x, offset, weight, bias, mask,
+                                     sample_dtype="bfloat16")
+        ref = deform_conv2d_plain(x, offset, weight, bias, mask,
+                                  sample_dtype="bfloat16")
+        fp32 = deform_cuda.deform_fwd(x, offset, weight, bias, mask)
+        grads = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                       sample_dtype="bfloat16")
+        ref_g = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                             sample_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert {k: deform_cuda.LAUNCHES[k] - before[k] for k in before} == {
+        **NO_LAUNCHES, "deform_fwd": 1, "deform_fwd_bf16": 1,
+        "deform_bwd_bf16": 1}
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    assert (got - fp32).abs().max().item() > 1e-3
+    torch.testing.assert_close(grads[0], ref_g[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[1], ref_g[1], rtol=1e-5, atol=1e-5)
+    # d_weight and d_bias sum b*h*w terms in another order, as in
+    # test_backward_kernel_matches_plain
+    scale_w = deform_conv2d_backward_plain(
+        x.abs(), offset, weight, mask.abs(), g.abs(),
+        sample_dtype="bfloat16")[2]
+    assert ((grads[2] - ref_g[2]).abs() <= 1e-5 * scale_w + 1e-6).all()
+    torch.testing.assert_close(grads[3], ref_g[3], rtol=1e-5, atol=1e-4)
+
+
 # K3 at NLSPN's shapes: a narrow odd width, integer positions (NLSPN's
 # zero-offset init) and the CompletionFormer train batch far off the image;
 # then the window scatter's edges on tiles (8 x 32) that divide neither H
@@ -153,7 +193,7 @@ def test_backward_dx_kernel_matches_plain(cuda_device, b, h, w, scale):
     got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
     torch.cuda.synchronize()
     assert {k: deform_cuda.LAUNCHES[k] - launches[k] for k in launches} == \
-        {"deform_fwd": 0, "deform_bwd": 0, "deform_bwd_dx": 1}
+        {**NO_LAUNCHES, "deform_bwd_dx": 1}
     again = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     launches = dict(deform_cuda.LAUNCHES)
@@ -275,8 +315,9 @@ def test_jspsr_train_step_on_gpu_matches_cpu(cuda_device):
         losses = step([x.to(dev) for x in inputs], gt.to(dev))
         if dev != "cpu":
             assert {k: deform_cuda.LAUNCHES[k] - launches[k]
-                    for k in launches} == {"deform_fwd": 1, "deform_bwd": 1,
-                                           "deform_bwd_dx": 0}
+                    for k in launches} == {**NO_LAUNCHES,
+                                             "deform_fwd": 1,
+                                             "deform_bwd": 1}
         out[str(dev)] = (
             float(losses["Total"]),
             {n: p.grad.cpu() for n, p in model.named_parameters()},
@@ -369,8 +410,9 @@ def test_completionformer_on_gpu_matches_cpu(cuda_device, completionformer):
             out[str(dev)] = model([x.float().to(dev) for x in inputs]).cpu()
         if dev != "cpu":
             assert {k: deform_cuda.LAUNCHES[k] - launches[k]
-                    for k in launches} == {"deform_fwd": 6, "deform_bwd": 0,
-                                           "deform_bwd_dx": 0}
+                    for k in launches} == {**NO_LAUNCHES,
+                                             "deform_fwd": 6,
+                                             "deform_bwd": 0}
     ref = out["cpu"].numpy()
     scale = max(1.0, float(np.abs(ref).max()))
     np.testing.assert_allclose(out[str(cuda_device)].numpy(), ref, rtol=1e-3,
@@ -398,7 +440,8 @@ def test_completionformer_train_step_on_gpu_matches_cpu(cuda_device,
         loss.backward()
         if key == "card":
             assert {k: deform_cuda.LAUNCHES[k] - launches[k]
-                    for k in launches} == {"deform_fwd": 6, "deform_bwd": 0,
+                    for k in launches} == {**NO_LAUNCHES,
+                                           "deform_fwd": 6,
                                            "deform_bwd_dx": 6}
         out[key] = (loss.item(),
                     {n: p.grad.cpu() for n, p in model.named_parameters()
@@ -695,8 +738,9 @@ def test_family_forward_and_step_on_gpu_match_cpu(cuda_device, name):
             out[str(dev)] = model([x.float().to(dev) for x in inputs]).cpu()
         if dev != "cpu":
             assert {k: deform_cuda.LAUNCHES[k] - launches[k]
-                    for k in launches} == {"deform_fwd": k1, "deform_bwd": 0,
-                                           "deform_bwd_dx": 0}
+                    for k in launches} == {**NO_LAUNCHES,
+                                             "deform_fwd": k1,
+                                             "deform_bwd": 0}
     ref = out["cpu"].numpy()
     atol = (3e-5 if name == "lrru" else 2e-5) * max(1.0,
                                                     float(np.abs(ref).max()))
@@ -716,8 +760,9 @@ def test_family_forward_and_step_on_gpu_match_cpu(cuda_device, name):
         loss.backward()
         if key == "card":
             assert {k: deform_cuda.LAUNCHES[k] - launches[k]
-                    for k in launches} == {"deform_fwd": k1, "deform_bwd": 1,
-                                           "deform_bwd_dx": 0}
+                    for k in launches} == {**NO_LAUNCHES,
+                                             "deform_fwd": k1,
+                                             "deform_bwd": 1}
         out[key] = (loss.item(),
                     {n: p.grad.cpu() for n, p in model.named_parameters()
                      if p.grad is not None},

@@ -118,14 +118,35 @@ def test_postprocessor_matches_jax(scale):
                                rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("option", NOT_PORTED)
+# the options that raised until the mixed-precision slice ported them
+PORTED = ("compute_dtype", "spn_sample_dtype")
+
+
+@pytest.mark.parametrize("option", NOT_PORTED + PORTED)
 def test_unported_options_raise(option):
-    value = "bfloat16" if option in ("compute_dtype", "spn_sample_dtype") else True
+    """Each option still in NOT_PORTED raises; ``compute_dtype`` and
+    ``spn_sample_dtype`` (tests/test_torch_bf16.py holds them against JAX)
+    now build and run: a bf16 body or the bf16-sampling head, an fp32
+    output."""
+    value = "bfloat16" if option in PORTED else True
     cfg = AttrDict({"model_name": "JSPSR", "input_data": {"lr_dem": 1, "image": 3},
                     "model_kwargs": {"num_block": 1, "num_feature": 8,
                                      option: value}})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_model(cfg)
+    if option not in PORTED:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            build_model(cfg)
+        return
+    model = build_model(cfg).eval()
+    if option == "compute_dtype":
+        assert model.compute_dtype == torch.bfloat16
+    else:
+        assert model.postprocessor.sample_dtype == "bfloat16"
+    rng = np.random.default_rng(5)
+    inputs = [torch.from_numpy(rng.uniform(0.1, 0.9, (1, c, 16, 16))
+                               .astype(np.float32)) for c in (1, 3)]
+    with torch.inference_mode():
+        out = model(inputs)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("name", ["EDSR", "LRRU", "CompletionFormer"])
