@@ -73,6 +73,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    global, and the window's flush) is counted at every offset scale and
    printed per shape beside the one global atomic per in-bounds corner
    that a scatter without the window sends;
+3d. K3's bf16-sampling mode (``deform_bwd_dx_bf16``) at K3's shapes and
+   offset scales against its two halves on the same inputs: d_x bit-equal
+   to fp32 K3's, d_offset and d_mask bit-equal to K2-bf16's, d_weight
+   within 1e-5 of K2-bf16's magnitude sum; against its plain version as
+   K3 is held; timed beside fp32 K3, the plain version and the library
+   form, with K3's bound; then once through the op's autograd
+   (``deform_conv2d(x requiring grad, ..., sample_dtype="bfloat16")
+   .sum().backward()``: one K1-bf16 and one K3-bf16 launch, the path
+   ``k3_bf16_autograd``);
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -157,7 +166,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    resume gate for the flagship and for CompletionFormer: a fit of 2
    epochs against a fit of 1 whose checkpoint a new Trainer resumes to
    epoch 2, their last parameters and buffers, best result and epoch
-   losses bit-equal; each epoch's and each eval pass's seconds;
+   losses bit-equal; each epoch's and each eval pass's seconds; then the
+   preemption gate (``save_every_steps: 2``) for the flagship on the host
+   feed and the bf16 flagship from its device cache: an uninterrupted fit
+   against a fit preempted right after epoch 0's mid-epoch save and one
+   preempted a step past epoch 1's, each relaunched in its result dir
+   (resumed at step 2, no initial eval), every parameter and buffer, the
+   losses of the epochs it ran, the best result and the final eval
+   bit-equal, the saves' ms printed; and,
+   after phase 14 (the profiler slows the process it traces), a fit with
+   ``profile_steps: 2`` whose trace names K1's and K2's kernels;
 11. EDSR: configs/edsr_r8_img.yml (16 blocks x 64, batch 70) as shipped
    and with ``spn: true``, each trained one epoch (``CUT_EPOCHS``) on
    phase 5's tree
@@ -170,9 +188,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CPU in float64 (``hold_to_float64``: the tolerance plus three times the
    CPU fp32 run's distance from float64) at rtol 1e-4 / atol 2e-5 (the
    first whole scene, the scaled output, atol times its largest
-   magnitude, at least 1) and phase 9's rtol 1e-3 / atol 1e-2 m (the first
-   and last served rasters), and every served raster against its scene
-   alone as in phase 9;
+   magnitude, at least 1) and phase 9's rtol 1e-3 / atol 1e-2 m (the last
+   served raster, ``SERVED_FP64``), and every served raster against its
+   scene alone as in phase 9;
 12. LRRU: configs/lrru_r8_img.yml as shipped (20,843,342 parameters,
    batch 70) trained the same way, with exactly 4 K1 + 1 K2 per step and
    no K3; its step against the CPU and float64 and twice from one state
@@ -188,9 +206,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    --tile`` over 8 x 334^2 (4 K1 per chunk), held as in phase 11 at the
    LRRU tolerance, rtol 1e-4 / atol 3e-5 (scaled, times the output's
    largest magnitude; in metres atol x 1009 m, the served rasters being
-   clipped to [0, 1]), on two whole scenes and the first and last served
-   rasters, and every served raster against its scene alone at twice the
-   atol those two were held to float64 at (both are card runs held that
+   clipped to [0, 1]), on two whole scenes and the last served raster,
+   and every served raster against its scene alone at twice the atol
+   that one was held to float64 at (both are card runs held that
    close to float64; a batch of 72 tiles and one of 9 take other cuDNN
    algorithms, ``LRRU_ATOL``);
 13. the mixed-precision flagship: configs/jspsr_r8_img_msk_bf16.yml as
@@ -212,14 +230,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    held in the scaled domain to the float64 forward of the same weights
    with the fp32 body by ``hold_to_float64`` (``BF16_TOL_SCALED``), and
    every served raster to its scene alone on the card
-   (``BF16_SERVED_ATOL``).
+   (``BF16_SERVED_ATOL``);
+14. export: phase 4's seeded flagship checkpoint through the CLI's
+   ``--export`` (traced on the card), loaded in a fresh process that
+   imports ``torch`` and the op library alone, run at 1, 50 and 72 x
+   128^2 against the eager model of the same weights (rtol = atol =
+   1e-5, TF32 off, cuDNN's deterministic algorithms), exactly one K1 per
+   call; a CPU-traced artifact moved to the card bit-equal to the
+   card-traced one; the artifact and the eager model at batch 50 timed
+   in turns; export seconds and artifact MB; then the same, but for the
+   CPU trace, for a seeded bf16 flagship with ``spn_sample_dtype:
+   bfloat16`` (K1-bf16 only).
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
 ...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}``,
-``{"bf16": ...}`` (with
-the card's name and power limit) and ``{"kernels": [...]}`` lines, and
-ends with ``{"ok": true, "device":
+``{"bf16": ...}``, ``{"export": ...}`` (with
+the card's name and power limit) and ``{"kernels": [...]}`` lines, its wall
+time, and ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
 """
 
@@ -228,6 +256,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -246,6 +275,7 @@ from jspsr_torch.data.loader import build_batch_inputs, input_kinds, \
 from jspsr_torch.data.normalize import scale_data
 from jspsr_torch.data.raster_io import read_raster, write_raster
 from jspsr_torch.data.synthetic import generate_city, generate_mini_dfc30
+from jspsr_torch.eval.export import load_exported
 from jspsr_torch.eval.inference import (
     load_scene,
     make_forward,
@@ -266,6 +296,7 @@ from jspsr_torch.ops import conv_same as conv_same_mod
 from jspsr_torch.ops import cuda_build, deform_cuda
 from jspsr_torch.ops.conv_same import conv_same, conv_same_plain
 from jspsr_torch.ops.deform_conv import (
+    deform_conv2d,
     deform_conv2d_backward_plain,
     deform_conv2d_plain,
 )
@@ -342,6 +373,46 @@ VALID_SCENES_PER_CITY = 4  # x 3 cities = 12 samples per eval pass
 TRAIN_SIDE = 128  # an 8 m DFC30 sample
 # fit on the card: the configs' 300 epochs cut to 2
 FIT_EPOCHS = 2
+# Phase 14: the artifact's batches (one tile, the train batch, a tiled
+# server's chunk of 72) and its tolerance against the eager model
+EXPORT_BATCHES = (1, 50, 72)
+EXPORT_TOL = 1e-5
+# run in a fresh process: the artifact loaded with torch and the op library
+# alone, on the card, TF32 off and cuDNN's deterministic algorithms (as the
+# eager model runs in the parent: with cuDNN's defaults the fp32 forward
+# differs from run to run, ``export_leg`` measures by how much), at each
+# batch; its outputs and each call's launches back in a .npz and a JSON
+# line
+EXPORT_LOADER = r"""
+import json, sys
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
+from jspsr_torch.eval.export import load_exported
+from jspsr_torch.ops import deform_cuda
+fn = load_exported(sys.argv[1])
+with np.load(sys.argv[2]) as z:
+    xs = [torch.from_numpy(z[k]).cuda() for k in sorted(z.files)]
+outs, launches = {}, {}
+for b in json.loads(sys.argv[4]):
+    deform_cuda.reset_launches()
+    y = fn(*[x[:b] for x in xs])
+    torch.cuda.synchronize()
+    launches[b] = dict(deform_cuda.LAUNCHES)
+    outs[str(b)] = y.cpu().numpy()
+np.savez(sys.argv[3], **outs)
+print(json.dumps({"launches": launches, "modules": sorted(
+    m for m in sys.modules if m.startswith(("jspsr", "jax")))}))
+"""
+# the preemption gate's save_every_steps (3 steps of 50 per epoch: one
+# mid-epoch save) and the profiled fit's profile_steps
+PREEMPT_EVERY, PROFILE_STEPS = 2, 2
+# where the gate preempts a fit: [epoch, step] of the save it resumes from
+PREEMPT_AT = {"after_save": [0, PREEMPT_EVERY],
+              "between_saves": [1, PREEMPT_EVERY]}
 # K1 launches per eval sample (valid batch 1): the flagship's SPN head once,
 # NLSPN's 6 propagation steps
 PER_EVAL_SAMPLE = {"JSPSR": 1, "CompletionFormer": 6}
@@ -413,6 +484,13 @@ LRRU_RTOL, LRRU_ATOL = 1e-4, 3e-5
 # that far from float64 by design, and the card's bf16 convs round in
 # other places than the CPU's.
 BF16_TOL_SCALED = (1e-4, 2e-5)
+# The served rasters held to float64 on the CPU in phases 11-13: the last
+# of each directory (the last chunk's last tiles). Every served raster is
+# also held to its scene served alone on the card. A cut: phases 11-13
+# held the first as well until the script passed 700 s (NVIDIA H100 80GB
+# HBM3, 700 W), where each CPU float64 forward of a served scene cost
+# seconds of host time.
+SERVED_FP64 = (-1,)
 # Every served raster against its scene served alone on the card, scaled:
 # the two differ only where cuDNN's bf16 convs at a batch of 72 tiles
 # round otherwise than at 9 (up to 0.0133 on an NVIDIA H100 80GB HBM3; the
@@ -795,6 +873,137 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
         rows.append(row)
         print(f"deform_bwd_dx {row}", flush=True)
     return rows
+
+
+def check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak):
+    """K3's bf16-sampling mode at DX_SHAPES, offsets at each of
+    OFFSET_SCALES, against its two halves on the same inputs: d_x bit-equal
+    to fp32 K3's, d_offset and d_mask bit-equal to K2-bf16's, d_weight
+    within DX_ERR_LIMIT of the terms' magnitude sum of K2-bf16's (the two
+    kernels sum it over other blocks); and against its plain version as
+    K3 is held (d_offset, d_mask at rtol = atol = 1e-5, d_x and d_weight
+    within DX_ERR_LIMIT of their magnitude sums). Timed beside fp32 K3 on
+    the same inputs, the plain version and the library form (autograd of
+    the fp32 ``grid_sample`` form, ``x`` included); K3's bound. Returns one
+    row per shape."""
+    name = "deform_bwd_dx_bf16"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    flush = torch.empty(64 * 2**20, device=dev)
+    rows = []
+    for b, h, w in DX_SHAPES:
+        row = {"shape": [b, 1, h, w], "max_abs_err": 0.0,
+               "d_weight_err_over_abs_sum": 0.0,
+               "d_x_err_over_abs_sum": 0.0,
+               "d_weight_vs_k2_bf16_err_over_abs_sum": 0.0}
+        for scale in OFFSET_SCALES:
+            x, offset, weight, bias, mask = deform_inputs(b, h, w, scale, gen,
+                                                          dev)
+            g = torch.randn(b, 1, h, w, generator=gen, device=dev)
+            got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g,
+                                            sample_dtype=BF16)
+            fp32 = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+            k2 = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                        sample_dtype=BF16)
+            ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                               need_dx=True,
+                                               sample_dtype=BF16)
+            abs_sum = deform_conv2d_backward_plain(
+                x.abs(), offset, weight.abs(), mask.abs(), g.abs(),
+                need_dx=True, sample_dtype=BF16)
+            torch.cuda.synchronize()
+            halves = {"d_x == fp32 K3's": torch.equal(got[4], fp32[4]),
+                      "d_offset == K2-bf16's": torch.equal(got[0], k2[0]),
+                      "d_mask == K2-bf16's": torch.equal(got[1], k2[1])}
+            if not all(halves.values()):
+                raise AssertionError(f"{name} at {(b, h, w)} offset scale "
+                                     f"{scale}: {halves}")
+            k2_err = _err_over_abs_sum(got[2], k2[2], abs_sum[2])
+            for part, a, r in zip(("d_offset", "d_mask", "d_bias"),
+                                  got[:2] + got[3:4], ref[:2] + ref[3:4]):
+                if not torch.allclose(a, r, rtol=1e-5, atol=1e-5):
+                    raise AssertionError(
+                        f"{name} {part} disagrees with the plain backward at "
+                        f"{(b, h, w)} offset scale {scale}: max |err| "
+                        f"{(a - r).abs().max().item()}")
+            w_err = _err_over_abs_sum(got[2], ref[2], abs_sum[2])
+            x_err = _err_over_abs_sum(got[4], ref[4], abs_sum[4])
+            if max(w_err, x_err, k2_err) > DX_ERR_LIMIT:
+                raise AssertionError(
+                    f"{name} at {(b, h, w)} offset scale {scale}: d_weight "
+                    f"error {w_err} (against K2-bf16 {k2_err}), d_x error "
+                    f"{x_err} of the terms' magnitude sums")
+            print(f"{name} at {b} x {h} x {w}, {scale} px: d_x bit-equal to "
+                  f"fp32 K3's, d_offset and d_mask to K2-bf16's; d_weight "
+                  f"{k2_err:.3e} from K2-bf16's, d_x error {x_err:.3e} of its "
+                  f"magnitude sum (limit {DX_ERR_LIMIT:g})", flush=True)
+            row["max_abs_err"] = max(
+                row["max_abs_err"], (got[0] - ref[0]).abs().max().item(),
+                (got[1] - ref[1]).abs().max().item(),
+                (got[4] - ref[4]).abs().max().item())
+            for key, err in (("d_weight_err_over_abs_sum", w_err),
+                             ("d_x_err_over_abs_sum", x_err),
+                             ("d_weight_vs_k2_bf16_err_over_abs_sum",
+                              k2_err)):
+                row[key] = max(row[key], err)
+            if scale == TIMED_SCALE:
+                atomics = deform_cuda.dx_atomics(offset, h, w)["corners"]
+                row["kernel_ms"] = time_ms(lambda: deform_cuda.deform_bwd_dx(
+                    x, offset, weight, mask, g, sample_dtype=BF16), flush)
+                row["fp32_mode_ms"] = time_ms(
+                    lambda: deform_cuda.deform_bwd_dx(x, offset, weight,
+                                                      mask, g), flush)
+                row["plain_ms"] = time_ms(
+                    lambda: deform_conv2d_backward_plain(
+                        x, offset, weight, mask, g, need_dx=True,
+                        sample_dtype=BF16), flush)
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in (x, offset, weight, bias, mask)]
+                out = deform_library(*leaves)
+                row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, g, retain_graph=True), flush)
+                del out, leaves
+        # K3's bound: the same bytes and operations (its d_x is K3's)
+        pixels = b * h * w
+        nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36 + 4) + 72
+        flops = pixels * (315 + 18) + 2 * atomics
+        bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
+        row["bound_ms"] = max(bytes_ms, ops_ms)
+        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
+        row["kernel_over_fp32_mode"] = row["kernel_ms"] / row["fp32_mode_ms"]
+        rows.append(row)
+        print(f"{name} {row}", flush=True)
+    return rows
+
+
+def k3_bf16_autograd(dev) -> dict:
+    """K3's bf16 mode as the op's autograd reaches it: ``deform_conv2d(x
+    requiring its gradient, ..., sample_dtype="bfloat16").sum()
+    .backward()`` at 2 x 128^2 launches K1-bf16 once and K3-bf16 once,
+    and gives the plain backward's gradients (d_x and d_mask at rtol =
+    atol = 1e-5 of K3-bf16's). Returns the launch counts."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, offset, weight, bias, mask = deform_inputs(2, 128, 128, TIMED_SCALE,
+                                                  gen, dev)
+    leaves = [x.requires_grad_(True), mask.requires_grad_(True)]
+    reset_launches()
+    deform_conv2d(x, offset, weight, bias, mask,
+                  sample_dtype=BF16).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(deform_cuda.LAUNCHES)
+    print(f"K3-bf16 through the op's autograd: launches {launches}",
+          flush=True)
+    if launches != deform_counts(deform_fwd_bf16=1, deform_bwd_dx_bf16=1):
+        raise AssertionError(f"deform_conv2d(..., sample_dtype=bfloat16) "
+                             f"with x's gradient launched {launches}")
+    ref = deform_conv2d_backward_plain(
+        x.detach(), offset, weight, mask.detach(), torch.ones_like(x),
+        need_dx=True, sample_dtype=BF16)
+    for leaf, r in zip(leaves, (ref[4], ref[1])):
+        if not torch.allclose(leaf.grad, r, rtol=1e-5, atol=1e-5):
+            raise AssertionError("K3-bf16 through autograd disagrees with "
+                                 "the plain backward")
+    return launches
 
 
 def write_scenes(root: Path, scenes, seed: int = 0, holes: float = 0.0):
@@ -1517,14 +1726,15 @@ def serve_family(work: Path, dev: torch.device, label: str,
     per tile chunk. Every comparison holds the card to the port on the CPU
     in float64 by ``hold_to_float64``: the first scene of ``whole`` and
     ``rect`` (scaled outputs, ``tol_scaled``, atol times the output's
-    largest magnitude, at least 1) and the first and last served rasters
-    (metres, ``tol_tiled``: the rasters are clipped to [0, 1] before the
-    descale, so their magnitude is at most 1). Every served raster is also
-    held to its scene through ``tile_inference_device`` on the card alone
-    at ``tol_batch`` (rtol, atol in metres; ``None``: rtol
-    ``tol_tiled[0]`` and twice the largest atol the served rasters were
-    held to float64 at, as the two are card runs each held that close to
-    float64). ``keys`` go into the serving config."""
+    largest magnitude, at least 1) and the last served raster
+    (``SERVED_FP64``; metres, ``tol_tiled``: the rasters are clipped to
+    [0, 1] before the descale, so their magnitude is at most 1). Every
+    served raster is also held to its scene through
+    ``tile_inference_device`` on the card alone at ``tol_batch`` (rtol,
+    atol in metres; ``None``: rtol ``tol_tiled[0]`` and twice the largest
+    atol the served rasters were held to float64 at, as the two are card
+    runs each held that close to float64). ``keys`` go into the serving
+    config."""
     p, cfg_path, ckpt = seeded_checkpoint(
         work, label.lower().replace("+", "_"), model_name, model_kwargs,
         input_data=dict(IMG_ONLY), **keys)
@@ -1599,7 +1809,7 @@ def serve_family(work: Path, dev: torch.device, label: str,
              "warm_scenes_per_s": rates[1], "peak_mb": peak,
              "against_float64": {}}
     samples = [load_scene(root / name, p)[0] for name, _ in scenes]
-    for i in (0, len(scenes) - 1):
+    for i in SERVED_FP64:
         fp32, ref = (tile_inference_device(m, samples[i], p,
                                            tile=p.patch_size,
                                            device="cpu")[0]
@@ -1693,16 +1903,18 @@ def fit_config(config: Path, root: Path, epochs: int = FIT_EPOCHS):
 
 
 class FitRecorder:
-    """Wraps a Trainer's ``train_one_epoch``, ``evaluate`` and ``finish``:
-    each epoch's seconds, losses and tiles/s, each eval pass's seconds,
-    and every parameter and buffer as ``finish`` starts (the state the
-    last epoch left, before the best checkpoint is reloaded)."""
+    """Wraps a Trainer's ``train_one_epoch``, ``evaluate``, ``finish`` and
+    preemption save: each epoch's seconds, losses and tiles/s, each eval
+    pass's seconds and arguments, each save's ms (after the device is
+    done), and every parameter and buffer as ``finish`` starts (the state
+    the last epoch left, before the best checkpoint is reloaded)."""
 
     def __init__(self, trainer):
         self.epoch_s, self.eval_s, self.losses, self.rates = [], [], [], []
+        self.eval_kwargs, self.save_ms = [], []
         self.final_state = None
         train_one_epoch, evaluate = trainer.train_one_epoch, trainer.evaluate
-        finish = trainer.finish
+        finish, save = trainer.finish, trainer._save_preempt
 
         def timed_epoch(epoch):
             t0 = time.perf_counter()
@@ -1717,6 +1929,7 @@ class FitRecorder:
             t0 = time.perf_counter()
             out = evaluate(*args, **kwargs)
             self.eval_s.append(time.perf_counter() - t0)
+            self.eval_kwargs.append(kwargs)
             return out
 
         def snapshot_finish():
@@ -1726,32 +1939,43 @@ class FitRecorder:
                  *trainer.model.named_buffers()]}
             return finish()
 
+        def timed_save(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(*args)
+            self.save_ms.append((time.perf_counter() - t0) * 1e3)
+
         trainer.train_one_epoch = timed_epoch
         trainer.evaluate = timed_eval
         trainer.finish = snapshot_finish
+        trainer._save_preempt = timed_save
 
 
 def fit_run(config: Path, root: Path, work: Path, dev: torch.device,
             epochs: int = FIT_EPOCHS, initial_eval: bool = False,
-            resume_from=None):
+            resume_from=None, save_every: int = 0):
     """``Trainer(p, device=dev).fit(initial_eval)`` for ``epochs`` (after
-    ``load(resume_from, resume=True)`` when given): (fit's result, its
-    recorder, the trainer)."""
-    trainer = Trainer(fit_config(config, root, epochs), result_dir=work,
-                      device=dev)
+    ``load(resume_from, resume=True)`` when given), with
+    ``save_every_steps: save_every``: (fit's result, its recorder, the
+    trainer)."""
+    p = fit_config(config, root, epochs)
+    p.save_every_steps = save_every
+    trainer = Trainer(p, result_dir=work, device=dev)
     if resume_from is not None:
         trainer.load(resume_from, resume=True)
     rec = FitRecorder(trainer)
     return trainer.fit(initial_eval=initial_eval), rec, trainer
 
 
-def resume_gate(config: Path, root: Path, work: Path, dev: torch.device):
-    """Run A fits FIT_EPOCHS epochs; run B fits 1 (its checkpoint, saved at
-    the end of epoch 0 as the first best, is renamed by ``finish``), then a
-    new Trainer loads it with ``resume=True`` and fits to FIT_EPOCHS. A's
-    and B's last parameters and buffers, best result and epoch losses must
-    be bit-equal: no tolerance."""
-    _, rec_a, a = fit_run(config, root, work / "A", dev)
+def resume_gate(config: Path, root: Path, work: Path, dev: torch.device,
+                uninterrupted=None):
+    """Run A fits FIT_EPOCHS epochs (or is ``uninterrupted``, ``fit_run``'s
+    triple of such a fit); run B fits 1 (its checkpoint, saved at the end
+    of epoch 0 as the first best, is renamed by ``finish``), then a new
+    Trainer loads it with ``resume=True`` and fits to FIT_EPOCHS. A's and
+    B's last parameters and buffers, best result and epoch losses must be
+    bit-equal: no tolerance."""
+    _, rec_a, a = uninterrupted or fit_run(config, root, work / "A", dev)
     out_b1, rec_b1, _ = fit_run(config, root, work / "B1", dev, epochs=1)
     _, rec_b2, b2 = fit_run(config, root, work / "B2", dev,
                             resume_from=out_b1["checkpoint"])
@@ -1775,18 +1999,149 @@ def resume_gate(config: Path, root: Path, work: Path, dev: torch.device):
     return gate
 
 
+class Preempted(Exception):
+    """A simulated preemption of a fit (the gate's, not a failure)."""
+
+
+def preempted_fit(config: Path, root: Path, work: Path, dev: torch.device,
+                  crash: str):
+    """A fit of FIT_EPOCHS epochs with ``save_every_steps: PREEMPT_EVERY``
+    in ``work``, preempted (``PREEMPT_AT``: ``"after_save"`` right after
+    epoch 0's save at step PREEMPT_EVERY, before epoch 0's eval and best
+    checkpoint; ``"between_saves"`` in epoch 1 after the train step one past
+    its save, whose update is lost and replayed); it must leave the
+    preemption checkpoint behind."""
+    p = fit_config(config, root)
+    p.save_every_steps = PREEMPT_EVERY
+    trainer = Trainer(p, result_dir=work, device=dev, verbose=False)
+    if p.get("device_cache") and trainer.scene_cache is None:
+        raise AssertionError(f"{config.name}: the device cache fell back")
+    at_epoch, at_step = PREEMPT_AT[crash]
+    if crash == "after_save":
+        save = trainer._save_preempt
+
+        def crash_after_save(epoch, steps_done, *args):
+            save(epoch, steps_done, *args)
+            if [epoch, steps_done] == [at_epoch, at_step]:
+                raise Preempted
+
+        trainer._save_preempt = crash_after_save
+    else:
+        step, calls = trainer.train_step, [0]
+        steps = len(trainer.train_loader)
+
+        def crash_between(inputs, gt):
+            losses = step(inputs, gt)
+            calls[0] += 1
+            if calls[0] == at_epoch * steps + at_step + 1:
+                raise Preempted
+            return losses
+
+        trainer.train_step = crash_between
+    try:
+        trainer.fit(initial_eval=False)
+    except Preempted:
+        pass
+    else:
+        raise AssertionError(f"{config.name}: the fit ran to its end past "
+                             f"the preemption ({crash})")
+    if not trainer._preempt_path().exists():
+        raise AssertionError(f"{config.name}: no preemption checkpoint "
+                             f"left by the preempted fit ({crash})")
+
+
+def preempt_gate(config: Path, root: Path, work: Path, dev: torch.device,
+                 label: str, uninterrupted=None) -> dict:
+    """``save_every_steps`` on the card: an uninterrupted fit with
+    ``save_every_steps: PREEMPT_EVERY`` (or ``uninterrupted``,
+    ``fit_run``'s triple of one) against fits preempted right after a save
+    (in epoch 0) and between saves (in epoch 1), each relaunched in its
+    result dir (a new Trainer finds the preemption checkpoint, resumes the
+    epoch at its step and skips the initial eval). The relaunched fit's
+    last parameters and buffers, the losses of the epochs it ran, best
+    result and final eval must be bit-equal to the uninterrupted one's: no
+    tolerance."""
+    out_a, rec_a, a = uninterrupted or fit_run(
+        config, root, work / "A", dev, save_every=PREEMPT_EVERY)
+    if a._preempt_path().exists() or not rec_a.save_ms:
+        raise AssertionError(f"{label}: {len(rec_a.save_ms)} preemption "
+                             f"saves, the file left after the run")
+    gate = {"save_every_steps": PREEMPT_EVERY, "tensors":
+            len(rec_a.final_state), "save_ms": rec_a.save_ms, "cases": {}}
+    for crash in PREEMPT_AT:
+        preempted_fit(config, root, work / crash, dev, crash)
+        p = fit_config(config, root)
+        p.save_every_steps = PREEMPT_EVERY
+        c = Trainer(p, result_dir=work / crash, device=dev, verbose=False)
+        resumed_at = list(c._mid_resume[:2]) if c._mid_resume else None
+        rec_c = FitRecorder(c)
+        out_c = c.fit(initial_eval=True)
+        unequal = [n for n in rec_a.final_state
+                   if not torch.equal(rec_a.final_state[n],
+                                      rec_c.final_state[n])]
+        case = {"resumed_at": resumed_at, "unequal": len(unequal),
+                "unequal_names": unequal[:8],
+                "initial_eval_skipped": not any(
+                    kw.get("compare_input") for kw in rec_c.eval_kwargs),
+                "epoch_losses_equal": rec_c.losses
+                == rec_a.losses[-len(rec_c.losses):],
+                "best_result_equal": c.best_result == a.best_result,
+                "final_eval_equal": out_c["result"] == out_a["result"],
+                "global_step": [a.global_step, c.global_step],
+                "file_removed": not c._preempt_path().exists()}
+        gate["cases"][crash] = case
+        if (resumed_at != PREEMPT_AT[crash] or unequal
+                or not all(case[k] for k in (
+                    "initial_eval_skipped", "epoch_losses_equal",
+                    "best_result_equal", "final_eval_equal",
+                    "file_removed"))
+                or a.global_step != c.global_step):
+            raise AssertionError(f"{label}: a fit preempted {crash} and "
+                                 f"relaunched is not the uninterrupted "
+                                 f"one: {case}")
+        del c
+    print(f"preemption gate {label}: {gate}", flush=True)
+    return gate
+
+
+def profile_fit(root: Path, work: Path, dev: torch.device) -> dict:
+    """``profile_steps: PROFILE_STEPS`` on a fit of the flagship (one
+    epoch): the trace under ``<result_dir>/profile`` must name K1's and
+    K2's kernels. It runs after every other phase: a process the profiler
+    has traced launches more slowly."""
+    p = fit_config(FLAGSHIP, root, epochs=1)
+    p.profile_steps = PROFILE_STEPS
+    Trainer(p, result_dir=work, device=dev, verbose=False).fit(
+        initial_eval=False)
+    traces = sorted((work / "profile").glob("*.json"))
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    names = {k: text.count(k) for k in ("deform_fwd_kernel",
+                                        "deform_bwd_kernel")}
+    out = {"trace": traces[0].name if traces else None,
+           "bytes": len(text), "kernel_name_counts": names}
+    print(f"profile_steps {PROFILE_STEPS}: {out}", flush=True)
+    if not all(names.values()):
+        raise AssertionError(f"profile_steps: the trace misses K1 or K2: "
+                             f"{out}")
+    return out
+
+
 def fit(root: Path, work: Path, dev: torch.device, smi: str):
     """Phase 10: the flagship's ``fit`` on the card on phase 5's tree (its
     config as it is but for the epochs), with the exact launches of its
     steps and eval samples; the best checkpoint validated through the CLI's
-    --val, and on the CPU; then the resume gate for both families."""
+    --val, and on the CPU; then the resume gate for both families and the
+    preemption gate for the flagship and the bf16 flagship, the fit above
+    (with ``save_every_steps``) the flagship's uninterrupted run in both."""
     p = fit_config(FLAGSHIP, root)
     print(f"fit: {FLAGSHIP.relative_to(REPO)} as it is but epochs "
           f"{create_config(FLAGSHIP).epochs} -> {FIT_EPOCHS} (a cut)",
           flush=True)
     reset_launches()
+    # with save_every_steps, so that this fit is also the uninterrupted run
+    # of the resume and preemption gates (the saves launch nothing)
     out, rec, trainer = fit_run(FLAGSHIP, root, work / "run", dev,
-                                initial_eval=True)
+                                initial_eval=True, save_every=PREEMPT_EVERY)
     torch.cuda.synchronize()
     launches = dict(deform_cuda.LAUNCHES)
     n_valid = len(p.valid_set) * VALID_SCENES_PER_CITY
@@ -1814,7 +2169,6 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
     scores = {k: v for k, v in out["result"].items() if k != "input"}
     if not all(np.isfinite(list(scores.values()))):
         raise AssertionError(f"fit final eval {scores}")
-    del trainer
 
     # --val through the CLI on the best checkpoint
     cfg = dict(fit_config(FLAGSHIP, root))
@@ -1839,9 +2193,19 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
                                    err_msg=f"CPU {k} vs the card's")
     del cpu
 
-    gates = {name: resume_gate(config, root, work / f"gate_{name}", dev)
-             for name, config in (("JSPSR", FLAGSHIP),
-                                  ("CompletionFormer", CF_CONFIG))}
+    gates = {"JSPSR": resume_gate(FLAGSHIP, root, work / "gate_JSPSR", dev,
+                                  (out, rec, trainer)),
+             "CompletionFormer": resume_gate(CF_CONFIG, root,
+                                             work / "gate_CompletionFormer",
+                                             dev)}
+    # save_every_steps: the flagship on the host feed, the bf16 flagship
+    # from its device cache
+    preempt = {"JSPSR": preempt_gate(FLAGSHIP, root, work / "preempt_JSPSR",
+                                     dev, "JSPSR", (out, rec, trainer)),
+               "JSPSR_bf16": preempt_gate(BF16_CONFIG, root,
+                                          work / "preempt_JSPSR_bf16", dev,
+                                          "JSPSR_bf16")}
+    del trainer
     return {
         "config": str(FLAGSHIP.relative_to(REPO)),
         "cut": {"epochs": [create_config(FLAGSHIP).epochs, FIT_EPOCHS]},
@@ -1855,7 +2219,8 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
         else None,
         "val_cli": {k: val[k] for k in scores},
         "cpu_eval": {k: cpu_scores[k] for k in scores},
-        "launches": launches, "resume_gate": gates, "card": smi,
+        "launches": launches, "resume_gate": gates,
+        "preemption_gate": preempt, "card": smi,
     }, launches
 
 
@@ -2018,7 +2383,7 @@ def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
     """Phase 13 (e): a seeded checkpoint of the bf16 flagship through the
     CLI's ``--infer`` over phase 4's directory and ``--infer --tile`` over
     phase 9's 8 x 334^2, one fp32-mode K1 per scene and per chunk; the
-    first whole scene and the first and last served rasters held, in the
+    first whole scene and the last served raster held, in the
     scaled domain, to the float64 forward of the same weights with the
     fp32 body (``hold_to_float64``: BF16_TOL_SCALED plus three times the
     CPU bf16 port's distance to float64); every served raster to its
@@ -2067,7 +2432,7 @@ def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
               for path, sample in zip(served, samples)]
     cpu = load_model_params(build_model(p), ckpt)
     out["tiled"] = {}
-    for i in (0, len(TILED_SMALL) - 1):
+    for i in SERVED_FP64:
         name = TILED_SMALL[i][0]
         bf, r64 = (scaled_raster(tile_inference_device(
             m, samples[i], p, tile=p.patch_size, device="cpu")[0],
@@ -2131,6 +2496,130 @@ def bf16_phase(root: Path, work: Path, dev: torch.device, scenes_dir: Path,
             "serving": serving, "card": smi}, paths
 
 
+def export_leg(label: str, flagship, work: Path, dev: torch.device,
+               kernel: str, cpu_trace: bool) -> tuple:
+    """One artifact through the CLI's ``--export`` from ``flagship``
+    (``seeded_checkpoint``'s triple), traced on the card: loaded in a fresh
+    process (``EXPORT_LOADER``: ``torch`` and the op library alone) and
+    run at each of EXPORT_BATCHES x 128^2 against the eager model of the
+    same weights (rtol = atol = EXPORT_TOL; TF32 off, cuDNN's deterministic
+    algorithms in both), exactly one ``kernel`` launch per call; with
+    ``cpu_trace`` a CPU-traced artifact of the same checkpoint, moved to
+    the card, must give the card-traced one's outputs bit for bit; the
+    artifact and the
+    eager model timed in turns at batch 50 (``time_ms``). Returns (the
+    leg's numbers, the loader's launches)."""
+    p, cfg_path, ckpt = flagship
+    art = {}
+    t0 = time.perf_counter()
+    art["card"] = run_cli(["--config", str(cfg_path), "--export",
+                           str(work / label), "--result-dir",
+                           str(work / f"{label}_result")])
+    export_s = time.perf_counter() - t0
+    if cpu_trace:
+        art["cpu"] = run_cli(["--config", str(cfg_path), "--export",
+                              str(work / f"{label}_cpu"), "--device", "cpu",
+                              "--result-dir",
+                              str(work / f"{label}_result_cpu")])
+    side = p.patch_size
+    rng = np.random.default_rng(14)
+    xs = [rng.uniform(0, 1, (max(EXPORT_BATCHES), int(p.input_data[k]), side,
+                             side)).astype(np.float32)
+          for k in input_kinds(p.input_data)]
+    np.savez(work / f"{label}_in.npz",
+             **{f"{i:02d}": x for i, x in enumerate(xs)})
+    run = subprocess.run(
+        [sys.executable, "-c", EXPORT_LOADER, str(art["card"]),
+         str(work / f"{label}_in.npz"), str(work / f"{label}_out.npz"),
+         json.dumps(EXPORT_BATCHES)], capture_output=True, text=True,
+        cwd=REPO, env={**os.environ, "PYTHONPATH": str(REPO)})
+    if run.returncode:
+        raise AssertionError(f"{label}: the artifact's loader failed: "
+                             f"{run.stderr[-4000:]}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    foreign = [m for m in report["modules"] if m.startswith(
+        ("jax", "jspsr_tpu", "jspsr_torch.models", "jspsr_torch.config",
+         "jspsr_torch.train"))]
+    per_call = report["launches"]
+    if foreign or any(c != deform_counts(**{kernel: 1})
+                      for c in per_call.values()):
+        raise AssertionError(f"{label}: the loader imported {foreign}, "
+                             f"launched {per_call}")
+    model = load_model_params(build_model(p), ckpt).to(dev).eval()
+    diffs = {}
+    with np.load(work / f"{label}_out.npz") as z, torch.inference_mode():
+        for b in EXPORT_BATCHES:
+            want = model([torch.from_numpy(x[:b]).to(dev) for x in xs])
+            got = torch.from_numpy(z[str(b)]).to(dev)
+            diffs[b] = (got - want).abs().max().item()
+            if got.shape != (b, 1, side, side) or not torch.allclose(
+                    got, want, rtol=EXPORT_TOL, atol=EXPORT_TOL):
+                raise AssertionError(f"{label} artifact at batch {b}: "
+                                     f"{tuple(got.shape)}, max |artifact - "
+                                     f"eager| {diffs[b]}")
+    fns = {k: load_exported(a) for k, a in art.items()}
+    x50 = [torch.from_numpy(x[:50]).to(dev) for x in xs]
+    outs = {k: fn(*x50) for k, fn in fns.items()}
+    cpu_traced_equal = torch.equal(outs["card"], outs["cpu"]) if cpu_trace \
+        else None
+    if cpu_traced_equal is False:
+        raise AssertionError(f"{label}: the CPU-traced artifact on the card "
+                             f"differs from the card-traced one by "
+                             f"{(outs['card'] - outs['cpu']).abs().max()}")
+    flush = torch.empty(64 * 2**20, device=dev)
+
+    def eager():
+        with torch.inference_mode():
+            model(x50)
+
+    ms = {"artifact": [], "eager": []}
+    for which in ("artifact", "eager", "eager", "artifact"):
+        ms[which].append(time_ms((lambda: fns["card"](*x50))
+                                 if which == "artifact" else eager, flush))
+    # why the phase asks cuDNN for its deterministic algorithms: with its
+    # defaults the eager model differs from itself run to run
+    torch.backends.cudnn.deterministic = False
+    with torch.inference_mode():
+        runs = [model(x50) for _ in range(2)]
+    set_deterministic_cudnn()
+    run_to_run = (runs[0] - runs[1]).abs().max().item()
+    out = {"config": str(cfg_path.name), "export_s": export_s,
+           "artifact_mb": art["card"].stat().st_size / 1e6,
+           "max_abs_vs_eager": diffs, "tolerance": EXPORT_TOL,
+           "launches_per_call": per_call,
+           "cpu_traced_bit_equal": cpu_traced_equal,
+           "eager_run_to_run_max_abs_cudnn_defaults": run_to_run,
+           "ms_batch_50": ms,
+           "artifact_over_eager": statistics.mean(ms["artifact"])
+           / statistics.mean(ms["eager"])}
+    print(f"export {label}: {out}", flush=True)
+    launches = deform_counts()
+    for c in per_call.values():
+        for k, v in c.items():
+            launches[k] += v
+    del model, fns, outs, runs
+    return out, launches
+
+
+def export_phase(work: Path, dev: torch.device, flagship, smi: str):
+    """Phase 14: phase 4's seeded flagship checkpoint and a seeded bf16
+    flagship with ``spn_sample_dtype: bfloat16`` through ``--export``
+    (``export_leg``): K1 in its fp32 mode, then only in its bf16 mode."""
+    set_deterministic_cudnn()
+    paths, legs = {}, {}
+    legs["flagship"], paths["export_flagship"] = export_leg(
+        "flagship", flagship, work, dev, "deform_fwd", cpu_trace=True)
+    mk = {k: v for k, v in create_config(BF16_CONFIG).model_kwargs.items()
+          if k not in ("checkpoint", "pretrained")}
+    mk["spn_sample_dtype"] = BF16
+    bf16 = seeded_checkpoint(work / "bf16", "jspsr_r8_img_msk_bf16", "JSPSR",
+                             mk)
+    legs["bf16_flagship"], paths["export_bf16"] = export_leg(
+        "bf16_flagship", bf16, work, dev, "deform_fwd_bf16", cpu_trace=False)
+    legs["card"] = smi
+    return legs, paths
+
+
 def phase(n: int, t_start: float) -> None:
     print(f"phase {n} starts at {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -2179,8 +2668,9 @@ def main() -> int:
     bwd_bf16_rows = check_deform_backward(dev, bandwidth, fp32_peak,
                                           BF16_BWD_SHAPES, BF16, seed=6)
     dx_rows = check_deform_backward_dx(dev, bandwidth, fp32_peak)
-
-    paths = {}
+    # 3d. K3's bf16-sampling mode, then through the op's autograd
+    dx_bf16_rows = check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak)
+    paths = {"k3_bf16_autograd": k3_bf16_autograd(dev)}
     with tempfile.TemporaryDirectory(prefix="jspsr_chip_smoke_") as tmp:
         tmp = Path(tmp)
         phase(4, t_start)
@@ -2238,7 +2728,14 @@ def main() -> int:
                                       tmp / "serve" / "scenes",
                                       tmp / "tiled" / "334", smi_line)
         paths.update(bf16_paths)
-    # K3's three kernels apart, under the profiler, after every phase
+        phase(14, t_start)
+        # 14. export: the flagship and the bf16 flagship as artifacts
+        exported, export_paths = export_phase(tmp / "export", dev, flagship,
+                                              smi_line)
+        paths.update(export_paths)
+        # phase 10's profile_steps leg and K3's three kernels apart, under
+        # the profiler, after every phase
+        fitted["profile_steps"] = profile_fit(root, tmp / "profile", dev)
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
     for result in (serving, training, cf_training, cf_serving, tiled,
@@ -2297,6 +2794,12 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=True, d_x at :227-242)", dx_rows,
                     [16, 1, 128, 128]),
+        kernel_line("deform_bwd_dx_bf16",
+                    "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=True, sample_dtype='bfloat16')", dx_bf16_rows,
+                    [16, 1, 128, 128]),
         kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same_bf16.cu",
                     "scripts/bench_pallas_conv.py:38",
                     "scripts/bench_pallas_conv.py::pallas_conv_same",
@@ -2314,6 +2817,7 @@ def main() -> int:
     print(json.dumps({"edsr": edsr}, default=float), flush=True)
     print(json.dumps({"lrru": lrru}, default=float), flush=True)
     print(json.dumps({"bf16": bf16}, default=float), flush=True)
+    print(json.dumps({"export": exported}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

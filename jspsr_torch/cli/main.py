@@ -5,6 +5,7 @@
   python -m jspsr_torch.cli.main --config c.yml --infer <scene> [--out o.npy]
   python -m jspsr_torch.cli.main --config c.yml --infer <dir of scenes>
   python -m jspsr_torch.cli.main --config c.yml --infer <scene|dir> --tile
+  python -m jspsr_torch.cli.main --config c.yml --export <path>[.pt2]
 
 --infer runs inference on a raster, a scene directory (one raster per
 modality) or a directory of scene directories, and writes the upscaled DEM
@@ -20,8 +21,15 @@ Without --infer it trains: ``Trainer(p).fit()``, after
 ``trainer.load(model_kwargs.checkpoint, resume=p.resume)`` when the config
 names a checkpoint. --val (or ``val_weight: true`` in the config)
 validates that checkpoint instead: the eval with the bicubic-input
-baseline, the predictions saved, then the whole-split summary. --export is
-not yet ported and raises.
+baseline, the predictions saved, then the whole-split summary.
+
+--export writes a deployment artifact (``eval/export.py``): the model
+built from the config with ``model_kwargs.checkpoint`` loaded, its eval
+forward at ``patch_size`` with a symbolic batch, traced on ``--device``
+through ``torch.export`` into ``<path>.pt2``; ``load_exported`` runs it
+with ``torch`` and the op library alone, on the card or the CPU. The
+config's ``export_platforms`` is read (a scalar string is one name) and
+gives the same artifact whatever it names.
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ def parse_args(argv=None):
                     help="device-tiled inference; pipelined batch serving "
                          "for a directory of scenes")
     ap.add_argument("--export", default=None, metavar="PATH",
-                    help="deployment artifact (not yet ported)")
+                    help="write a torch.export deployment artifact "
+                         "(<PATH>.pt2; needs model_kwargs.checkpoint)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     return ap.parse_args(argv)
@@ -60,8 +69,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.export:
-        raise NotImplementedError("--export is not yet ported")
     p = create_config(args.config)
     ckpt = p.model_kwargs.get("checkpoint")
 
@@ -73,6 +80,8 @@ def main(argv=None):
                       Path(p.get("work_root", ".")) / "results" / f"{stamp}_{p.name}")
     result_dir.mkdir(parents=True, exist_ok=True)
     sys.stdout = Logger(result_dir / "train.log")
+    if args.export:
+        return _export(p, args.export, ckpt, device)
     if not args.infer:
         return _train_or_validate(p, args, ckpt, result_dir, device)
     if not ckpt:
@@ -135,6 +144,39 @@ def main(argv=None):
                                           tile=args.tile, device=device)
     print(f"Inference: {path} ({t_ms:.1f} ms, peak {mem:.0f} MB)")
     return path
+
+
+def _export(p, path, ckpt, device):
+    """--export: the config's model with ``ckpt``'s weights on ``device``,
+    exported at ``patch_size`` (JAX CLI :91-124); returns the artifact's
+    path."""
+    import numpy as np
+    import torch
+
+    from jspsr_torch.data.loader import build_batch_inputs, input_kinds
+    from jspsr_torch.eval.export import export_platforms, save_exported
+    from jspsr_torch.models.factory import build_model
+    from jspsr_torch.train.checkpoint import load_model_params
+
+    if not ckpt:
+        raise ValueError("--export requires model_kwargs.checkpoint")
+    platforms = export_platforms(p.get("export_platforms"))
+    model = load_model_params(build_model(p), ckpt).to(device)
+    size = p.patch_size
+    batch = {k: np.zeros((1, size, size, int(p.input_data[k])), np.float32)
+             for k in input_kinds(p.input_data)}
+    batch["hr_dem"] = np.zeros((1, size, size, 1), np.float32)
+    inputs, _, _, _ = build_batch_inputs(batch, p.model_name, p.input_data)
+    t0 = time.perf_counter()
+    out = save_exported(path, model, [
+        torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+        for x in inputs])
+    print(f"Exported inference artifact: {out} "
+          f"({out.stat().st_size / 1e6:.1f} MB, "
+          f"{time.perf_counter() - t0:.1f} s; export_platforms "
+          f"{list(platforms)}: one artifact, K1 on CUDA tensors, the plain "
+          f"version on CPU tensors)")
+    return out
 
 
 def _train_or_validate(p, args, ckpt, result_dir, device):

@@ -128,8 +128,16 @@
 // corners against the exact row derivative, (1 - tx)(bf(v10) - bf(v00))
 // + tx (bf(v11) - bf(v01)), as the TPU kernel's one-hot difference
 // matmul does. Explicit _rn operations keep each rounding the plain
-// version's. K3 has no such mode yet (no shipped model asks for it with
-// the input gradient).
+// version's.
+//
+// K3's bf16-sampling mode (the same flag on deform_bwd_dx_kernel; the TPU
+// kernel's sample_dtype='bfloat16' with need_dx=True, entry point
+// jspsr_deform_bwd_dx_bf16): the TPU kernel rounds only its two image
+// products (pallas_deform.py:184-188,213,224) and keeps wy, wx and g w m in
+// fp32 for the d_x matmul (:227-232), so d_offset, d_mask and d_weight are
+// K2's bf16 mode's and d_x is K3's fp32 mode's, bounds pass and fixed point
+// as they are. No shipped model reaches it (NLSPN samples in fp32, the SPN
+// head detaches the DEM); the op's autograd does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -353,7 +361,9 @@ deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
 
 // K3: one block per 8 x 32 tile of one image, d_x through the window into
 // the fixed-point accumulator ``d_x_fixed``, scaled by the image's L1
-// bound in ``bound``
+// bound in ``bound``; kBf16 the bf16-sampling mode (its d_x is the fp32
+// mode's)
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 deform_bwd_dx_kernel(const float* __restrict__ x,
                      const float* __restrict__ offset,
@@ -394,7 +404,7 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
     const int64_t p = static_cast<int64_t>(y) * w + xo;
     const WindowScatter scatter{win_lo, win_hi, dimg, fs.scale,
                                 ty0 - kMargin, tx0 - kMargin, w};
-    pixel_backward<false>(x + b * hw, offset + b * (2 * kTaps) * hw + p,
+    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hw + p,
                           mask + b * kTaps * hw + p, weight,
                           d_offset + b * (2 * kTaps) * hw + p,
                           d_mask + b * kTaps * hw + p, grad_out[b * hw + p],
@@ -515,6 +525,47 @@ int launch_k2(const float* x, const float* offset, const float* mask,
 int64_t k3_tiles_x(int w) { return (w + kTileW - 1) / kTileW; }
 int64_t k3_tiles_y(int h) { return (h + kTileH - 1) / kTileH; }
 
+// K3: the bounds pass, the kernel and the last pass on ``stream``, through
+// ``scratch`` (jspsr_deform_bwd_dx_scratch words); d_x (B,1,H,W) is written
+// by the last pass.
+template <bool kBf16>
+int launch_k3(const float* x, const float* offset, const float* mask,
+              const float* weight, const float* grad_out, float* d_offset,
+              float* d_mask, float* d_weight_partial, long long* scratch,
+              float* d_x, int64_t batch, int h, int w, int pad,
+              void* stream) {
+  const int64_t blocks = batch * k3_tiles_y(h) * k3_tiles_x(w);
+  if (blocks == 0) return 0;
+  if (blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t hw = static_cast<int64_t>(h) * w;
+  const int64_t chunks = k3_chunks(hw);
+  double* bound = reinterpret_cast<double*>(scratch + batch * hw);
+  double* part = bound + batch;
+  unsigned* done = reinterpret_cast<unsigned*>(part + batch * chunks);
+  dx_bounds_kernel<<<static_cast<unsigned int>(batch * chunks), kThreads, 0,
+                     s>>>(grad_out, weight, mask, batch, hw, chunks, part,
+                          bound, done);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  deform_bwd_dx_kernel<kBf16>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+      x, offset, mask, weight, grad_out, bound, d_offset, d_mask,
+      d_weight_partial, reinterpret_cast<unsigned long long*>(scratch), h, w,
+      static_cast<int>(k3_tiles_x(w)), static_cast<int>(k3_tiles_y(h)), pad);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  // about 16 blocks per SM over the batch, at most one per 256 pixels
+  const int64_t per_image = std::max<int64_t>(
+      1, std::min<int64_t>((hw + kThreads - 1) / kThreads,
+                           (132 * 16 + batch - 1) / batch));
+  dx_fixed_to_float_kernel<<<static_cast<unsigned int>(batch * per_image),
+                             kThreads, 0, s>>>(
+      scratch, bound, d_x, hw, per_image);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Blocks of a launch, which is the number of d_weight partial rows the
@@ -569,9 +620,8 @@ extern "C" int64_t jspsr_deform_bwd_dx_scratch(int64_t batch, int h, int w) {
   return batch * (hw + 1 + k3_chunks(hw)) + 1;
 }
 
-// K3: the bounds pass, the kernel and the last pass on ``stream``, through
-// ``scratch`` (jspsr_deform_bwd_dx_scratch words); d_x (B,1,H,W) is written
-// by the last pass.
+// K3: as described at launch_k3. All tensors as for jspsr_deform_bwd, plus
+// ``scratch`` and d_x (B,1,H,W).
 extern "C" int jspsr_deform_bwd_dx(const float* x, const float* offset,
                                    const float* mask, const float* weight,
                                    const float* grad_out, float* d_offset,
@@ -579,33 +629,22 @@ extern "C" int jspsr_deform_bwd_dx(const float* x, const float* offset,
                                    long long* scratch, float* d_x,
                                    int64_t batch, int h, int w, int pad,
                                    void* stream) {
-  const int64_t blocks = jspsr_deform_bwd_blocks(1, batch, h, w);
-  if (blocks == 0) return 0;
-  if (blocks >= (int64_t{1} << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t hw = static_cast<int64_t>(h) * w;
-  const int64_t chunks = k3_chunks(hw);
-  double* bound = reinterpret_cast<double*>(scratch + batch * hw);
-  double* part = bound + batch;
-  unsigned* done = reinterpret_cast<unsigned*>(part + batch * chunks);
-  dx_bounds_kernel<<<static_cast<unsigned int>(batch * chunks), kThreads, 0,
-                     s>>>(grad_out, weight, mask, batch, hw, chunks, part,
-                          bound, done);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  deform_bwd_dx_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-      x, offset, mask, weight, grad_out, bound, d_offset, d_mask,
-      d_weight_partial, reinterpret_cast<unsigned long long*>(scratch), h, w,
-      static_cast<int>(k3_tiles_x(w)), static_cast<int>(k3_tiles_y(h)), pad);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  // about 16 blocks per SM over the batch, at most one per 256 pixels
-  const int64_t per_image = std::max<int64_t>(
-      1, std::min<int64_t>((hw + kThreads - 1) / kThreads,
-                           (132 * 16 + batch - 1) / batch));
-  dx_fixed_to_float_kernel<<<static_cast<unsigned int>(batch * per_image),
-                             kThreads, 0, s>>>(
-      scratch, bound, d_x, hw, per_image);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k3<false>(x, offset, mask, weight, grad_out, d_offset,
+                          d_mask, d_weight_partial, scratch, d_x, batch, h,
+                          w, pad, stream);
+}
+
+// K3's bf16-sampling mode: as jspsr_deform_bwd_dx.
+extern "C" int jspsr_deform_bwd_dx_bf16(const float* x, const float* offset,
+                                        const float* mask,
+                                        const float* weight,
+                                        const float* grad_out,
+                                        float* d_offset, float* d_mask,
+                                        float* d_weight_partial,
+                                        long long* scratch, float* d_x,
+                                        int64_t batch, int h, int w, int pad,
+                                        void* stream) {
+  return launch_k3<true>(x, offset, mask, weight, grad_out, d_offset, d_mask,
+                         d_weight_partial, scratch, d_x, batch, h, w, pad,
+                         stream);
 }

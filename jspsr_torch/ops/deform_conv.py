@@ -11,13 +11,19 @@ Semantics match the JAX package and torchvision.ops.deform_conv2d:
 
 The case carried here is the one the framework runs: one input and one
 output channel, 3x3 kernel, stride 1, dilation 1 (the SPN head and NLSPN's
-propagation). ``deform_conv2d`` is a ``torch.autograd.Function`` (the
-counterpart of ``deform_conv2d_pallas``, a ``jax.custom_vjp``): on CUDA
-tensors its forward launches the forward kernel and its backward one of
-the two backward kernels (``deform_cuda``): ``deform_bwd_dx`` where ``x``
-needs its gradient (NLSPN), ``deform_bwd`` where it does not (the SPN head
-detaches the DEM). On CPU tensors they are the plain versions
-``deform_conv2d_plain`` and ``deform_conv2d_backward_plain``.
+propagation). ``deform_conv2d`` calls the custom op
+``jspsr::deform_conv2d`` (``torch.library.custom_op``; the counterpart of
+``deform_conv2d_pallas``, a ``jax.custom_vjp``), whose autograd calls one
+of two more ops: ``jspsr::deform_conv2d_backward_dx`` where ``x`` needs
+its gradient (NLSPN), ``jspsr::deform_conv2d_backward`` where it does not
+(the SPN head detaches the DEM). A custom op cannot return ``None``, so
+d_x is the fifth output of an op of its own rather than an optional one.
+On CUDA tensors the three ops launch K1, K3 and K2 (``deform_cuda``); on
+CPU tensors they are the plain versions ``deform_conv2d_plain`` and
+``deform_conv2d_backward_plain``; any other device raises. Each op has a
+fake (``register_fake``: contiguous outputs of the kernels' shapes, no
+device work), so ``torch.export`` and ``torch.compile`` see the forward as
+one node (``eval/export.py``); importing this module registers them.
 
 ``sample_dtype="bfloat16"`` is the TPU kernels' bf16-sampling mode
 (``spn_sample_dtype``): each tap's row product rounds the image's corners
@@ -30,8 +36,10 @@ and the row weights to bf16 and sums in fp32,
 rounding); positions, the column weights, the mask, the weight and the
 9-tap sum stay fp32. The backward takes the same ``val`` for d_mask,
 d_weight and d_px (tmp_x1 - tmp_x0) and the rounded corners against the
-exact row derivative for d_py. On CUDA tensors it launches the two
-kernels' bf16 modes; with an input gradient (K3's mode) it raises.
+exact row derivative for d_py. d_x, where ``x`` needs it (K3's mode),
+scatters each tap's g w_t m_t with the fp32 bilinear weights, exactly as
+the fp32 mode does: the TPU kernel rounds only its two image products.
+On CUDA tensors the ops launch the three kernels' bf16 modes.
 
 ``bilinear_sample`` is the plain bilinear gather at given positions, with
 autograd to the image: NLSPN's 1x1 confidence taps, which the JAX package
@@ -41,8 +49,11 @@ TPU gathers and is not ported.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+NAMESPACE = "jspsr"
 KERNEL = 3
 TAPS = KERNEL * KERNEL
 SAMPLE_DTYPES = (None, "float32", "bfloat16")
@@ -181,12 +192,9 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
     corners stay fixed, only the fractional part moves), so at integer
     positions it is the forward difference; off-image corners read 0 and
     receive nothing. With ``sample_dtype`` the bf16-sampling mode's
-    gradients (the module's docstring), without d_x: K3's bf16 mode is
-    not yet ported. Any device."""
+    gradients (the module's docstring); its d_x is the fp32 mode's, as the
+    TPU kernel keeps the scatter in fp32. Any device."""
     bf16 = bf16_sampling(sample_dtype)
-    if bf16 and need_dx:
-        raise NotImplementedError("deform_conv2d: sample_dtype with the "
-                                  "input gradient is not yet ported")
     b, _, h, w = x.shape
     py, px = _positions(offset, padding)
     v00, v01, v10, v11, ty, tx = _bilinear_corners(x, py, px)
@@ -219,57 +227,128 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
     return (*grads, d_x.view_as(x))
 
 
-class DeformConv2dFunction(torch.autograd.Function):
-    """Forward K1 on CUDA tensors, backward K3 where ``x`` needs its
-    gradient and K2 where it does not, each in the mode ``sample_dtype``
-    asks for; the plain versions on CPU tensors."""
+def _kernels(device: torch.device):
+    """``deform_cuda`` for a CUDA device, ``None`` (the plain versions)
+    for the CPU; any other device raises."""
+    if device.type == "cuda":
+        from jspsr_torch.ops import deform_cuda
 
-    @staticmethod
-    def forward(ctx, x, offset, weight, bias, mask, padding,
-                sample_dtype=None):
-        if x.device.type == "cuda":
-            from jspsr_torch.ops import deform_cuda
+        return deform_cuda
+    if device.type == "cpu":
+        return None
+    raise ValueError(f"deform_conv2d: unsupported device {device}")
 
-            out = deform_cuda.deform_fwd(x, offset, weight, bias, mask,
-                                         padding, sample_dtype=sample_dtype)
-        elif x.device.type == "cpu":
-            out = deform_conv2d_plain(x, offset, weight, bias, mask, padding,
-                                      sample_dtype=sample_dtype)
-        else:
-            raise ValueError(f"deform_conv2d: unsupported device {x.device}")
-        ctx.save_for_backward(x, offset, weight, mask)
-        ctx.padding = padding
-        ctx.sample_dtype = sample_dtype
-        return out
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        x, offset, weight, mask = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        # autograd may hand over an expanded (stride-0) gradient
-        grad_out = grad_out.contiguous()
-        if need[0] and bf16_sampling(ctx.sample_dtype):
-            raise NotImplementedError("deform_conv2d: sample_dtype with the "
-                                      "input gradient is not yet ported")
-        if x.device.type == "cuda":
-            from jspsr_torch.ops import deform_cuda
+@torch.library.custom_op(f"{NAMESPACE}::deform_conv2d", mutates_args=())
+def deform_conv2d_op(x: torch.Tensor, offset: torch.Tensor,
+                     weight: torch.Tensor, bias: torch.Tensor,
+                     mask: torch.Tensor, padding: int,
+                     sample_dtype: Optional[str]) -> torch.Tensor:
+    """The forward: K1 on CUDA tensors, ``deform_conv2d_plain`` on CPU
+    tensors, in the mode ``sample_dtype`` asks for."""
+    cuda = _kernels(x.device)
+    if cuda is not None:
+        return cuda.deform_fwd(x, offset, weight, bias, mask, padding,
+                               sample_dtype=sample_dtype)
+    return deform_conv2d_plain(x, offset, weight, bias, mask, padding,
+                               sample_dtype=sample_dtype)
 
-            if need[0]:
-                grads = deform_cuda.deform_bwd_dx(x, offset, weight, mask,
-                                                  grad_out, ctx.padding)
-            else:
-                grads = deform_cuda.deform_bwd(
-                    x, offset, weight, mask, grad_out, ctx.padding,
-                    sample_dtype=ctx.sample_dtype)
-        else:
-            grads = deform_conv2d_backward_plain(
-                x, offset, weight, mask, grad_out, ctx.padding,
-                need_dx=need[0], sample_dtype=ctx.sample_dtype)
-        d_offset, d_mask, d_weight, d_bias = grads[:4]
-        return (grads[4] if need[0] else None,
-                d_offset if need[1] else None,
-                d_weight if need[2] else None, d_bias if need[3] else None,
-                d_mask if need[4] else None, None, None)
+
+@torch.library.custom_op(f"{NAMESPACE}::deform_conv2d_backward",
+                         mutates_args=())
+def deform_conv2d_backward_op(
+        x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
+        mask: torch.Tensor, grad_out: torch.Tensor, padding: int,
+        sample_dtype: Optional[str]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward without the input gradient: K2 on CUDA tensors,
+    ``deform_conv2d_backward_plain`` on CPU tensors; (d_offset, d_mask,
+    d_weight, d_bias)."""
+    cuda = _kernels(x.device)
+    if cuda is not None:
+        return cuda.deform_bwd(x, offset, weight, mask, grad_out, padding,
+                               sample_dtype=sample_dtype)
+    return deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
+                                        padding, sample_dtype=sample_dtype)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::deform_conv2d_backward_dx",
+                         mutates_args=())
+def deform_conv2d_backward_dx_op(
+        x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
+        mask: torch.Tensor, grad_out: torch.Tensor, padding: int,
+        sample_dtype: Optional[str]
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """The backward with the input gradient: K3 on CUDA tensors, the plain
+    backward with ``need_dx`` on CPU tensors; (d_offset, d_mask, d_weight,
+    d_bias, d_x)."""
+    cuda = _kernels(x.device)
+    if cuda is not None:
+        return cuda.deform_bwd_dx(x, offset, weight, mask, grad_out, padding,
+                                  sample_dtype=sample_dtype)
+    return deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
+                                        padding, need_dx=True,
+                                        sample_dtype=sample_dtype)
+
+
+def _new(like: torch.Tensor, *shape) -> torch.Tensor:
+    """A contiguous tensor of ``shape`` in ``like``'s type and device: the
+    ops' fake outputs (fp32 where the kernels run), no device work."""
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+@deform_conv2d_op.register_fake
+def _(x, offset, weight, bias, mask, padding, sample_dtype):
+    check_deform_args(x, offset, weight, bias, mask)
+    bf16_sampling(sample_dtype)
+    return _new(x, *x.shape)
+
+
+def _fake_backward(x, offset, weight, mask):
+    return (_new(x, *offset.shape), _new(x, *mask.shape),
+            _new(x, *weight.shape), _new(x, 1))
+
+
+@deform_conv2d_backward_op.register_fake
+def _(x, offset, weight, mask, grad_out, padding, sample_dtype):
+    bf16_sampling(sample_dtype)
+    return _fake_backward(x, offset, weight, mask)
+
+
+@deform_conv2d_backward_dx_op.register_fake
+def _(x, offset, weight, mask, grad_out, padding, sample_dtype):
+    bf16_sampling(sample_dtype)
+    return (*_fake_backward(x, offset, weight, mask), _new(x, *x.shape))
+
+
+def _setup_context(ctx, inputs, output):
+    x, offset, weight, _, mask, padding, sample_dtype = inputs
+    ctx.save_for_backward(x, offset, weight, mask)
+    ctx.padding = padding
+    ctx.sample_dtype = sample_dtype
+
+
+def _backward(ctx, grad_out):
+    """K3 (``deform_conv2d_backward_dx``) where ``x`` needs its gradient,
+    K2 (``deform_conv2d_backward``) where it does not, in the forward's
+    mode."""
+    x, offset, weight, mask = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    # autograd may hand over an expanded (stride-0) gradient
+    args = (x, offset, weight, mask, grad_out.contiguous(), ctx.padding,
+            ctx.sample_dtype)
+    if need[0]:
+        *grads, d_x = deform_conv2d_backward_dx_op(*args)
+    else:
+        grads, d_x = deform_conv2d_backward_op(*args), None
+    d_offset, d_mask, d_weight, d_bias = grads
+    return (d_x, d_offset if need[1] else None,
+            d_weight if need[2] else None, d_bias if need[3] else None,
+            d_mask if need[4] else None, None, None)
+
+
+deform_conv2d_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def deform_conv2d(x, offset, weight, bias, mask, padding: int = 1,
@@ -278,18 +357,14 @@ def deform_conv2d(x, offset, weight, bias, mask, padding: int = 1,
     weight (1,1,3,3), bias (1,), mask (B,9,H,W) -> (B,1,H,W);
     ``sample_dtype="bfloat16"`` the bf16-sampling mode.
 
-    A CUDA tensor launches the kernels (``deform_cuda.deform_fwd``, and
-    ``deform_bwd_dx`` or ``deform_bwd`` in the backward) in the mode asked
-    for, or raises; there is no fallback. Only CPU tensors take the plain
-    versions. Gradients flow to every tensor argument that requires one;
-    the bf16 mode with a gradient to ``x`` raises (not yet ported)."""
+    The op ``jspsr::deform_conv2d``: a CUDA tensor launches the kernels
+    (``deform_cuda.deform_fwd``, and ``deform_bwd_dx`` or ``deform_bwd``
+    in the backward) in the mode asked for, or raises; there is no
+    fallback. Only CPU tensors take the plain versions. Gradients flow to
+    every tensor argument that requires one, in either mode."""
     check_deform_args(x, offset, weight, bias, mask)
-    if (bf16_sampling(sample_dtype) and x.requires_grad
-            and torch.is_grad_enabled()):
-        raise NotImplementedError("deform_conv2d: sample_dtype with the "
-                                  "input gradient is not yet ported")
-    return DeformConv2dFunction.apply(x, offset, weight, bias, mask,
-                                      int(padding), sample_dtype)
+    return deform_conv2d_op(x, offset, weight, bias, mask, int(padding),
+                            sample_dtype)
 
 
 def insert_zero_center_offset(offset: torch.Tensor,

@@ -16,12 +16,13 @@
   flushed with integer atomics, then turned back into fp32 by a last pass:
   bitwise reproducible (``dx_atomics`` counts, from the offsets, where
   this data's corners go);
-- ``deform_fwd`` and ``deform_bwd`` with ``sample_dtype="bfloat16"``: the
-  two kernels' bf16-sampling mode (a template flag of each, entry points
-  ``jspsr_deform_fwd_bf16`` and ``jspsr_deform_bwd_bf16``), replacing
-  ``_fwd_kernel`` and ``_bwd_kernel`` (need_dx=False) with
+- ``deform_fwd``, ``deform_bwd`` and ``deform_bwd_dx`` with
+  ``sample_dtype="bfloat16"``: the three kernels' bf16-sampling mode (a
+  template flag of each, entry points ``jspsr_deform_fwd_bf16``,
+  ``jspsr_deform_bwd_bf16`` and ``jspsr_deform_bwd_dx_bf16``), replacing
+  ``_fwd_kernel`` and ``_bwd_kernel`` (need_dx False and True) with
   ``sample_dtype='bfloat16'``: the row products in bf16, as
-  ``ops.deform_conv`` defines them.
+  ``ops.deform_conv`` defines them (K3's d_x stays the fp32 mode's).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -33,7 +34,9 @@ imports on a host without CUDA.
 a run resets it to show that its main path went through the kernels. The
 two backward kernels share a library (``deform_bwd``) and count apart;
 each bf16 mode counts under its own name (``deform_fwd_bf16``,
-``deform_bwd_bf16``).
+``deform_bwd_bf16``, ``deform_bwd_dx_bf16``). The custom ops of
+``ops.deform_conv`` call these wrappers from their real implementations
+only (never from their fakes), so a count is one launch, not a trace.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ DX_TILE = (8, 32)
 DX_MARGIN = 4
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
-           "deform_bwd_bf16")
+           "deform_bwd_bf16", "deform_bwd_dx_bf16")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
@@ -71,7 +74,8 @@ def reset_launches() -> None:
 _ENTRY = {"deform_fwd": ("deform_fwd", 6), "deform_bwd": ("deform_bwd", 8),
           "deform_bwd_dx": ("deform_bwd", 10),
           "deform_fwd_bf16": ("deform_fwd", 6),
-          "deform_bwd_bf16": ("deform_bwd", 8)}
+          "deform_bwd_bf16": ("deform_bwd", 8),
+          "deform_bwd_dx_bf16": ("deform_bwd", 10)}
 
 
 def _load(name: str):
@@ -112,7 +116,7 @@ def _load(name: str):
             scratch = lib.jspsr_deform_bwd_dx_scratch
             scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
             scratch.restype = ctypes.c_int64
-            need_dx = int(name == "deform_bwd_dx")
+            need_dx = int(name.startswith("deform_bwd_dx"))
             fn = (fn, lambda b, h, w: blocks(need_dx, b, h, w), scratch)
         _fns[name] = fn
     return _fns[name]
@@ -184,7 +188,7 @@ def _backward(name, x, offset, weight, mask, grad_out, padding):
     partial = torch.empty(blocks(b, h, w), TAPS, device=x.device,
                           dtype=torch.float32)
     tail, d_x = [], []
-    if name == "deform_bwd_dx":
+    if name.startswith("deform_bwd_dx"):
         # the fixed-point accumulator, summed with atomics, starts at zero;
         # the bounds pass's partials after it are written whole
         d_x = [torch.empty_like(x)]
@@ -217,13 +221,16 @@ def deform_bwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
 
 def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                   mask: torch.Tensor, grad_out: torch.Tensor,
-                  padding: int = 1):
+                  padding: int = 1, sample_dtype=None):
     """Launch the backward kernel with the input gradient: as
     ``deform_bwd``, and returns ``(d_offset, d_mask, d_weight, d_bias,
     d_x)``. d_x is summed in fixed point, scaled per image on the device,
-    so every output is the same, bit for bit, on every run."""
-    return _backward("deform_bwd_dx", x, offset, weight, mask, grad_out,
-                     padding)
+    so every output is the same, bit for bit, on every run. In the
+    bf16-sampling mode d_offset, d_mask and d_weight are ``deform_bwd``'s
+    in that mode and d_x is the fp32 mode's."""
+    name = ("deform_bwd_dx_bf16" if bf16_sampling(sample_dtype)
+            else "deform_bwd_dx")
+    return _backward(name, x, offset, weight, mask, grad_out, padding)
 
 
 def dx_atomics(offset: torch.Tensor, h: int, w: int, padding: int = 1,

@@ -36,6 +36,22 @@ predictions, and the whole-split summary (``eval/summarise.py``).
 compute what an uninterrupted one does: the weights and BatchNorm state,
 the optimizer, ``start_epoch``, ``best_result`` and ``global_step``.
 
+``save_every_steps: N`` writes a preemption checkpoint,
+``_preempt_<model>.npz`` in the result dir, every N steps of an epoch: the
+checkpoint's layout (the optimizer under ``torch_opt/``) with
+``step_in_epoch``, ``n_samples``, ``loss_sums`` (the epoch's partial loss
+sums, fp32 through a Python float and back: exact) and ``global_step`` in
+its meta. A Trainer made in a result dir that holds one resumes the
+interrupted epoch at that step (the JAX Trainer's preemption resume,
+``jspsr_tpu/train/trainer.py:228-242,295-334``): the loader fast-forwards
+with ``set_epoch(epoch, start_batch)`` (the device cache draws through the
+same ``loader._batches()``), the drop-path seed follows the restored
+global step, ``load(..., resume=True)`` is skipped as older, ``fit``
+skips the initial eval, and ``finish`` removes the file. The resumed run
+is the uninterrupted one, bit for bit. ``profile_steps: N`` writes a
+``torch.profiler`` trace (host and, on the card, device) of the first N
+train steps to ``<result_dir>/profile/trace_e<epoch>.json``.
+
 It runs on the card unless ``device='cpu'`` is given, with TF32 off (the
 config is fp32) and cuDNN's deterministic algorithms
 (``set_deterministic_cudnn``): a step is the same, bit for bit, from the
@@ -84,7 +100,7 @@ from jspsr_torch.utils.summary import count_parameters
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
 
 # config keys of the JAX Trainer whose port has not landed
-NOT_PORTED = ("save_every_steps", "profile_steps", "remat")
+NOT_PORTED = ("remat",)
 # config keys of the JAX Trainer (default on) that the port always does:
 # turning one off is not yet ported (``prefetch_split``: the numpy
 # assembly and the copy to the device on threads of their own)
@@ -232,6 +248,15 @@ class Trainer:
         self.early_stopper = EarlyStopper(es.get("patience"),
                                           es.get("monitor") or "val_loss")
 
+        self._profile_steps = int(p.get("profile_steps") or 0)
+        self._profiled = False
+        # preemption-safe mid-epoch resume: (epoch, step_in_epoch, loss
+        # sums, n_samples) of a preemption checkpoint found at start
+        self.save_every_steps = int(p.get("save_every_steps") or 0)
+        self._mid_resume = None
+        if self.save_every_steps and self._preempt_path().exists():
+            self._resume_preempt()
+
     # ------------------------------------------------------------------
     def load(self, path, resume: bool = False):
         """Load a ``.npz`` (the JAX package's or the port's; shape-filtered)
@@ -239,7 +264,14 @@ class Trainer:
         ``resume`` it also restores ``start_epoch`` and ``best_result``
         and, from a port checkpoint, the optimizer and ``global_step``;
         other checkpoints carry no optimizer state of the port, so the
-        optimizer starts fresh (optimizer state is not portable)."""
+        optimizer starts fresh (optimizer state is not portable). A resume
+        is skipped where a preemption checkpoint was restored: it is
+        newer."""
+        if resume and self._mid_resume:
+            print(f"Skipping load({path}): the preemption checkpoint "
+                  f"resumes epoch {self._mid_resume[0]} step "
+                  f"{self._mid_resume[1]}")
+            return
         flat, meta = load_model_state(self.model, path)
         if resume:
             if meta.get("epoch") is not None:
@@ -259,6 +291,60 @@ class Trainer:
 
     def _ckpt_path(self) -> Path:
         return self.result_dir / f"_tmp_{self.p.model_name}.npz"
+
+    def _preempt_path(self) -> Path:
+        return self.result_dir / f"_preempt_{self.p.model_name}.npz"
+
+    def _resume_preempt(self):
+        """Restore the preemption checkpoint: the weights, BatchNorm state,
+        optimizer and global step, and the interrupted epoch's cursor and
+        partial loss sums; ``start_epoch`` is that epoch."""
+        path = self._preempt_path()
+        flat, meta = load_model_state(self.model, path)
+        load_optimizer_state(self.model, self.optimizer, flat, meta)
+        self.global_step = int(meta["global_step"])
+        self.start_epoch = int(meta["epoch"])
+        self.best_result = meta.get("best_result")
+        self._mid_resume = (self.start_epoch, int(meta["step_in_epoch"]),
+                            meta.get("loss_sums") or {},
+                            int(meta.get("n_samples", 0)))
+        if self.verbose:
+            print(f"Preemption resume: epoch {self.start_epoch} step "
+                  f"{meta['step_in_epoch']} from {path}")
+
+    def _save_preempt(self, epoch: int, steps_done: int, loss_sums,
+                      n_samples: int):
+        """The preemption checkpoint after ``steps_done`` steps of
+        ``epoch`` (reading the loss sums waits for the device)."""
+        sums = {k: float(v) for k, v in (loss_sums or {}).items()}
+        save_checkpoint(self._preempt_path(), self.model, self.optimizer,
+                        epoch=epoch, best_result=self.best_result,
+                        extra={"step_in_epoch": steps_done,
+                               "n_samples": n_samples, "loss_sums": sums,
+                               "global_step": self.global_step})
+
+    def _start_profile(self):
+        """A ``torch.profiler`` trace of the next ``profile_steps`` train
+        steps, once per run: the profiler, or None."""
+        if not self._profile_steps or self._profiled:
+            return None
+        self._profiled = True
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, epoch: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.result_dir / "profile" / f"trace_e{epoch:03d}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out))
+        if self.verbose:
+            print(f"Profiler trace ({self._profile_steps} steps) -> {out}")
 
     # ------------------------------------------------------------------
     def _batches(self, epoch: int):
@@ -311,13 +397,28 @@ class Trainer:
         p = self.p
         lr = self.lr_schedule(epoch)
         set_learning_rate(self.optimizer, lr, base_lr=p.optimizer_kwargs.lr)
-        self.train_loader.set_epoch(epoch)
         n_samples = 0
         losses = None
         # Epoch loss = batch-size-weighted mean over every step (reference
         # train_utils.py:216-240); the sums stay on the device, so there is
         # no per-step host sync.
         loss_sums = None
+        start_batch = 0
+        if self._mid_resume and self._mid_resume[0] == epoch:
+            # finish the interrupted epoch from its cursor, with its
+            # partial sums (fp32 -> float -> fp32 is exact)
+            _, start_batch, sums, n_samples = self._mid_resume
+            loss_sums = {k: torch.tensor(v, dtype=torch.float32,
+                                         device=self.device)
+                         for k, v in sums.items()} or None
+            self._mid_resume = None
+            if self.verbose and start_batch:
+                print(f"E{epoch:03d} resuming at step {start_batch}")
+        self.train_loader.set_epoch(epoch, start_batch=start_batch)
+        steps_done = start_batch
+        n_run = 0  # samples stepped in this run, for the throughput
+        prof = self._start_profile()
+        profiling = self._profile_steps if prof is not None else 0
         t0 = time.perf_counter()
         for inputs, gt, bs, done in self._batches(epoch):
             if done is not None:
@@ -338,6 +439,17 @@ class Trainer:
                 loss_sums = {k: loss_sums[k] + v * bs
                              for k, v in step_losses.items()}
             n_samples += bs
+            n_run += bs
+            steps_done += 1
+            if profiling:
+                profiling -= 1
+                if profiling == 0:
+                    self._stop_profile(prof, epoch)
+            if (self.save_every_steps
+                    and steps_done % self.save_every_steps == 0):
+                self._save_preempt(epoch, steps_done, loss_sums, n_samples)
+        if profiling:  # an epoch shorter than profile_steps
+            self._stop_profile(prof, epoch)
         if loss_sums:
             keys = list(loss_sums)
             sums = torch.stack([loss_sums[k] for k in keys]).cpu().tolist()
@@ -347,7 +459,7 @@ class Trainer:
             self.last_epoch_losses = {}
         epoch_loss = self.last_epoch_losses.get("Total", float("nan"))
         dt = time.perf_counter() - t0
-        self.last_throughput = n_samples / max(dt, 1e-9)  # tiles/s
+        self.last_throughput = n_run / max(dt, 1e-9)  # tiles/s
         if self.verbose:
             extra = ""
             if losses is not None and "grad_max" in losses:
@@ -372,6 +484,8 @@ class Trainer:
 
     def fit(self, initial_eval: bool = True):
         p = self.p
+        if self._mid_resume:
+            initial_eval = False  # the preempted run made it
         if initial_eval:
             result = self.evaluate(compare_input=True)
             if self.verbose:
@@ -433,6 +547,10 @@ class Trainer:
         reference), then the whole-split summary against every public
         product found beside the ground truth."""
         p = self.p
+        if self.save_every_steps:
+            # the run is complete: a preemption checkpoint left behind
+            # would resume the next run in this result dir
+            self._preempt_path().unlink(missing_ok=True)
         tmp = self._ckpt_path()
         final_path = tmp
         if tmp.exists() and self.best_result:

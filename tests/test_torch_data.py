@@ -133,17 +133,28 @@ def test_train_one_epoch_loss_is_batch_weighted_mean(cfg, tmp_path):
 
 # the raw device feed's options, which raised until their slice ported them
 RAW_FEED = ("device_normalize", "pack_mask", "device_cache")
+# once in NOT_PORTED (tests/test_torch_preempt.py holds them to the JAX
+# Trainer's behaviour)
+TRAINER_OPTIONS = ("save_every_steps", "profile_steps")
 
 
-@pytest.mark.parametrize("key", NOT_PORTED + RAW_FEED + (
+@pytest.mark.parametrize("key", NOT_PORTED + TRAINER_OPTIONS + RAW_FEED + (
     "checkpoint_backend", "pretrained"))
 def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
     """Each option not yet ported raises; ``pretrained`` is ported now, and
     the Trainer reads its file: an absent one raises. The raw feed's
     options are ported: each (on the raw feed it rides) builds a Trainer
     that trains an epoch (tests/test_torch_device_cache.py holds them to
-    the host feed and to JAX)."""
+    the host feed and to JAX). ``save_every_steps`` and ``profile_steps``
+    are ported: an epoch writes the preemption checkpoint or the trace."""
     p = dict(cfg)
+    if key in TRAINER_OPTIONS:
+        p[key] = 1
+        t = Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+        assert np.isfinite(t.train_one_epoch(0)[0])
+        assert (t._preempt_path().exists() if key == "save_every_steps"
+                else any((tmp_path / "profile").glob("*.json")))
+        return
     if key in RAW_FEED:
         p.update({"device_normalize": True, key: True})
         t = Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
@@ -190,3 +201,30 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(cfg, tmp_path,
     monkeypatch.setattr(trainer_mod.torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(AttrDict(cfg), result_dir=tmp_path)
+
+
+@pytest.mark.parametrize("crop,stride", [(32, None), (24, 16), (64, 64)])
+def test_gen_crop_subset_matches_jax(tmp_path, crop, stride):
+    """The port's copy of ``utils/geo_prep.py`` crops the windows the JAX
+    function crops from one georeferenced raster: the same files, arrays
+    bit-equal, profiles equal."""
+    from jspsr_tpu.data.raster_io import default_profile
+    from jspsr_tpu.data.raster_io import read_raster as jax_read_raster
+    from jspsr_tpu.data.raster_io import write_raster as jax_write_raster
+    from jspsr_tpu.utils.geo_prep import gen_crop_subset as jax_crop
+    from jspsr_torch.data.raster_io import read_raster
+    from jspsr_torch.utils.geo_prep import gen_crop_subset
+
+    rng = np.random.default_rng(crop)
+    big = rng.normal(size=(70, 90, 2)).astype(np.float32)
+    src = tmp_path / "big.npy"
+    jax_write_raster(src, big, default_profile(70, 90, 2, "float32", 1000.0,
+                                               2000.0, 8.0))
+    want = jax_crop(src, tmp_path / "jax", crop, stride)
+    got = gen_crop_subset(src, tmp_path / "port", crop, stride)
+    assert [q.name for q in got] == [q.name for q in want] and got
+    for g, w in zip(got, want):
+        a, pa = read_raster(g, with_profile=True)
+        b, pb = jax_read_raster(w, with_profile=True)
+        np.testing.assert_array_equal(a, b)
+        assert pa == pb

@@ -8,8 +8,12 @@ weights, scattered onto the corners it read. On CPU tensors that is
 d_offset and d_mask from the same call, against the JAX Pallas backward
 with ``x_grad=True`` (interpret mode) and ``jax.grad`` through the JAX
 gather path, at the deform suite's 1e-4 (tests/test_pallas_deform.py), and
-against numerical derivatives in float64 (``gradcheck``). The card's legs
-are in tests/test_torch_gpu.py.
+against numerical derivatives in float64 (``gradcheck``). K3's
+bf16-sampling mode is the two halves of modes already held: d_x bit-equal
+to the fp32 mode's, d_offset, d_mask and d_weight bit-equal to K2's bf16
+mode's (tests/test_torch_sample_dtype.py holds it to JAX). The three
+custom ops pass ``torch.library.opcheck``. The card's legs are in
+tests/test_torch_gpu.py and ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -22,10 +26,12 @@ from jspsr_tpu.ops.deform_conv import deform_conv2d as jax_deform_conv2d
 from jspsr_tpu.ops.pallas_deform import _pallas_backward
 from jspsr_torch.ops import deform_cuda
 from jspsr_torch.ops.deform_conv import (
-    DeformConv2dFunction,
     bilinear_sample,
     deform_conv2d,
+    deform_conv2d_backward_dx_op,
+    deform_conv2d_backward_op,
     deform_conv2d_backward_plain,
+    deform_conv2d_op,
     deform_conv2d_plain,
 )
 
@@ -155,7 +161,7 @@ def test_gradcheck_float64_with_input(scale):
         rng.normal(size=(b, 1, h, w)), off, rng.normal(size=(1, 1, 3, 3)),
         rng.normal(size=(1,)), rng.uniform(-0.5, 1.0, size=(b, 9, h, w)))]
     assert torch.autograd.gradcheck(
-        lambda *a: DeformConv2dFunction.apply(*a, 1), args, eps=1e-6,
+        lambda *a: deform_conv2d(*a, 1), args, eps=1e-6,
         atol=1e-6, rtol=1e-5)
 
 
@@ -255,3 +261,45 @@ def test_dx_atomics_at_nlspn_offsets_stay_below_a_tenth():
     pixels = 2 * 128 * 128
     assert got["global"] / pixels <= 0.1 * got["corners"] / pixels
     assert got["flush"] <= 2 * 16 * 4 * (8 + 8) * (32 + 8)
+
+
+@pytest.mark.parametrize("b,h,w,scale", CASES, ids=IDS)
+def test_bf16_mode_input_gradient_halves(b, h, w, scale):
+    """K3's bf16-sampling mode rounds only the image products: its d_x is
+    the fp32 mode's and its d_offset, d_mask, d_weight and d_bias are K2's
+    bf16 mode's, each bit for bit."""
+    x, off, mask, wgt, bias, g = _case(b, h, w, scale, seed=7 * h + w)
+    args = (_nchw(x), _nchw(off), torch.from_numpy(
+        wgt.transpose(3, 2, 0, 1).copy()), _nchw(mask),
+        torch.from_numpy(g)[:, None])
+    bf16 = deform_conv2d_backward_plain(*args, need_dx=True,
+                                        sample_dtype="bfloat16")
+    fp32 = deform_conv2d_backward_plain(*args, need_dx=True)
+    k2 = deform_conv2d_backward_plain(*args, sample_dtype="bfloat16")
+    assert torch.equal(bf16[4], fp32[4]) and bf16[4].abs().max() > 0
+    for name, a, r in zip(("d_offset", "d_mask", "d_weight", "d_bias"),
+                          bf16[:4], k2):
+        assert torch.equal(a, r), name
+    assert (bf16[0] - fp32[0]).abs().max() > 1e-4  # the mode really rounds
+
+
+@pytest.mark.parametrize("sample_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("op", ["forward", "backward", "backward_dx"])
+def test_custom_ops_pass_opcheck(op, sample_dtype):
+    """``torch.library.opcheck`` (schema, fake, autograd registration, AOT
+    dispatch) on each op of ``jspsr::``, on CPU tensors; the forward also
+    with every tensor argument requiring its gradient."""
+    x, off, mask, wgt, bias, g = _case(2, 6, 7, 1.5, seed=11)
+    x, off, mask, g = (_nchw(a) for a in (x, off, mask, g[..., None]))
+    wgt = torch.from_numpy(wgt.transpose(3, 2, 0, 1).copy())
+    bias = torch.from_numpy(bias.copy())
+    if op == "forward":
+        torch.library.opcheck(deform_conv2d_op,
+                              (x, off, wgt, bias, mask, 1, sample_dtype))
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (x, off, wgt, bias, mask)]
+        torch.library.opcheck(deform_conv2d_op, (*leaves, 1, sample_dtype))
+    else:
+        fn = (deform_conv2d_backward_op if op == "backward"
+              else deform_conv2d_backward_dx_op)
+        torch.library.opcheck(fn, (x, off, wgt, mask, g, 1, sample_dtype))

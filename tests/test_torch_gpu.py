@@ -210,6 +210,35 @@ def test_backward_dx_kernel_matches_plain(cuda_device, b, h, w, scale):
     assert ((got[4] - ref[4]).abs() <= 1e-5 * abs_sum[4] + 1e-7).all()
 
 
+@pytest.mark.parametrize("b,h,w,scale", DX_CASES[:4])
+def test_backward_dx_bf16_kernel_is_its_two_halves(cuda_device, b, h, w,
+                                                   scale):
+    """K3's bf16-sampling mode: its d_x is fp32 K3's and its d_offset and
+    d_mask K2-bf16's, bit for bit, on the same inputs; one launch under
+    its own name; the op's autograd reaches it with ``x``'s gradient."""
+    x, offset, weight, bias, mask = _args(b, h, w, scale, cuda_device)
+    g = torch.randn(b, 1, h, w, generator=torch.Generator().manual_seed(5))
+    g = g.to(cuda_device)
+    launches = dict(deform_cuda.LAUNCHES)
+    got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g,
+                                    sample_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert {k: deform_cuda.LAUNCHES[k] - launches[k] for k in launches} == \
+        {**NO_LAUNCHES, "deform_bwd_dx_bf16": 1}
+    fp32 = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g)
+    k2 = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                sample_dtype="bfloat16")
+    assert torch.equal(got[4], fp32[4])
+    assert torch.equal(got[0], k2[0]) and torch.equal(got[1], k2[1])
+    xt = x.clone().requires_grad_(True)
+    launches = dict(deform_cuda.LAUNCHES)
+    deform_conv2d(xt, offset, weight, bias, mask,
+                  sample_dtype="bfloat16").backward(g)
+    assert deform_cuda.LAUNCHES["deform_bwd_dx_bf16"] == \
+        launches["deform_bwd_dx_bf16"] + 1
+    assert torch.equal(xt.grad, got[4])
+
+
 def test_input_grad_on_gpu_matches_cpu(cuda_device):
     """Every gradient of the Function, x included, on the card (K1, K3)
     against the CPU (the plain versions)."""

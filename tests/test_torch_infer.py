@@ -181,10 +181,13 @@ def test_entry_points_need_cuda_or_explicit_cpu(fixture_dir, monkeypatch):
 @pytest.mark.parametrize("flags", [["--tile", "--val"], ["--val"],
                                    ["--export", "x"], []])
 def test_cli_unported_modes_raise(fixture_dir, tmp_path, flags):
-    """Of the CLI's modes only --export still raises. --val is ported:
-    with --infer, inference goes first (as the JAX CLI), whole or --tile;
-    without --infer (``[]``) the CLI trains: ``Trainer.fit`` on a DFC30
-    tree, ending in a best checkpoint named with its RMSE."""
+    """None of the CLI's modes raises now. --export is ported: it goes
+    before --infer (as in the JAX CLI) and writes a ``.pt2`` whose forward
+    is the checkpoint's model (tests/test_torch_export.py holds it to JAX).
+    --val is ported: with --infer, inference goes first (as the JAX CLI),
+    whole or --tile; without --infer (``[]``) the CLI trains:
+    ``Trainer.fit`` on a DFC30 tree, ending in a best checkpoint named with
+    its RMSE."""
     root, *_ = fixture_dir
     argv = ["--config", str(root / "c.yml"), "--device", "cpu",
             "--result-dir", str(tmp_path / "res"), *flags]
@@ -192,8 +195,21 @@ def test_cli_unported_modes_raise(fixture_dir, tmp_path, flags):
         argv += ["--infer", str(root / "scenes"), "--out",
                  str(tmp_path / "out")]
     if flags and flags[0] == "--export":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _run_cli(port_cli_main, argv)
+        argv[argv.index("x")] = str(tmp_path / "x")
+        out = _run_cli(port_cli_main, argv)
+        assert out == tmp_path / "x.pt2" and out.exists()
+        from jspsr_torch.eval.export import load_exported
+
+        p = create_config(root / "c.yml")
+        model = load_model_params(build_model(p), root / "m.npz").eval()
+        rng = np.random.default_rng(0)
+        side = p.patch_size  # the export's static size, the config's
+        xs = [torch.from_numpy(rng.uniform(0, 1, (2, c, side, side)).astype(
+            np.float32)) for c in (1, 3, 15)]
+        with torch.no_grad():
+            want = model(xs)
+        torch.testing.assert_close(load_exported(out, device="cpu")(*xs),
+                                   want, rtol=0, atol=1e-6)
         return
     if flags:
         if "--tile" in flags:  # tiles of 32 px: the scenes are 44 x 52

@@ -6,12 +6,15 @@ d_mask, d_weight, d_bias) in the mode against ``deform_conv2d_pallas(...,
 sample_dtype="bfloat16")``, which the CPU runs in interpret mode, at the
 deform suite's tolerance 1e-4 (tests/test_pallas_deform.py); the largest
 error seen is about 1e-6 (the sums run in another order). The mode must
-differ from the fp32 mode, and with a gradient to the input it raises:
-K3's bf16 mode is not yet ported.
+differ from the fp32 mode. With a gradient to the input (K3's mode) the
+port's plain backward is held to ``jax.grad`` of ``deform_conv2d_pallas(...,
+x_grad=True, sample_dtype="bfloat16")`` in interpret mode, all five
+gradients at the same 1e-4.
 """
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -113,18 +116,58 @@ def test_autograd_reaches_the_mode():
 
 
 def test_input_gradient_and_unknown_dtype_raise():
-    """With x requiring its gradient the mode is K3's, not yet ported; an
-    unknown sample_dtype raises; None and float32 are the fp32 mode."""
+    """Once a refusal (K3's mode was not ported), the input gradient now
+    flows in the mode: ``deform_conv2d``'s autograd gives the plain
+    backward's d_x with ``need_dx``, bit for bit; an unknown sample_dtype
+    raises; None and float32 are the fp32 mode."""
     x, off, mask, wgt, bias, g = _case(1, 8, 8, 1.0, seed=3)
     px, poff, pw, pb, pm = _port_args(x, off, mask, wgt, bias)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        deform_conv2d(px.requires_grad_(True), poff, pw, pb, pm,
-                      sample_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        deform_conv2d_backward_plain(px, poff, pw, pm,
-                                     torch.from_numpy(g)[:, None],
-                                     need_dx=True, sample_dtype="bfloat16")
+    xt = px.clone().requires_grad_(True)
+    deform_conv2d(xt, poff, pw, pb, pm, sample_dtype="bfloat16").backward(
+        torch.from_numpy(g)[:, None])
+    want = deform_conv2d_backward_plain(px, poff, pw, pm,
+                                        torch.from_numpy(g)[:, None],
+                                        need_dx=True, sample_dtype="bfloat16")
+    assert xt.grad.abs().max() > 0 and torch.equal(xt.grad, want[4])
     with pytest.raises(ValueError, match="sample_dtype"):
         bf16_sampling("float16")
     assert not bf16_sampling(None) and not bf16_sampling("float32")
     assert bf16_sampling("bfloat16")
+
+
+@pytest.mark.parametrize("shape,scale", CASES, ids=IDS)
+def test_bf16_input_gradient_matches_pallas(shape, scale):
+    """K3's bf16-sampling mode: ``jax.grad`` of the Pallas op with
+    ``x_grad=True`` in the mode (interpret mode) against the port's plain
+    backward with ``need_dx``, d_x, d_offset, d_mask, d_weight and d_bias
+    at 1e-4; through the port's autograd the same gradients, bit for
+    bit."""
+    x, off, mask, wgt, bias, g = _case(*shape, scale, seed=int(10 * scale) + 2)
+    jargs = [jnp.asarray(a) for a in (x, off, wgt, bias, mask)]
+
+    def loss(x, off, wgt, bias, mask):
+        out = deform_conv2d_pallas(x, off, wgt, bias, mask, 1, True,
+                                   "bfloat16")
+        return jnp.sum(out[..., 0] * jnp.asarray(g))
+
+    d_x, d_off, d_w, d_b, d_mask = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+        *jargs)
+    px, poff, pw, pb, pm = _port_args(x, off, mask, wgt, bias)
+    gt = torch.from_numpy(g)[:, None]
+    got = deform_conv2d_backward_plain(px, poff, pw, pm, gt, 1, need_dx=True,
+                                       sample_dtype="bfloat16")
+    want = (np.asarray(d_off).transpose(0, 3, 1, 2),
+            np.asarray(d_mask).transpose(0, 3, 1, 2),
+            np.asarray(d_w).transpose(3, 2, 0, 1), np.asarray(d_b),
+            np.asarray(d_x).transpose(0, 3, 1, 2))
+    for name, a, r in zip(("d_offset", "d_mask", "d_weight", "d_bias",
+                           "d_x"), got, want):
+        a = a.numpy()
+        print(f"bf16 input gradient {shape} {scale} px {name}: max |port - "
+              f"pallas| {np.abs(a - r).max():.3g}")
+        np.testing.assert_allclose(a, r, rtol=TOL, atol=TOL, err_msg=name)
+    assert np.abs(got[4].numpy()).max() > 0
+    leaves = [t.clone().requires_grad_(True) for t in (px, poff, pw, pb, pm)]
+    deform_conv2d(*leaves, sample_dtype="bfloat16").backward(gt)
+    for leaf, w in zip(leaves, (got[4], got[0], got[2], got[3], got[1])):
+        assert torch.equal(leaf.grad, w.view_as(leaf.grad))
