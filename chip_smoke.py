@@ -168,14 +168,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    epoch 2, their last parameters and buffers, best result and epoch
    losses bit-equal; each epoch's and each eval pass's seconds; then the
    preemption gate (``save_every_steps: 2``) for the flagship on the host
-   feed and the bf16 flagship from its device cache: an uninterrupted fit
-   against a fit preempted right after epoch 0's mid-epoch save and one
-   preempted a step past epoch 1's, each relaunched in its result dir
-   (resumed at step 2, no initial eval), every parameter and buffer, the
-   losses of the epochs it ran, the best result and the final eval
-   bit-equal, the saves' ms printed; and,
-   after phase 14 (the profiler slows the process it traces), a fit with
-   ``profile_steps: 2`` whose trace names K1's and K2's kernels;
+   feed with the asynchronous checkpoint backend (``checkpoint_backend:
+   orbax``: the fit above is its uninterrupted run) and the bf16 flagship
+   from its device cache with the .npz one: an uninterrupted fit against
+   a fit preempted right after epoch 0's mid-epoch save (the flagship) or
+   a step past epoch 1's (the bf16 flagship, ``PREEMPT_CASES``),
+   relaunched in its result dir (resumed at step 2, no initial eval),
+   every parameter and buffer, the losses of the epochs it ran, the best
+   result and the final eval bit-equal, the ms each save held the step
+   loop printed; (phase 15 runs the ``profile_steps`` leg);
 11. EDSR: configs/edsr_r8_img.yml (16 blocks x 64, batch 70) as shipped
    and with ``spn: true``, each trained one epoch (``CUT_EPOCHS``) on
    phase 5's tree
@@ -240,12 +241,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    card-traced one; the artifact and the eager model at batch 50 timed
    in turns; export seconds and artifact MB; then the same, but for the
    CPU trace, for a seeded bf16 flagship with ``spn_sample_dtype:
-   bfloat16`` (K1-bf16 only).
+   bfloat16`` (K1-bf16 only);
+15. JSPSR's execution options and the keys ported last: (a) phase 4's
+   checkpoint with ``fuse_stems``, ``eval_grouped`` and both against the
+   separate path on the card (cuDNN's defaults), at 1 and 72 x 128^2 and
+   phase 4's first 334^2 scene, rtol 1e-4 / atol 2e-5 (the convs
+   regrouped, the precision fp32), one K1 per forward, each timed (median
+   of 25); (b) one step from one state at the train batch with ``remat``
+   and with ``remat_stages`` against the step without (the flagship at
+   50, deterministic cuDNN: 2 K1 + 1 K2 and 1 K1 + 1 K2), and
+   CompletionFormer's at 16 with ``remat`` (12 K1 + 6 K3, drop path from
+   the step's generator): every parameter, buffer and AdamW moment
+   bit-equal, the warm step's ms and the peak memory printed; (c) one
+   flagship epoch with ``prefetch_split: false`` bit-equal to the split
+   one, both epochs' seconds; (d) a seeded ``lr_dem + image + coord``
+   JSPSR serving phase 4's 4 x 334^2 scenes through ``--infer``, whole (a
+   K1 per scene) and ``--tile`` (a K1 per chunk), one scene against the
+   port on the CPU at rtol 1e-4 / atol 2e-5; (e) one epoch of
+   configs/jspsr_r3_img_msk.yml on one 334^2 sample per train city (its
+   tile crop: 9 x 128^2 each), one K1 and one K2 per step, its first 2
+   steps under ``profile_steps``, whose trace must name K1's and K2's
+   kernels (last: the profiler slows the process it traces).
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
 ...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}``,
-``{"bf16": ...}``, ``{"export": ...}`` (with
+``{"bf16": ...}``, ``{"export": ...}``, ``{"options": ...}`` (with
 the card's name and power limit) and ``{"kernels": [...]}`` lines, its wall
 time, and ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
@@ -254,6 +275,7 @@ time, and ends with ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -315,6 +337,7 @@ from jspsr_torch.scripts.bench_deform_fwd import (
 from jspsr_torch.scripts.profile_kernels import device_us
 from jspsr_torch.train.checkpoint import load_model_params
 from jspsr_torch.train.optim import build_optimizer
+from jspsr_torch.train.orbax_ckpt import wait_for_checkpoint
 from jspsr_torch.train.profile_step import random_batch
 from jspsr_torch.train.step import make_train_step, seed_step_generator
 from jspsr_torch.train.trainer import Trainer
@@ -327,6 +350,7 @@ CF_CONFIG = REPO / "configs" / "completionformer_r8_img_msk.yml"
 EDSR_CONFIG = REPO / "configs" / "edsr_r8_img.yml"
 LRRU_CONFIG = REPO / "configs" / "lrru_r8_img.yml"
 BF16_CONFIG = REPO / "configs" / "jspsr_r8_img_msk_bf16.yml"
+R3_CONFIG = REPO / "configs" / "jspsr_r3_img_msk.yml"
 
 # K1's correctness-only shapes: sides that are not multiples of its 4 x 64
 # tile, the first smaller than one tile (TMA), the second with W % 4 != 0
@@ -377,6 +401,10 @@ FIT_EPOCHS = 2
 # server's chunk of 72) and its tolerance against the eager model
 EXPORT_BATCHES = (1, 50, 72)
 EXPORT_TOL = 1e-5
+# the artifact and the eager model at batch 50, each turn a median of this
+# many runs (a cut: 25 until the script passed 720 s, NVIDIA H100 80GB
+# HBM3, 700 W; a turn at batch 50 took about 6 s of it)
+EXPORT_TIME_REPS = 10
 # run in a fresh process: the artifact loaded with torch and the op library
 # alone, on the card, TF32 off and cuDNN's deterministic algorithms (as the
 # eager model runs in the parent: with cuDNN's defaults the fp32 forward
@@ -408,11 +436,26 @@ print(json.dumps({"launches": launches, "modules": sorted(
     m for m in sys.modules if m.startswith(("jspsr", "jax")))}))
 """
 # the preemption gate's save_every_steps (3 steps of 50 per epoch: one
-# mid-epoch save) and the profiled fit's profile_steps
+# mid-epoch save) and the profiled epoch's profile_steps
 PREEMPT_EVERY, PROFILE_STEPS = 2, 2
 # where the gate preempts a fit: [epoch, step] of the save it resumes from
 PREEMPT_AT = {"after_save": [0, PREEMPT_EVERY],
               "between_saves": [1, PREEMPT_EVERY]}
+# The crash each config's gate runs: the flagship's fit (the asynchronous
+# backend, ``checkpoint_backend: orbax``) right after a save, the bf16
+# flagship's (the synchronous .npz) between saves. A cut: both ran both
+# until the script passed 800 s (NVIDIA H100 80GB HBM3, 700 W).
+PREEMPT_CASES = {"JSPSR": ("after_save",), "JSPSR_bf16": ("between_saves",)}
+# Phase 15: the execution options' eval forward (phase 4's checkpoint) at
+# one tile, a tiled server's chunk of 72 and one 334^2 scene, each timed as
+# the median of TIME_REPEATS; the remat steps' warm steps after the
+# compared one; the r3 config's epoch on one 334^2 sample per train city
+OPTION_SETS = {"separate": {}, "fuse_stems": {"fuse_stems": True},
+               "eval_grouped": {"eval_grouped": True},
+               "both": {"fuse_stems": True, "eval_grouped": True}}
+OPTION_BATCHES = (1, 72)
+TIME_REPEATS, TIMED_STEPS = 25, 5
+R3_SCENES_PER_CITY, R3_SIDE = 1, 334
 # K1 launches per eval sample (valid batch 1): the flagship's SPN head once,
 # NLSPN's 6 propagation steps
 PER_EVAL_SAMPLE = {"JSPSR": 1, "CompletionFormer": 6}
@@ -1277,12 +1320,21 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(diff / max(float(ref.double().norm()), 1e-12))
 
 
+def model_from_state(p, state) -> torch.nn.Module:
+    """``build_model(p)`` holding copies of the tensors of ``state``, built
+    on the meta device: the random init that ``state`` replaces is skipped
+    (CompletionFormer's takes seconds of host time per build)."""
+    with torch.device("meta"):
+        model = build_model(p)
+    model.load_state_dict({k: v.clone() for k, v in state.items()},
+                          assign=True)
+    return model
+
+
 def step_state(p, state, device, dtype, inputs, gt):
     """One full-width train step of the port from the weights ``state``:
     (loss, {param: grad}, {BatchNorm buffer: value})."""
-    model = build_model(p)
-    model.load_state_dict(state)
-    model = model.to(device=device, dtype=dtype)
+    model = model_from_state(p, state).to(device=device, dtype=dtype)
     step = make_train_step(model, build_criterion(dict(p.loss)),
                            build_optimizer(p, model))
     losses = step([x.to(device, dtype) for x in inputs], gt.to(device, dtype))
@@ -1365,9 +1417,7 @@ def step_twice(p, dev, state, batch: int, holes: float = 0.0) -> dict:
     inputs, gt = train_batch(p, batch, 4, holes)
     after = []
     for _ in range(2):
-        model = build_model(p)
-        model.load_state_dict(state)
-        model = model.to(dev)
+        model = model_from_state(p, state).to(dev)
         gen = torch.Generator(dev)
         seed_step_generator(gen, p.get("seed", 0), 0)
         step = make_train_step(model, build_criterion(dict(p.loss)),
@@ -1405,9 +1455,7 @@ def unreached_heads(p, dev, state) -> dict:
     gradient, and AdamW must have taken its step on every parameter (the
     step count of each is 1), as optax's does on the JAX package's exact
     zero gradients."""
-    model = build_model(p)
-    model.load_state_dict(state)
-    model = model.to(dev)
+    model = model_from_state(p, state).to(dev)
     opt = build_optimizer(p, model)
     step = make_train_step(model, build_criterion(dict(p.loss)), opt)
     inputs, gt = train_batch(p, 4, 5, LRRU_HOLES)
@@ -1494,11 +1542,13 @@ def train(config: Path, root: Path, work: Path, dev: torch.device,
     set_deterministic_cudnn()
     free = statistics.median(s.elapsed_time(e) for s, e, _ in timed[1:])
     del trainer
+    mark(f"{label} epochs")
 
     model = build_model(p)
     state = (perturb_weights(model, seed=2) if perturbed
              else model).state_dict()
     errs = compare_train_step(p, dev, state, compare_batch, holes)
+    mark(f"{label} step on the card against the CPU and float64")
     # epoch 0's first step carries cuDNN's set-up: the warm steps follow
     warm = statistics.median(step_ms[1:])
     twice = step_twice(p, dev, state, batch, holes)
@@ -1860,11 +1910,13 @@ def phase_edsr(work: Path, root: Path, dev: torch.device, scenes_dir: Path,
             EDSR_CONFIG, root, work / f"train_{key}", dev, compare_batch=2,
             perturbed=False, label=label, model_kwargs=over,
             epochs=CUT_EPOCHS)
+        mark(f"{label} training")
         torch.backends.cudnn.deterministic = False  # serving, as phase 7
         out[f"{key}_serving"], launches = serve_family(
             work / f"serve_{key}", dev, label, "EDSR", mk,
             (scenes_dir, SCENES), (tiled_dir, TILED_SMALL))
         paths.update(launches)
+        mark(f"{label} serving")
     return out, paths
 
 
@@ -1877,6 +1929,7 @@ def phase_lrru(work: Path, root: Path, dev: torch.device):
     training, paths["lrru_training"] = train(
         LRRU_CONFIG, root, work / "train", dev, compare_batch=2,
         perturbed=True, holes=LRRU_HOLES, epochs=CUT_EPOCHS)
+    mark("LRRU training")
     torch.backends.cudnn.deterministic = False  # serving, as phase 7
     write_scenes(work / "scenes", SCENES, seed=5, holes=LRRU_HOLES)
     write_scenes(work / "rect", [TILED_RECT], seed=6, holes=LRRU_HOLES)
@@ -1953,13 +2006,13 @@ class FitRecorder:
 
 def fit_run(config: Path, root: Path, work: Path, dev: torch.device,
             epochs: int = FIT_EPOCHS, initial_eval: bool = False,
-            resume_from=None, save_every: int = 0):
+            resume_from=None, save_every: int = 0, backend: str = "npz"):
     """``Trainer(p, device=dev).fit(initial_eval)`` for ``epochs`` (after
     ``load(resume_from, resume=True)`` when given), with
-    ``save_every_steps: save_every``: (fit's result, its recorder, the
-    trainer)."""
+    ``save_every_steps: save_every`` and ``checkpoint_backend: backend``:
+    (fit's result, its recorder, the trainer)."""
     p = fit_config(config, root, epochs)
-    p.save_every_steps = save_every
+    p.save_every_steps, p.checkpoint_backend = save_every, backend
     trainer = Trainer(p, result_dir=work, device=dev)
     if resume_from is not None:
         trainer.load(resume_from, resume=True)
@@ -2004,15 +2057,16 @@ class Preempted(Exception):
 
 
 def preempted_fit(config: Path, root: Path, work: Path, dev: torch.device,
-                  crash: str):
+                  crash: str, backend: str = "npz"):
     """A fit of FIT_EPOCHS epochs with ``save_every_steps: PREEMPT_EVERY``
     in ``work``, preempted (``PREEMPT_AT``: ``"after_save"`` right after
     epoch 0's save at step PREEMPT_EVERY, before epoch 0's eval and best
     checkpoint; ``"between_saves"`` in epoch 1 after the train step one past
-    its save, whose update is lost and replayed); it must leave the
-    preemption checkpoint behind."""
+    its save, whose update is lost and replayed), saving through the
+    checkpoint ``backend``; it must leave the preemption checkpoint
+    behind."""
     p = fit_config(config, root)
-    p.save_every_steps = PREEMPT_EVERY
+    p.save_every_steps, p.checkpoint_backend = PREEMPT_EVERY, backend
     trainer = Trainer(p, result_dir=work, device=dev, verbose=False)
     if p.get("device_cache") and trainer.scene_cache is None:
         raise AssertionError(f"{config.name}: the device cache fell back")
@@ -2045,33 +2099,39 @@ def preempted_fit(config: Path, root: Path, work: Path, dev: torch.device,
     else:
         raise AssertionError(f"{config.name}: the fit ran to its end past "
                              f"the preemption ({crash})")
+    wait_for_checkpoint()  # an asynchronous save lands, as on a relaunch
     if not trainer._preempt_path().exists():
         raise AssertionError(f"{config.name}: no preemption checkpoint "
                              f"left by the preempted fit ({crash})")
 
 
 def preempt_gate(config: Path, root: Path, work: Path, dev: torch.device,
-                 label: str, uninterrupted=None) -> dict:
-    """``save_every_steps`` on the card: an uninterrupted fit with
-    ``save_every_steps: PREEMPT_EVERY`` (or ``uninterrupted``,
-    ``fit_run``'s triple of one) against fits preempted right after a save
-    (in epoch 0) and between saves (in epoch 1), each relaunched in its
+                 label: str, uninterrupted=None, backend: str = "npz") -> dict:
+    """``save_every_steps`` on the card, through the checkpoint
+    ``backend``: an uninterrupted fit with ``save_every_steps:
+    PREEMPT_EVERY`` (or ``uninterrupted``, ``fit_run``'s triple of one)
+    against a fit preempted as ``PREEMPT_CASES[label]`` says (right after
+    a save in epoch 0, or between saves in epoch 1), relaunched in its
     result dir (a new Trainer finds the preemption checkpoint, resumes the
     epoch at its step and skips the initial eval). The relaunched fit's
     last parameters and buffers, the losses of the epochs it ran, best
     result and final eval must be bit-equal to the uninterrupted one's: no
     tolerance."""
     out_a, rec_a, a = uninterrupted or fit_run(
-        config, root, work / "A", dev, save_every=PREEMPT_EVERY)
-    if a._preempt_path().exists() or not rec_a.save_ms:
+        config, root, work / "A", dev, save_every=PREEMPT_EVERY,
+        backend=backend)
+    if (a._preempt_path().exists() or not rec_a.save_ms
+            or a.ckpt_backend != backend):
         raise AssertionError(f"{label}: {len(rec_a.save_ms)} preemption "
-                             f"saves, the file left after the run")
-    gate = {"save_every_steps": PREEMPT_EVERY, "tensors":
-            len(rec_a.final_state), "save_ms": rec_a.save_ms, "cases": {}}
-    for crash in PREEMPT_AT:
-        preempted_fit(config, root, work / crash, dev, crash)
+                             f"saves ({a.ckpt_backend}), the file left "
+                             f"after the run")
+    gate = {"save_every_steps": PREEMPT_EVERY, "checkpoint_backend": backend,
+            "tensors": len(rec_a.final_state), "save_ms": rec_a.save_ms,
+            "cases": {}}
+    for crash in PREEMPT_CASES[label]:
+        preempted_fit(config, root, work / crash, dev, crash, backend)
         p = fit_config(config, root)
-        p.save_every_steps = PREEMPT_EVERY
+        p.save_every_steps, p.checkpoint_backend = PREEMPT_EVERY, backend
         c = Trainer(p, result_dir=work / crash, device=dev, verbose=False)
         resumed_at = list(c._mid_resume[:2]) if c._mid_resume else None
         rec_c = FitRecorder(c)
@@ -2101,29 +2161,8 @@ def preempt_gate(config: Path, root: Path, work: Path, dev: torch.device,
                                  f"one: {case}")
         del c
     print(f"preemption gate {label}: {gate}", flush=True)
+    mark(f"preemption gate {label}")
     return gate
-
-
-def profile_fit(root: Path, work: Path, dev: torch.device) -> dict:
-    """``profile_steps: PROFILE_STEPS`` on a fit of the flagship (one
-    epoch): the trace under ``<result_dir>/profile`` must name K1's and
-    K2's kernels. It runs after every other phase: a process the profiler
-    has traced launches more slowly."""
-    p = fit_config(FLAGSHIP, root, epochs=1)
-    p.profile_steps = PROFILE_STEPS
-    Trainer(p, result_dir=work, device=dev, verbose=False).fit(
-        initial_eval=False)
-    traces = sorted((work / "profile").glob("*.json"))
-    text = traces[0].read_text() if len(traces) == 1 else ""
-    names = {k: text.count(k) for k in ("deform_fwd_kernel",
-                                        "deform_bwd_kernel")}
-    out = {"trace": traces[0].name if traces else None,
-           "bytes": len(text), "kernel_name_counts": names}
-    print(f"profile_steps {PROFILE_STEPS}: {out}", flush=True)
-    if not all(names.values()):
-        raise AssertionError(f"profile_steps: the trace misses K1 or K2: "
-                             f"{out}")
-    return out
 
 
 def fit(root: Path, work: Path, dev: torch.device, smi: str):
@@ -2139,9 +2178,11 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
           flush=True)
     reset_launches()
     # with save_every_steps, so that this fit is also the uninterrupted run
-    # of the resume and preemption gates (the saves launch nothing)
+    # of the resume and preemption gates (the saves launch nothing), and
+    # the asynchronous checkpoint backend, whose saves the gate times
     out, rec, trainer = fit_run(FLAGSHIP, root, work / "run", dev,
-                                initial_eval=True, save_every=PREEMPT_EVERY)
+                                initial_eval=True, save_every=PREEMPT_EVERY,
+                                backend="orbax")
     torch.cuda.synchronize()
     launches = dict(deform_cuda.LAUNCHES)
     n_valid = len(p.valid_set) * VALID_SCENES_PER_CITY
@@ -2169,6 +2210,7 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
     scores = {k: v for k, v in out["result"].items() if k != "input"}
     if not all(np.isfinite(list(scores.values()))):
         raise AssertionError(f"fit final eval {scores}")
+    mark("fit")
 
     # --val through the CLI on the best checkpoint
     cfg = dict(fit_config(FLAGSHIP, root))
@@ -2192,16 +2234,19 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
         np.testing.assert_allclose(cpu_scores[k], v, rtol=1e-4,
                                    err_msg=f"CPU {k} vs the card's")
     del cpu
+    mark("--val and the CPU eval")
 
     gates = {"JSPSR": resume_gate(FLAGSHIP, root, work / "gate_JSPSR", dev,
                                   (out, rec, trainer)),
              "CompletionFormer": resume_gate(CF_CONFIG, root,
                                              work / "gate_CompletionFormer",
                                              dev)}
+    mark("resume gates")
     # save_every_steps: the flagship on the host feed, the bf16 flagship
     # from its device cache
     preempt = {"JSPSR": preempt_gate(FLAGSHIP, root, work / "preempt_JSPSR",
-                                     dev, "JSPSR", (out, rec, trainer)),
+                                     dev, "JSPSR", (out, rec, trainer),
+                                     backend="orbax"),
                "JSPSR_bf16": preempt_gate(BF16_CONFIG, root,
                                           work / "preempt_JSPSR_bf16", dev,
                                           "JSPSR_bf16")}
@@ -2485,9 +2530,12 @@ def bf16_phase(root: Path, work: Path, dev: torch.device, scenes_dir: Path,
           f"{create_config(BF16_CONFIG).epochs} -> {FIT_EPOCHS} (a cut), "
           f"and {1} with spn_sample_dtype", flush=True)
     fit_a, paths["bf16_fit"] = bf16_fit(root, work / "fit", dev)
+    mark("bf16 fit")
     cache = bf16_cache_vs_host(root, work / "feeds", dev)
+    mark("bf16 cache vs host")
     fit_d, paths["bf16_fit_sampling"] = bf16_fit(
         root, work / "fit_sampling", dev, sample=BF16, epochs=1)
+    mark("bf16 fit with spn_sample_dtype")
     torch.backends.cudnn.deterministic = False  # serving, as phase 7
     serving, launches = serve_bf16(work / "serve", dev, scenes_dir,
                                    tiled_dir)
@@ -2575,7 +2623,8 @@ def export_leg(label: str, flagship, work: Path, dev: torch.device,
     ms = {"artifact": [], "eager": []}
     for which in ("artifact", "eager", "eager", "artifact"):
         ms[which].append(time_ms((lambda: fns["card"](*x50))
-                                 if which == "artifact" else eager, flush))
+                                 if which == "artifact" else eager, flush,
+                                 reps=EXPORT_TIME_REPS))
     # why the phase asks cuDNN for its deterministic algorithms: with its
     # defaults the eager model differs from itself run to run
     torch.backends.cudnn.deterministic = False
@@ -2609,6 +2658,7 @@ def export_phase(work: Path, dev: torch.device, flagship, smi: str):
     paths, legs = {}, {}
     legs["flagship"], paths["export_flagship"] = export_leg(
         "flagship", flagship, work, dev, "deform_fwd", cpu_trace=True)
+    mark("export flagship")
     mk = {k: v for k, v in create_config(BF16_CONFIG).model_kwargs.items()
           if k not in ("checkpoint", "pretrained")}
     mk["spn_sample_dtype"] = BF16
@@ -2620,8 +2670,306 @@ def export_phase(work: Path, dev: torch.device, flagship, smi: str):
     return legs, paths
 
 
+def options_forward(scenes_dir: Path, dev: torch.device, flagship) -> tuple:
+    """Phase 15 (a): phase 4's checkpoint (BatchNorm perturbed) with each
+    of JSPSR's execution options (``OPTION_SETS``) against the separate
+    path on the card, cuDNN's defaults, TF32 off: batches of 1 and 72 x
+    128^2 and phase 4's first 334^2 scene (``upscale_dem``) at rtol 1e-4 /
+    atol 2e-5 (the convs regrouped, the precision fp32), one K1 per
+    forward; each forward's median of 25 (the scene's through
+    ``upscale_dem``'s own CUDA-synchronised ms)."""
+    p, _, ckpt = flagship
+    torch.backends.cudnn.deterministic = False
+    rng = np.random.default_rng(15)
+    batches = {b: [torch.from_numpy(rng.uniform(0.05, 0.95, (
+        b, int(p.input_data[k]), TRAIN_SIDE, TRAIN_SIDE)).astype(
+            np.float32)).to(dev) for k in input_kinds(p.input_data)]
+        for b in OPTION_BATCHES}
+    sample, _ = load_scene(scenes_dir / SCENES[0][0], p)
+    flush = torch.empty(64 * 2**20, device=dev)
+    out, launches, ref = {}, {}, {}
+    for label, options in OPTION_SETS.items():
+        q = create_config_over(p, model_kwargs=options)
+        model = load_model_params(build_model(q), ckpt).to(dev).eval()
+        fwd = make_forward(model)
+        row = {}
+        with torch.inference_mode():
+            for b, xs in batches.items():
+                reset_launches()
+                y = model(xs)
+                torch.cuda.synchronize()
+                got = launch_counts()
+                if got != {**deform_counts(deform_fwd=1), "conv_same": 0}:
+                    raise AssertionError(f"{label} at {b}: launches {got}")
+                launches[f"{label}_{b}"] = got
+                if label == "separate":
+                    ref[b] = y
+                err = float((y - ref[b]).abs().max())
+                torch.testing.assert_close(y, ref[b], rtol=1e-4, atol=2e-5)
+                # warm: the forward above ran first
+                row[f"{b}x128"] = {"ms": time_ms(lambda: model(xs), flush,
+                                                 reps=TIME_REPEATS, warmup=1),
+                                   "max_abs_vs_separate": err}
+        scene = upscale_dem(fwd, sample, p, dev)[0]
+        if label == "separate":
+            ref["scene"] = scene
+        np.testing.assert_allclose(scene, ref["scene"], rtol=1e-4, atol=2e-5,
+                                   err_msg=f"{label}: the 334^2 scene")
+        row["334x334"] = {
+            "ms": statistics.median(upscale_dem(fwd, sample, p, dev)[1]
+                                    for _ in range(TIME_REPEATS)),
+            "max_abs_vs_separate": float(np.abs(scene - ref["scene"]).max())}
+        out[label] = row
+        print(f"options forward {label}: {row}", flush=True)
+        del model, fwd
+    torch.backends.cudnn.deterministic = True
+    return out, launches
+
+
+def create_config_over(p, model_kwargs=None, **keys):
+    """A copy of config ``p`` with ``keys`` and ``model_kwargs`` over its
+    own."""
+    q = copy.deepcopy(p)
+    q.update(keys)
+    q.model_kwargs.update(model_kwargs or {})
+    return q
+
+
+def remat_steps(p, dev, batch: int, label: str, variants: dict,
+                per_step: dict) -> tuple:
+    """Phase 15 (b): one train step at ``batch`` x 128^2 from one state
+    with each of ``variants`` ({name: (model_kwargs, remat)}; the first is
+    the step without), under deterministic cuDNN: every parameter, buffer
+    and AdamW moment bit-equal to the first's, the launches of the step
+    exactly ``per_step[name]``; then TIMED_STEPS more steps on the same
+    batch: the warm step's median ms and the peak memory from the first
+    step on."""
+    set_deterministic_cudnn()
+    inputs, gt = train_batch(p, batch, 6)
+    inputs, gt = [x.to(dev) for x in inputs], gt.to(dev)
+    state = perturb_weights(build_model(p), seed=2).state_dict()
+    out, launches, first = {}, {}, None
+    for name, (model_kwargs, remat) in variants.items():
+        q = create_config_over(p, model_kwargs=model_kwargs)
+        model = model_from_state(q, state).to(dev)
+        opt = build_optimizer(q, model)
+        gen = torch.Generator(dev)
+        step = make_train_step(model, build_criterion(dict(q.loss)), opt,
+                               remat=remat, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        seed_step_generator(gen, q.get("seed", 0), 0)
+        reset_launches()
+        step(inputs, gt)
+        torch.cuda.synchronize()
+        got = dict(deform_cuda.LAUNCHES)
+        launches[f"{label}_{name}"] = got
+        if got != per_step[name]:
+            raise AssertionError(f"{label} {name}: launches {got}, expected "
+                                 f"{per_step[name]}")
+        after = {**{n: t.detach().clone() for n, t in
+                    [*model.named_parameters(), *model.named_buffers()]},
+                 **{f"opt.{i}.{k}": v.clone()
+                    for i, t in enumerate(model.parameters())
+                    for k, v in opt.state.get(t, {}).items()}}
+        first = first or after
+        unequal = [n for n in first if not torch.equal(first[n], after[n])]
+        ms = []
+        for i in range(TIMED_STEPS):
+            seed_step_generator(gen, q.get("seed", 0), i + 1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(inputs, gt)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[name] = {"batch": [batch, 128, 128], "tensors": len(after),
+                     "unequal": len(unequal), "unequal_names": unequal[:8],
+                     "launches": got, "step_ms": ms,
+                     "step_ms_warm_median": statistics.median(ms),
+                     "peak_mb": torch.cuda.max_memory_allocated(dev) / 2**20}
+        print(f"{label} step {name} at batch {batch}: {len(unequal)} of "
+              f"{len(after)} tensors differ from the step without; launches "
+              f"{got}; warm step {out[name]['step_ms_warm_median']:.1f} ms, "
+              f"peak {out[name]['peak_mb']:.0f} MB", flush=True)
+        if unequal:
+            raise AssertionError(f"{label} {name}: the step is not the step "
+                                 f"without: {unequal[:8]}")
+        del model, opt, step, after
+    return out, launches
+
+
+def prefetch_split_epochs(root: Path, work: Path, dev: torch.device) -> dict:
+    """Phase 15 (c): one flagship epoch with ``prefetch_split: false`` (the
+    numpy assembly and the copy on one thread) against one with the
+    default two: the epoch loss and every parameter and buffer bit-equal;
+    each epoch's seconds."""
+    out, states = {}, {}
+    for split in (True, False):
+        p = fit_config(FLAGSHIP, root, epochs=1)
+        p.prefetch_split = split
+        trainer = Trainer(p, result_dir=work / f"split_{split}", device=dev,
+                          verbose=False)
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_one_epoch(0)
+        torch.cuda.synchronize()
+        out[f"prefetch_split_{str(split).lower()}"] = {
+            "epoch_s": time.perf_counter() - t0, "loss": loss}
+        states[split] = {n: t.detach().clone() for n, t in
+                         trainer.model.state_dict().items()}
+        del trainer
+    unequal = [n for n in states[True]
+               if not torch.equal(states[True][n], states[False][n])]
+    out["unequal"] = len(unequal)
+    print(f"prefetch_split false vs true: {out}", flush=True)
+    if unequal or out["prefetch_split_false"]["loss"] != \
+            out["prefetch_split_true"]["loss"]:
+        raise AssertionError(f"prefetch_split: false is not the split epoch: "
+                             f"{unequal[:8]} {out}")
+    return out
+
+
+def serve_coord(work: Path, dev: torch.device) -> tuple:
+    """Phase 15 (d): a seeded ``lr_dem + image + coord`` JSPSR (the
+    flagship's widths; ``coord_mode`` local, from each DEM's grid) serving
+    phase 4's 4 x 334^2 scenes through the CLI's ``--infer``, whole (one
+    K1 per scene) and ``--tile`` (one K1 per chunk); one scene on the card
+    against the port on the CPU at rtol 1e-4 / atol 2e-5."""
+    scenes = SCENES[:4]
+    write_scenes(work / "scenes", scenes)  # phase 4's first four
+    p, cfg_path, ckpt = seeded_checkpoint(
+        work, "coord", "JSPSR", {"num_block": 2, "num_feature": 32},
+        input_data={"COP30": 1, "image": 3, "coord": 2}, coord_mode="local")
+    out, launches = {}, {}
+    for tile in (False, True):
+        key = "coord_tiled" if tile else "coord_whole"
+        reset_launches()
+        paths = run_cli(["--config", str(cfg_path), "--infer",
+                         str(work / "scenes"), *(["--tile"] if tile else []),
+                         "--out", str(work / f"out_{key}"), "--result-dir",
+                         str(work / f"result_{key}")])
+        torch.cuda.synchronize()
+        launches[key] = launch_counts()
+        want = (expected_tiled_launches(p, [(s, s) for _, s in scenes])
+                if tile else len(scenes))
+        if launches[key] != {**deform_counts(deform_fwd=want),
+                             "conv_same": 0}:
+            raise AssertionError(f"{key}: launches {launches[key]}, K1 "
+                                 f"expected {want}")
+        check_outputs(paths, scenes, work / "scenes", near_input=True)
+        out[key] = {"scenes": len(paths), "k1": want}
+    err, warm_ms, _ = card_vs_cpu_scene(p, ckpt, work / "scenes" /
+                                        scenes[0][0], dev, rtol=1e-4,
+                                        atol=2e-5)
+    out["card_vs_cpu_max_abs"], out["warm_ms_334"] = err, warm_ms
+    print(f"coord serving: {out}", flush=True)
+    return out, launches
+
+
+def r3_epoch(work: Path, dev: torch.device) -> tuple:
+    """Phase 15 (e): configs/jspsr_r3_img_msk.yml as shipped but one epoch,
+    on 334^2 synthetic samples of its 13 train cities (one each), which
+    its tile crop cuts into 9 x 128^2: exactly one K1 and one K2 per step;
+    the first PROFILE_STEPS steps under ``profile_steps``, whose trace must
+    name K1's and K2's kernels (it runs last: a process the profiler has
+    traced launches more slowly)."""
+    p = create_config(R3_CONFIG)
+    root = work / "DFC30_3m"
+    generate_mini_dfc30(root, train_cities=p.train_set,
+                        valid_cities=p.valid_set,
+                        n_per_city=R3_SCENES_PER_CITY, size=R3_SIDE)
+    p.dataset_path, p.profile_steps = str(root), PROFILE_STEPS
+    trainer = Trainer(p, result_dir=work / "run", device=dev, verbose=False)
+    steps = len(trainer.train_loader)
+    reset_launches()
+    t0 = time.perf_counter()
+    loss, _ = trainer.train_one_epoch(0)
+    torch.cuda.synchronize()
+    launches = dict(deform_cuda.LAUNCHES)
+    out = {"config": str(R3_CONFIG.relative_to(REPO)),
+           "crop": [p.crop_mode, p.patches_per_image],
+           "samples": len(trainer.train_set), "steps": steps,
+           "epoch_s": time.perf_counter() - t0, "loss": loss,
+           "launches": launches}
+    traces = sorted((work / "run" / "profile").glob("*.json"))
+    text = traces[0].read_text() if len(traces) == 1 else ""
+    names = {k: text.count(k) for k in ("deform_fwd_kernel",
+                                        "deform_bwd_kernel")}
+    profile = {"trace": traces[0].name if traces else None,
+               "bytes": len(text), "kernel_name_counts": names}
+    print(f"r3 epoch: {out}", flush=True)
+    print(f"profile_steps {PROFILE_STEPS}: {profile}", flush=True)
+    want = {k: v * steps for k, v in PER_STEP["JSPSR"].items()}
+    if (launches != want or p.patches_per_image != 9 or not steps
+            or not np.isfinite(loss)):
+        raise AssertionError(f"r3 epoch: {out}, expected launches {want}")
+    if not all(names.values()):
+        raise AssertionError(f"profile_steps: the trace misses K1 or K2: "
+                             f"{profile}")
+    return out, profile, launches
+
+
+def options_phase(root: Path, work: Path, dev: torch.device, flagship,
+                  scenes_dir: Path, smi: str) -> tuple:
+    """Phase 15: JSPSR's execution options, recomputation,
+    ``prefetch_split: false``, coordinate guidance and the r3 config; the
+    async checkpoint backend runs in phase 10."""
+    out, paths = {"card": smi}, {}
+    t0 = time.perf_counter()
+    out["forward"], fwd_paths = options_forward(scenes_dir, dev, flagship)
+    paths["options_forward"] = sum_launches(fwd_paths)
+    out["forward_s"] = time.perf_counter() - t0
+    mark("options forward")
+    jspsr = create_config(FLAGSHIP)
+    out["remat_jspsr"], remat_paths = remat_steps(
+        jspsr, dev, jspsr.train_batch_size, "JSPSR", {
+            "none": ({}, False), "remat": ({}, True),
+            "remat_stages": ({"remat_stages": True}, False)},
+        {"none": PER_STEP["JSPSR"],
+         "remat": deform_counts(deform_fwd=2, deform_bwd=1),
+         "remat_stages": PER_STEP["JSPSR"]})
+    cf = create_config(CF_CONFIG)
+    out["remat_cf"], cf_paths = remat_steps(
+        cf, dev, cf.train_batch_size, "CompletionFormer",
+        {"none": ({}, False), "remat": ({}, True)},
+        {"none": PER_STEP["CompletionFormer"],
+         "remat": deform_counts(deform_fwd=12, deform_bwd_dx=6)})
+    paths["remat"] = sum_launches({**remat_paths, **cf_paths})
+    out["remat_s"] = time.perf_counter() - t0
+    mark("remat steps")
+    out["prefetch_split"] = prefetch_split_epochs(root, work / "prefetch",
+                                                  dev)
+    mark("prefetch_split")
+    out["coord"], coord_paths = serve_coord(work / "coord", dev)
+    paths["coord_serving"] = sum_launches(coord_paths)
+    mark("coord serving")
+    out["r3"], profile, paths["r3_epoch"] = r3_epoch(work / "r3", dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return out, profile, paths
+
+
+def sum_launches(by_run: dict) -> dict:
+    """The launch counts of several runs of one path, summed by kernel."""
+    total = {}
+    for counts in by_run.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def phase(n: int, t_start: float) -> None:
     print(f"phase {n} starts at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+
+_T_START = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """Print the seconds since the script started beside ``label``: where
+    a phase's time goes."""
+    print(f"[{label} done at {time.perf_counter() - _T_START:.1f} s]",
           flush=True)
 
 
@@ -2733,9 +3081,15 @@ def main() -> int:
         exported, export_paths = export_phase(tmp / "export", dev, flagship,
                                               smi_line)
         paths.update(export_paths)
-        # phase 10's profile_steps leg and K3's three kernels apart, under
-        # the profiler, after every phase
-        fitted["profile_steps"] = profile_fit(root, tmp / "profile", dev)
+        phase(15, t_start)
+        # 15. JSPSR's execution options, recomputation, prefetch_split:
+        # false, coordinate guidance, the r3 config's epoch (profiled:
+        # phase 10's profile_steps leg), after every other phase
+        options, fitted["profile_steps"], option_paths = options_phase(
+            root, tmp / "options", dev, flagship, tmp / "serve" / "scenes",
+            smi_line)
+        paths.update(option_paths)
+    # K3's three kernels apart, under the profiler, after every phase
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
     for result in (serving, training, cf_training, cf_serving, tiled,
@@ -2818,6 +3172,7 @@ def main() -> int:
     print(json.dumps({"lrru": lrru}, default=float), flush=True)
     print(json.dumps({"bf16": bf16}, default=float), flush=True)
     print(json.dumps({"export": exported}, default=float), flush=True)
+    print(json.dumps({"options": options}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -30,6 +30,9 @@ through ``torch.export`` into ``<path>.pt2``; ``load_exported`` runs it
 with ``torch`` and the op library alone, on the card or the CPU. The
 config's ``export_platforms`` is read (a scalar string is one name) and
 gives the same artifact whatever it names.
+
+``distributed: true`` (or ``JSPSR_DISTRIBUTED``) raises before any device
+use: training on several processes is not yet ported.
 """
 
 from __future__ import annotations
@@ -72,7 +75,11 @@ def main(argv=None):
     p = create_config(args.config)
     ckpt = p.model_kwargs.get("checkpoint")
 
+    from jspsr_torch.train.trainer import refuse_distributed
     from jspsr_torch.utils.device import resolve_device
+
+    # before any device use, as the JAX CLI's distributed bootstrap
+    refuse_distributed(p)
 
     device = resolve_device(args.device)
     stamp = datetime.now().strftime("%m%d_%H%M")

@@ -1,7 +1,8 @@
 """Deterministic, shard-safe sample transforms (copy of
 ``jspsr_tpu/data/transforms.py``: ``TransformCtx``, ``Compose``,
 ``RandomFlipRotate90``, ``RandomCrop``, ``TileCrop``, ``ToArray``,
-``Normalize`` and ``build_transforms``).
+``Normalize``, ``build_transforms`` and the BT.601 helpers ``RGB2YCbCr``,
+``rgb2ycbcr`` and ``ycbcr2rgb``).
 
 Every transform is a pure function of (sample, ctx): ``ctx.rng`` is a numpy
 Generator seeded from (seed, epoch, sample index) and ``ctx.tile_index``
@@ -9,7 +10,7 @@ drives ``TileCrop``, so the draws, and the samples, are the JAX package's
 exactly. Samples stay HWC numpy; the trainer turns batches into NCHW
 tensors. With ``device_normalize`` both loaders ship raw crops (uint8
 stays uint8) and ``data.normalize.make_device_normalize`` applies
-ToArray's arithmetic on the device. The YCbCr helpers are not ported.
+ToArray's arithmetic on the device.
 """
 
 from __future__ import annotations
@@ -323,3 +324,48 @@ def build_transforms(p):
     if not device_norm:
         train_list.append(to_array)
     return Compose(train_list), eval_tf
+
+
+class RGB2YCbCr:
+    """Pipeline transform applying BT.601 RGB->YCbCr to image-like keys
+    (reference data_utils.py:460-478)."""
+
+    def __init__(self, y_channel_only: bool = False):
+        self.y_channel_only = y_channel_only
+
+    def __call__(self, sample, ctx: TransformCtx):
+        for k in list(sample):
+            if "img" in k or "image" in k:
+                sample[k] = rgb2ycbcr(sample[k], self.y_channel_only)
+        return sample
+
+    def __str__(self):
+        return ("RGB2YCbCr channel Y only" if self.y_channel_only
+                else "RGB2YCbCr channel Y Cb CR")
+
+
+def rgb2ycbcr(img: np.ndarray, y_only: bool = False) -> np.ndarray:
+    """ITU-R BT.601 RGB->YCbCr (matches MATLAB; reference
+    data_utils.py:480-520). uint8 [0,255] or float32 [0,1] input."""
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    if y_only:
+        return np.dot(img, [65.481, 128.553, 24.966]) + 16.0
+    return np.matmul(
+        img,
+        [[65.481, -37.797, 112.0],
+         [128.553, -74.203, -93.786],
+         [24.966, 112.0, -18.214]],
+    ) + [16, 128, 128]
+
+
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    """Inverse BT.601 conversion (reference data_utils.py:522-563)."""
+    if img.dtype == np.float32:
+        img = (img * 255.0).astype(np.uint8)
+    return np.matmul(
+        img,
+        [[0.00456621, 0.00456621, 0.00456621],
+         [0, -0.00153632, 0.00791071],
+         [0.00625893, -0.00318811, 0]],
+    ) * 255.0 + [-222.921, 135.576, -276.836]

@@ -193,15 +193,15 @@ def load_scene(path, p):
     ``path`` is either a single LR-DEM raster or a directory holding one
     raster per needed modality, named by modality (lr_dem/image/mask/
     canopy) or by the DFC30 subdir convention (COP30|FABDEM/BDORTHO/
-    UA2012/CHM). Returns (sample dict of HWC arrays, geo profile of the LR
-    DEM).
+    UA2012/CHM). With ``input_data.coord`` the coordinate channels are
+    built from the LR DEM's grid (``coord_mode`` local or global). Returns
+    (sample dict of HWC arrays, geo profile of the LR DEM).
     """
+    from jspsr_torch.data.dfc30 import DFC30
     from jspsr_torch.data.raster_io import read_raster
 
     path = Path(path)
     input_data = p.get("input_data") or {}
-    if input_data.get("coord"):
-        raise NotImplementedError("coord guidance is not yet ported")
     need = [k for k in ("image", "mask", "canopy") if input_data.get(k)]
     sample = {}
     if path.is_file():
@@ -251,6 +251,11 @@ def load_scene(path, p):
         if key == "mask" and p.get("mask_channel"):
             arr = arr[:, :, list(p["mask_channel"])]
         sample[key] = arr
+    if input_data.get("coord"):
+        # coordinate guidance from the LR DEM's grid (reference
+        # dfc30.py:292-337), as the dataset builds it
+        sample["coord"] = DFC30._gen_coord(sample["lr_dem"], profile,
+                                           p.get("coord_mode"))
     return sample, profile
 
 

@@ -28,7 +28,7 @@ def conv_bn_relu(cin, cout, kernel, stride=1, padding=0, bn=True,
     mods = [nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
                       bias=not bn)]
     if bn:
-        mods.append(nn.BatchNorm2d(cout))
+        mods.append(jnn.BatchNorm2d(cout))
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)
@@ -40,7 +40,7 @@ def convt_bn_relu(cin, cout, kernel, stride=1, padding=0, output_padding=0,
                                padding=padding, output_padding=output_padding,
                                bias=not bn)]
     if bn:
-        mods.append(nn.BatchNorm2d(cout))
+        mods.append(jnn.BatchNorm2d(cout))
     if relu:
         mods.append(nn.ReLU())
     return nn.Sequential(*mods)

@@ -20,7 +20,7 @@ def build_model(p, generator: torch.Generator | None = None):
     if generator is None:
         generator = torch.Generator().manual_seed(int(p.get("seed") or 0))
     if name == "jspsr":
-        from jspsr_torch.models.jspsr import JSPSR, NOT_PORTED
+        from jspsr_torch.models.jspsr import JSPSR
 
         nb = mk.get("num_block", 2)
         return JSPSR(
@@ -32,10 +32,12 @@ def build_model(p, generator: torch.Generator | None = None):
             spn_scale=mk.get("spn_scale", 1.0),
             cat_only=mk.get("cat_only", True),
             generator_leaky=mk.get("generator_leaky", False),
+            remat_stages=mk.get("remat_stages", False),
+            fuse_stems=mk.get("fuse_stems", False),
+            eval_grouped=mk.get("eval_grouped", False),
             compute_dtype=mk.get("compute_dtype"),
             spn_sample_dtype=mk.get("spn_sample_dtype"),
             generator=generator,
-            **{k: mk.get(k) for k in NOT_PORTED},
         )
     if name == "edsr":
         from jspsr_torch.models.edsr import EDSR

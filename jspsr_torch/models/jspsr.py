@@ -28,14 +28,39 @@ in fp32. The casts are explicit, where the JAX package puts them
 whose per-op lists would also reach the head. ``spn_sample_dtype=
 "bfloat16"`` runs the PostProcessor's deformable conv in its
 bf16-sampling mode.
+
+The JAX package's three execution options, each the same function:
+
+- ``fuse_stems``: the per-branch 5x5 stems as one block-diagonal conv,
+  its weight assembled at each forward from the per-branch parameters
+  (their gradients flow back through the assembly), the image stem's
+  BatchNorm and each stem's ReLU on its slice of the output; not under
+  ``remat_stages`` in training, where each stem is checkpointed alone.
+- ``eval_grouped``: in eval, the same-shape branch BasicBlocks of an
+  encoder stage as one grouped conv (``groups`` = the blocks), their
+  BatchNorms as one with the branches' statistics concatenated; a block
+  whose input width, stride or downsample differs (the DEM branch's, fed
+  the fused tensor at stages 2-4) runs alone. Training takes the separate
+  path.
+- ``remat_stages``: in training, the stems, encoder stages, decoder
+  layers and ``conv0`` each recompute their activations in the backward
+  (``nn.remat.checkpoint``), as the JAX package's ``run`` wraps each
+  module whose name starts with ``layer``, ``conv`` or ``generator``; the
+  Generator and the PostProcessor are called outside ``run`` there, and
+  here, so they keep theirs.
+
+Every parameter keeps its key: a checkpoint loads with or without them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from jspsr_torch import nn as jnn
+from jspsr_torch.nn.layers import batch_norm_apply
+from jspsr_torch.nn.remat import checkpoint
 from jspsr_torch.models.components import (
     Basic2d,
     Basic2dTrans,
@@ -46,10 +71,8 @@ from jspsr_torch.models.components import (
 from jspsr_torch.models.spn import Generator, PostProcessor
 
 AUX_KEYS = ("mask", "canopy", "coord")
-
-# JAX-package options whose port has not landed: a config that asks for
-# one fails loudly instead of running something else.
-NOT_PORTED = ("remat_stages", "fuse_stems", "eval_grouped")
+# module names that ``remat_stages`` recomputes (the JAX package's ``run``)
+REMAT_PREFIXES = ("layer", "conv", "generator")
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
 
 
@@ -77,21 +100,23 @@ class JSPSR(nn.Module):
         spn_scale: float = 1.0,
         cat_only: bool = True,
         generator_leaky: bool = False,
+        remat_stages: bool = False,
+        fuse_stems: bool = False,
+        eval_grouped: bool = False,
         compute_dtype: str | None = None,
         spn_sample_dtype: str | None = None,
         generator: torch.Generator | None = None,
-        **not_ported,
     ):
         """``generator`` seeds the init (the JAX package's truncated-normal
         fan-in); ``None`` draws from a generator seeded with 0.
         ``compute_dtype`` (None, "float32" or "bfloat16") is the body's
-        dtype, ``spn_sample_dtype`` the SPN head's sampling mode."""
+        dtype, ``spn_sample_dtype`` the SPN head's sampling mode;
+        ``remat_stages``, ``fuse_stems`` and ``eval_grouped``: see the
+        module's docstring."""
         super().__init__()
-        for name, value in not_ported.items():
-            if name not in NOT_PORTED:
-                raise TypeError(f"JSPSR got an unexpected argument {name!r}")
-            if value:
-                raise NotImplementedError(f"JSPSR {name} is not yet ported")
+        self.remat_stages = bool(remat_stages)
+        self.fuse_stems = bool(fuse_stems)
+        self.eval_grouped = bool(eval_grouped)
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"JSPSR compute_dtype must be one of "
                              f"{list(COMPUTE_DTYPES)}, got {compute_dtype!r}")
@@ -172,6 +197,96 @@ class JSPSR(nn.Module):
     def _merge(self, up, skip):
         return torch.cat([up, skip], dim=1) if self.cat_only else up + skip
 
+    def _run(self, name, *args):
+        """Submodule ``name`` on ``args``, recomputed in the backward under
+        ``remat_stages`` in training."""
+        mod = getattr(self, name)
+        if (self.remat_stages and self.training
+                and name.startswith(REMAT_PREFIXES)):
+            return checkpoint(mod, *args)
+        return mod(*args)
+
+    def _fused_stems(self, stems):
+        """All stems as one block-diagonal 5x5 conv: ``stems`` is a list of
+        (module name, branch, input); returns {branch: features}."""
+        xs = torch.cat([x for _, _, x in stems], dim=1)
+        nf = self.conv_dem.conv[0].out_channels
+        w = xs.new_zeros((nf * len(stems), xs.shape[1], 5, 5))
+        b = xs.new_zeros((nf * len(stems),))
+        ci = 0
+        for i, (name, _, x) in enumerate(stems):
+            conv = getattr(self, name).conv[0]
+            w[i * nf:(i + 1) * nf, ci:ci + x.shape[1]] = \
+                conv.weight.to(xs.dtype)
+            if conv.bias is not None:
+                b[i * nf:(i + 1) * nf] = conv.bias.to(xs.dtype)
+            ci += x.shape[1]
+        y = F.conv2d(xs, w, padding=2) + b.view(1, -1, 1, 1)
+        feats = {}
+        for i, (name, key, _) in enumerate(stems):
+            sl = y[:, i * nf:(i + 1) * nf]
+            bn = getattr(getattr(self, name).conv, "bn", None)
+            feats[key] = F.relu(sl if bn is None else bn(sl))
+        return feats
+
+    @staticmethod
+    def _grouped_block(blocks, xs):
+        """Same-shape BasicBlocks on their inputs ``xs`` as one block of
+        grouped convs (eval): group g sees branch g's channels with
+        branch g's kernel, and eval BatchNorm is per channel, so the
+        concatenated statistics normalise each branch as its own do."""
+        nb, blk = len(blocks), blocks[0]
+        x = torch.cat(xs, dim=1)
+
+        def gconv(convs, xx):
+            w = torch.cat([c.weight for c in convs]).to(xx.dtype)
+            return F.conv2d(xx, w, None, convs[0].stride, convs[0].padding,
+                            groups=nb)
+
+        def gbn(bns, xx):
+            return batch_norm_apply(
+                xx, *(torch.cat([getattr(m, k) for m in bns])
+                      for k in ("running_mean", "running_var", "weight",
+                                "bias")), bns[0].eps)
+
+        out = F.relu(gbn([m.bn1 for m in blocks],
+                         gconv([m.conv1 for m in blocks], x)))
+        out = gbn([m.bn2 for m in blocks],
+                  gconv([m.conv2 for m in blocks], out))
+        if blk.downsample is not None:
+            res = gbn([m.downsample[1] for m in blocks],
+                      gconv([m.downsample[0] for m in blocks], x))
+        else:
+            res = x
+        out = out * blk.scale + res
+        if blk.act:
+            out = F.relu(out)
+        return list(out.chunk(nb, dim=1))
+
+    def _grouped_stage(self, stage, feats):
+        """Encoder stage ``stage`` with the same-signature branch blocks
+        grouped (``eval_grouped``); ``feats`` {branch: input}."""
+        names = list(feats)
+        seqs = {b: getattr(self, f"layer{stage}_{b}") for b in names}
+        acts = dict(feats)
+        for bi in range(len(seqs[names[0]])):
+            blocks = {b: seqs[b][bi] for b in names}
+            sig = {b: (m.conv1.in_channels, m.conv1.stride,
+                       m.downsample is not None) for b, m in blocks.items()}
+            done = set()
+            for b in names:
+                if b in done:
+                    continue
+                grp = [g for g in names if g not in done and sig[g] == sig[b]]
+                done.update(grp)
+                if len(grp) == 1:
+                    acts[b] = blocks[b](acts[b])
+                    continue
+                outs = self._grouped_block([blocks[g] for g in grp],
+                                           [acts[g] for g in grp])
+                acts.update(zip(grp, outs))
+        return acts
+
     def forward(self, inputs, generator=None):
         """inputs: list of NCHW tensors in input_keys() order -> (B,1,H,W).
         ``generator`` is accepted as every model's forward accepts it; JSPSR
@@ -185,27 +300,38 @@ class JSPSR(nn.Module):
         def body(x):
             return x if cdt is None else x.to(cdt)
 
-        feats = {"dem": self.conv_dem(body(dem))}
+        stems = [("conv_dem", "dem", body(dem))]
         if self.has_img:
-            feats["img"] = self.conv_img(body(inputs[1]))
+            stems.append(("conv_img", "img", body(inputs[1])))
         if self.aux_key:
-            feats["aux"] = self.conv_aux(body(inputs[-1]))
+            stems.append(("conv_aux", "aux", body(inputs[-1])))
+        if self.fuse_stems and not (self.remat_stages and self.training):
+            feats = self._fused_stems(stems)
+        else:
+            feats = {key: self._run(name, x) for name, key, x in stems}
+        del stems
 
+        grouped = (self.eval_grouped and not self.training and self.cat_only
+                   and self.num_branch >= 2)
         fused = {}
         dem_in = feats["dem"]
         for s in range(1, 5):
-            out = {b: getattr(self, f"layer{s}_{b}")(dem_in if b == "dem" else x)
-                   for b, x in feats.items()}
+            if grouped:
+                out = self._grouped_stage(s, {**feats, "dem": dem_in})
+            else:
+                out = {b: self._run(f"layer{s}_{b}",
+                                    dem_in if b == "dem" else x)
+                       for b, x in feats.items()}
             fused[s] = getattr(self, f"guide{s}")(list(out.values()))
             feats = out
             dem_in = fused[s]
         del feats, dem_in
 
-        c = self._merge(self.layer3d(fused[4]), fused[3])
-        c = self._merge(self.layer2d(c), fused[2])
-        c = self._merge(self.layer1d(c), fused[1])
+        c = self._merge(self._run("layer3d", fused[4]), fused[3])
+        c = self._merge(self._run("layer2d", c), fused[2])
+        c = self._merge(self._run("layer1d", c), fused[1])
         del fused
-        c0 = self.conv0(c)
+        c0 = self._run("conv0", c)
         del c
 
         if self.spn:

@@ -53,7 +53,7 @@ class LBasic2dTrans(nn.Module):
         super().__init__()
         self.conv = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1,
                                        output_padding=1, bias=False)
-        self.bn = nn.BatchNorm2d(cout)
+        self.bn = jnn.BatchNorm2d(cout)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -69,9 +69,9 @@ class StoDepthBlock(nn.Module):
         self.prob = float(prob)
         self.mult_flag = mult_flag
         self.conv1 = conv3x3(cin, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = jnn.BatchNorm2d(planes)
         self.conv2 = conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = jnn.BatchNorm2d(planes)
         self.downsample = downsample
 
     def forward(self, x):

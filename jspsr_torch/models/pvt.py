@@ -146,7 +146,9 @@ class PVT(nn.Module):
             LBasicBlock(64, 128, 2, LDownsample(64, 128, 2)),
             *[LBasicBlock(128, 128) for _ in range(3)])
 
-        dpr = torch.linspace(0, drop_path_rate, sum(depths)).tolist()
+        # host numbers, also where the model is built on another device
+        dpr = torch.linspace(0, drop_path_rate, sum(depths),
+                             device="cpu").tolist()
         cur = 0
         for i in range(self.num_stages):
             pe = PatchEmbed(

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jspsr_torch.nn import remat
 from jspsr_torch.nn.initializers import trunc_normal_fan_in_
 
 
@@ -71,30 +72,54 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance unbiased), then ``(x - mean) * inv + bias`` in the input's
     dtype, with ``mean``, ``inv = rsqrt(var + eps) * weight`` and ``bias``
     rounded to it. ``F.batch_norm`` on a bf16 input would normalise in
-    fp32 and round once; this rounds where the JAX package does."""
+    fp32 and round once; this rounds where the JAX package does.
+
+    In the recompute of a checkpointed region (``nn.remat``) a train-mode
+    forward normalises as the first forward did and updates nothing: the
+    running statistics move once per step, as JAX's do."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        replay = (self.training and self.track_running_stats
+                  and remat.recomputing())
         if not _bf16(x) or not self.track_running_stats:
-            return super().forward(x)
+            if not replay:
+                return super().forward(x)
+            # the first forward's call, its updates written to copies
+            return F.batch_norm(
+                x, self.running_mean.clone(), self.running_var.clone(),
+                self.weight, self.bias, True, self.momentum or 0.0, self.eps)
         if self.training:
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        correction=0)
-            n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                self.num_batches_tracked.add_(1)
-                m = (self.momentum if self.momentum is not None
-                     else 1.0 / float(self.num_batches_tracked))
-                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-                self.running_var.mul_(1 - m).add_(
-                    var * (n / max(n - 1, 1)), alpha=m)
+            if not replay:
+                n = x.numel() // x.shape[1]
+                with torch.no_grad():
+                    self.num_batches_tracked.add_(1)
+                    m = (self.momentum if self.momentum is not None
+                         else 1.0 / float(self.num_batches_tracked))
+                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1 - m).add_(
+                        var * (n / max(n - 1, 1)), alpha=m)
         else:
             mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps) * self.weight
+        return batch_norm_apply(x, mean, var, self.weight, self.bias,
+                                self.eps)
 
-        def c(t):
-            return t.to(x.dtype).view(1, -1, 1, 1)
 
-        return (x - c(mean)) * c(inv) + c(self.bias)
+def batch_norm_apply(x: torch.Tensor, mean, var, weight, bias,
+                     eps: float) -> torch.Tensor:
+    """Normalise NCHW ``x`` with fixed per-channel statistics: on fp32 (or
+    float64) ``F.batch_norm`` in eval mode, on bf16 the JAX package's
+    ``(x - mean) * inv + bias`` in the input's dtype, with ``mean``,
+    ``inv = rsqrt(var + eps) * weight`` and ``bias`` rounded to it."""
+    if not _bf16(x):
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+    inv = torch.rsqrt(var + eps) * weight
+
+    def c(t):
+        return t.to(x.dtype).view(1, -1, 1, 1)
+
+    return (x - c(mean)) * c(inv) + c(bias)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,10 @@ checkpoint crosses between the packages both ways:
 A reference ``.pt`` / ``.pth`` file (a torch state_dict, bare or under
 ``state_dict``) loads too, in the key layout the port's modules use.
 Files are written through a temporary file and renamed, so a reader never
-sees half of one.
+sees half of one. ``checkpoint_backend: orbax`` writes the same bytes
+from a background thread (``train/orbax_ckpt.py``); ``load_checkpoint``
+first waits for such a write to land. A JAX orbax directory is refused:
+it needs orbax and tensorstore, which the port does not use.
 """
 
 from __future__ import annotations
@@ -42,17 +45,20 @@ OPT_PREFIX = "torch_opt/"
 BN_COUNT_PREFIX = "torch_bn/"
 
 
-def save_checkpoint(path, model: torch.nn.Module, optimizer=None,
-                    epoch: int = 0, best_result=None,
-                    extra: dict | None = None) -> Path:
-    """Write ``model`` (and ``optimizer``'s state) to the ``.npz`` at
-    ``path``, atomically."""
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` that later in-place updates do not reach."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def checkpoint_arrays(model: torch.nn.Module, optimizer=None,
+                      epoch: int = 0, best_result=None,
+                      extra: dict | None = None) -> dict:
+    """The ``.npz`` entries of ``model`` (and ``optimizer``'s state) and
+    the meta blob, as host copies."""
     arrays = jax_flat_from_state_dict(model)
     for name, t in model.state_dict().items():
         if name.endswith("num_batches_tracked"):
-            arrays[BN_COUNT_PREFIX + name] = t.cpu().numpy()
+            arrays[BN_COUNT_PREFIX + name] = _host(t)
     meta = {"epoch": int(epoch), "best_result": best_result, **(extra or {})}
     if optimizer is not None:
         state, groups = _optimizer_arrays(model, optimizer)
@@ -60,6 +66,14 @@ def save_checkpoint(path, model: torch.nn.Module, optimizer=None,
         meta["torch_opt_groups"] = groups
     arrays["__meta__"] = np.frombuffer(
         json.dumps(meta, default=float).encode(), dtype=np.uint8)
+    return arrays
+
+
+def write_npz(path, arrays: dict) -> Path:
+    """``arrays`` to the ``.npz`` at ``path``, through a temporary file
+    that is renamed over it once written."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp.npz")
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
@@ -67,10 +81,28 @@ def save_checkpoint(path, model: torch.nn.Module, optimizer=None,
     return path
 
 
+def save_checkpoint(path, model: torch.nn.Module, optimizer=None,
+                    epoch: int = 0, best_result=None,
+                    extra: dict | None = None) -> Path:
+    """Write ``model`` (and ``optimizer``'s state) to the ``.npz`` at
+    ``path``, atomically."""
+    return write_npz(path, checkpoint_arrays(model, optimizer, epoch,
+                                             best_result, extra))
+
+
 def load_checkpoint(path) -> tuple[dict, dict]:
-    """Read a JAX or port ``.npz`` checkpoint: (flat arrays, meta)."""
+    """Read a JAX or port ``.npz`` checkpoint: (flat arrays, meta), once
+    an asynchronous save in flight has landed."""
+    from jspsr_torch.train.orbax_ckpt import wait_for_checkpoint
+
     if Path(path).is_dir() or str(path).endswith(".orbax"):
-        raise NotImplementedError("orbax checkpoints are not yet ported")
+        raise ValueError(
+            f"{path} is a JAX orbax checkpoint directory: the port cannot "
+            f"read it (orbax and tensorstore are JAX-side libraries). Save "
+            f"it as .npz with the JAX package (checkpoint_backend: npz, or "
+            f"jspsr_tpu.train.checkpoint.save_checkpoint on the loaded "
+            f"state) and load that .npz")
+    wait_for_checkpoint()
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
     meta = json.loads(bytes(arrays.pop("__meta__").tobytes()).decode())
@@ -156,8 +188,7 @@ def _optimizer_arrays(model, optimizer) -> tuple[dict, list]:
     for idx, state in osd["state"].items():
         for key, v in state.items():
             arrays[f"{OPT_PREFIX}{names[idx]}/{key}"] = (
-                v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v))
+                _host(v) if isinstance(v, torch.Tensor) else np.asarray(v))
     groups = [{k: v for k, v in g.items() if k != "params"}
               for g in osd["param_groups"]]
     return arrays, groups

@@ -33,10 +33,12 @@ outputs enter only detached): the optimizer then decays it and carries its
 state, as optax does. Where every parameter has a gradient this changes
 nothing.
 
-``remat`` is not yet ported: ``torch.utils.checkpoint`` re-runs the
-forward, and with it BatchNorm's in-place running-statistics update, in the
-backward, where ``jax.checkpoint`` updates them once (the state is
-functional there).
+``remat`` runs the whole model forward under one checkpoint
+(``nn.remat.checkpoint``, the JAX package's ``jax.checkpoint(fwd)``): its
+activations are computed again in the backward, BatchNorm updates its
+running statistics in the first forward only, and ``generator`` replays
+its draws, so the step is the step without ``remat``, bit for bit, with
+each microbatch's activations recomputed under ``accum_steps``.
 
 ``make_eval_step`` is the eval-mode forward with the losses, among them
 the per-sample totals that the eval loop reads.
@@ -46,6 +48,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from jspsr_torch.nn.remat import check_recomputable, checkpoint
 
 
 def seed_step_generator(generator: torch.Generator | None, seed: int,
@@ -81,16 +85,20 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
     values are detached 0-d tensors on the model's device (no host sync).
     With ``monitor`` the dict also holds the gradient, input and
     prediction ranges (reference train_utils.py:241-267)."""
-    if remat:
-        raise NotImplementedError(
-            "remat is not yet ported: torch.utils.checkpoint would re-run "
-            "BatchNorm's running-statistics update in the backward")
     accum_steps = int(accum_steps)
     params = [p for p in model.parameters() if p.requires_grad]
     bns = _bn_modules(model)
+    if remat:
+        check_recomputable(model)
+
+    def forward(inputs):
+        if remat:
+            return checkpoint(model, inputs, generator=generator,
+                              generators=(generator,))
+        return model(inputs, generator=generator)
 
     def step_full(inputs, gt):
-        pred = model(inputs, generator=generator)
+        pred = forward(inputs)
         losses = criterion(pred, gt)
         losses["Total"].backward()
         return losses, pred

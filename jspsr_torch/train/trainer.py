@@ -55,13 +55,22 @@ train steps to ``<result_dir>/profile/trace_e<epoch>.json``.
 It runs on the card unless ``device='cpu'`` is given, with TF32 off (the
 config is fp32) and cuDNN's deterministic algorithms
 (``set_deterministic_cudnn``): a step is the same, bit for bit, from the
-same state. The options in ``NOT_PORTED``, and turning off those in
-``NOT_PORTED_OFF`` (the port always does them), raise instead of being
-ignored.
+same state.
+
+``remat: true`` recomputes the model's activations in the backward
+(``train/step.py``); ``prefetch_split: false`` stages a batch's numpy
+assembly and its copy to the device on one thread, not two;
+``checkpoint_backend: orbax`` writes the best-epoch and preemption
+checkpoints from a background thread (``train/orbax_ckpt.py``: the same
+``.npz`` files, under the same names). ``distributed: true`` (or the
+``JSPSR_DISTRIBUTED`` environment variable) raises: training on several
+processes is not yet ported, and a config that asks for it must not
+train as one process.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from pathlib import Path
 
@@ -82,6 +91,8 @@ from jspsr_torch.train.checkpoint import (
     load_optimizer_state,
     save_checkpoint,
 )
+from jspsr_torch.train.orbax_ckpt import save_checkpoint_orbax, \
+    wait_for_checkpoint
 from jspsr_torch.train.early_stop import EarlyStopper, do_eval, \
     validate_results
 from jspsr_torch.train.optim import build_lr_schedule, build_optimizer, \
@@ -98,13 +109,19 @@ from jspsr_torch.utils.pretrained import apply_pretrained
 from jspsr_torch.utils.summary import count_parameters
 
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
+CHECKPOINT_BACKENDS = ("npz", "orbax")
 
-# config keys of the JAX Trainer whose port has not landed
-NOT_PORTED = ("remat",)
-# config keys of the JAX Trainer (default on) that the port always does:
-# turning one off is not yet ported (``prefetch_split``: the numpy
-# assembly and the copy to the device on threads of their own)
-NOT_PORTED_OFF = ("prefetch_split",)
+
+def refuse_distributed(p) -> None:
+    """Raise where ``p`` (or ``JSPSR_DISTRIBUTED``) asks for training on
+    several processes (the JAX CLI's ``jax.distributed.initialize``), which
+    the port does not do yet."""
+    if p.get("distributed") or os.environ.get("JSPSR_DISTRIBUTED"):
+        raise NotImplementedError(
+            "distributed training is not yet ported: `distributed: true` "
+            "(or JSPSR_DISTRIBUTED) and `distributed_kwargs` would start "
+            "several processes in the JAX package; the port trains on one "
+            "device")
 
 
 def _is_monitor_key(k: str) -> bool:
@@ -150,15 +167,12 @@ def check_device_normalize(p) -> None:
 
 class Trainer:
     def __init__(self, p, result_dir=None, device=None, verbose=None):
-        for key in NOT_PORTED:
-            if p.get(key):
-                raise NotImplementedError(f"{key} is not yet ported")
-        for key in NOT_PORTED_OFF:
-            if not p.get(key, True):
-                raise NotImplementedError(f"{key}: false is not yet ported")
-        if (p.get("checkpoint_backend") or "npz") == "orbax":
-            raise NotImplementedError("checkpoint_backend: orbax is not yet "
-                                      "ported")
+        refuse_distributed(p)
+        self.ckpt_backend = p.get("checkpoint_backend") or "npz"
+        if self.ckpt_backend not in CHECKPOINT_BACKENDS:
+            raise ValueError(f"checkpoint_backend must be one of "
+                             f"{CHECKPOINT_BACKENDS}, got "
+                             f"{self.ckpt_backend!r}")
         self.p = p
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -190,13 +204,15 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.criterion, self.optimizer,
             accum_steps=int(p.get("accum_steps") or 1),
-            monitor=bool(p.get("monitor_value")), generator=self.generator)
+            monitor=bool(p.get("monitor_value")),
+            remat=bool(p.get("remat")), generator=self.generator)
         self.eval_step = make_eval_step(self.model, self.criterion)
 
-        # stage batches on prefetch threads (default on): numpy assembly
-        # in one, the copy to the device in another (the JAX package's
-        # ``prefetch_split``, here always on: see NOT_PORTED_OFF)
+        # stage batches on prefetch threads (default on): with
+        # ``prefetch_split`` (default on) the numpy assembly in one, the
+        # copy to the device in another; without, both on one
         self.prefetch_to_device = bool(p.get("device_prefetch", True))
+        self.prefetch_split = bool(p.get("prefetch_split", True))
         # the raw feed: crops as they are read, normalised on the device
         check_device_normalize(p)
         self.device_normalize = bool(p.get("device_normalize"))
@@ -253,7 +269,11 @@ class Trainer:
         # preemption-safe mid-epoch resume: (epoch, step_in_epoch, loss
         # sums, n_samples) of a preemption checkpoint found at start
         self.save_every_steps = int(p.get("save_every_steps") or 0)
+        self.last_save_ms = None
         self._mid_resume = None
+        # a relaunch in this process waits for an asynchronous save in
+        # flight (a no-op with the .npz backend)
+        wait_for_checkpoint()
         if self.save_every_steps and self._preempt_path().exists():
             self._resume_preempt()
 
@@ -317,11 +337,19 @@ class Trainer:
         """The preemption checkpoint after ``steps_done`` steps of
         ``epoch`` (reading the loss sums waits for the device)."""
         sums = {k: float(v) for k, v in (loss_sums or {}).items()}
-        save_checkpoint(self._preempt_path(), self.model, self.optimizer,
-                        epoch=epoch, best_result=self.best_result,
-                        extra={"step_in_epoch": steps_done,
-                               "n_samples": n_samples, "loss_sums": sums,
-                               "global_step": self.global_step})
+        self._save(self._preempt_path(), epoch,
+                   {"step_in_epoch": steps_done, "n_samples": n_samples,
+                    "loss_sums": sums, "global_step": self.global_step})
+
+    def _save(self, path: Path, epoch: int, extra: dict) -> None:
+        """A checkpoint of the model and optimizer through the configured
+        backend; ``last_save_ms``: how long the step loop waited for it."""
+        save = (save_checkpoint_orbax if self.ckpt_backend == "orbax"
+                else save_checkpoint)
+        t0 = time.perf_counter()
+        save(path, self.model, self.optimizer, epoch=epoch,
+             best_result=self.best_result, extra=extra)
+        self.last_save_ms = (time.perf_counter() - t0) * 1e3
 
     def _start_profile(self):
         """A ``torch.profiler`` trace of the next ``profile_steps`` train
@@ -390,6 +418,9 @@ class Trainer:
 
         if not self.prefetch_to_device:
             return (stage_transfer(stage_host(b)) for b in self.train_loader)
+        if not self.prefetch_split:
+            return device_prefetch(iter(self.train_loader),
+                                   lambda b: stage_transfer(stage_host(b)))
         return device_prefetch(iter(self.train_loader), stage_transfer,
                                host_stage=stage_host)
 
@@ -506,10 +537,8 @@ class Trainer:
                 if validate_results(self.best_result, cur,
                                     p.get("best_metric", "RMSE")):
                     self.best_result = cur
-                    save_checkpoint(self._ckpt_path(), self.model,
-                                    self.optimizer, epoch=epoch,
-                                    best_result=self.best_result,
-                                    extra={"global_step": self.global_step})
+                    self._save(self._ckpt_path(), epoch,
+                               {"global_step": self.global_step})
                 # early stop only late in training (reference main.py:256)
                 if epoch > 200:
                     metric = self.early_stopper.metric_from(
@@ -547,6 +576,9 @@ class Trainer:
         reference), then the whole-split summary against every public
         product found beside the ground truth."""
         p = self.p
+        # an asynchronous save must land before its file is renamed or
+        # removed (a no-op with the .npz backend)
+        wait_for_checkpoint()
         if self.save_every_steps:
             # the run is complete: a preemption checkpoint left behind
             # would resume the next run in this result dir

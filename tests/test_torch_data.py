@@ -25,7 +25,7 @@ from jspsr_torch.data.synthetic import generate_mini_dfc30
 from jspsr_torch.data.transforms import build_transforms
 from jspsr_torch.ops import deform_cuda
 from jspsr_torch.train import trainer as trainer_mod
-from jspsr_torch.train.trainer import NOT_PORTED, Trainer
+from jspsr_torch.train.trainer import Trainer
 
 torch.set_num_threads(2)
 
@@ -133,21 +133,36 @@ def test_train_one_epoch_loss_is_batch_weighted_mean(cfg, tmp_path):
 
 # the raw device feed's options, which raised until their slice ported them
 RAW_FEED = ("device_normalize", "pack_mask", "device_cache")
-# once in NOT_PORTED (tests/test_torch_preempt.py holds them to the JAX
+# once refused (tests/test_torch_preempt.py holds them to the JAX
 # Trainer's behaviour)
 TRAINER_OPTIONS = ("save_every_steps", "profile_steps")
 
 
-@pytest.mark.parametrize("key", NOT_PORTED + TRAINER_OPTIONS + RAW_FEED + (
-    "checkpoint_backend", "pretrained"))
+@pytest.mark.parametrize("key", ("remat",) + TRAINER_OPTIONS + RAW_FEED + (
+    "checkpoint_backend", "pretrained", "distributed"))
 def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
-    """Each option not yet ported raises; ``pretrained`` is ported now, and
-    the Trainer reads its file: an absent one raises. The raw feed's
-    options are ported: each (on the raw feed it rides) builds a Trainer
-    that trains an epoch (tests/test_torch_device_cache.py holds them to
-    the host feed and to JAX). ``save_every_steps`` and ``profile_steps``
-    are ported: an epoch writes the preemption checkpoint or the trace."""
+    """``distributed`` is the one key still refused. ``pretrained`` is
+    ported, and the Trainer reads its file: an absent one raises. The raw
+    feed's options are ported: each (on the raw feed it rides) builds a
+    Trainer that trains an epoch (tests/test_torch_device_cache.py holds
+    them to the host feed and to JAX). ``save_every_steps`` and
+    ``profile_steps`` are ported: an epoch writes the preemption checkpoint
+    or the trace. ``remat`` trains an epoch with its step recomputed
+    (tests/test_torch_remat.py holds it bit-equal to the step without);
+    ``checkpoint_backend: orbax`` writes the preemption checkpoint from its
+    background thread (tests/test_torch_async_ckpt.py)."""
     p = dict(cfg)
+    if key in ("remat", "checkpoint_backend"):
+        p.update({"remat": True} if key == "remat" else
+                 {key: "orbax", "save_every_steps": 1})
+        t = Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+        assert np.isfinite(t.train_one_epoch(0)[0])
+        if key == "checkpoint_backend":
+            from jspsr_torch.train.orbax_ckpt import wait_for_checkpoint
+
+            wait_for_checkpoint()
+            assert t._preempt_path().exists() and t.last_save_ms is not None
+        return
     if key in TRAINER_OPTIONS:
         p[key] = 1
         t = Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
@@ -162,16 +177,71 @@ def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
         assert np.isfinite(t.train_one_epoch(0)[0])
         return
     error, match = NotImplementedError, "not yet ported"
-    if key == "checkpoint_backend":
-        p[key] = "orbax"
-    elif key == "pretrained":
+    if key == "pretrained":
         p["model_kwargs"] = dict(p["model_kwargs"],
                                  pretrained=str(tmp_path / "edsr.pt"))
         error, match = FileNotFoundError, "edsr.pt"
     else:
-        p[key] = 4
+        p[key] = True
     with pytest.raises(error, match=match):
         Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["trainer", "cli"])
+@pytest.mark.parametrize("how", ["key", "env"])
+def test_distributed_is_refused(cfg, tmp_path, monkeypatch, entry, how):
+    """``distributed: true`` or ``JSPSR_DISTRIBUTED`` (the JAX CLI's
+    ``jax.distributed.initialize``) raises in the Trainer and in the CLI,
+    before the CLI touches a device or writes its result dir: such a
+    config must not train as one process."""
+    import json
+
+    from jspsr_torch.cli import main as cli
+
+    p = dict(cfg, metric={"RMSE": {"package": "local", "min": -80,
+                                   "max": 929}})
+    if how == "key":
+        p.update(distributed=True, distributed_kwargs={"num_processes": 2})
+    else:
+        monkeypatch.setenv("JSPSR_DISTRIBUTED", "1")
+    if entry == "trainer":
+        with pytest.raises(NotImplementedError,
+                           match="distributed training is not yet ported"):
+            Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+        return
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(p))
+    monkeypatch.setattr(cli, "Logger", None)  # nothing may reach the log
+    with pytest.raises(NotImplementedError, match="distributed_kwargs"):
+        cli.main(["--config", str(path), "--result-dir",
+                  str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("y_only", [False, True])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_ycbcr_helpers_match_jax(dtype, y_only):
+    """``RGB2YCbCr``, ``rgb2ycbcr`` and ``ycbcr2rgb`` against the JAX
+    package's (exact: the same numpy arithmetic)."""
+    from jspsr_tpu.data import transforms as jt
+    from jspsr_tpu.data.transforms import TransformCtx as JaxCtx
+    from jspsr_torch.data import transforms as pt
+
+    rng = np.random.default_rng(7)
+    img = (rng.integers(0, 256, (6, 5, 3)).astype(np.uint8)
+           if dtype == "uint8" else rng.uniform(0, 1, (6, 5, 3))
+           .astype(np.float32))
+    np.testing.assert_array_equal(pt.rgb2ycbcr(img, y_only),
+                                  jt.rgb2ycbcr(img, y_only))
+    ycc = jt.rgb2ycbcr(img).astype(np.float32) / 255.0
+    np.testing.assert_array_equal(pt.ycbcr2rgb(ycc), jt.ycbcr2rgb(ycc))
+    sample = {"image": img, "lr_dem": img[..., :1].astype(np.float32)}
+    got = pt.RGB2YCbCr(y_only)(dict(sample), pt.TransformCtx())
+    want = jt.RGB2YCbCr(y_only)(dict(sample), JaxCtx())
+    assert set(got) == set(want) and str(pt.RGB2YCbCr(y_only)) == \
+        str(jt.RGB2YCbCr(y_only))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 @pytest.mark.parametrize("method", ["fit", "evaluate", "finish"])

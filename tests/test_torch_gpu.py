@@ -804,3 +804,126 @@ def test_family_forward_and_step_on_gpu_match_cpu(cuda_device, name):
             e_card = _rel_err(out["card"][i][n], ref)
             e_cpu = _rel_err(out["cpu"][i][n], ref)
             assert e_card <= 3 * e_cpu + 5e-3, (n, e_card, e_cpu)
+
+
+# ---- the eleventh slice: JSPSR's execution options and recomputation ----
+
+OPTION_CASES = [{"fuse_stems": True}, {"eval_grouped": True},
+                {"fuse_stems": True, "eval_grouped": True}]
+
+
+@pytest.mark.parametrize("options", OPTION_CASES,
+                         ids=["fuse_stems", "eval_grouped", "both"])
+def test_jspsr_options_on_gpu_match_separate(cuda_device, options):
+    """The flagship's eval forward with each option against its separate
+    path on the card (rtol 1e-4, atol 2e-5: the convs are regrouped, the
+    precision is fp32), one K1 launch per forward."""
+    in_channels = {"lr_dem": 1, "image": 3, "mask": 15}
+    sep = perturb_weights(JSPSR(dict(in_channels), num_feature=16,
+                                layers=(2, 2, 2, 2)), seed=3)
+    opt = JSPSR(dict(in_channels), num_feature=16, layers=(2, 2, 2, 2),
+                **options)
+    opt.load_state_dict(sep.state_dict())
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(rng.uniform(0.05, 0.95, (2, c, 64, 64))
+                           .astype(np.float32)).to(cuda_device)
+          for c in in_channels.values()]
+    sep, opt = sep.to(cuda_device).eval(), opt.to(cuda_device).eval()
+    with torch.inference_mode():
+        want = sep(xs)
+        before = dict(deform_cuda.LAUNCHES)
+        got = opt(xs)
+        torch.cuda.synchronize()
+    assert deform_cuda.LAUNCHES["deform_fwd"] == before["deform_fwd"] + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+
+
+def _step_state(model, opt):
+    return {**{n: t.detach().clone() for n, t in
+               [*model.named_parameters(), *model.named_buffers()]},
+            **{f"opt.{i}.{k}": v.clone()
+               for i, q in enumerate(model.parameters())
+               for k, v in opt.state.get(q, {}).items()}}
+
+
+@pytest.mark.parametrize("remat,stages,k1", [(True, False, 2),
+                                             (False, True, 1)],
+                         ids=["remat", "remat_stages"])
+def test_jspsr_remat_step_on_gpu_is_bit_equal(cuda_device, remat, stages,
+                                              k1):
+    """A JSPSR step with ``remat`` (the forward recomputed whole: K1 twice)
+    or ``remat_stages`` (the stages recomputed, the head not: K1 once),
+    from the state and batch of a step without, under deterministic cuDNN:
+    every weight, buffer and moment bit-equal; one K2."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    set_deterministic_cudnn()
+    try:
+        in_channels = {"lr_dem": 1, "image": 3, "mask": 15}
+        rng = np.random.default_rng(7)
+        inputs = [torch.from_numpy(rng.uniform(0.05, 0.95, (4, c, 64, 64))
+                                   .astype(np.float32)).to(cuda_device)
+                  for c in in_channels.values()]
+        gt = torch.from_numpy(rng.uniform(0.05, 0.95, (4, 1, 64, 64))
+                              .astype(np.float32)).to(cuda_device)
+        state = JSPSR(dict(in_channels), num_feature=8,
+                      layers=(1, 1, 1, 1)).state_dict()
+        after = []
+        for use in (False, True):
+            model = JSPSR(dict(in_channels), num_feature=8,
+                          layers=(1, 1, 1, 1), remat_stages=stages and use)
+            model.load_state_dict(state)
+            model = model.to(cuda_device)
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+            step = make_train_step(model, build_criterion(
+                {"L1": 1, "L2": 1, "Grad": 0.1}), opt, remat=remat and use)
+            before = dict(deform_cuda.LAUNCHES)
+            step(inputs, gt)
+            torch.cuda.synchronize()
+            counts = {k: deform_cuda.LAUNCHES[k] - before[k] for k in before}
+            assert counts == dict(NO_LAUNCHES, deform_fwd=k1 if use else 1,
+                                  deform_bwd=1), counts
+            after.append(_step_state(model, opt))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    unequal = [n for n in after[0] if not torch.equal(after[0][n],
+                                                      after[1][n])]
+    assert not unequal, unequal[:8]
+
+
+def test_completionformer_remat_step_on_gpu_is_bit_equal(cuda_device,
+                                                         completionformer):
+    """CompletionFormer at 2 x 64² with drop path drawn from the step's
+    CUDA generator: a step with ``remat`` (6 K1 forward, 6 in the
+    recompute, 6 K3) is the step without, bit for bit."""
+    from jspsr_torch.train.step import seed_step_generator
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    set_deterministic_cudnn()
+    try:
+        inputs, gt = _cf_batch(2, 64, seed=9)
+        inputs = [x.float().to(cuda_device) for x in inputs]
+        gt = gt.float().to(cuda_device)
+        after = []
+        for use in (False, True):
+            model = _cf(completionformer, cuda_device)
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+            gen = torch.Generator(cuda_device)
+            step = make_train_step(model, build_criterion({"L1": 1}), opt,
+                                   remat=use, generator=gen)
+            seed_step_generator(gen, 7, 0)
+            before = dict(deform_cuda.LAUNCHES)
+            step(inputs, gt)
+            torch.cuda.synchronize()
+            counts = {k: deform_cuda.LAUNCHES[k] - before[k] for k in before}
+            assert counts == dict(NO_LAUNCHES, deform_fwd=12 if use else 6,
+                                  deform_bwd_dx=6), counts
+            after.append(_step_state(model, opt))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    unequal = [n for n in after[0] if not torch.equal(after[0][n],
+                                                      after[1][n])]
+    assert not unequal, unequal[:8]

@@ -234,3 +234,72 @@ def test_cli_unported_modes_raise(fixture_dir, tmp_path, flags):
     out = _run_cli(port_cli_main, argv)
     assert "RMSE" in Path(out["checkpoint"]).name
     assert np.isfinite(out["result"]["RMSE"])
+
+
+@pytest.fixture(scope="module")
+def coord_dir(tmp_path_factory):
+    """One ``lr_dem + image + coord`` scene (the DEM's profile places it
+    inside the DFC30 bounds) and a JAX ``.npz`` checkpoint of a seeded
+    coord-guided JSPSR."""
+    from jspsr_torch.data.raster_io import default_profile
+
+    root = tmp_path_factory.mktemp("coord")
+    rng = np.random.default_rng(3)
+    scene = root / "scene_c"
+    write_raster(scene / "lr_dem.npy", _terrain(rng, H, W),
+                 default_profile(H, W, 1, "float32", 300_000.0,
+                                 6_800_000.0, 8.0))
+    write_raster(scene / "image.npy",
+                 rng.uniform(0, 255, (H, W, 3)).astype(np.float32))
+    branches = {"lr_dem": 1, "image": 3, "coord": 2}
+    port = _perturb_bn(JSPSR(dict(branches), num_feature=8,
+                             layers=(1, 1, 1, 1),
+                             generator=torch.Generator().manual_seed(13)), 14)
+    jax_model = JaxJSPSR(dict(branches), num_feature=8, layers=(1, 1, 1, 1))
+    params, bn = import_torch_state_dict(jax_model, port.state_dict())
+    save_checkpoint(root / "m.npz", params, bn)
+    return root, scene, jax_model, params, bn
+
+
+@pytest.mark.parametrize("tile", [False, True], ids=["whole", "tile"])
+@pytest.mark.parametrize("mode", ["local", "global"])
+def test_coord_scene_matches_jax(coord_dir, tmp_path, mode, tile):
+    """Coordinate guidance at ``--infer``: ``load_scene`` builds the coord
+    channels from the LR DEM's grid as the dataset does (``coord_mode``
+    local or global), and the scene in metres, whole or device-tiled (32²
+    tiles; the float channels ride as f32), agrees with the JAX package's
+    at rtol 1e-3 (the log descale, as above)."""
+    from jspsr_tpu.eval.inference import load_scene as jax_load_scene
+    from jspsr_tpu.eval.inference import \
+        run_scene_inference as jax_run_scene_inference
+    from jspsr_torch.eval.scene import prepare_scene
+
+    root, scene, jax_model, params, bn = coord_dir
+    cfg = {"name": "coord_test", "dataset": "DFC30", "resolution": 8,
+           "model_name": "JSPSR", "relative": True, "patch_size": 32,
+           "coord_mode": mode,
+           "input_data": {"COP30": 1, "image": 3, "coord": 2},
+           "tensor_kwargs": {"log": True, "min": -80, "max": 929},
+           "model_kwargs": {"num_block": 1, "num_feature": 8,
+                            "checkpoint": str(root / "m.npz")},
+           "loss": {"L1": 1}, "optimizer": "AdamW",
+           "optimizer_kwargs": {"lr": 1e-3}, "scheduler": "ConstantLR",
+           "scheduler_kwargs": {}, "train_batch_size": 2, "epochs": 1,
+           "metric": {}}
+    (tmp_path / "c.yml").write_text(yaml.safe_dump(cfg))
+    p = create_config(tmp_path / "c.yml")
+    sample, _ = load_scene(scene, p)
+    want, _ = jax_load_scene(scene, p)
+    assert sample["coord"].dtype == np.float32
+    np.testing.assert_array_equal(sample["coord"], want["coord"])
+    if tile:
+        assert prepare_scene(sample, p, tile=32).enc["coord"] == ("f32", 2)
+    model = load_model_params(build_model(p), root / "m.npz")
+    got_path, _, _ = run_scene_inference(model, p, scene,
+                                         tmp_path / "port.npy", tile=tile,
+                                         device="cpu")
+    ref_path, _, _ = jax_run_scene_inference(jax_model, params, bn, p, scene,
+                                             tmp_path / "jax.npy", tile=tile)
+    got, ref = read_raster(got_path), read_raster(ref_path)
+    assert got.shape == (H, W, 1) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-3)

@@ -17,7 +17,7 @@ from jspsr_tpu.models.spn import PostProcessor as JaxPostProcessor
 from jspsr_tpu.utils.torch_import import import_torch_state_dict
 from jspsr_torch.config.loader import AttrDict
 from jspsr_torch.models.factory import build_model
-from jspsr_torch.models.jspsr import JSPSR, NOT_PORTED
+from jspsr_torch.models.jspsr import JSPSR
 from jspsr_torch.models.spn import Generator, PostProcessor
 
 torch.set_num_threads(2)
@@ -120,27 +120,29 @@ def test_postprocessor_matches_jax(scale):
 
 # the options that raised until the mixed-precision slice ported them
 PORTED = ("compute_dtype", "spn_sample_dtype")
+# the execution options, which raised until the eleventh slice
+EXECUTION = ("remat_stages", "fuse_stems", "eval_grouped")
 
 
-@pytest.mark.parametrize("option", NOT_PORTED + PORTED)
+@pytest.mark.parametrize("option", EXECUTION + PORTED)
 def test_unported_options_raise(option):
-    """Each option still in NOT_PORTED raises; ``compute_dtype`` and
-    ``spn_sample_dtype`` (tests/test_torch_bf16.py holds them against JAX)
-    now build and run: a bf16 body or the bf16-sampling head, an fp32
-    output."""
+    """Every option is ported: each builds and runs an eval forward with
+    an fp32 output. ``compute_dtype`` and ``spn_sample_dtype``
+    (tests/test_torch_bf16.py holds them against JAX) give a bf16 body or
+    the bf16-sampling head; the execution options
+    (tests/test_torch_jspsr_options.py, tests/test_torch_remat.py) set
+    their flag."""
     value = "bfloat16" if option in PORTED else True
     cfg = AttrDict({"model_name": "JSPSR", "input_data": {"lr_dem": 1, "image": 3},
                     "model_kwargs": {"num_block": 1, "num_feature": 8,
                                      option: value}})
-    if option not in PORTED:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_model(cfg)
-        return
     model = build_model(cfg).eval()
     if option == "compute_dtype":
         assert model.compute_dtype == torch.bfloat16
-    else:
+    elif option == "spn_sample_dtype":
         assert model.postprocessor.sample_dtype == "bfloat16"
+    else:
+        assert getattr(model, option) is True
     rng = np.random.default_rng(5)
     inputs = [torch.from_numpy(rng.uniform(0.1, 0.9, (1, c, 16, 16))
                                .astype(np.float32)) for c in (1, 3)]

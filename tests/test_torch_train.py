@@ -402,14 +402,17 @@ def test_accum_steps_2_matches_jax(bn_two_pass):
 
 
 def test_accum_steps_must_divide_batch_and_remat_raises():
+    """A batch that does not divide into the microbatches raises, with
+    ``remat`` too (ported: tests/test_torch_remat.py holds its steps
+    bit-equal to the steps without)."""
     port = JSPSR(dict(IN_CHANNELS), num_feature=8, layers=(1, 1, 1, 1))
     opt = torch.optim.AdamW(port.parameters())
-    step = make_train_step(port, build_criterion(LOSS), opt, accum_steps=2)
     (inputs, gt), = _batches(1, np.random.default_rng(0), b=3, side=16)
-    with pytest.raises(ValueError, match="microbatches"):
-        step([_nchw(x) for x in inputs], _nchw(gt))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_train_step(port, build_criterion(LOSS), opt, remat=True)
+    for remat in (False, True):
+        step = make_train_step(port, build_criterion(LOSS), opt,
+                               accum_steps=2, remat=remat)
+        with pytest.raises(ValueError, match="microbatches"):
+            step([_nchw(x) for x in inputs], _nchw(gt))
 
 
 def test_monitor_reports_ranges():
@@ -520,13 +523,33 @@ def test_drop_path_draws_depend_on_seed_and_step_alone(cf_cfg, tmp_path,
     assert not torch.equal(resumed[0], resumed[1])
 
 
-def test_trainer_refuses_prefetch_split_off(cf_cfg, tmp_path):
-    """The port always splits the batch staging over two threads; a config
-    that turns ``prefetch_split`` off is refused, not silently run."""
-    from jspsr_torch.train.trainer import NOT_PORTED_OFF, Trainer
+def test_trainer_refuses_prefetch_split_off(cf_cfg, tmp_path, monkeypatch):
+    """``prefetch_split: false`` is ported: the batch's numpy assembly and
+    its staging run on one prefetch thread, not two, and the epoch is the
+    split one's, bit for bit (every parameter and buffer, and the epoch
+    loss). A JSPSR (num_feature 8) on the same tree keeps the epochs
+    short."""
+    from jspsr_torch.train import trainer as trainer_mod
 
-    assert "prefetch_split" in NOT_PORTED_OFF
-    for off in (False, None, 0):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Trainer(AttrDict(dict(cf_cfg, prefetch_split=off)),
-                    result_dir=tmp_path, device="cpu")
+    stages = []
+    prefetch = trainer_mod.device_prefetch
+
+    def counting_prefetch(iterator, transfer, host_stage=None, **kw):
+        stages.append(host_stage is not None)
+        return prefetch(iterator, transfer, host_stage=host_stage, **kw)
+
+    monkeypatch.setattr(trainer_mod, "device_prefetch", counting_prefetch)
+    cfg = dict(cf_cfg, model_name="JSPSR",
+               input_data={"lr_dem": 1, "COP30": 1, "image": 3, "mask": 15},
+               model_kwargs={"num_block": 1, "num_feature": 8})
+    runs = {}
+    for split in (True, False):
+        t = trainer_mod.Trainer(AttrDict(dict(cfg, prefetch_split=split)),
+                                result_dir=tmp_path / str(split),
+                                device="cpu")
+        loss, _ = t.train_one_epoch(0)
+        runs[split] = (loss, t.model.state_dict())
+    assert stages == [True, False]
+    (want_loss, want), (loss, got) = runs[True], runs[False]
+    assert loss == want_loss
+    assert all(torch.equal(got[k], want[k]) for k in want)
