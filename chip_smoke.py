@@ -21,7 +21,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tiled server's chunks of 72, 81 and 28 x 128^2), untimed at the eval
    loop's (each config's valid batch of 128^2 samples, phase 10), at the
    whole scenes of phases 11-12 as their models pad them (EDSR+SPN's 334^2,
-   unpadded, and LRRU's 500 x 700 scene at 512 x 704) and at
+   unpadded, and LRRU's 244 x 346 scene at 256 x 352) and at
    two shapes that its tile does not divide (2 x 13 x 20, and 1 x 333 x
    335, whose W % 4 != 0 takes the copy path in place of TMA), offsets at
    0, 1.5 and 20 px (rtol = atol = 1e-5: the same fp32
@@ -189,9 +189,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CPU in float64 (``hold_to_float64``: the tolerance plus three times the
    CPU fp32 run's distance from float64) at rtol 1e-4 / atol 2e-5 (the
    first whole scene, the scaled output, atol times its largest
-   magnitude, at least 1) and phase 9's rtol 1e-3 / atol 1e-2 m (the last
-   served raster, ``SERVED_FP64``), and every served raster against its
-   scene alone as in phase 9;
+   magnitude, at least 1) and, with the head, phase 9's rtol 1e-3 / atol
+   1e-2 m (the last served raster, ``SERVED_FP64``), and every served
+   raster against its scene alone as in phase 9;
 12. LRRU: configs/lrru_r8_img.yml as shipped (20,843,342 parameters,
    batch 70) trained the same way, with exactly 4 K1 + 1 K2 per step and
    no K3; its step against the CPU and float64 and twice from one state
@@ -202,8 +202,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every parameter; then a seeded checkpoint served, on scenes with 3 %
    of their DEM in contiguous voids at -80 m (0 on the serving config's
    linear scale), by
-   ``--infer`` over 4 x 334^2 and 1 x 1024^2, then one 500 x 700 scene
-   (padded to 512 x 704, LRRU's /16), 4 K1 per scene, and ``--infer
+   ``--infer`` over 4 x 334^2 and 1 x 1024^2, then one 244 x 346 scene
+   (padded to 256 x 352, LRRU's /16), 4 K1 per scene, and ``--infer
    --tile`` over 8 x 334^2 (4 K1 per chunk), held as in phase 11 at the
    LRRU tolerance, rtol 1e-4 / atol 3e-5 (scaled, times the output's
    largest magnitude; in metres atol x 1009 m, the served rasters being
@@ -247,7 +247,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    separate path on the card (cuDNN's defaults), at 1 and 72 x 128^2 and
    phase 4's first 334^2 scene, rtol 1e-4 / atol 2e-5 (the convs
    regrouped, the precision fp32), one K1 per forward, each timed (median
-   of 25); (b) one step from one state at the train batch with ``remat``
+   of ``TIME_REPEATS``); (b) one step from one state at the train batch with ``remat``
    and with ``remat_stages`` against the step without (the flagship at
    50, deterministic cuDNN: 2 K1 + 1 K2 and 1 K1 + 1 K2), and
    CompletionFormer's at 16 with ``remat`` (12 K1 + 6 K3, drop path from
@@ -261,13 +261,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
    configs/jspsr_r3_img_msk.yml on one 334^2 sample per train city (its
    tile crop: 9 x 128^2 each), one K1 and one K2 per step, its first 2
    steps under ``profile_steps``, whose trace must name K1's and K2's
-   kernels (last: the profiler slows the process it traces).
+   kernels (last: the profiler slows the process it traces);
+16. data parallelism (``jspsr_torch/parallel/``): (a) the flagship at
+   full width from one seeded state on the first 9 train cities of phase
+   5's tree (108 samples): two ``Trainer`` steps of 50 in this process,
+   then two ranks of 25 on the same rows, two processes sharing this card
+   in a gloo group (``parallel.spawn.run_ranks``; NCCL refuses two ranks
+   on one GPU) through the gradient all-reduce and the cross-process
+   BatchNorm: step losses within rtol 1e-4, the sum of every |parameter|
+   within rtol 1e-5 (``tests/test_multihost.py:148-155``), the ranks'
+   losses and parameters bit-equal, one K1 and one K2 per step on each
+   rank; (b) one flagship epoch through the CLI with ``distributed:
+   true`` and ``distributed_kwargs`` (a group of one on ``nccl``, its
+   first step profiled: the trace names ProcessGroupNCCL's
+   ``nccl:all_reduce``) against the same CLI run without it, at the same
+   bounds, bit-equality printed; then warm steps at 50 in turns without,
+   with and again without an NCCL group of one in this process (the
+   data-parallel path's cost per step); (c) inference over the mesh
+   ``[cuda:0, cuda:0]``: ``eval_model`` on phase 5's 12 valid samples in
+   batches of 4 against ``mesh=None`` (3e-4, as ``dryrun_multichip``;
+   twice the K1 launches), and ``serve_scenes`` over phase 9's 8 x 334^2
+   against ``mesh=None`` at rtol 1e-3 / atol 1e-2 m (one 72-tile chunk in
+   two launches of 36); (d) ``parallel.dryrun.dryrun_multichip(2,
+   "cuda")`` (its ranks share the card through gloo), 4 K1 and 1 K2 on
+   each rank. Phase 3 holds K1 and K2 at phase 16's shapes too
+   (``dp_shapes``).
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
 ...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}``,
-``{"bf16": ...}``, ``{"export": ...}``, ``{"options": ...}`` (with
-the card's name and power limit) and ``{"kernels": [...]}`` lines, its wall
+``{"bf16": ...}``, ``{"export": ...}``, ``{"options": ...}``,
+``{"data_parallel": ...}`` (with the card's name and power limit) and ``{"kernels": [...]}`` lines, its wall
 time, and ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
 """
@@ -317,6 +341,7 @@ from jspsr_torch.models.factory import build_model
 from jspsr_torch.ops import conv_same as conv_same_mod
 from jspsr_torch.ops import cuda_build, deform_cuda
 from jspsr_torch.ops.conv_same import conv_same, conv_same_plain
+from jspsr_torch.parallel import dryrun
 from jspsr_torch.ops.deform_conv import (
     deform_conv2d,
     deform_conv2d_backward_plain,
@@ -389,6 +414,11 @@ CF_SCENE = ("scene_cf", 334)
 TILED_SMALL = [(f"tile_{i}", 334) for i in range(8)]
 TILED_LARGE = [(f"big_{i}", 1024) for i in range(2)]
 TILED_RECT = ("rect", (500, 700))
+# LRRU's whole rectangle (phase 12): both sides off its /16 (padded to 256
+# x 352); a cut from TILED_RECT's 500 x 700 (512 x 704), whose float64
+# forward on the host took about 30 s (until phase 16 pushed the script
+# past 1,000 s on an NVIDIA H100 80GB HBM3 host, 700 W)
+LRRU_RECT = ("rect", (244, 346))
 # Between tile batch sizes cuDNN may change its reduction order: the JAX
 # suite's tolerance for that (tests/test_scene_device.py), in metres.
 BATCH_RTOL, BATCH_ATOL = 2e-4, 5e-3
@@ -403,8 +433,9 @@ EXPORT_BATCHES = (1, 50, 72)
 EXPORT_TOL = 1e-5
 # the artifact and the eager model at batch 50, each turn a median of this
 # many runs (a cut: 25 until the script passed 720 s, NVIDIA H100 80GB
-# HBM3, 700 W; a turn at batch 50 took about 6 s of it)
-EXPORT_TIME_REPS = 10
+# HBM3, 700 W; a turn at batch 50 took about 6 s of it; 10 until phase 16
+# pushed it past 1,000 s on a slower host)
+EXPORT_TIME_REPS = 5
 # run in a fresh process: the artifact loaded with torch and the op library
 # alone, on the card, TF32 off and cuDNN's deterministic algorithms (as the
 # eager model runs in the parent: with cuDNN's defaults the fp32 forward
@@ -448,13 +479,15 @@ PREEMPT_AT = {"after_save": [0, PREEMPT_EVERY],
 PREEMPT_CASES = {"JSPSR": ("after_save",), "JSPSR_bf16": ("between_saves",)}
 # Phase 15: the execution options' eval forward (phase 4's checkpoint) at
 # one tile, a tiled server's chunk of 72 and one 334^2 scene, each timed as
-# the median of TIME_REPEATS; the remat steps' warm steps after the
-# compared one; the r3 config's epoch on one 334^2 sample per train city
+# the median of TIME_REPEATS (a cut: 25 until phase 16 pushed the script
+# past 720 s; at 72 tiles the four sets took about 47 s of it, NVIDIA H100
+# 80GB HBM3, 700 W); the remat steps' warm steps after the compared one;
+# the r3 config's epoch on one 334^2 sample per train city
 OPTION_SETS = {"separate": {}, "fuse_stems": {"fuse_stems": True},
                "eval_grouped": {"eval_grouped": True},
                "both": {"fuse_stems": True, "eval_grouped": True}}
 OPTION_BATCHES = (1, 72)
-TIME_REPEATS, TIMED_STEPS = 25, 5
+TIME_REPEATS, TIMED_STEPS = 10, 5
 R3_SCENES_PER_CITY, R3_SIDE = 1, 334
 # K1 launches per eval sample (valid batch 1): the flagship's SPN head once,
 # NLSPN's 6 propagation steps
@@ -567,7 +600,7 @@ def serving_shapes() -> list:
     LRRU's 16); the tiled paths' chunks are in KERNEL_SHAPES."""
     shapes = set()
     for config, scenes in ((EDSR_CONFIG, SCENES),
-                           (LRRU_CONFIG, SCENES + [TILED_RECT])):
+                           (LRRU_CONFIG, SCENES + [LRRU_RECT])):
         mult = model_stride_multiple(create_config(config))
         for _, side in scenes:
             h, w = (side, side) if isinstance(side, int) else side
@@ -576,12 +609,31 @@ def serving_shapes() -> list:
     return sorted(shapes)
 
 
+def dp_shapes() -> tuple[list, list]:
+    """K1's and K2's shapes on phase 16's paths, from its constants: (a)
+    each rank's batch; (c) the valid batch and the tiled server's chunk
+    (TILED_SMALL's tiles), each split over the mesh; (d) the dry run's
+    (``parallel.dryrun``): one row per rank and the one-process
+    reference's DRYRUN_RANKS rows, in training and in its mesh eval. The
+    group of one in (b) steps at the config's batch of 50 and evaluates
+    at its valid batch (KERNEL_SHAPES, ``eval_shapes``)."""
+    side = TRAIN_SIDE
+    chunk = len(TILED_SMALL) * tile_grid(TILED_SMALL[0][1], DP_TILE)[1] ** 2
+    dry = [(1, dryrun.SIDE, dryrun.SIDE),
+           (DRYRUN_RANKS, dryrun.SIDE, dryrun.SIDE)]
+    fwd = [(DP_RANK_BATCH, side, side),
+           (DP_VALID_BATCH // DP_MESH, side, side),
+           (chunk // DP_MESH, DP_TILE, DP_TILE)] + dry
+    return fwd, [(DP_RANK_BATCH, side, side)] + dry
+
+
 def check_deform_kernel(dev, bandwidth, fp32_peak, sample_dtype=None,
                         seed: int = 0):
     """K1 against its plain version, in the mode ``sample_dtype`` asks for,
     with offsets at each of OFFSET_SCALES, at rtol = atol = 1e-5: in the
     fp32 mode at the main path's shapes (timed), the whole-scene serving
-    paths' of phases 11-12 and the correctness-only shapes; in the bf16
+    paths' of phases 11-12, phase 16's (``dp_shapes``) and the
+    correctness-only shapes; in the bf16
     mode at BF16_SHAPES (both compute the same roundings; only the order of
     the 9-term sum differs), where at TIMED_SCALE its distance from the
     fp32 mode must exceed that tolerance (the mode really rounds) and the
@@ -593,7 +645,7 @@ def check_deform_kernel(dev, bandwidth, fp32_peak, sample_dtype=None,
     name = "deform_fwd_bf16" if sample_dtype else "deform_fwd"
     shapes = ((BF16_SHAPES + eval_shapes()) if sample_dtype else
               (KERNEL_SHAPES + eval_shapes() + serving_shapes()
-               + CHECK_SHAPES))
+               + dp_shapes()[0] + CHECK_SHAPES))
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 * 2**20, device=dev)  # 256 MB > the 50 MB L2
     rows = []
@@ -1270,12 +1322,19 @@ def serve(work: Path, dev: torch.device, flagship):
     total = re.search(r"Inference: \d+ scenes -> .* \(([\d.]+) ms, ([\d.]+) "
                       r"scenes/s\)", log)
 
-    # warm re-runs of each scene size (not counted): steady latency; one
-    # 334^2 scene on the card against the port on the CPU
-    warm = {}
-    for name, side in (SCENES[-1], SCENES[0]):
-        err, warm[f"{side}x{side}"], _ = card_vs_cpu_scene(
-            p, ckpt, work / "scenes" / name, dev, rtol=1e-4, atol=2e-5)
+    # warm re-runs of each scene size (not counted): steady latency; the
+    # 334^2 scene on the card against the port on the CPU (a cut: the
+    # 1024^2 one too, about 40 s of host time, until phase 16 pushed the
+    # script past 1,000 s on an NVIDIA H100 80GB HBM3 host, 700 W)
+    (big, big_side), (name, side) = SCENES[-1], SCENES[0]
+    sample, _ = load_scene(work / "scenes" / big, p)
+    fwd = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    upscale_dem(fwd, sample, p, dev)
+    warm = {f"{big_side}x{big_side}": min(
+        upscale_dem(fwd, sample, p, dev)[1] for _ in range(3))}
+    del fwd
+    err, warm[f"{side}x{side}"], _ = card_vs_cpu_scene(
+        p, ckpt, work / "scenes" / name, dev, rtol=1e-4, atol=2e-5)
     return {
         "scenes": [f"{s}x{s}" for _, s in SCENES],
         "per_scene": per_scene,
@@ -1767,7 +1826,8 @@ def serve_tiled(work: Path, dev: torch.device, flagship):
 def serve_family(work: Path, dev: torch.device, label: str,
                  model_name: str, model_kwargs: dict, whole, tiled,
                  rect=None, tol_scaled=(1e-4, 2e-5), tol_tiled=(1e-3, 1e-2),
-                 tol_batch=(BATCH_RTOL, BATCH_ATOL), **keys):
+                 tol_batch=(BATCH_RTOL, BATCH_ATOL), served_fp64=SERVED_FP64,
+                 **keys):
     """A seeded checkpoint of ``model_name`` (``label`` a key of
     PER_FORWARD) through the port's CLI: ``--infer`` over ``whole`` (a
     scene directory and its scenes), then over ``rect`` (one scene, a
@@ -1776,9 +1836,10 @@ def serve_family(work: Path, dev: torch.device, label: str,
     per tile chunk. Every comparison holds the card to the port on the CPU
     in float64 by ``hold_to_float64``: the first scene of ``whole`` and
     ``rect`` (scaled outputs, ``tol_scaled``, atol times the output's
-    largest magnitude, at least 1) and the last served raster
-    (``SERVED_FP64``; metres, ``tol_tiled``: the rasters are clipped to
-    [0, 1] before the descale, so their magnitude is at most 1). Every
+    largest magnitude, at least 1) and the served rasters ``served_fp64``
+    (default ``SERVED_FP64``, the last; metres, ``tol_tiled``: the rasters
+    are clipped to [0, 1] before the descale, so their magnitude is at
+    most 1). Every
     served raster is also held to its scene through
     ``tile_inference_device`` on the card alone at ``tol_batch`` (rtol,
     atol in metres; ``None``: rtol ``tol_tiled[0]`` and twice the largest
@@ -1830,6 +1891,7 @@ def serve_family(work: Path, dev: torch.device, label: str,
             out[tag].update(cold_ms=float(one[1]), peak_mb=float(one[2]))
         out[tag].update(card_vs_float64_scene(
             p, ckpt, root / scenes[0][0], dev, *tol_scaled))
+        mark(f"{label} {tag}: served, held to float64")
 
     root, scenes = tiled
     shapes = [(s, s) for _, s in scenes]
@@ -1859,7 +1921,7 @@ def serve_family(work: Path, dev: torch.device, label: str,
              "warm_scenes_per_s": rates[1], "peak_mb": peak,
              "against_float64": {}}
     samples = [load_scene(root / name, p)[0] for name, _ in scenes]
-    for i in SERVED_FP64:
+    for i in served_fp64:
         fp32, ref = (tile_inference_device(m, samples[i], p,
                                            tile=p.patch_size,
                                            device="cpu")[0]
@@ -1867,6 +1929,7 @@ def serve_family(work: Path, dev: torch.device, label: str,
         tiled["against_float64"][scenes[i][0]] = hold_to_float64(
             read_raster(paths[i]), fp32, ref, *tol_tiled,
             f"{label} served {scenes[i][0]}")
+    mark(f"{label} tiled: served, held to float64")
     if tol_batch is None:
         tol_batch = (tol_tiled[0], 2 * max(
             h["atol"] for h in tiled["against_float64"].values()))
@@ -1912,9 +1975,15 @@ def phase_edsr(work: Path, root: Path, dev: torch.device, scenes_dir: Path,
             epochs=CUT_EPOCHS)
         mark(f"{label} training")
         torch.backends.cudnn.deterministic = False  # serving, as phase 7
+        # EDSR as shipped launches no kernel: its whole scene is held to
+        # float64, its served raster only to the scene served alone (a cut:
+        # both were held to float64, about 15 s of host time, until phase
+        # 16 pushed the script past 1,000 s on an NVIDIA H100 80GB HBM3
+        # host, 700 W)
         out[f"{key}_serving"], launches = serve_family(
             work / f"serve_{key}", dev, label, "EDSR", mk,
-            (scenes_dir, SCENES), (tiled_dir, TILED_SMALL))
+            (scenes_dir, SCENES), (tiled_dir, TILED_SMALL),
+            served_fp64=SERVED_FP64 if over else ())
         paths.update(launches)
         mark(f"{label} serving")
     return out, paths
@@ -1922,8 +1991,8 @@ def phase_edsr(work: Path, root: Path, dev: torch.device, scenes_dir: Path,
 
 def phase_lrru(work: Path, root: Path, dev: torch.device):
     """Phase 12: configs/lrru_r8_img.yml as shipped, trained (one epoch),
-    then served whole (4 x 334^2 and 1 x 1024^2, then one 500 x 700 scene
-    padded to 512 x 704) and tiled (8 x 334^2) on DEMs with LRRU_HOLES of
+    then served whole (4 x 334^2 and 1 x 1024^2, then one 244 x 346 scene
+    padded to 256 x 352) and tiled (8 x 334^2) on DEMs with LRRU_HOLES of
     their pixels at no data."""
     paths = {}
     training, paths["lrru_training"] = train(
@@ -1932,13 +2001,13 @@ def phase_lrru(work: Path, root: Path, dev: torch.device):
     mark("LRRU training")
     torch.backends.cudnn.deterministic = False  # serving, as phase 7
     write_scenes(work / "scenes", SCENES, seed=5, holes=LRRU_HOLES)
-    write_scenes(work / "rect", [TILED_RECT], seed=6, holes=LRRU_HOLES)
+    write_scenes(work / "rect", [LRRU_RECT], seed=6, holes=LRRU_HOLES)
     write_scenes(work / "tiled", TILED_SMALL, seed=7, holes=LRRU_HOLES)
     mk = {k: v for k, v in create_config(LRRU_CONFIG).model_kwargs.items()
           if k not in ("checkpoint", "pretrained")}
     serving, launches = serve_family(
         work / "serve", dev, "LRRU", "LRRU", mk, (work / "scenes", SCENES),
-        (work / "tiled", TILED_SMALL), rect=(work / "rect", [TILED_RECT]),
+        (work / "tiled", TILED_SMALL), rect=(work / "rect", [LRRU_RECT]),
         tol_scaled=(LRRU_RTOL, LRRU_ATOL),
         tol_tiled=(LRRU_RTOL, LRRU_ATOL * 1009.0), tol_batch=None,
         **LRRU_SCALING)
@@ -2676,7 +2745,7 @@ def options_forward(scenes_dir: Path, dev: torch.device, flagship) -> tuple:
     path on the card, cuDNN's defaults, TF32 off: batches of 1 and 72 x
     128^2 and phase 4's first 334^2 scene (``upscale_dem``) at rtol 1e-4 /
     atol 2e-5 (the convs regrouped, the precision fp32), one K1 per
-    forward; each forward's median of 25 (the scene's through
+    forward; each forward's median of TIME_REPEATS (the scene's through
     ``upscale_dem``'s own CUDA-synchronised ms)."""
     p, _, ckpt = flagship
     torch.backends.cudnn.deterministic = False
@@ -2949,6 +3018,419 @@ def options_phase(root: Path, work: Path, dev: torch.device, flagship,
     return out, profile, paths
 
 
+# Phase 16: the flagship's first DP_TRAIN_CITIES train cities (108 samples:
+# 2 steps of 50 in one process, 2 of 25 on each of two ranks, over the
+# same rows), the two ranks' gloo group and its time limits
+DP_TRAIN_CITIES, DP_RANK_BATCH, DP_WORLD = 9, 25, 2
+DP_TIMEOUT_S, DP_INIT_TIMEOUT_S = 600, 120
+# (b): warm steps timed per turn, with and without the NCCL group of one
+DP_WARM_STEPS = 5
+# (c) the mesh [cuda:0] * DP_MESH: phase 5's 12 valid samples in batches
+# of 4, each split in two; phase 9's 8 x 334^2 served in DP_TILE^2 tiles
+DP_VALID_BATCH, DP_MESH, DP_TILE = 4, 2, 128
+# (d) the dry run's world
+DRYRUN_RANKS = 2
+
+
+def dp_steps(over: dict, work: Path, dev) -> dict:
+    """One epoch of the flagship config (``over`` on top of it) through
+    the Trainer on ``dev``: each step's loss and ms (CUDA events), the
+    launches, the float64 sum of every |parameter| after it, a hash of the
+    parameters' bytes and the peak memory. Under a process group (a rank
+    of ``data_parallel``'s leg (a)) the step all-reduces."""
+    import hashlib
+
+    p = create_config(FLAGSHIP)
+    p.update(over)
+    trainer = Trainer(p, result_dir=work, device=dev, verbose=False)
+    inner, steps = trainer.train_step, []
+
+    def timed_step(inputs, gt):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = inner(inputs, gt)
+        end.record()
+        steps.append((start, end, losses["Total"]))
+        return losses
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats(trainer.device)
+    reset_launches()
+    trainer.train_one_epoch(0)
+    torch.cuda.synchronize()
+    launches = dict(deform_cuda.LAUNCHES)
+    params = [q.detach() for q in trainer.model.parameters()]
+    digest = hashlib.sha256()
+    for q in params:
+        digest.update(q.cpu().numpy().tobytes())
+    out = {"device": str(trainer.device), "rank": trainer.rank,
+           "world": trainer.world, "batch": p.train_batch_size,
+           "losses": [float(t) for _, _, t in steps],
+           "step_ms": [a.elapsed_time(b) for a, b, _ in steps],
+           "launches": launches,
+           "checksum": float(sum(q.double().abs().sum().item()
+                                 for q in params)),
+           "sha256": digest.hexdigest(),
+           "peak_mb": torch.cuda.max_memory_allocated(trainer.device) / 2**20}
+    del trainer, inner, params
+    return out
+
+
+def dp_rank(rank: int, world: int, over: dict, work: str) -> dict:
+    """Leg (a) on one rank (``parallel.spawn.run_ranks``): ``dp_steps`` at
+    the per-rank batch on the card the ranks share."""
+    set_strict_fp32()
+    return dp_steps(over, Path(work), torch.device("cuda", 0))
+
+
+def ranks_leg(root: Path, work: Path, dev: torch.device, smi: str) -> tuple:
+    """(a) the flagship at full width, one seeded state: two steps of 50
+    in this process, then two ranks of 25 on the same rows through
+    ``all_reduce_grads`` and the cross-process BatchNorm, two processes
+    sharing this card in a gloo group (NCCL refuses two ranks on one GPU):
+    the step losses within rtol 1e-4 and the sum of every |parameter|
+    within rtol 1e-5 (``tests/test_multihost.py:148-155``), the ranks'
+    losses and parameters bit-equal, one K1 and one K2 per step on each
+    rank."""
+    import gc
+
+    from jspsr_torch.parallel.spawn import run_ranks
+
+    cities = list(create_config(FLAGSHIP).train_set)[:DP_TRAIN_CITIES]
+    over = {"dataset_path": str(root), "train_set": cities}
+    one = dp_steps(over, work / "one", dev)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_rank, DP_WORLD,
+                      dict(over, train_batch_size=DP_RANK_BATCH,
+                           distributed=True), str(work / "ranks"),
+                      device="cuda:0", backend="gloo",
+                      init_timeout_s=DP_INIT_TIMEOUT_S,
+                      timeout_s=DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    per_step = deform_counts(deform_fwd=1, deform_bwd=1)
+    n_steps = len(one["losses"])
+    want = {k: v * n_steps for k, v in per_step.items()}
+    r0 = ranks[0]
+    out = {
+        "config": str(FLAGSHIP.relative_to(REPO)),
+        "train_cities": len(cities), "steps": n_steps,
+        "one_process": one, "ranks": ranks,
+        "ranks_wall_s": ranks_s,
+        "loss_rel_err": [abs(a - b) / abs(b) for a, b in
+                         zip(r0["losses"], one["losses"])],
+        "checksum_rel_err": abs(r0["checksum"] - one["checksum"])
+        / abs(one["checksum"]),
+        "ranks_bit_equal": all((r["losses"], r["sha256"]) ==
+                               (r0["losses"], r0["sha256"]) for r in ranks),
+        "card": smi,
+        "note": "two ranks sharing one card through gloo: no scaling figure",
+    }
+    print(f"data parallel: one process {one['losses']} ({one['step_ms']} "
+          f"ms at {one['batch']}), ranks {[r['losses'] for r in ranks]} "
+          f"({[r['step_ms'] for r in ranks]} ms at {r0['batch']} each, two "
+          f"ranks sharing {smi}); loss rel err {out['loss_rel_err']}, "
+          f"checksum rel err {out['checksum_rel_err']:.3g}, ranks "
+          f"bit-equal {out['ranks_bit_equal']}, launches per rank "
+          f"{[r['launches'] for r in ranks]}", flush=True)
+    if (r0["world"] != DP_WORLD or n_steps != 2
+            or len(r0["losses"]) != n_steps
+            or max(out["loss_rel_err"]) > 1e-4
+            or out["checksum_rel_err"] > 1e-5
+            or not out["ranks_bit_equal"] or one["launches"] != want
+            or any(r["launches"] != want for r in ranks)):
+        raise AssertionError(f"data parallel over two ranks: {out}")
+    paths = {"dp_one_process": one["launches"],
+             **{f"dp_rank{r['rank']}": r["launches"] for r in ranks}}
+    return out, paths
+
+
+def checkpoint_arrays_of(run: Path) -> dict:
+    """The params of the one best checkpoint a fit left in ``run``."""
+    (ckpt,) = run.glob("JSPSR_r8_*.npz")
+    with np.load(ckpt) as z:
+        return {k: z[k] for k in z.files if k.startswith("params")}
+
+
+def nccl_leg(root: Path, work: Path, dev: torch.device) -> tuple:
+    """(b) the NCCL path in a group of one: one epoch of the flagship
+    (a cut of 300) on phase 5's tree through the CLI with ``distributed:
+    true`` and ``distributed_kwargs`` (a free local port, one process,
+    rank 0), its first step profiled, against the same CLI run without
+    ``distributed``: the group's backend nccl, the trace naming NCCL's
+    all-reduce (the ``nccl:all_reduce`` op that ProcessGroupNCCL records;
+    the kernels NCCL launched for it are printed: none for an in-place
+    sum over one rank), the epoch losses within rtol 1e-4 and the sums of
+    the checkpoints' |parameters| within rtol 1e-5; whether the two are
+    bit-equal is printed."""
+    import torch.distributed as dist
+    import yaml
+
+    from jspsr_torch.parallel.spawn import free_port
+
+    base = yaml.safe_load(FLAGSHIP.read_text())
+    base.update(data_root=str(root.parent), epochs=1, profile_steps=1)
+    runs, paths = {}, {}
+    for label in ("plain", "nccl"):
+        cfg = dict(base)
+        if label == "nccl":
+            cfg.update(distributed=True, distributed_kwargs={
+                "coordinator_address": f"127.0.0.1:{free_port()}",
+                "num_processes": 1, "process_id": 0})
+        cfg_path = work / f"{label}.json"
+        cfg_path.parent.mkdir(parents=True, exist_ok=True)
+        cfg_path.write_text(json.dumps(cfg))
+        run = work / label
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            out = run_cli(["--config", str(cfg_path), "--result-dir",
+                           str(run)])
+            torch.cuda.synchronize()
+            backend = dist.get_backend() if dist.is_initialized() else None
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        paths[f"dp_cli_{label}"] = dict(deform_cuda.LAUNCHES)
+        (line,) = [json.loads(x) for x in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        trace = (run / "profile" / "trace_e000.json").read_text()
+        runs[label] = {
+            "wall_s": time.perf_counter() - t0, "backend": backend,
+            "train_loss": line["train_loss"],
+            "tiles_per_s": line["train_tiles_per_sec"],
+            "step_ms_epoch_mean": base["train_batch_size"] * 1e3
+            / line["train_tiles_per_sec"],
+            # the op ProcessGroupNCCL records around each all-reduce
+            # (gloo's is gloo:all_reduce; both run c10d::allreduce_), and
+            # the device kernels NCCL launched for it (a group of one
+            # launches none for an in-place sum)
+            "nccl_allreduce_ops": len(re.findall(
+                r'"name": "nccl:all_reduce"', trace)),
+            "c10d_allreduce_ops": len(re.findall(
+                r'"name": "c10d::allreduce_"', trace)),
+            "nccl_allreduce_kernels": sorted(set(re.findall(
+                r'"name": "(nccl[A-Za-z]*Kernel_AllReduce[^"]*)"', trace))),
+            "rmse": out["result"]["RMSE"],
+            "params": checkpoint_arrays_of(run)}
+    plain, nccl = runs["plain"], runs["nccl"]
+    a, b = plain.pop("params"), nccl.pop("params")
+    out = {
+        "plain": plain, "nccl": nccl,
+        "loss_rel_err": abs(nccl["train_loss"] - plain["train_loss"])
+        / abs(plain["train_loss"]),
+        "checksum_rel_err": abs(_abs_sum(b) - _abs_sum(a)) / _abs_sum(a),
+        "bit_equal": set(a) == set(b) and all(
+            np.array_equal(a[k], b[k]) for k in a),
+    }
+    print(f"NCCL group of one through the CLI: {out}", flush=True)
+    if (nccl["backend"] != "nccl" or plain["backend"] is not None
+            or not nccl["nccl_allreduce_ops"]
+            or plain["nccl_allreduce_ops"] or plain["nccl_allreduce_kernels"]
+            or out["loss_rel_err"] > 1e-4 or out["checksum_rel_err"] > 1e-5):
+        raise AssertionError(f"the NCCL group of one: {out}")
+    return out, paths
+
+
+def nccl_warm_steps(dev: torch.device, smi: str) -> dict:
+    """(b) the per-step cost of the data-parallel path on one card: the
+    flagship's train step at its batch of 50 (one batch from a seed)
+    warm, in three turns: without a group, in an NCCL group of one joined
+    in this process (``init_distributed`` with ``distributed_kwargs``:
+    the step all-reduces its gradients and loss dict, and BatchNorm takes
+    its statistics through two all-reduces per layer), and without again.
+    Each turn: one untimed step, then DP_WARM_STEPS timed by CUDA events;
+    the overhead is the group's median over the two plain turns' mean
+    median. One profiled group step counts its ``nccl:all_reduce`` ops."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from jspsr_torch.config.loader import AttrDict
+    from jspsr_torch.parallel.mesh import init_distributed
+    from jspsr_torch.parallel.spawn import free_port
+
+    p = create_config(FLAGSHIP)
+    torch.manual_seed(0)
+    model = build_model(p).to(dev)
+    step = make_train_step(model, build_criterion(dict(p.loss)),
+                           build_optimizer(p, model))
+    inputs, gt = train_batch(p, p.train_batch_size, 5)
+    inputs, gt = [x.to(dev) for x in inputs], gt.to(dev)
+
+    def turn() -> dict:
+        step(inputs, gt)
+        ms = []
+        for _ in range(DP_WARM_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(inputs, gt)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        return {"median_ms": statistics.median(ms), "ms": ms}
+
+    out = {"batch": p.train_batch_size, "card": smi,
+           "plain_before": turn()}
+    init_distributed(AttrDict({"distributed": True, "distributed_kwargs": {
+        "coordinator_address": f"127.0.0.1:{free_port()}",
+        "num_processes": 1, "process_id": 0}}), dev)
+    try:
+        out["backend"] = dist.get_backend()
+        out["nccl"] = turn()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(inputs, gt)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+    finally:
+        dist.destroy_process_group()
+    out["plain_after"] = turn()
+    plain = (out["plain_before"]["median_ms"]
+             + out["plain_after"]["median_ms"]) / 2
+    out["overhead"] = out["nccl"]["median_ms"] / plain - 1
+    out["nccl_allreduce_per_step"] = names.count("nccl:all_reduce")
+    out["nccl_kernels"] = sorted({n for n in names
+                                  if n.startswith("ncclDevKernel")
+                                  or n.startswith("ncclKernel")})
+    del model, step, inputs, gt
+    print(f"NCCL group of one, warm steps at {out['batch']} on {smi}: "
+          f"{out}", flush=True)
+    if out["backend"] != "nccl" or not out["nccl_allreduce_per_step"]:
+        raise AssertionError(f"the NCCL group of one's warm steps: {out}")
+    return out
+
+
+def dryrun_leg() -> tuple:
+    """(d) ``parallel.dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda")``, the
+    JAX driver's multi-chip leg without its 2-D forward: on this one card
+    its ranks share ``cuda:0`` in a gloo group (the tiny flagship's step
+    against one process, mesh eval at 3e-4, the device cache over the
+    group). Each rank must have launched K1 and K2: one of each in its
+    step, then its mesh eval (DRYRUN_RANKS launches of one row) and the
+    same eval on one device (one launch)."""
+    reset_launches()
+    res = dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda")
+    torch.cuda.synchronize()
+    want = deform_counts(deform_fwd=2 + DRYRUN_RANKS, deform_bwd=1)
+    paths = {"dryrun_one_process": dict(deform_cuda.LAUNCHES),
+             **{f"dryrun_rank{r}": rank["launches"]
+                for r, rank in enumerate(res["ranks"])}}
+    out = {"backend": res["backend"], "one_process": res["one_process"],
+           "ranks": [{k: v for k, v in r.items() if k != "params_sha256"}
+                     for r in res["ranks"]]}
+    if (paths["dryrun_one_process"] != deform_counts(deform_fwd=1,
+                                                     deform_bwd=1)
+            or any(r["launches"] != want for r in res["ranks"])):
+        raise AssertionError(f"dryrun_multichip's launches: {paths}")
+    return out, paths
+
+
+def _abs_sum(arrays: dict) -> float:
+    return float(sum(np.abs(v.astype(np.float64)).sum()
+                     for v in arrays.values()))
+
+
+def mesh_leg(root: Path, dev: torch.device, flagship, tiled_334: Path,
+             work: Path) -> tuple:
+    """(c) inference over the mesh [cuda:0, cuda:0]: phase 4's checkpoint
+    through ``eval_model`` on phase 5's 12 valid samples in batches of 4
+    against ``mesh=None`` (every score within 3e-4 relative, as
+    ``dryrun_multichip``, Median and LE95 1e-4 m more), twice the K1
+    launches (each batch split in two); then ``serve_scenes`` (the path of ``--infer --tile``) over
+    phase 9's 8 x 334^2 against ``mesh=None`` at phase 9's rtol 1e-3 /
+    atol 1e-2 m (another tile batch may take other cuDNN algorithms), its
+    one 72-tile chunk in two launches of 36."""
+    from jspsr_torch.data.dfc30 import DFC30
+    from jspsr_torch.data.loader import DataLoader
+    from jspsr_torch.data.transforms import build_transforms
+    from jspsr_torch.eval.loop import eval_model
+    from jspsr_torch.eval.serve import discover_scenes, serve_scenes
+    from jspsr_torch.parallel.mesh import make_mesh
+    from jspsr_torch.train.step import make_eval_step
+
+    mesh = make_mesh([dev] * DP_MESH)
+    p_serve, _, ckpt = flagship
+    p = fit_config(FLAGSHIP, root, epochs=1)
+    p.valid_batch_size = DP_VALID_BATCH
+    model = load_model_params(build_model(p), ckpt).to(dev)
+    step = make_eval_step(model, build_criterion(dict(p.loss)))
+    ds = DFC30(split="valid", transform=build_transforms(p)[1],
+               seed=p.get("seed", 0),
+               **{k: v for k, v in p.items() if k != "seed"})
+    scores, paths = {}, {}
+    for label, m in (("one", None), ("mesh", mesh)):
+        loader = DataLoader(ds, DP_VALID_BATCH, shuffle=False,
+                            num_workers=1)
+        reset_launches()
+        scores[label] = eval_model(p, loader, step, dev, mesh=m)
+        torch.cuda.synchronize()
+        paths[f"mesh_eval_{label}"] = dict(deform_cuda.LAUNCHES)
+    n_batches = len(ds) // DP_VALID_BATCH
+    eval_err = {k: abs(scores["mesh"][k] - v) / max(abs(v), 1.0)
+                for k, v in scores["one"].items()}
+    # the order statistics may move by one quantum (another batch size,
+    # other cuDNN algorithms): tests/test_eval_batched.py's 1e-4 m
+    eval_bad = [k for k, e in eval_err.items() if e > 3e-4 + (
+        1e-4 if k in ("Median", "LE95") else 0.0)]
+    scenes = discover_scenes(tiled_334)
+    served = {}
+    for label, m in (("one", None), ("mesh", mesh)):
+        reset_launches()
+        out_paths, t_ms, sps = serve_scenes(
+            model, p_serve, scenes, work / f"served_{label}", tile=DP_TILE,
+            scene_batch=len(scenes), mesh=m, device=dev)
+        torch.cuda.synchronize()
+        paths[f"mesh_serving_{label}"] = dict(deform_cuda.LAUNCHES)
+        served[label] = ([read_raster(q) for q in out_paths], t_ms)
+    serve_err = max(float(np.abs(a - b).max()) for a, b in
+                    zip(served["mesh"][0], served["one"][0]))
+    for a, b in zip(served["mesh"][0], served["one"][0]):
+        np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-2)
+    out = {"mesh": [str(d) for d in mesh.devices],
+           "eval": {"batches": n_batches, "scores": scores,
+                    "rel_err": eval_err},
+           "serving": {"scenes": len(scenes), "max_abs_m": serve_err,
+                       "ms": {k: v[1] for k, v in served.items()}},
+           "launches": paths}
+    print(f"mesh inference over {out['mesh']}: {out}", flush=True)
+    if (eval_bad
+            or paths["mesh_eval_mesh"] != deform_counts(
+                deform_fwd=DP_MESH * n_batches)
+            or paths["mesh_eval_one"] != deform_counts(deform_fwd=n_batches)
+            or paths["mesh_serving_mesh"] != deform_counts(
+                deform_fwd=DP_MESH)
+            or paths["mesh_serving_one"] != deform_counts(deform_fwd=1)):
+        raise AssertionError(f"mesh inference: {out}")
+    return out, paths
+
+
+def data_parallel(root: Path, work: Path, dev: torch.device, flagship,
+                  tiled_334: Path, smi: str) -> tuple:
+    """Phase 16: (a) two ranks on this card, (b) the NCCL group of one
+    through the CLI and its warm steps, (c) inference over a mesh naming
+    this card twice, (d) ``dryrun_multichip``."""
+    out, paths = {"card": smi}, {}
+    set_deterministic_cudnn()
+    out["ranks"], p = ranks_leg(root, work / "ranks", dev, smi)
+    paths.update(p)
+    mark("data parallel: two ranks")
+    out["nccl"], p = nccl_leg(root, work / "nccl", dev)
+    paths.update(p)
+    out["nccl"]["warm_steps"] = nccl_warm_steps(dev, smi)
+    mark("data parallel: NCCL group of one")
+    torch.backends.cudnn.deterministic = False  # serving: cuDNN's defaults
+    out["mesh"], p = mesh_leg(root, dev, flagship, tiled_334, work / "mesh")
+    paths.update(p)
+    mark("data parallel: mesh inference")
+    out["dryrun"], p = dryrun_leg()
+    paths.update(p)
+    mark("data parallel: dryrun_multichip")
+    return out, paths
+
+
 def sum_launches(by_run: dict) -> dict:
     """The launch counts of several runs of one path, summed by kernel."""
     total = {}
@@ -3012,7 +3494,8 @@ def main() -> int:
     fwd_rows, fwd_host_us = check_deform_kernel(dev, bandwidth, fp32_peak)
     fwd_bf16_rows, _ = check_deform_kernel(dev, bandwidth, fp32_peak, BF16,
                                            seed=5)
-    bwd_rows = check_deform_backward(dev, bandwidth, fp32_peak)
+    bwd_rows = check_deform_backward(dev, bandwidth, fp32_peak,
+                                     BWD_SHAPES + dp_shapes()[1])
     bwd_bf16_rows = check_deform_backward(dev, bandwidth, fp32_peak,
                                           BF16_BWD_SHAPES, BF16, seed=6)
     dx_rows = check_deform_backward_dx(dev, bandwidth, fp32_peak)
@@ -3089,6 +3572,12 @@ def main() -> int:
             root, tmp / "options", dev, flagship, tmp / "serve" / "scenes",
             smi_line)
         paths.update(option_paths)
+        phase(16, t_start)
+        # 16. data parallelism: two ranks on this card, the NCCL group of
+        # one through the CLI, inference over a mesh naming the card twice
+        data_par, dp_paths = data_parallel(root, tmp / "dp", dev, flagship,
+                                           tmp / "tiled" / "334", smi_line)
+        paths.update(dp_paths)
     # K3's three kernels apart, under the profiler, after every phase
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
@@ -3173,6 +3662,7 @@ def main() -> int:
     print(json.dumps({"bf16": bf16}, default=float), flush=True)
     print(json.dumps({"export": exported}, default=float), flush=True)
     print(json.dumps({"options": options}, default=float), flush=True)
+    print(json.dumps({"data_parallel": data_par}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -31,8 +31,17 @@ with ``torch`` and the op library alone, on the card or the CPU. The
 config's ``export_platforms`` is read (a scalar string is one name) and
 gives the same artifact whatever it names.
 
-``distributed: true`` (or ``JSPSR_DISTRIBUTED``) raises before any device
-use: training on several processes is not yet ported.
+``distributed: true`` (or ``JSPSR_DISTRIBUTED``) joins the process group
+before any device use (``parallel.mesh.init_distributed``: torchrun's
+environment, or ``distributed_kwargs: {coordinator_address,
+num_processes, process_id}``); rank n then runs on ``cuda:<local rank>``
+(unless ``--device cpu``: a gloo group) and logs to ``train.log`` (rank
+0) or ``train.proc<n>.log``. Launch one process per GPU:
+
+  torchrun --nproc_per_node N -m jspsr_torch.cli.main --config c.yml \
+      --result-dir <dir>
+
+(a shared ``--result-dir``: the default name holds the minute it starts).
 """
 
 from __future__ import annotations
@@ -75,18 +84,20 @@ def main(argv=None):
     p = create_config(args.config)
     ckpt = p.model_kwargs.get("checkpoint")
 
-    from jspsr_torch.train.trainer import refuse_distributed
+    from jspsr_torch.parallel.mesh import init_distributed, process_device
     from jspsr_torch.utils.device import resolve_device
 
     # before any device use, as the JAX CLI's distributed bootstrap
-    refuse_distributed(p)
-
     device = resolve_device(args.device)
+    proc = init_distributed(p, device)
+    device = process_device(device)
     stamp = datetime.now().strftime("%m%d_%H%M")
     result_dir = Path(args.result_dir or
                       Path(p.get("work_root", ".")) / "results" / f"{stamp}_{p.name}")
     result_dir.mkdir(parents=True, exist_ok=True)
-    sys.stdout = Logger(result_dir / "train.log")
+    # one log file per process: the ranks share the result dir
+    sys.stdout = Logger(result_dir /
+                        ("train.log" if proc == 0 else f"train.proc{proc}.log"))
     if args.export:
         return _export(p, args.export, ckpt, device)
     if not args.infer:

@@ -16,7 +16,16 @@ Exactness: the draws replay the host pipeline's random stream, the same
 (the transforms' ``draw`` methods), so the batches are the host feed's in
 content and order (``tests/test_torch_device_cache.py``).
 
-One device: a ``mesh`` argument raises (not yet ported).
+Data parallelism: each rank of a process group builds its own cache on
+its device and samples its loader shard (the Trainer's loader takes
+``rank::world``), so the ranks' batches are the host feed's shards, as
+the JAX cache's per-process sampler gives them
+(``jspsr_tpu/data/device_cache.py:78-105,240-256``). With ``mesh`` (a
+``parallel.mesh.Mesh`` or a list of local devices) the stacks are held on
+every device of the mesh and each batch comes split over it, as the JAX
+sampler's batch-sharded output: ``inputs`` and ``gt`` are then lists with
+one entry per mesh device, entry i that device's share of the batch,
+sampled there.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 from jspsr_torch.config.loader import AttrDict
 from jspsr_torch.data.loader import input_kinds
 from jspsr_torch.data.normalize import make_device_normalize
+from jspsr_torch.parallel.mesh import as_mesh
 from jspsr_torch.data.transforms import (
     Compose,
     RandomCrop,
@@ -65,9 +75,7 @@ class DeviceSceneCache:
 
     def __init__(self, dataset, p, device, transform=None, budget_gb=None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("device_cache over a device mesh is "
-                                      "not yet ported")
+        self.mesh = as_mesh(mesh)
         self.device = torch.device(device)
         self.seed = dataset.seed
         self.ppi = dataset.patches_per_image
@@ -102,10 +110,14 @@ class DeviceSceneCache:
                 f"{self.nbytes / 2**30:.2f} GiB > budget {budget} GiB; use "
                 f"the host feed (device_cache: false) or raise "
                 f"device_cache_budget_gb")
-        self.scenes = {k: torch.from_numpy(v).to(self.device)
-                       for k, v in host.items()}
-        self.base_all = torch.tensor(base, dtype=torch.float32,
-                                     device=self.device)
+        # the stacks on the cache's device and on each device of the mesh
+        self._stacks = {}
+        for dev in (self.device, *(self.mesh.devices if self.mesh else ())):
+            if str(dev) not in self._stacks:
+                self._stacks[str(dev)] = (
+                    {k: torch.from_numpy(v).to(dev) for k, v in host.items()},
+                    torch.tensor(base, dtype=torch.float32, device=dev))
+        self.scenes, self.base_all = self._stacks[str(self.device)]
         # the crop's side: the whole scene where the crop does not apply
         cs = getattr(self.crop, "crop_size", None) if self.crop else None
         self.S = cs if (cs and cs < self.H) else self.H
@@ -155,14 +167,17 @@ class DeviceSceneCache:
                     ang[j], flr[j], fud[j] = drawn
         return img, r0, c0, ang, flr, fud
 
-    def raw_batch(self, indices, epoch: int):
-        """The raw crops of a batch of dataset indices, on the device, as
-        the raw host feed ships them: ({modality: NHWC tensor in its own
-        dtype}, the (B,) bases)."""
+    def raw_batch(self, indices, epoch: int, device=None):
+        """The raw crops of a batch of dataset indices, on the cache's
+        device (or ``device``, one of its mesh's), as the raw host feed
+        ships them: ({modality: NHWC tensor in its own dtype}, the (B,)
+        bases)."""
+        device = torch.device(device or self.device)
+        scenes, base_all = self._stacks[str(device)]
         img, r0, c0, ang, flr, fud = (
-            torch.from_numpy(a).to(self.device)
+            torch.from_numpy(a).to(device)
             for a in self.draw_batch(indices, epoch))
-        span = torch.arange(self.S, device=self.device)
+        span = torch.arange(self.S, device=device)
         rows = (r0[:, None] + span)[:, :, None]  # (B, S, 1)
         cols = (c0[:, None] + span)[:, None, :]  # (B, 1, S)
 
@@ -174,20 +189,37 @@ class DeviceSceneCache:
                 out = dihedral_batch(out, ang, flr, fud)
             return out
 
-        return ({k: crop(v) for k, v in self.scenes.items()},
-                self.base_all[img])
+        return ({k: crop(v) for k, v in scenes.items()}, base_all[img])
 
     def sample_batch(self, indices, epoch: int):
         """(inputs, gt) for a batch of dataset indices: normalised NCHW
-        fp32 tensors on the device, the host feed's batch."""
-        crops, base = self.raw_batch(indices, epoch)
+        fp32 tensors on the device, the host feed's batch. With a mesh,
+        ``inputs`` and ``gt`` are lists with one entry per mesh device:
+        its slice of the batch (which must divide by the mesh size),
+        sampled on that device."""
+        if self.mesh is None:
+            return self._sample(indices, epoch, self.device)
+        indices = np.asarray(indices)
+        n = self.mesh.size
+        if len(indices) % n:
+            raise ValueError(f"batch {len(indices)} does not divide over "
+                             f"{n} devices")
+        rows = len(indices) // n
+        pieces = [self._sample(indices[i * rows:(i + 1) * rows], epoch, dev)
+                  for i, dev in enumerate(self.mesh.devices)]
+        return [x for x, _ in pieces], [g for _, g in pieces]
+
+    def _sample(self, indices, epoch: int, device):
+        crops, base = self.raw_batch(indices, epoch, device)
         return self._normalize([crops[k] for k in self.kinds],
                                crops["hr_dem"], base)
 
     def epoch_batches(self, loader, epoch: int):
         """(inputs, gt, batch size) per batch in the loader's order for
-        ``epoch``; the loader must have been set to that epoch (else the
-        shuffle and the replayed draws would come from two epochs)."""
+        ``epoch``, as ``sample_batch`` gives them (split over the mesh
+        where there is one); the loader must have been set to that epoch
+        (else the shuffle and the replayed draws would come from two
+        epochs)."""
         assert getattr(loader, "epoch", epoch) == epoch, (
             f"epoch_batches(epoch={epoch}) but loader.set_epoch set "
             f"{loader.epoch}: the shuffle order and the replayed draws "

@@ -7,7 +7,10 @@ same batches:
 
 - index order is a pure function of (seed, epoch) -> reproducible shuffles;
 - optional host sharding (process i takes indices i::num_shards) for
-  multi-process feeding;
+  multi-process feeding, over the epoch's order cut to a multiple of
+  num_shards, so that every process steps as often as the others (a rank
+  short of a batch would leave the rest waiting in a collective; the JAX
+  loader shards the uncut order);
 - a ThreadPoolExecutor decodes/augments batches ahead of consumption
   (raster decode releases the GIL in the IO backends), with a bounded
   prefetch queue for double buffering against device compute.
@@ -68,8 +71,9 @@ class DataLoader:
                 np.random.SeedSequence([self.seed, self.epoch])
             )
             rng.shuffle(idx)
-        idx = idx[self.shard_index::self.num_shards]
-        return idx
+        if self.num_shards > 1:
+            idx = idx[:len(idx) - len(idx) % self.num_shards]
+        return idx[self.shard_index::self.num_shards]
 
     def _batches(self):
         idx = self._epoch_indices()

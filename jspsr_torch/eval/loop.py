@@ -15,8 +15,16 @@ of one sample at a time. With ``normalize`` (``device_normalize``:
 which go to the device as they are (the one-hot mask bit-packed with
 ``pack_mask``) and are normalised there, inputs and ground truth; the
 bicubic-input baseline scales the raw input DEM there too and the visual
-panels on the host. The JAX package's ``mesh`` (a batch sharded over
-devices) is not yet ported and raises.
+panels on the host.
+
+``mesh`` (a ``parallel.mesh.Mesh`` or a list of local devices) splits
+each valid batch over its devices, as the JAX package shards it over its
+mesh (``jspsr_tpu/eval/loop.py:119-125,150-171``): slice i runs on
+``mesh.devices[i]`` with a replica of the eval step's model there, and the
+predictions and per-sample losses come back to ``device`` in the batch's
+order before the meters see them. Where ``valid_batch_size`` does not
+divide by the mesh size the whole batch runs on ``device``, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from jspsr_torch.data.normalize import descale_data, modality_scale, \
 from jspsr_torch.data.raster_io import HAS_RASTERIO, write_raster
 from jspsr_torch.metrics.meters import PerformanceMeter
 from jspsr_torch.nn.layers import bicubic_resize
+from jspsr_torch.parallel.mesh import as_mesh, pad_batch_to
 from jspsr_torch.train.early_stop import AverageMeter
 
 
@@ -66,16 +75,6 @@ def get_visual_id(num_visual: int, num_samples: int, id_visual=None):
     return sorted(set(int(i) for i in ids))
 
 
-def pad_batch_to(x: np.ndarray, batch: int) -> np.ndarray:
-    """``x`` with its first axis padded up to ``batch`` by repeating its
-    last entry."""
-    x = np.asarray(x)
-    n = x.shape[0]
-    if n >= batch:
-        return x
-    return np.concatenate([x, np.repeat(x[-1:], batch - n, axis=0)])
-
-
 def _nchw(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(
         np.asarray(a, np.float32).transpose(0, 3, 1, 2))).to(device)
@@ -86,6 +85,33 @@ def _raw(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _split_eval(mesh, eval_step, device):
+    """``eval_step`` with each batch split over ``mesh`` (a replica of its
+    model per device) and gathered on ``device``: the predictions and
+    per-sample totals concatenated in order, every other loss the mean of
+    the slices' (equal slices: the batch's mean)."""
+    model = getattr(eval_step, "model", None)
+    if model is None:
+        raise TypeError("eval over a mesh needs an eval step made by "
+                        "train.step.make_eval_step (its model is replicated "
+                        "over the mesh)")
+
+    def run(inputs, gt):
+        outs = mesh.split_forward(
+            model, [*inputs, gt],
+            call=lambda m, xs: eval_step(xs[:-1], xs[-1], model=m),
+            out_device=device)
+        pred = torch.cat([o[0] for o in outs])
+        losses = {}
+        for k in outs[0][1]:
+            parts = [o[1][k] for o in outs]
+            losses[k] = (torch.cat(parts) if k == "_total_per_sample"
+                         else torch.stack(parts).mean())
+        return pred, losses
+
+    return run
+
+
 def eval_model(p, loader, eval_step, device, compare_input: bool = False,
                save_dir=None, visual_dir=None, verbose: bool = False,
                mesh=None, normalize=None):
@@ -94,10 +120,12 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
     ``"input"``. ``eval_step(inputs, gt) -> (pred, losses)`` is
     ``train.step.make_eval_step``'s; its ``_total_per_sample`` gives the
     loss, so padding and batch-statistic losses change nothing."""
-    if mesh is not None:
-        raise NotImplementedError("eval over a device mesh is not yet "
-                                  "ported")
     device = torch.device(device)
+    batch_cfg = int(p.get("valid_batch_size", 1) or 1)
+    mesh = as_mesh(mesh)
+    if mesh is not None and batch_cfg % mesh.size:
+        mesh = None  # the batch does not divide over the mesh: one device
+    run = eval_step if mesh is None else _split_eval(mesh, eval_step, device)
     scaling = modality_scaling(p)
     mask_idx = None
     if normalize is not None and p.get("pack_mask"):
@@ -112,25 +140,28 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
     if visual_dir is not None and p.get("val_num_visual"):
         visual_ids = set(get_visual_id(p.val_num_visual, len(loader.dataset),
                                        p.get("val_id_visual")))
-    batch_cfg = int(p.get("valid_batch_size", 1) or 1)
     sample_idx = 0
+
+    def pad(x):  # up to the configured batch, repeating the last sample
+        return pad_batch_to(x, batch_cfg)[0]
+
     for batch in loader:
         inputs_np, gt_np, base_elev, meta = build_batch_inputs(
             batch, p.model_name, p.input_data)
         n_real = gt_np.shape[0]
         if normalize is None:
-            inputs = [_nchw(pad_batch_to(x, batch_cfg), device)
+            inputs = [_nchw(pad(x), device)
                       for x in inputs_np]
-            gt = _nchw(pad_batch_to(gt_np, batch_cfg), device)
+            gt = _nchw(pad(gt_np), device)
         else:
             inputs_np = list(inputs_np)
             if mask_idx is not None:
                 inputs_np[mask_idx] = pack_mask_np(inputs_np[mask_idx])
-            base_dev = _raw(pad_batch_to(base_elev, batch_cfg), device)
+            base_dev = _raw(pad(base_elev), device)
             inputs, gt = normalize(
-                [_raw(pad_batch_to(x, batch_cfg), device) for x in inputs_np],
-                _raw(pad_batch_to(gt_np, batch_cfg), device), base_dev)
-        pred, losses = eval_step(inputs, gt)
+                [_raw(pad(x), device) for x in inputs_np],
+                _raw(pad(gt_np), device), base_dev)
+        pred, losses = run(inputs, gt)
         if losses:
             per_sample = losses.get("_total_per_sample")
             if per_sample is not None:
@@ -139,7 +170,7 @@ def eval_model(p, loader, eval_step, device, compare_input: bool = False,
                 loss_meter.update(losses["Total"], n_real)
         meter.update(pred, gt, meta, base_elev, elev_log, n_valid=n_real)
         if meter_in is not None:
-            lr_dem = _nchw(pad_batch_to(batch["lr_dem"], batch_cfg), device)
+            lr_dem = _nchw(pad(batch["lr_dem"]), device)
             if normalize is not None:
                 # the raw feed: ToArray's scaling of the input DEM (one
                 # channel, so NCHW serves), on the device, before the

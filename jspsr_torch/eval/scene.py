@@ -24,9 +24,18 @@ Beyond the reference: the grid takes any scene size >= the tile side,
 rectangles included (per-axis grids with a minimum overlap, mirror padding
 only up to the next stride multiple).
 
+``mesh`` (a ``parallel.mesh.Mesh`` or a list of local devices) runs the
+forward tile-parallel, as the JAX runner shards its tile batch
+(``jspsr_tpu/eval/scene.py:243-245,285-288,316-320``): each chunk is
+rounded up to a multiple of the mesh size (the last one filled with zero
+tiles whose predictions are dropped), slice i of a chunk runs on
+``mesh.devices[i]`` with a replica of the model there, each launch on its
+device's current stream, and the predictions are gathered on the
+runner's device for the mosaic. The scene, the gather and the mosaic stay
+on the runner's device.
+
 Public functions take and return HWC numpy arrays; the runner's tensors are
-channels-last on the way in and NCHW from the gather on. ``mesh``
-(tile-parallel inference over several devices) is not yet ported.
+channels-last on the way in and NCHW from the gather on.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from jspsr_torch.data.normalize import (
     unpack_mask_bits,
 )
 from jspsr_torch.eval.mosaic import edge_ramp
+from jspsr_torch.parallel.mesh import as_mesh
 from jspsr_torch.utils.device import resolve_device, set_strict_fp32
 
 
@@ -214,10 +224,9 @@ def make_scene_runner(model, p, keys: list, scene_hw, tile: int = 128,
 
     The grid's weights and weight mosaic live on the device with the
     function (eager mode has no program to cache). The forward runs in
-    ``ceil(S*n / cap)`` chunks of equal size (the last one shorter)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (tile-parallel scene inference over "
-                                  "several devices) is not yet ported")
+    ``ceil(S*n / cap)`` chunks of equal size (the last one shorter; over a
+    ``mesh``, each a multiple of its size and the last one filled)."""
+    mesh = as_mesh(mesh)
     device = resolve_device(device)
     h, w = scene_hw
     stride_r, n_r, ph = tile_grid(h, tile, min_overlap)
@@ -228,6 +237,9 @@ def make_scene_runner(model, p, keys: list, scene_hw, tile: int = 128,
     cap = int(cap or p.get("infer_tile_batch") or 96)
     m = math.ceil(total / cap)
     chunk = math.ceil(total / m)
+    if mesh is not None:
+        chunk = math.ceil(chunk / mesh.size) * mesh.size  # divisible chunks
+    total_pad = m * chunk
 
     weights = grid_weights(tile, stride_r, n_r, stride_c, n_c)
     # Cross-fade ramps sum to 1 wherever exactly two tiles meet (every
@@ -260,16 +272,24 @@ def make_scene_runner(model, p, keys: list, scene_hw, tile: int = 128,
         return t.permute(0, 2, 3, 1, 4, 5).reshape(total, x.shape[1], tile,
                                                    tile)
 
+    def forward(xs):
+        if mesh is None:
+            return model(xs)
+        return torch.cat(mesh.split_forward(model, xs, out_device=device))
+
     def run(scenes: dict, base: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             b4 = base.view(S, 1, 1, 1)
             inputs = _assemble({k: tiles_of(k, v, b4)
                                 for k, v in scenes.items()},
                                keys, p.model_name)
-            preds = [model([x[j * chunk:(j + 1) * chunk] for x in inputs])
+            if total_pad > total:  # fill the last chunk (dropped below)
+                inputs = [torch.cat([x, x.new_zeros(
+                    (total_pad - total,) + x.shape[1:])]) for x in inputs]
+            preds = [forward([x[j * chunk:(j + 1) * chunk] for x in inputs])
                      for j in range(m)]
             pred = torch.cat(preds) if m > 1 else preds[0]
-            pred = pred.float().reshape(S, n, tile * tile) * weights_d
+            pred = pred[:total].float().reshape(S, n, tile * tile) * weights_d
             out = F.fold(pred.transpose(1, 2), (ph, pw), (tile, tile),
                          stride=(stride_r, stride_c))  # (S, 1, ph, pw)
             out = torch.clamp(out / wsum_d, 0.0, 1.0)[:, 0, :h, :w]
@@ -335,10 +355,8 @@ def scene_dispatch_batch(model, prepared_list, p, cap: int | None = None,
     device. All scenes must share (keys, hw, enc, tile, min_overlap);
     group first (``serve._compat_key``). The model is moved to ``device``
     and put in eval mode; on CUDA, TF32 is turned off (fp32 means
-    fp32)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (tile-parallel scene inference over "
-                                  "several devices) is not yet ported")
+    fp32). ``mesh`` runs the forward tile-parallel (``make_scene_runner``)."""
+    mesh = as_mesh(mesh)
     device = resolve_device(device)
     first = prepared_list[0]
     S = len(prepared_list)
@@ -355,7 +373,8 @@ def scene_dispatch_batch(model, prepared_list, p, cap: int | None = None,
            tk.get("log", False), tk.get("scale_mask", False),
            bool(p.get("relative")),
            len(p.get("mask_channel") or list(range(15))),
-           p.get("infer_tile_batch"), p.model_name.lower(), str(device))
+           p.get("infer_tile_batch"), p.model_name.lower(), str(device),
+           None if mesh is None else mesh.key())
     if device.type == "cuda":
         set_strict_fp32()
     model.to(device).eval()  # a no-op once it is there
@@ -365,7 +384,7 @@ def scene_dispatch_batch(model, prepared_list, p, cap: int | None = None,
         # different object while the entry lives
         hit = (model, make_scene_runner(
             model, p, first.keys, first.hw, tile=first.tile, cap=cap,
-            encodings=first.enc, min_overlap=first.min_overlap,
+            mesh=mesh, encodings=first.enc, min_overlap=first.min_overlap,
             scene_batch=S, device=device))
         _RUNNER_CACHE[key] = hit
         if len(_RUNNER_CACHE) > _RUNNER_CACHE_MAX:

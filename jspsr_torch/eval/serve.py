@@ -142,15 +142,16 @@ def serve_scenes(model, p, scene_paths, out_dir, tile: int = 128,
 
     ``loader_threads`` > 1 decodes and prepares that many scenes at once
     with in-order hand-off: the same grouping and outputs as the serial
-    loader (config key ``infer_loader_threads``)."""
+    loader (config key ``infer_loader_threads``).
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` or a list of local devices) runs
+    each group's forward tile-parallel over its devices
+    (``scene.make_scene_runner``); the mosaics stay on ``device``."""
     from jspsr_torch.data.raster_io import write_raster
     from jspsr_torch.eval.inference import load_scene
     from jspsr_torch.eval.scene import prepare_scene, scene_dispatch_batch
     from jspsr_torch.utils.device import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("mesh (tile-parallel scene inference over "
-                                  "several devices) is not yet ported")
     device = resolve_device(device)
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -241,7 +242,8 @@ def serve_scenes(model, p, scene_paths, out_dir, tile: int = 128,
         if scene_batch > 1:  # pad the tail so one runner serves all
             group = group + [group[-1]] * (scene_batch - len(group))
         try:
-            dev = scene_dispatch_batch(model, group, p, device=device,
+            dev = scene_dispatch_batch(model, group, p, mesh=mesh,
+                                       device=device,
                                        copy_stream=copy_stream)
             ready = (torch.cuda.current_stream(device).record_event()
                      if cuda else None)

@@ -32,6 +32,7 @@ from torch import nn
 from jspsr_torch.models.components import CBAMBasicBlock
 from jspsr_torch.models.lrru import LBasicBlock, LDownsample
 from jspsr_torch.nn import bilinear_resize
+from jspsr_torch.parallel.mesh import global_rows
 
 
 def _to_map(tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -180,12 +181,17 @@ class PVT(nn.Module):
                        generator: torch.Generator | None):
         """The drop-path keep mask (B, 1, 1) of block ``block`` of stage
         ``stage`` (0-based), or None where drop path is off: in eval, at a
-        rate of 0, or without a generator."""
+        rate of 0, or without a generator. In a data-parallel train step
+        (``parallel.mesh.data_parallel``) every rank draws the mask of the
+        global batch (its generator is seeded alike) and keeps its own
+        rows: the draws of one process stepping on the whole batch."""
         rate = getattr(self, f"block{stage + 1}")[block].drop_path
         if not self.training or rate <= 0.0 or generator is None:
             return None
-        keep = torch.empty(batch, 1, 1, device=generator.device)
-        return keep.bernoulli_(1.0 - rate, generator=generator)
+        total, first = global_rows(batch)
+        keep = torch.empty(total, 1, 1, device=generator.device)
+        keep.bernoulli_(1.0 - rate, generator=generator)
+        return keep[first:first + batch]
 
     def forward(self, x, generator: torch.Generator | None = None):
         """x: NCHW (64 channels). Returns the six NCHW feature maps

@@ -32,6 +32,7 @@ from torch import nn
 
 from jspsr_torch.nn import remat
 from jspsr_torch.nn.initializers import trunc_normal_fan_in_
+from jspsr_torch.parallel.mesh import step_group
 
 
 def _bf16(x: torch.Tensor) -> bool:
@@ -76,11 +77,20 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     In the recompute of a checkpointed region (``nn.remat``) a train-mode
     forward normalises as the first forward did and updates nothing: the
-    running statistics move once per step, as JAX's do."""
+    running statistics move once per step, as JAX's do.
+
+    In training inside a data-parallel train step
+    (``parallel.mesh.data_parallel``, which the train step enters under a
+    process group) the statistics are the global batch's, as the JAX
+    step's over its batch-sharded array (``jspsr_tpu/nn/layers.py:355-378``):
+    ``_global_stats``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         replay = (self.training and self.track_running_stats
                   and remat.recomputing())
+        group = step_group() if self.training else None
+        if group is not None:
+            return self._forward_global(x, replay, group)
         if not _bf16(x) or not self.track_running_stats:
             if not replay:
                 return super().forward(x)
@@ -104,6 +114,54 @@ class BatchNorm2d(nn.BatchNorm2d):
             mean, var = self.running_mean, self.running_var
         return batch_norm_apply(x, mean, var, self.weight, self.bias,
                                 self.eps)
+
+
+    def _forward_global(self, x: torch.Tensor, replay: bool,
+                        group) -> torch.Tensor:
+        """Training in a data-parallel step: the global batch's mean and
+        biased variance (two passes, ``_global_stats``), the
+        running statistics updated with the global count's unbiased
+        variance, then ``(x - mean) * inv + bias`` in the input's dtype
+        (differentiable in the statistics, whose all-reduces carry the
+        gradient back to every rank)."""
+        mean, var, n = _global_stats(x, group)
+        if self.track_running_stats and not replay:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                m = (self.momentum if self.momentum is not None
+                     else 1.0 / float(self.num_batches_tracked))
+                self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1 - m).add_(
+                    var.detach() * (n / (n - 1).clamp_min(1)), alpha=m)
+        inv = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            inv = inv * self.weight
+        y = (x - mean.to(x.dtype).view(1, -1, 1, 1)) * \
+            inv.to(x.dtype).view(1, -1, 1, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype).view(1, -1, 1, 1)
+        return y
+
+
+def _global_stats(x: torch.Tensor, group):
+    """(mean, biased variance, count) per channel of NCHW ``x`` over the
+    batches of every rank of ``group``, in fp32 for a bf16 ``x``
+    (else in its dtype): one differentiable all-reduce of the channel sums
+    and the count, then one of the summed squared deviations from the
+    global mean."""
+    from torch.distributed.nn.functional import all_reduce
+
+    xf = x.float() if _bf16(x) else x
+    n_local = x.numel() // x.shape[1]
+    sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                 xf.new_full((1,), float(n_local))]),
+                      group=group)
+    n = sums[-1]
+    mean = sums[:-1] / n
+    sq = all_reduce(
+        (xf - mean.view(1, -1, 1, 1)).square().sum(dim=(0, 2, 3)),
+        group=group)
+    return mean, sq / n, n.detach()
 
 
 def batch_norm_apply(x: torch.Tensor, mean, var, weight, bias,

@@ -36,6 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from jspsr_torch.parallel.mesh import is_writer
 from jspsr_torch.utils.weights import (
     jax_flat_from_state_dict,
     state_dict_from_jax,
@@ -85,7 +86,10 @@ def save_checkpoint(path, model: torch.nn.Module, optimizer=None,
                     epoch: int = 0, best_result=None,
                     extra: dict | None = None) -> Path:
     """Write ``model`` (and ``optimizer``'s state) to the ``.npz`` at
-    ``path``, atomically."""
+    ``path``, atomically. Under a process group only rank 0 writes (the
+    ranks hold the same state), as in the JAX package."""
+    if not is_writer():
+        return Path(path)
     return write_npz(path, checkpoint_arrays(model, optimizer, epoch,
                                              best_result, extra))
 

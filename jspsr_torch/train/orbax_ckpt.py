@@ -34,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from jspsr_torch.parallel.mesh import is_writer
 from jspsr_torch.train.checkpoint import checkpoint_arrays, write_npz
 
 
@@ -78,7 +79,11 @@ def save_checkpoint_orbax(path, model: torch.nn.Module, optimizer=None,
                           epoch: int = 0, best_result=None,
                           extra: dict | None = None) -> Path:
     """``checkpoint.save_checkpoint``'s file, written asynchronously:
-    returns once the state is on the host."""
+    returns once the state is on the host. Under a process group only
+    rank 0 writes (the JAX backend lets orbax coordinate every process's
+    writes; this one writes one ``.npz``)."""
+    if not is_writer():
+        return Path(path)
     writer = _writer()
     writer.wait()  # the previous snapshot is written before this one
     writer.save(path, checkpoint_arrays(model, optimizer, epoch,

@@ -40,6 +40,19 @@ running statistics in the first forward only, and ``generator`` replays
 its draws, so the step is the step without ``remat``, bit for bit, with
 each microbatch's activations recomputed under ``accum_steps``.
 
+Under a process group (data parallelism, ``parallel.mesh``) each rank
+steps on its shard of the global batch: the forward and backward run in
+``data_parallel(group)``, so BatchNorm takes the global batch's
+statistics (and PVT's drop path draws its masks), the gradients are all-reduced to their mean
+(``all_reduce_grads``) after the backward and before the monitor and the
+update, and the loss dict is reduced to the ranks' mean, so every rank
+logs and applies the same step. With ``accum_steps`` the ranks first
+gather the global batch (``all_gather_rows``): microbatch i is rows
+``[i*mb, (i+1)*mb)`` of the global batch, as the JAX step's scan splits
+its batch-sharded array (``jspsr_tpu/train/step.py:62-72``), and each
+rank takes its share of those rows (``mb`` must divide by the world
+size).
+
 ``make_eval_step`` is the eval-mode forward with the losses, among them
 the per-sample totals that the eval loop reads.
 """
@@ -50,6 +63,14 @@ import numpy as np
 import torch
 
 from jspsr_torch.nn.remat import check_recomputable, checkpoint
+from jspsr_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_grads,
+    data_parallel,
+    process_group,
+    rank_world,
+    reduce_step_outputs,
+)
 
 
 def seed_step_generator(generator: torch.Generator | None, seed: int,
@@ -103,19 +124,27 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
         losses["Total"].backward()
         return losses, pred
 
-    def step_accum(inputs, gt):
+    def step_accum(inputs, gt, group):
+        rank, world = rank_world(group)
+        if group is not None:  # the global batch, in rank order
+            inputs = [all_gather_rows(x, group) for x in inputs]
+            gt = all_gather_rows(gt, group)
         b = gt.shape[0]
         if b % accum_steps:
             raise ValueError(f"batch {b} does not divide into {accum_steps} "
                              "microbatches")
         mb = b // accum_steps
+        if mb % world:
+            raise ValueError(f"microbatch {mb} of the global batch {b} does "
+                             f"not divide over {world} ranks")
+        share = mb // world
         start = [(m.running_mean.clone(), m.running_var.clone(),
                   m.num_batches_tracked.clone()) for m in bns]
         bn_sum = [(torch.zeros_like(mean), torch.zeros_like(var))
                   for mean, var, _ in start]
         loss_sum, preds = None, []
         for i in range(accum_steps):
-            sl = slice(i * mb, (i + 1) * mb)
+            sl = slice(i * mb + rank * share, i * mb + (rank + 1) * share)
             for m, (mean, var, count) in zip(bns, start):
                 m.running_mean.copy_(mean)
                 m.running_var.copy_(var)
@@ -141,11 +170,14 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
     def train_step(inputs, gt):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        if accum_steps > 1:
-            losses, pred = step_accum(inputs, gt)
-        else:
-            losses, pred = step_full(inputs, gt)
+        group = process_group()
+        with data_parallel(group):
+            if accum_steps > 1:
+                losses, pred = step_accum(inputs, gt, group)
+            else:
+                losses, pred = step_full(inputs, gt)
         fill_unreached_grads(params)
+        all_reduce_grads(params, group)
         out = {k: v.detach() for k, v in losses.items()}
         if monitor:
             with torch.no_grad():
@@ -157,7 +189,7 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
                 out["pred_min"] = pred.detach().min()
                 out["pred_max"] = pred.detach().max()
         optimizer.step()
-        return out
+        return reduce_step_outputs(out, group)
 
     return train_step
 
@@ -168,10 +200,15 @@ def make_eval_step(model: torch.nn.Module, criterion=None):
     its losses, with ``_total_per_sample`` (B,): the criterion's total on
     each sample alone. The eval loop averages those, so a padded remainder
     batch and a batch-statistic loss (BerHu's threshold) give what one
-    sample at a time gives (the JAX package's vmap of the criterion)."""
+    sample at a time gives (the JAX package's vmap of the criterion).
+    ``model=`` runs the same step on another module (a replica of
+    ``model`` on another device: ``eval_model``'s mesh)."""
+
+    home = model
 
     @torch.no_grad()
-    def eval_step(inputs, gt=None):
+    def eval_step(inputs, gt=None, model=None):
+        model = home if model is None else model
         model.eval()
         pred = model(inputs)
         losses = {}
@@ -182,4 +219,5 @@ def make_eval_step(model: torch.nn.Module, criterion=None):
                  for i in range(pred.shape[0])])
         return pred, losses
 
+    eval_step.model = home  # what a mesh replicates (``eval.loop``)
     return eval_step

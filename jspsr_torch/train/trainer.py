@@ -62,15 +62,27 @@ same state.
 assembly and its copy to the device on one thread, not two;
 ``checkpoint_backend: orbax`` writes the best-epoch and preemption
 checkpoints from a background thread (``train/orbax_ckpt.py``: the same
-``.npz`` files, under the same names). ``distributed: true`` (or the
-``JSPSR_DISTRIBUTED`` environment variable) raises: training on several
-processes is not yet ported, and a config that asks for it must not
-train as one process.
+``.npz`` files, under the same names).
+
+Data parallelism (``parallel/mesh.py``): ``distributed: true`` (or the
+``JSPSR_DISTRIBUTED`` environment variable) joins the process group
+(``init_distributed``; the CLI does so before any device use) and each
+process trains on its own device (``cuda:<local rank>``) with
+``train_batch_size`` rows of the loader's shard ``rank::world``, the step
+all-reducing its gradients and BatchNorm taking global-batch statistics.
+Rank 0's state is broadcast after the init, after the pretrained
+bootstrap and after every load. Rank 0 alone writes checkpoints,
+``config.json``, ``metrics.jsonl``, predictions and the summary (rank n
+logs its metrics to ``metrics.proc<n>.jsonl``), and a barrier follows
+each save; every branch that could differ between ranks (the preemption
+resume, the device cache's fallback, the eval scores behind the best
+checkpoint and the early stop) takes rank 0's value, so that no rank
+waits in a collective that another skipped. ``mesh`` splits the valid
+batches of ``evaluate`` over local devices (``eval/loop.py``).
 """
 
 from __future__ import annotations
 
-import os
 import time
 from pathlib import Path
 
@@ -85,6 +97,17 @@ from jspsr_torch.data.transforms import build_transforms
 from jspsr_torch.eval.loop import eval_model
 from jspsr_torch.losses import build_criterion
 from jspsr_torch.models.factory import build_model
+from jspsr_torch.parallel.mesh import (
+    all_ranks_agree,
+    as_mesh,
+    barrier,
+    broadcast_value,
+    init_distributed,
+    is_writer,
+    process_device,
+    rank_world,
+    replicate_state,
+)
 from jspsr_torch.train.checkpoint import (
     has_optimizer_state,
     load_model_state,
@@ -110,18 +133,6 @@ from jspsr_torch.utils.summary import count_parameters
 
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
 CHECKPOINT_BACKENDS = ("npz", "orbax")
-
-
-def refuse_distributed(p) -> None:
-    """Raise where ``p`` (or ``JSPSR_DISTRIBUTED``) asks for training on
-    several processes (the JAX CLI's ``jax.distributed.initialize``), which
-    the port does not do yet."""
-    if p.get("distributed") or os.environ.get("JSPSR_DISTRIBUTED"):
-        raise NotImplementedError(
-            "distributed training is not yet ported: `distributed: true` "
-            "(or JSPSR_DISTRIBUTED) and `distributed_kwargs` would start "
-            "several processes in the JAX package; the port trains on one "
-            "device")
 
 
 def _is_monitor_key(k: str) -> bool:
@@ -166,15 +177,19 @@ def check_device_normalize(p) -> None:
 
 
 class Trainer:
-    def __init__(self, p, result_dir=None, device=None, verbose=None):
-        refuse_distributed(p)
+    def __init__(self, p, result_dir=None, device=None, verbose=None,
+                 mesh=None):
         self.ckpt_backend = p.get("checkpoint_backend") or "npz"
         if self.ckpt_backend not in CHECKPOINT_BACKENDS:
             raise ValueError(f"checkpoint_backend must be one of "
                              f"{CHECKPOINT_BACKENDS}, got "
                              f"{self.ckpt_backend!r}")
         self.p = p
-        self.device = resolve_device(device)
+        device = resolve_device(device)
+        init_distributed(p, device)
+        self.device = process_device(device)
+        self.rank, self.world = rank_world()
+        self.mesh = as_mesh(mesh)
         if self.device.type == "cuda":
             set_strict_fp32()
             set_deterministic_cudnn()
@@ -193,6 +208,7 @@ class Trainer:
                   f"parameters")
         self.criterion = build_criterion(dict(p.loss))
         self.optimizer = build_optimizer(p, self.model)
+        replicate_state(self.model, self.optimizer)
         self.lr_schedule = build_lr_schedule(p)
         # the model's random draws in training (drop path), reseeded from
         # (seed, global_step) before every step, as the JAX Trainer folds
@@ -228,7 +244,8 @@ class Trainer:
                                seed=self.seed, **data_kwargs)
         self.train_loader = DataLoader(
             self.train_set, p.train_batch_size, shuffle=True, drop_last=True,
-            num_workers=p.get("workers", 4), seed=self.seed)
+            num_workers=p.get("workers", 4), seed=self.seed,
+            shard_index=self.rank, num_shards=self.world)
         self.valid_loader = DataLoader(
             self.valid_set, p.get("valid_batch_size", 1), shuffle=False,
             num_workers=1)
@@ -240,11 +257,16 @@ class Trainer:
         if p.get("device_cache"):
             from jspsr_torch.data.device_cache import DeviceSceneCache
 
+            reason = None
             try:
                 self.scene_cache = DeviceSceneCache(self.train_set, p,
                                                     self.device)
             except (ValueError, AssertionError) as e:
-                print(f"[device_cache] falling back to the host feed: {e}")
+                reason = e
+            if not all_ranks_agree(reason is None):  # every rank, one feed
+                self.scene_cache = None
+                print(f"[device_cache] falling back to the host feed: "
+                      f"{reason or 'another rank could not build its cache'}")
             if self.scene_cache is not None and self.verbose:
                 print(f"Device scene cache: {self.train_set.base_len} scenes"
                       f" ({self.scene_cache.nbytes / 2**20:.0f} MiB raw) "
@@ -254,12 +276,16 @@ class Trainer:
         # dumping it (main.py:97-98)
         p["num_train_sample"] = len(self.train_set)
         p["num_val_sample"] = len(self.valid_set)
-        serialize_config(dict(p), self.result_dir / "config.json")
+        if is_writer():
+            serialize_config(dict(p), self.result_dir / "config.json")
 
         self.start_epoch = 0
         self.best_result = None
-        self.metrics = MetricLogger(self.result_dir,
-                                    p.get("monitor_app") == "tensorboard")
+        self.metrics = MetricLogger(
+            self.result_dir,
+            is_writer() and p.get("monitor_app") == "tensorboard",
+            "metrics.jsonl" if is_writer()
+            else f"metrics.proc{self.rank}.jsonl")
         es = p.get("early_stop") or {}
         self.early_stopper = EarlyStopper(es.get("patience"),
                                           es.get("monitor") or "val_loss")
@@ -274,7 +300,8 @@ class Trainer:
         # a relaunch in this process waits for an asynchronous save in
         # flight (a no-op with the .npz backend)
         wait_for_checkpoint()
-        if self.save_every_steps and self._preempt_path().exists():
+        if self.save_every_steps and broadcast_value(
+                self._preempt_path().exists()):
             self._resume_preempt()
 
     # ------------------------------------------------------------------
@@ -305,6 +332,7 @@ class Trainer:
                       f"port (optimizer state is not portable): the "
                       f"optimizer starts fresh at global step "
                       f"{self.global_step}")
+        replicate_state(self.model, self.optimizer)
         if self.verbose:
             print(f"Loaded checkpoint {path} (epoch {meta.get('epoch')}, "
                   f"resume={resume})")
@@ -328,6 +356,7 @@ class Trainer:
         self._mid_resume = (self.start_epoch, int(meta["step_in_epoch"]),
                             meta.get("loss_sums") or {},
                             int(meta.get("n_samples", 0)))
+        replicate_state(self.model, self.optimizer)
         if self.verbose:
             print(f"Preemption resume: epoch {self.start_epoch} step "
                   f"{meta['step_in_epoch']} from {path}")
@@ -343,12 +372,14 @@ class Trainer:
 
     def _save(self, path: Path, epoch: int, extra: dict) -> None:
         """A checkpoint of the model and optimizer through the configured
-        backend; ``last_save_ms``: how long the step loop waited for it."""
+        backend (rank 0 writes; every rank then waits at a barrier);
+        ``last_save_ms``: how long the step loop waited for it."""
         save = (save_checkpoint_orbax if self.ckpt_backend == "orbax"
                 else save_checkpoint)
         t0 = time.perf_counter()
         save(path, self.model, self.optimizer, epoch=epoch,
              best_result=self.best_result, extra=extra)
+        barrier()
         self.last_save_ms = (time.perf_counter() - t0) * 1e3
 
     def _start_profile(self):
@@ -368,7 +399,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
-        out = self.result_dir / "profile" / f"trace_e{epoch:03d}.json"
+        proc = f".proc{self.rank}" if self.rank else ""
+        out = self.result_dir / "profile" / f"trace_e{epoch:03d}{proc}.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out))
         if self.verbose:
@@ -505,13 +537,21 @@ class Trainer:
     # ------------------------------------------------------------------
     def evaluate(self, compare_input: bool = False, save_dir=None,
                  visual_dir=None):
+        """The valid split's scores (``eval_model``; its batches split
+        over ``mesh`` where the Trainer has one). Under a process group
+        every rank evaluates the whole split on its own device, rank 0
+        alone writes predictions and visuals, and every rank returns rank
+        0's scores, on which the best checkpoint and the early stop
+        decide."""
         if visual_dir is None and self.p.get("val_save_visual"):
             visual_dir = self.result_dir / "visuals"
-        return eval_model(self.p, self.valid_loader, self.eval_step,
-                          self.device, compare_input=compare_input,
-                          save_dir=save_dir, visual_dir=visual_dir,
-                          verbose=self.verbose,
-                          normalize=self.normalize_batch)
+        if not is_writer():
+            save_dir = visual_dir = None
+        return broadcast_value(eval_model(
+            self.p, self.valid_loader, self.eval_step, self.device,
+            compare_input=compare_input, save_dir=save_dir,
+            visual_dir=visual_dir, verbose=self.verbose, mesh=self.mesh,
+            normalize=self.normalize_batch))
 
     def fit(self, initial_eval: bool = True):
         p = self.p
@@ -579,13 +619,14 @@ class Trainer:
         # an asynchronous save must land before its file is renamed or
         # removed (a no-op with the .npz backend)
         wait_for_checkpoint()
-        if self.save_every_steps:
+        barrier()
+        if self.save_every_steps and is_writer():
             # the run is complete: a preemption checkpoint left behind
             # would resume the next run in this result dir
             self._preempt_path().unlink(missing_ok=True)
         tmp = self._ckpt_path()
         final_path = tmp
-        if tmp.exists() and self.best_result:
+        if broadcast_value(tmp.exists()) and self.best_result:
             inputs_s = "_".join(
                 k for k in ("image", "mask", "canopy", "coord")
                 if p.input_data.get(k)) or "dem"
@@ -594,14 +635,16 @@ class Trainer:
                 if k in self.best_result:
                     parts.append(f"{k}{self.best_result[k]:.4f}")
             final_path = self.result_dir / ("_".join(parts) + tmp.suffix)
-            tmp.replace(final_path)
+            if is_writer():
+                tmp.replace(final_path)
+            barrier()
             self.load(final_path, resume=False)
         pred_dir = self.result_dir / "predictions"
         result = self.evaluate(compare_input=False, save_dir=pred_dir)
         if self.verbose:
             print(f"Final eval: "
                   f"{ {k: v for k, v in result.items() if k != 'input'} }")
-        summary = self.summarise(pred_dir)
+        summary = self.summarise(pred_dir) if is_writer() else None
         self.metrics.close()
         return {"checkpoint": str(final_path), "result": result,
                 "best_result": self.best_result, "summary": summary}

@@ -31,15 +31,16 @@ class Logger:
 
 
 class MetricLogger:
-    """An append-only ``metrics.jsonl`` (one JSON object per ``log`` call:
-    the step, the wall time and every numeric scalar) and, with
+    """An append-only ``metrics.jsonl`` (or ``name``; one JSON object per
+    ``log`` call: the step, the wall time and every numeric scalar) and, with
     ``use_tensorboard`` (the config's ``monitor_app: tensorboard``), the
     same scalars in TensorBoard when ``torch.utils.tensorboard`` imports."""
 
-    def __init__(self, result_dir, use_tensorboard: bool = False):
+    def __init__(self, result_dir, use_tensorboard: bool = False,
+                 name: str = "metrics.jsonl"):
         self.dir = Path(result_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
-        self.path = self.dir / "metrics.jsonl"
+        self.path = self.dir / name
         self.tb = None
         if use_tensorboard:
             try:

@@ -139,10 +139,12 @@ TRAINER_OPTIONS = ("save_every_steps", "profile_steps")
 
 
 @pytest.mark.parametrize("key", ("remat",) + TRAINER_OPTIONS + RAW_FEED + (
-    "checkpoint_backend", "pretrained", "distributed"))
+    "checkpoint_backend", "pretrained",
+    pytest.param("distributed", marks=pytest.mark.timeout(300))))
 def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
-    """``distributed`` is the one key still refused. ``pretrained`` is
-    ported, and the Trainer reads its file: an absent one raises. The raw
+    """Every key is ported. ``distributed`` trains on two ranks through
+    the CLI (``_two_rank_cli``). ``pretrained`` is ported, and the Trainer
+    reads its file: an absent one raises. The raw
     feed's options are ported: each (on the raw feed it rides) builds a
     Trainer that trains an epoch (tests/test_torch_device_cache.py holds
     them to the host feed and to JAX). ``save_every_steps`` and
@@ -176,46 +178,125 @@ def test_trainer_refuses_what_is_not_ported(cfg, tmp_path, key):
         assert (t.scene_cache is not None) == (key == "device_cache")
         assert np.isfinite(t.train_one_epoch(0)[0])
         return
-    error, match = NotImplementedError, "not yet ported"
-    if key == "pretrained":
-        p["model_kwargs"] = dict(p["model_kwargs"],
-                                 pretrained=str(tmp_path / "edsr.pt"))
-        error, match = FileNotFoundError, "edsr.pt"
-    else:
-        p[key] = True
-    with pytest.raises(error, match=match):
+    if key == "distributed":
+        _two_rank_cli(cfg, tmp_path)
+        return
+    p["model_kwargs"] = dict(p["model_kwargs"],
+                             pretrained=str(tmp_path / "edsr.pt"))
+    with pytest.raises(FileNotFoundError, match="edsr.pt"):
         Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+
+
+def _cli_rank(rank, world, cfg_path, run_dir):
+    """The port's CLI on one rank of a group (``parallel.spawn``)."""
+    import sys
+
+    from jspsr_torch.cli.main import main
+
+    stdout = sys.stdout
+    try:
+        out = main(["--config", cfg_path, "--result-dir", run_dir,
+                    "--device", "cpu"])
+    finally:
+        sys.stdout.flush()  # the CLI's tee to the rank's log
+        sys.stdout = stdout
+    return {"rmse": out["result"]["RMSE"]}
+
+
+def _cli_config(p, tmp_path):
+    """``p`` as a config file for the CLI, which reads the tree at
+    ``<data_root>/DFC30_8m``, with one RMSE meter."""
+    import json
+
+    data_root = tmp_path / "data"
+    data_root.mkdir()
+    (data_root / "DFC30_8m").symlink_to(p["dataset_path"])
+    p = dict(p, data_root=str(data_root), verbose=True, metric={
+        "RMSE": {"package": "local", "min": -80, "max": 929}})
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(p))
+    return path
+
+
+def _two_rank_cli(cfg, tmp_path):
+    """``distributed: true`` through the CLI on two ranks of a gloo group
+    sharing a result dir: both train and evaluate; rank 0 logs to
+    ``train.log`` and writes the checkpoint, rank 1 logs to
+    ``train.proc1.log``."""
+    from jspsr_torch.parallel.spawn import run_ranks
+
+    path = _cli_config(dict(cfg, epochs=1, distributed=True,
+                            train_batch_size=1, workers=1), tmp_path)
+    run = tmp_path / "run"
+    out = run_ranks(_cli_rank, 2, str(path), str(run), timeout_s=240)
+    assert out[0] == out[1] and np.isfinite(out[0]["rmse"])
+    logs = {q.name: q.read_text() for q in run.glob("train*.log")}
+    assert set(logs) == {"train.log", "train.proc1.log"}
+    assert all("Final eval" in text for text in logs.values())
+    assert len(list(run.glob("JSPSR_r8_*.npz"))) == 1
+    assert {q.name for q in run.glob("metrics*.jsonl")} == {
+        "metrics.jsonl", "metrics.proc1.jsonl"}
 
 
 @pytest.mark.parametrize("entry", ["trainer", "cli"])
 @pytest.mark.parametrize("how", ["key", "env"])
 def test_distributed_is_refused(cfg, tmp_path, monkeypatch, entry, how):
-    """``distributed: true`` or ``JSPSR_DISTRIBUTED`` (the JAX CLI's
-    ``jax.distributed.initialize``) raises in the Trainer and in the CLI,
-    before the CLI touches a device or writes its result dir: such a
-    config must not train as one process."""
-    import json
+    """``distributed: true`` with ``distributed_kwargs`` (a coordinator
+    address, one process, rank 0), or ``JSPSR_DISTRIBUTED`` with torchrun's
+    environment (``env://``), joins a one-process gloo group on the CPU
+    (the JAX CLI's ``jax.distributed.initialize``) in the Trainer and in
+    the CLI, which then trains in it: the step's collectives run over the
+    group of one, and the CLI logs to ``train.log``."""
+    import sys
+
+    import torch.distributed as dist
 
     from jspsr_torch.cli import main as cli
+    from jspsr_torch.parallel.spawn import free_port
 
-    p = dict(cfg, metric={"RMSE": {"package": "local", "min": -80,
-                                   "max": 929}})
+    p = dict(cfg, epochs=1, metric={"RMSE": {"package": "local", "min": -80,
+                                             "max": 929}})
     if how == "key":
-        p.update(distributed=True, distributed_kwargs={"num_processes": 2})
+        p.update(distributed=True, distributed_kwargs={
+            "coordinator_address": f"127.0.0.1:{free_port()}",
+            "num_processes": 1, "process_id": 0})
     else:
-        monkeypatch.setenv("JSPSR_DISTRIBUTED", "1")
-    if entry == "trainer":
-        with pytest.raises(NotImplementedError,
-                           match="distributed training is not yet ported"):
-            Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
-        return
-    path = tmp_path / "c.json"
-    path.write_text(json.dumps(p))
-    monkeypatch.setattr(cli, "Logger", None)  # nothing may reach the log
-    with pytest.raises(NotImplementedError, match="distributed_kwargs"):
-        cli.main(["--config", str(path), "--result-dir",
-                  str(tmp_path / "run")])
-    assert not (tmp_path / "run").exists()
+        for k, v in {"JSPSR_DISTRIBUTED": "1", "MASTER_ADDR": "127.0.0.1",
+                     "MASTER_PORT": str(free_port()), "RANK": "0",
+                     "WORLD_SIZE": "1"}.items():
+            monkeypatch.setenv(k, v)
+    monkeypatch.setattr(sys, "stdout", sys.stdout)  # the CLI tees it
+    try:
+        if entry == "trainer":
+            t = Trainer(AttrDict(p), result_dir=tmp_path, device="cpu")
+            assert dist.get_backend() == "gloo" and t.world == 1
+            assert np.isfinite(t.train_one_epoch(0)[0])
+            return
+        path = _cli_config(p, tmp_path)
+        out = cli.main(["--config", str(path), "--result-dir",
+                        str(tmp_path / "run"), "--device", "cpu"])
+        sys.stdout.flush()
+        assert dist.get_backend() == "gloo"
+        assert np.isfinite(out["result"]["RMSE"])
+        assert "E000" in (tmp_path / "run" / "train.log").read_text()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_trainer_evaluates_over_a_mesh(cfg, tmp_path):
+    """``Trainer(..., mesh=)`` splits each valid batch over the mesh's
+    devices (``eval/loop.py``; tests/test_torch_parallel.py holds the
+    split to the JAX package's mesh): the scores of the Trainer without
+    one, at tests/test_eval_batched.py:81's rtol 3e-4."""
+    p = dict(cfg, valid_batch_size=2, metric={
+        "RMSE": {"package": "local", "min": -80, "max": 929}})
+    got = Trainer(AttrDict(p), result_dir=tmp_path / "mesh", device="cpu",
+                  mesh=["cpu", "cpu"]).evaluate()
+    want = Trainer(AttrDict(p), result_dir=tmp_path / "one",
+                   device="cpu").evaluate()
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=3e-4, err_msg=k)
 
 
 @pytest.mark.parametrize("y_only", [False, True])

@@ -172,13 +172,42 @@ def test_rejects_unsupported_transform(root):
 
 
 def test_budget_guard_and_mesh(root):
-    """Stacks over the budget fail with the budget named; a mesh is not
-    yet ported."""
+    """Stacks over the budget fail with the budget named; over a mesh of
+    two entries (``parallel.mesh``) the cache samples each entry's half of
+    a batch, the whole batch's rows bit for bit
+    (tests/test_torch_parallel.py holds it to the JAX cache's mesh)."""
     p, ds = _dataset(_config(*root), raw=True)
     with pytest.raises(ValueError, match="budget"):
         DeviceSceneCache(ds, p, "cpu", budget_gb=1e-6)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DeviceSceneCache(ds, p, "cpu", mesh=object())
+    whole_in, whole_gt = DeviceSceneCache(ds, p, "cpu").sample_batch(
+        [2, 0], 1)
+    halves_in, halves_gt = DeviceSceneCache(
+        ds, p, "cpu", mesh=["cpu", "cpu"]).sample_batch([2, 0], 1)
+    assert len(halves_in) == len(halves_gt) == 2
+    for i, (inputs, gt) in enumerate(zip(halves_in, halves_gt)):
+        assert torch.equal(gt, whole_gt[i:i + 1])
+        for a, b in zip(inputs, whole_in):
+            assert torch.equal(a, b[i:i + 1])
+
+
+def test_epoch_batches_over_a_mesh(root):
+    """Over a mesh of two entries ``epoch_batches`` yields each batch
+    split as ``sample_batch`` splits it: per entry, its half of the batch
+    the whole cache yields, bit for bit, with the whole batch's size."""
+    p, ds = _dataset(_config(*root), raw=True)
+    whole = DeviceSceneCache(ds, p, "cpu")
+    split = DeviceSceneCache(ds, p, "cpu", mesh=["cpu", "cpu"])
+    loader = _loader(ds, 2, 1)
+    n_batches = 0
+    for (w_in, w_gt, w_n), (s_in, s_gt, s_n) in zip(
+            whole.epoch_batches(loader, 1), split.epoch_batches(loader, 1)):
+        assert s_n == w_n == 2 and len(s_in) == len(s_gt) == 2
+        for i in range(2):
+            assert torch.equal(s_gt[i], w_gt[i:i + 1])
+            for a, b in zip(s_in[i], w_in):
+                assert torch.equal(a, b[i:i + 1])
+        n_batches += 1
+    assert n_batches == len(ds) // 2
 
 
 def test_epoch_desync_rejected(root):

@@ -322,11 +322,17 @@ def test_unpack_mask_bits_matches_jax_and_packbits(n_ch):
 
 
 def test_mesh_and_missing_cuda_raise(monkeypatch):
+    """A mesh of two entries runs the identity stub's tiles in halves and
+    gives the mosaic without a mesh, bit for bit
+    (tests/test_torch_parallel.py holds a model's to the JAX runner's
+    mesh); without CUDA the default device raises."""
     p, _ = _p()
     s = _scene(128, 128, image=False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        scene.tile_inference_device(_Identity(), s, p, tile=64,
-                                    mesh=object(), device="cpu")
+    got, _ = scene.tile_inference_device(_Identity(), dict(s), p, tile=64,
+                                         mesh=["cpu", "cpu"], device="cpu")
+    want, _ = scene.tile_inference_device(_Identity(), dict(s), p, tile=64,
+                                          device="cpu")
+    np.testing.assert_array_equal(got, want)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         scene.tile_inference_device(_Identity(), s, p, tile=64)

@@ -171,11 +171,19 @@ def test_serve_bad_scene_raises_after_drain(tiny, tmp_path, loader_threads):
 
 
 def test_serve_refuses_mesh_and_needs_cuda(tiny, tmp_path, monkeypatch):
+    """Serving over a mesh of two entries gives the rasters without a
+    mesh at the tolerance between tile batch sizes
+    (tests/test_torch_parallel.py holds it to the JAX server's mesh);
+    without CUDA the default device raises."""
     port, _, _, scenes = tiny
     p, _ = _p()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.serve_scenes(port, p, scenes, tmp_path, tile=64, mesh=object(),
-                           device="cpu")
+    got, _, _ = serve.serve_scenes(port, p, scenes[:2], tmp_path / "mesh",
+                                   tile=64, mesh=["cpu", "cpu"],
+                                   device="cpu")
+    want, _, _ = serve.serve_scenes(port, p, scenes[:2], tmp_path / "one",
+                                    tile=64, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(read_raster(g), read_raster(w), **BATCHES)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.serve_scenes(port, p, scenes, tmp_path, tile=64)
