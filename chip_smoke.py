@@ -82,6 +82,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``deform_conv2d(x requiring grad, ..., sample_dtype="bfloat16")
    .sum().backward()``: one K1-bf16 and one K3-bf16 launch, the path
    ``k3_bf16_autograd``);
+3e. K1 and K2 on row slabs (``y0``, counted as ``deform_fwd_slab`` and
+   ``deform_bwd_slab``) at phase 17's slabs (K1 at 1 x 256 x 512 of a
+   512^2 image and 2 x 64 x 128 of a 128^2 one, K2 at the latter), each
+   slab of the mesh, offsets at 0, 1.5 and 20 px: against their plain
+   versions with the same row origin (as 3 and 3b), and bit for bit
+   against the whole-image kernel (the slab's output, d_offset and d_mask
+   are those rows of it; ``y0=0`` on the whole image is it), timed beside
+   the plain version, the ``grid_sample`` form on the slab and the slab's
+   bound;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -284,14 +293,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against ``mesh=None`` at rtol 1e-3 / atol 1e-2 m (one 72-tile chunk in
    two launches of 36); (d) ``parallel.dryrun.dryrun_multichip(2,
    "cuda")`` (its ranks share the card through gloo), 4 K1 and 1 K2 on
-   each rank. Phase 3 holds K1 and K2 at phase 16's shapes too
-   (``dp_shapes``).
+   each rank, and its 2-D leg (the two ranks as a 1 x 2 mesh, the tiny
+   flagship's eval forward spatially sharded against the same forward in
+   each rank alone, rtol 1e-4 / atol 1e-5). Phase 3 holds K1 and K2 at
+   phase 16's shapes too (``dp_shapes``);
+17. spatial sharding (``parallel.mesh.make_2d_mesh``,
+   ``spatial_sharding``, ``parallel/spatial.py``): phase 4's full-width
+   flagship checkpoint, fp32, TF32 off, on a 2 x 2 (data x space) mesh of
+   four gloo ranks sharing the card: (a) the eval forward at 2 x 512^2,
+   each rank a 1 x 256 x 512 slab, gathered, against one process on the
+   whole batch at rtol 1e-4 / atol 1e-5; (b) the gradients of the
+   config's loss in train mode at 4 x 128^2, summed over the mesh,
+   against one process (losses rtol 1e-5, every gradient within 5e-2
+   relative L2, ``SPATIAL_GRAD_REL_L2``), every rank's bit-equal; each
+   twice, with each run's launches (one K1 on a slab per forward, one K1
+   and one K2 on a slab per gradient, on every rank) and seconds through
+   gloo (a correctness run, not a scaling figure).
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
 ...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}``,
 ``{"bf16": ...}``, ``{"export": ...}``, ``{"options": ...}``,
-``{"data_parallel": ...}`` (with the card's name and power limit) and ``{"kernels": [...]}`` lines, its wall
+``{"data_parallel": ...}``, ``{"spatial": ...}`` (each with the card's
+name and power limit) and ``{"kernels": [...]}`` lines, its wall
 time, and ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
 """
@@ -783,18 +807,148 @@ def check_deform_backward(dev, bandwidth, fp32_peak, shapes=BWD_SHAPES,
                 row["library_ms"] = time_ms(lambda: torch.autograd.grad(
                     out, leaves, g, retain_graph=True), flush)
                 del out, leaves
-        pixels = b * h * w
-        # each input read once, each output written once: x 4 B, offset
-        # 72 B, mask 36 B, g 4 B in; d_offset 72 B, d_mask 36 B out per
-        # pixel; weight in and d_weight out 36 B each
-        nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36) + 72
-        flops = pixels * 315  # ~35 fp32 operations per tap, 9 taps
-        bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
-        row["bound_ms"] = max(bytes_ms, ops_ms)
-        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["bound_ms"], row["bound_by"] = k2_bound(b, h, w, bandwidth,
+                                                    fp32_peak)
         rows.append(row)
         print(f"{name} {row}", flush=True)
     return rows
+
+
+def k2_bound(b, h, w, bandwidth, fp32_peak):
+    """K2's least time on this card, ms, and what sets it, for ``b`` x
+    ``h`` x ``w`` output pixels (a row slab's own): each input read once,
+    each output written once: x 4 B, offset 72 B, mask 36 B, g 4 B in;
+    d_offset 72 B, d_mask 36 B out per pixel; weight in and d_weight out
+    36 B each; about 35 fp32 operations per tap, 9 taps."""
+    pixels = b * h * w
+    nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36) + 72
+    bytes_ms = nbytes / bandwidth * 1e3
+    ops_ms = pixels * 315 / fp32_peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def spatial_slabs() -> list:
+    """K1's and K2's row slabs on phase 17's paths, from its constants:
+    for (a) and (b), each rank's (batch rows, image side) and its slab's
+    rows; the y0 of each space index."""
+    n_data, n_space = SPATIAL_MESH
+    return [(b // n_data, side, side // n_space,
+             [s * (side // n_space) for s in range(n_space)])
+            for b, side in (SPATIAL_FWD, SPATIAL_GRAD)]
+
+
+def check_deform_slabs(dev, bandwidth, fp32_peak, seed: int = 7):
+    """K1 and K2 on row slabs (``y0``; ``deform_fwd_slab``,
+    ``deform_bwd_slab``) at phase 17's slabs (``spatial_slabs``: K1 at
+    (a)'s and (b)'s, K2 at (b)'s), each y0 of the mesh, offsets at each of
+    OFFSET_SCALES: against their plain versions with the same row origin
+    (rtol = atol = 1e-5, K2's d_weight within 1e-5 of its terms' magnitude
+    sum, as ``check_deform_kernel`` and ``check_deform_backward``), and bit
+    for bit against the whole-image kernel: the slab's output, d_offset and
+    d_mask are those rows of the whole image's, and a call with ``y0=0``
+    and the whole image is the whole-image kernel's; timed at TIMED_SCALE
+    and the last y0 beside the plain version, the ``grid_sample`` form on
+    the slab (for K2 autograd's backward through it) and the bound of the
+    slab's own pixels. Returns K1's rows and K2's."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(64 * 2**20, device=dev)
+    fwd_rows, bwd_rows = [], []
+    for i, (b, side, hs, y0s) in enumerate(spatial_slabs()):
+        with_bwd = i == 1
+        fwd = {"shape": [b, 1, hs, side], "image": [b, 1, side, side],
+               "y0": y0s, "max_abs_err": 0.0}
+        bwd = dict(fwd, d_weight_err_over_abs_sum=0.0)
+        for y0 in y0s:
+            rows = slice(y0, y0 + hs)
+            for scale in OFFSET_SCALES:
+                x, off, wt, bias, mask = deform_inputs(b, side, side, scale,
+                                                       gen, dev)
+                o, m = off[:, :, rows].contiguous(), mask[:, :, rows] \
+                    .contiguous()
+                with torch.inference_mode():
+                    got = deform_cuda.deform_fwd(x, o, wt, bias, m, y0=y0)
+                    whole = deform_cuda.deform_fwd(x, off, wt, bias, mask)
+                    zero = deform_cuda.deform_fwd(x, off, wt, bias, mask,
+                                                  y0=0)
+                    ref = deform_conv2d_plain(x, o, wt, bias, m, y0=y0)
+                torch.cuda.synchronize()
+                if not (torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+                        and torch.equal(got, whole[:, :, rows])
+                        and torch.equal(zero, whole)):
+                    raise AssertionError(
+                        f"deform_fwd_slab at {fwd['shape']} y0 {y0} offset "
+                        f"scale {scale}: max |err| from the plain version "
+                        f"{(got - ref).abs().max().item()}, from the whole "
+                        f"image's rows "
+                        f"{(got - whole[:, :, rows]).abs().max().item()}")
+                fwd["max_abs_err"] = max(fwd["max_abs_err"],
+                                         (got - ref).abs().max().item())
+                timed = scale == TIMED_SCALE and y0 == y0s[-1]
+                if timed:
+                    with torch.inference_mode():
+                        fwd["kernel_ms"] = time_ms(
+                            lambda: deform_cuda.deform_fwd(
+                                x, o, wt, bias, m, y0=y0), flush)
+                        fwd["plain_ms"] = time_ms(
+                            lambda: deform_conv2d_plain(x, o, wt, bias, m,
+                                                        y0=y0), flush)
+                        fwd["library_ms"] = time_ms(
+                            lambda: deform_library(x, o, wt, bias, m, y0),
+                            flush)
+                if not with_bwd:
+                    continue
+                g = torch.randn(b, 1, side, side, generator=gen, device=dev)
+                gs = g[:, :, rows].contiguous()
+                got_b = deform_cuda.deform_bwd(x, o, wt, m, gs, y0=y0)
+                whole_b = deform_cuda.deform_bwd(x, off, wt, mask, g)
+                ref_b = deform_conv2d_backward_plain(x, o, wt, m, gs, y0=y0)
+                abs_sum = deform_conv2d_backward_plain(
+                    x.abs(), o, wt, m.abs(), gs.abs(), y0=y0)[2]
+                torch.cuda.synchronize()
+                w_err = ((got_b[2] - ref_b[2]).abs() / abs_sum).max().item()
+                for part, a, r, full in zip(("d_offset", "d_mask"), got_b,
+                                            ref_b, whole_b):
+                    if not (torch.allclose(a, r, rtol=1e-5, atol=1e-5)
+                            and torch.equal(a, full[:, :, rows])):
+                        raise AssertionError(
+                            f"deform_bwd_slab {part} at {bwd['shape']} y0 "
+                            f"{y0} offset scale {scale}: max |err| "
+                            f"{(a - r).abs().max().item()}, from the whole "
+                            f"image's rows "
+                            f"{(a - full[:, :, rows]).abs().max().item()}")
+                    bwd["max_abs_err"] = max(bwd["max_abs_err"],
+                                             (a - r).abs().max().item())
+                if w_err > 1e-5 or not torch.allclose(got_b[3], ref_b[3],
+                                                      rtol=1e-5, atol=1e-5):
+                    raise AssertionError(
+                        f"deform_bwd_slab d_weight / d_bias at "
+                        f"{bwd['shape']} y0 {y0}: d_weight error {w_err} of "
+                        f"the terms' magnitude sum")
+                bwd["d_weight_err_over_abs_sum"] = max(
+                    bwd["d_weight_err_over_abs_sum"], w_err)
+                if timed:
+                    bwd["kernel_ms"] = time_ms(lambda: deform_cuda.deform_bwd(
+                        x, o, wt, m, gs, y0=y0), flush)
+                    bwd["plain_ms"] = time_ms(
+                        lambda: deform_conv2d_backward_plain(
+                            x, o, wt, m, gs, y0=y0), flush)
+                    leaves = [t.detach().clone().requires_grad_(True)
+                              for t in (o, wt, bias, m)]
+                    out = deform_library(x, *leaves, y0)
+                    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                        out, leaves, gs, retain_graph=True), flush)
+                    del out, leaves
+        fwd["bound_ms"], fwd["bound_by"] = k1_bound(b, hs, side, bandwidth,
+                                                    fp32_peak)
+        fwd_rows.append(fwd)
+        print(f"deform_fwd_slab {fwd}", flush=True)
+        if with_bwd:
+            bwd["bound_ms"], bwd["bound_by"] = k2_bound(b, hs, side,
+                                                        bandwidth, fp32_peak)
+            bwd_rows.append(bwd)
+            print(f"deform_bwd_slab {bwd}", flush=True)
+    return fwd_rows, bwd_rows
 
 
 def _err_over_abs_sum(got, ref, abs_sum) -> float:
@@ -3305,25 +3459,31 @@ def nccl_warm_steps(dev: torch.device, smi: str) -> dict:
 
 def dryrun_leg() -> tuple:
     """(d) ``parallel.dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda")``, the
-    JAX driver's multi-chip leg without its 2-D forward: on this one card
-    its ranks share ``cuda:0`` in a gloo group (the tiny flagship's step
-    against one process, mesh eval at 3e-4, the device cache over the
-    group). Each rank must have launched K1 and K2: one of each in its
-    step, then its mesh eval (DRYRUN_RANKS launches of one row) and the
-    same eval on one device (one launch)."""
+    JAX driver's multi-chip leg: on this one card its ranks share
+    ``cuda:0`` in a gloo group (the tiny flagship's step against one
+    process, mesh eval at 3e-4, the device cache over the group, and the
+    2-D leg: the ranks as a 1 x 2 mesh, the spatially sharded eval forward
+    against each rank's own at rtol 1e-4 / atol 1e-5). Each rank must have
+    launched K1 and K2: one of each in its step, then its mesh eval
+    (DRYRUN_RANKS launches of one row) and the same eval on one device
+    (one launch); in the 2-D leg one K1 on its slab."""
     reset_launches()
     res = dryrun.dryrun_multichip(DRYRUN_RANKS, "cuda")
     torch.cuda.synchronize()
     want = deform_counts(deform_fwd=2 + DRYRUN_RANKS, deform_bwd=1)
     paths = {"dryrun_one_process": dict(deform_cuda.LAUNCHES),
              **{f"dryrun_rank{r}": rank["launches"]
+                for r, rank in enumerate(res["ranks"])},
+             **{f"dryrun_spatial_rank{r}": rank["spatial"]["launches"]
                 for r, rank in enumerate(res["ranks"])}}
     out = {"backend": res["backend"], "one_process": res["one_process"],
            "ranks": [{k: v for k, v in r.items() if k != "params_sha256"}
                      for r in res["ranks"]]}
     if (paths["dryrun_one_process"] != deform_counts(deform_fwd=1,
                                                      deform_bwd=1)
-            or any(r["launches"] != want for r in res["ranks"])):
+            or any(r["launches"] != want for r in res["ranks"])
+            or any(r["spatial"]["launches"] != deform_counts(
+                deform_fwd_slab=1) for r in res["ranks"])):
         raise AssertionError(f"dryrun_multichip's launches: {paths}")
     return out, paths
 
@@ -3431,6 +3591,190 @@ def data_parallel(root: Path, work: Path, dev: torch.device, flagship,
     return out, paths
 
 
+# Phase 17: the 2-D (data x space) spatially sharded flagship on a 2 x 2
+# mesh of four gloo ranks sharing the card: (a) the eval forward at 2 x
+# 512^2 (each rank a 1 x 256 x 512 slab), (b) train-mode gradients of the
+# config's loss at 4 x 128^2 (each rank 2 x 64 x 128); each run twice
+# (the second's seconds are the warm ones)
+SPATIAL_MESH = (2, 2)
+SPATIAL_FWD = (2, 512)
+SPATIAL_GRAD = (4, 128)
+SPATIAL_RUNS = 2
+SPATIAL_TIMEOUT_S, SPATIAL_INIT_TIMEOUT_S = 600, 120
+# (b)'s bound against one process, tests/test_torch_spatial.py's for fp32:
+# each gradient within 5e-2 relative L2 (a ReLU or a deform floor near its
+# kink may fall on the other side in the sharded forward's summation
+# order), the losses within rtol 1e-5
+SPATIAL_GRAD_REL_L2 = 5e-2
+
+
+def spatial_batches(p):
+    """Phase 17's batches on the CPU: (a)'s inputs, (b)'s inputs and
+    target (``random_batch``, seeded)."""
+    fwd_inputs, _ = random_batch(p, SPATIAL_FWD[0], SPATIAL_FWD[1], "cpu",
+                                 seed=17)
+    grad_inputs, gt = random_batch(p, SPATIAL_GRAD[0], SPATIAL_GRAD[1],
+                                   "cpu", seed=18)
+    return fwd_inputs, grad_inputs, gt
+
+
+def spatial_model(ckpt, dev) -> torch.nn.Module:
+    """Phase 4's seeded flagship checkpoint in the fp32 flagship config's
+    model, on ``dev``."""
+    return load_model_params(build_model(create_config(FLAGSHIP)),
+                             ckpt).to(dev)
+
+
+def spatial_rank(rank: int, world: int, ckpt: str, device: str) -> dict:
+    """Phase 17 on one rank of the 2 x 2 mesh (``parallel.spawn.
+    run_ranks``, gloo, on ``device``): (a) and (b) SPATIAL_RUNS times each,
+    the launches of each run counted from 0, its seconds (synchronised);
+    rank 0 returns the gathered output and the summed gradients of the
+    first runs, every rank a hash of its gradients' bytes."""
+    import hashlib
+
+    from jspsr_torch.parallel.mesh import make_2d_mesh, spatial_sharding
+    from jspsr_torch.parallel.spatial import sharded_forward, sharded_grads
+
+    set_strict_fp32()
+    set_deterministic_cudnn()
+    dev = torch.device(device)
+    sharding = spatial_sharding(make_2d_mesh(*SPATIAL_MESH))
+    p = create_config(FLAGSHIP)
+    model = spatial_model(Path(ckpt), dev)
+    fwd_inputs, grad_inputs, gt = spatial_batches(p)
+    criterion = build_criterion(dict(p.loss))
+    out = {"rank": rank, "forward_s": [], "grad_s": [], "launches": []}
+    for i in range(SPATIAL_RUNS):
+        model.eval()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = sharded_forward(model, [x.to(dev) for x in fwd_inputs],
+                                sharding)
+        torch.cuda.synchronize(dev)
+        out["forward_s"].append(time.perf_counter() - t0)
+        fwd_launches = dict(deform_cuda.LAUNCHES)
+        model.train()
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, grads = sharded_grads(model, criterion,
+                                      [x.to(dev) for x in grad_inputs],
+                                      gt.to(dev), sharding)
+        torch.cuda.synchronize(dev)
+        out["grad_s"].append(time.perf_counter() - t0)
+        out["launches"].append({"forward": fwd_launches,
+                                "gradients": dict(deform_cuda.LAUNCHES)})
+        if i == 0:
+            out["losses"] = losses
+            digest = hashlib.sha256()
+            for k in sorted(grads):
+                digest.update(grads[k].cpu().numpy().tobytes())
+            out["grads_sha256"] = digest.hexdigest()
+            if rank == 0:
+                out["y"] = y.cpu().numpy()
+                out["grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+    return out
+
+
+def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
+    """Phase 17: the 2-D (data x space) spatially sharded flagship
+    (``parallel.mesh.make_2d_mesh``, ``spatial_sharding``), phase 4's
+    seeded full-width checkpoint, fp32, TF32 off, cuDNN's deterministic
+    algorithms, on four gloo ranks sharing this card (NCCL refuses two
+    ranks on one GPU): (a) the eval forward at 2 x 512^2, gathered, within
+    rtol 1e-4 / atol 1e-5 of one process on the whole batch; (b) the
+    gradients of the config's loss (L1 + L2 + 0.1 Grad) in train mode at
+    4 x 128^2, summed over the mesh, against one process: the losses
+    within rtol 1e-5, every gradient within SPATIAL_GRAD_REL_L2 relative
+    L2, every rank's gradient bit-equal to rank 0's; one K1 on a slab per
+    forward and one K1 and one K2 on a slab per gradient on every rank, no
+    other deform launch. The seconds are a correctness run's through gloo,
+    not a scaling figure."""
+    import gc
+
+    from jspsr_torch.parallel.spawn import run_ranks
+
+    _, _, ckpt = flagship
+    set_deterministic_cudnn()
+    model = spatial_model(ckpt, dev)
+    fwd_inputs, grad_inputs, gt = spatial_batches(create_config(FLAGSHIP))
+    model.eval()
+    reset_launches()
+    with torch.no_grad():
+        y_one = model([x.to(dev) for x in fwd_inputs]).cpu().numpy()
+    one_launches = {"forward": dict(deform_cuda.LAUNCHES)}
+    model.train()
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    losses_one = build_criterion(dict(create_config(FLAGSHIP).loss))(
+        model([x.to(dev) for x in grad_inputs]), gt.to(dev))
+    losses_one["Total"].backward()
+    torch.cuda.synchronize(dev)
+    one_launches["gradients"] = dict(deform_cuda.LAUNCHES)
+    grads_one = {k: q.grad.cpu().numpy() for k, q in model.named_parameters()
+                 if q.grad is not None}
+    losses_one = {k: float(v.detach()) for k, v in losses_one.items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(spatial_rank, SPATIAL_MESH[0] * SPATIAL_MESH[1],
+                      str(ckpt), str(dev), device=str(dev), backend="gloo",
+                      init_timeout_s=SPATIAL_INIT_TIMEOUT_S,
+                      timeout_s=SPATIAL_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    y, grads = r0.pop("y"), r0.pop("grads")
+    fwd_err = float(np.abs(y - y_one).max())
+    grad_err = {k: float(np.linalg.norm(grads[k].astype(np.float64) - v)
+                         / max(np.linalg.norm(v), 1e-12))
+                for k, v in grads_one.items()}
+    loss_err = {k: abs(r0["losses"][k] - v) / abs(v)
+                for k, v in losses_one.items()}
+    want = {"forward": deform_counts(deform_fwd_slab=1),
+            "gradients": deform_counts(deform_fwd_slab=1, deform_bwd_slab=1)}
+    out = {
+        "config": str(FLAGSHIP.relative_to(REPO)), "mesh": SPATIAL_MESH,
+        "forward_batch": SPATIAL_FWD, "grad_batch": SPATIAL_GRAD,
+        "forward_max_abs": fwd_err,
+        "forward_max_abs_output": float(np.abs(y_one).max()),
+        "grad_max_rel_l2": max(grad_err.values()),
+        "grad_worst": max(grad_err, key=grad_err.get),
+        "loss_rel_err": loss_err, "losses": r0["losses"],
+        "one_process_losses": losses_one,
+        "grads_bit_equal_over_ranks": all(
+            r["grads_sha256"] == r0["grads_sha256"] for r in ranks),
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "one_process_launches": one_launches,
+        "forward_s": [r["forward_s"] for r in ranks],
+        "grad_s": [r["grad_s"] for r in ranks], "ranks_wall_s": ranks_s,
+        "card": smi,
+        "note": "four ranks sharing one card through gloo: a correctness "
+                "run, no scaling figure",
+    }
+    print(f"spatial sharding: forward max |diff| {fwd_err:.3g} (output up "
+          f"to {out['forward_max_abs_output']:.3g}), gradients max rel L2 "
+          f"{out['grad_max_rel_l2']:.3g} ({out['grad_worst']}), losses "
+          f"{r0['losses']} vs one process {losses_one}; seconds per "
+          f"forward {out['forward_s']}, per gradient {out['grad_s']}",
+          flush=True)
+    np.testing.assert_allclose(y, y_one, rtol=1e-4, atol=1e-5)
+    if (max(grad_err.values()) > SPATIAL_GRAD_REL_L2
+            or sorted(grads) != sorted(grads_one)
+            or max(loss_err.values()) > 1e-5
+            or not out["grads_bit_equal_over_ranks"]
+            or any(run != want for r in ranks for run in r["launches"])
+            or one_launches != {"forward": deform_counts(deform_fwd=1),
+                                "gradients": deform_counts(deform_fwd=1,
+                                                           deform_bwd=1)}):
+        raise AssertionError(f"spatial sharding: {out}")
+    paths = {f"spatial_rank{r['rank']}": sum_launches(
+        {f"{i}_{k}": v for i, run in enumerate(r["launches"])
+         for k, v in run.items()}) for r in ranks}
+    return out, paths
+
+
 def sum_launches(by_run: dict) -> dict:
     """The launch counts of several runs of one path, summed by kernel."""
     total = {}
@@ -3499,6 +3843,9 @@ def main() -> int:
     bwd_bf16_rows = check_deform_backward(dev, bandwidth, fp32_peak,
                                           BF16_BWD_SHAPES, BF16, seed=6)
     dx_rows = check_deform_backward_dx(dev, bandwidth, fp32_peak)
+    # 3e. K1 and K2 on phase 17's row slabs
+    slab_fwd_rows, slab_bwd_rows = check_deform_slabs(dev, bandwidth,
+                                                      fp32_peak)
     # 3d. K3's bf16-sampling mode, then through the op's autograd
     dx_bf16_rows = check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak)
     paths = {"k3_bf16_autograd": k3_bf16_autograd(dev)}
@@ -3578,6 +3925,11 @@ def main() -> int:
         data_par, dp_paths = data_parallel(root, tmp / "dp", dev, flagship,
                                            tmp / "tiled" / "334", smi_line)
         paths.update(dp_paths)
+        phase(17, t_start)
+        # 17. the 2-D (data x space) spatially sharded flagship on four
+        # ranks sharing the card
+        spatial, spatial_paths = spatial_phase(dev, flagship, smi_line)
+        paths.update(spatial_paths)
     # K3's three kernels apart, under the profiler, after every phase
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
@@ -3643,6 +3995,18 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=True, sample_dtype='bfloat16')", dx_bf16_rows,
                     [16, 1, 128, 128]),
+        kernel_line("deform_fwd_slab", "jspsr_torch/ops/csrc/deform_fwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:108",
+                    "jspsr_tpu/ops/pallas_deform.py::_fwd_kernel (a row "
+                    "slab of a spatially sharded batch)", slab_fwd_rows,
+                    [SPATIAL_FWD[0] // SPATIAL_MESH[0], 1,
+                     SPATIAL_FWD[1] // SPATIAL_MESH[1], SPATIAL_FWD[1]]),
+        kernel_line("deform_bwd_slab", "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=False, a row slab)", slab_bwd_rows,
+                    [SPATIAL_GRAD[0] // SPATIAL_MESH[0], 1,
+                     SPATIAL_GRAD[1] // SPATIAL_MESH[1], SPATIAL_GRAD[1]]),
         kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same_bf16.cu",
                     "scripts/bench_pallas_conv.py:38",
                     "scripts/bench_pallas_conv.py::pallas_conv_same",
@@ -3663,6 +4027,7 @@ def main() -> int:
     print(json.dumps({"export": exported}, default=float), flush=True)
     print(json.dumps({"options": options}, default=float), flush=True)
     print(json.dumps({"data_parallel": data_par}, default=float), flush=True)
+    print(json.dumps({"spatial": spatial}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

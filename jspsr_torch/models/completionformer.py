@@ -19,6 +19,7 @@ from jspsr_torch import nn as jnn
 from jspsr_torch.models.components import CBAMBasicBlock
 from jspsr_torch.models.nlspn import NLSPN
 from jspsr_torch.models.pvt import PVT
+from jspsr_torch.parallel import spatial
 
 GUIDANCE_KEYS = ("image", "mask", "canopy", "coord")
 
@@ -141,6 +142,7 @@ class CompletionFormer(nn.Module):
     def forward(self, inputs, generator: torch.Generator | None = None):
         """inputs: [dem (B,1,H,W), guidance (B,C,H,W)] -> (B,1,H,W).
         ``generator`` draws the backbone's drop-path masks in training."""
+        spatial.refuse("CompletionFormer", "completionformer")
         if len(inputs) != 2:
             raise ValueError(f"expected inputs {self.input_keys()}, got "
                              f"{len(inputs)}")

@@ -19,6 +19,7 @@ from torch import nn
 from jspsr_torch import nn as jnn
 from jspsr_torch.models.spn import Generator, PostProcessor
 from jspsr_torch.nn.initializers import normal_fan_out_
+from jspsr_torch.parallel import spatial
 
 # default public-checkpoint path for ``model_kwargs.pretrained: true``
 # (reference models/EDSR.py:87), loaded by tensor position
@@ -93,6 +94,7 @@ class EDSR(nn.Module):
         """``x``: the channel-stacked inputs (B, C, H, W), or a list of
         tensors to stack, the DEM first. ``generator`` is accepted as every
         model's forward accepts it; EDSR draws nothing."""
+        spatial.refuse("EDSR", "edsr")
         if isinstance(x, (list, tuple)):
             x = torch.cat(list(x), dim=1)
         xs = self.entry(x)

@@ -50,6 +50,11 @@ The JAX package's three execution options, each the same function:
   here, so they keep theirs.
 
 Every parameter keeps its key: a checkpoint loads with or without them.
+
+Under a spatial sharding (``parallel/spatial.py``) the fp32 forward runs
+unchanged on a row slab; the three options and the bf16 modes are refused
+there (``_fused_stems`` and ``_grouped_stage`` call ``F.conv2d``
+directly, which would skip the halo).
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from jspsr_torch.models.components import (
     Guide,
 )
 from jspsr_torch.models.spn import Generator, PostProcessor
+from jspsr_torch.parallel import spatial
 
 AUX_KEYS = ("mask", "canopy", "coord")
 # module names that ``remat_stages`` recomputes (the JAX package's ``run``)
@@ -287,6 +293,18 @@ class JSPSR(nn.Module):
                 acts.update(zip(grp, outs))
         return acts
 
+    def _refuse_under_sharding(self) -> None:
+        """Under a spatial sharding, raise for what is not ported there."""
+        for flag, on in (("fuse_stems", self.fuse_stems),
+                         ("eval_grouped", self.eval_grouped),
+                         ("remat_stages", self.remat_stages)):
+            if on:
+                spatial.refuse(f"JSPSR's {flag}", "options")
+        if self.compute_dtype is not None:
+            spatial.refuse("JSPSR's compute_dtype='bfloat16'", "bf16")
+        if self.spn and self.postprocessor.sample_dtype == "bfloat16":
+            spatial.refuse("JSPSR's spn_sample_dtype='bfloat16'", "bf16")
+
     def forward(self, inputs, generator=None):
         """inputs: list of NCHW tensors in input_keys() order -> (B,1,H,W).
         ``generator`` is accepted as every model's forward accepts it; JSPSR
@@ -294,6 +312,7 @@ class JSPSR(nn.Module):
         keys = self.input_keys()
         if len(inputs) != len(keys):
             raise ValueError(f"expected inputs {keys}, got {len(inputs)}")
+        self._refuse_under_sharding()
         dem = inputs[0]
         cdt = self.compute_dtype
 

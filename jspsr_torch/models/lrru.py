@@ -43,6 +43,7 @@ from jspsr_torch.models.components import (  # noqa: F401 (re-exported)
 )
 from jspsr_torch.models.spn import PostProcessor
 from jspsr_torch.ops.deform_conv import insert_zero_center_offset
+from jspsr_torch.parallel import spatial
 
 
 class LBasic2dTrans(nn.Module):
@@ -217,6 +218,7 @@ class LRRU(nn.Module):
         """``inputs``: [lr_dem (B,1,H,W), image (B,3,H,W)], H and W
         multiples of 16. ``generator`` is accepted as every model's forward
         accepts it; LRRU draws nothing (see the module docstring)."""
+        spatial.refuse("LRRU", "lrru")
         depth, img = inputs[0], inputs[1]
         c0_img = self.conv_img(img)
         c0_lidar = self.conv_lidar(depth)

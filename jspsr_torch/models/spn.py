@@ -8,7 +8,9 @@
   modulated deformable conv to the raw DEM with a learnable 3x3 kernel
   (initialized to ones) and bias, adding ``scale * dem`` back; with
   ``sample_dtype="bfloat16"`` the conv's bf16-sampling mode
-  (``ops.deform_conv``).
+  (``ops.deform_conv``). On a row slab under a spatial sharding it samples
+  the whole raw DEM of its images (gathered over the space group; the
+  offsets are unbounded) for its own output rows (the op's ``y0``).
 
 The Generator computes in its inputs' dtype (bf16 under JSPSR's
 ``compute_dtype``, its two 1x1 heads and the sigmoid included); the
@@ -24,6 +26,8 @@ from torch import nn
 from jspsr_torch import nn as jnn
 from jspsr_torch.models.components import Basic2d, BasicBlock
 from jspsr_torch.ops.deform_conv import deform_conv2d, insert_zero_center_offset
+from jspsr_torch.parallel import spatial
+from jspsr_torch.parallel.mesh import active_sharding
 
 
 class Generator(nn.Module):
@@ -87,9 +91,15 @@ class PostProcessor(nn.Module):
         else:
             weight = weight / weight.sum(dim=1, keepdim=True)
         pad = (self.kernel_size - 1) // 2
-        refined = deform_conv2d(init_dem.contiguous(), offset, self.w, self.b,
-                                weight, padding=pad,
-                                sample_dtype=self.sample_dtype)
+        x, y0 = init_dem.contiguous(), 0
+        if active_sharding() is not None:
+            if init_dem.requires_grad:
+                spatial.refuse("the deform op's input gradient (K3)",
+                               "completionformer")
+            x, y0 = spatial.gather_rows(x), spatial.row_origin(x)
+        refined = deform_conv2d(x, offset, self.w, self.b, weight,
+                                padding=pad, sample_dtype=self.sample_dtype,
+                                y0=y0)
         if self.residual:
             refined = refined + self.scale * init_dem
         return refined

@@ -16,6 +16,12 @@ float64) inputs each is its torch parent, unchanged. What remains here is
 the JAX package's init, its global pools and its bilinear and bicubic
 resizes.
 
+Under an open spatial sharding (``parallel.mesh.SpatialSharding.active``;
+a process per row slab) the convs take their neighbours' halo rows, the
+global pools reduce over the space group and train-mode BatchNorm takes
+its statistics over the whole mesh (``parallel/spatial.py``), so that a
+slab computes its rows of the whole batch's forward.
+
 The JAX package's TPU lowering levers (space-to-depth stride-2 convs, the
 stride-1 conv custom VJP, the wgrad dot) are exact re-expressions of the
 same functions and have no counterpart here.
@@ -32,7 +38,8 @@ from torch import nn
 
 from jspsr_torch.nn import remat
 from jspsr_torch.nn.initializers import trunc_normal_fan_in_
-from jspsr_torch.parallel.mesh import step_group
+from jspsr_torch.parallel import spatial
+from jspsr_torch.parallel.mesh import active_sharding, step_group
 
 
 def _bf16(x: torch.Tensor) -> bool:
@@ -40,30 +47,41 @@ def _bf16(x: torch.Tensor) -> bool:
     return x.dtype == torch.bfloat16
 
 
+def _cast(module, x: torch.Tensor):
+    """The module's weight and bias in a bf16 input's dtype (else as they
+    are)."""
+    if not _bf16(x):
+        return module.weight, module.bias
+    return (module.weight.to(x.dtype),
+            None if module.bias is None else module.bias.to(x.dtype))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` whose weight and bias are cast to a bf16 input's dtype
-    at use (the parameters stay fp32, their gradients too)."""
+    at use (the parameters stay fp32, their gradients too); on a row slab
+    under a spatial sharding, with its halo (``parallel.spatial.conv2d``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if active_sharding() is not None:
+            return spatial.conv2d(self, x, *_cast(self, x))
         if not _bf16(x):
             return super().forward(x)
-        return self._conv_forward(
-            x, self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype))
+        return self._conv_forward(x, *_cast(self, x))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` whose weight and bias are cast to a
-    bf16 input's dtype at use."""
+    bf16 input's dtype at use; on a row slab under a spatial sharding, with
+    its halo (``parallel.spatial.conv_transpose2d``)."""
 
     def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        if active_sharding() is not None and output_size is None:
+            return spatial.conv_transpose2d(self, x, *_cast(self, x))
         if not _bf16(x) or output_size is not None:
             return super().forward(x, output_size)
         return F.conv_transpose2d(
-            x, self.weight.to(x.dtype),
-            None if self.bias is None else self.bias.to(x.dtype),
-            self.stride, self.padding, self.output_padding, self.groups,
-            self.dilation)
+            x, *_cast(self, x), self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -83,12 +101,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``parallel.mesh.data_parallel``, which the train step enters under a
     process group) the statistics are the global batch's, as the JAX
     step's over its batch-sharded array (``jspsr_tpu/nn/layers.py:355-378``):
-    ``_global_stats``."""
+    ``_global_stats``. Under a spatial sharding, over the whole data x
+    space mesh."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         replay = (self.training and self.track_running_stats
                   and remat.recomputing())
-        group = step_group() if self.training else None
+        sharding = active_sharding()
+        group = None
+        if self.training:
+            group = (sharding.mesh.group if sharding is not None
+                     else step_group())
         if group is not None:
             return self._forward_global(x, replay, group)
         if not _bf16(x) or not self.track_running_stats:
@@ -181,12 +204,18 @@ def batch_norm_apply(x: torch.Tensor, mean, var, weight, bias,
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> (N, C, 1, 1) mean pool (AdaptiveAvgPool2d(1))."""
+    """NCHW -> (N, C, 1, 1) mean pool (AdaptiveAvgPool2d(1)); of the whole
+    images under a spatial sharding."""
+    if active_sharding() is not None:
+        return spatial.global_avg_pool(x)
     return x.mean(dim=(2, 3), keepdim=True)
 
 
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
-    """NCHW -> (N, C, 1, 1) max pool (AdaptiveMaxPool2d(1))."""
+    """NCHW -> (N, C, 1, 1) max pool (AdaptiveMaxPool2d(1)); of the whole
+    images under a spatial sharding."""
+    if active_sharding() is not None:
+        return spatial.global_max_pool(x)
     return x.amax(dim=(2, 3), keepdim=True)
 
 

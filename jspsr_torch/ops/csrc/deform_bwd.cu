@@ -130,6 +130,15 @@
 // matmul does. Explicit _rn operations keep each rounding the plain
 // version's.
 //
+// K2 on a row slab (a spatially sharded backward, parallel/spatial.py):
+// the offsets, the mask, g and their gradients may be a slab of Hs rows of
+// the image, whose first is image row y0 (``row0``), while x stays the
+// whole image: slab row h is image row y0 + h, so d_offset and d_mask are
+// those rows of the whole image's, bit for bit, and the d_weight partials
+// are the slab's share (the caller's gradient reduction sums the slabs').
+// y0 = 0 and Hs = H is the whole image, as before. K3 takes whole images
+// only.
+//
 // K3's bf16-sampling mode (the same flag on deform_bwd_dx_kernel; the TPU
 // kernel's sample_dtype='bfloat16' with need_dx=True, entry point
 // jspsr_deform_bwd_dx_bf16): the TPU kernel rounds only its two image
@@ -326,8 +335,8 @@ __device__ __forceinline__ void block_dweight(const float (&dw)[kTaps],
   }
 }
 
-// K2: one thread per pixel of the flattened (B, H, W), no input gradient;
-// kBf16 the bf16-sampling mode
+// K2: one thread per pixel of the flattened slab (B, Hs, W) of image rows
+// [row0, row0 + Hs), no input gradient; kBf16 the bf16-sampling mode
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
@@ -336,7 +345,7 @@ deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                   const float* __restrict__ grad_out,
                   float* __restrict__ d_offset, float* __restrict__ d_mask,
                   float* __restrict__ d_weight_partial, int64_t n, int h,
-                  int w, int pad) {
+                  int w, int pad, int hs, int row0) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   float dw[kTaps];
 #pragma unroll
@@ -345,15 +354,16 @@ deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
   // no early return: every thread takes part in the block reduction below
   if (i < n) {
     const int64_t hw = static_cast<int64_t>(h) * w;
-    const int64_t b = i / hw;
-    const int64_t p = i - b * hw;
+    const int64_t hws = static_cast<int64_t>(hs) * w;  // a slab plane
+    const int64_t b = i / hws;
+    const int64_t p = i - b * hws;
     const int y = static_cast<int>(p / w);
     const int xo = static_cast<int>(p - static_cast<int64_t>(y) * w);
-    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hw + p,
-                          mask + b * kTaps * hw + p, weight,
-                          d_offset + b * (2 * kTaps) * hw + p,
-                          d_mask + b * kTaps * hw + p, grad_out[i], y, xo, h,
-                          w, hw, pad, dw, NoScatter{});
+    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hws + p,
+                          mask + b * kTaps * hws + p, weight,
+                          d_offset + b * (2 * kTaps) * hws + p,
+                          d_mask + b * kTaps * hws + p, grad_out[i],
+                          row0 + y, xo, h, w, hws, pad, dw, NoScatter{});
   }
   block_dweight(dw,
                 d_weight_partial + static_cast<int64_t>(blockIdx.x) * kTaps);
@@ -507,18 +517,23 @@ int64_t k2_blocks(int64_t batch, int h, int w) {
   return (batch * h * w + kThreads - 1) / kThreads;
 }
 
+// K2 on the slab of image rows [y0, y0 + hs) (the whole image: hs = h,
+// y0 = 0)
 template <bool kBf16>
 int launch_k2(const float* x, const float* offset, const float* mask,
               const float* weight, const float* grad_out, float* d_offset,
               float* d_mask, float* d_weight_partial, int64_t batch, int h,
-              int w, int pad, void* stream) {
-  const int64_t n = batch * h * w;
+              int w, int pad, int hs, int y0, void* stream) {
+  if (y0 < 0 || hs < 0 || y0 > h - hs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = batch * hs * w;
   if (n == 0) return 0;
   deform_bwd_kernel<kBf16>
-      <<<static_cast<unsigned int>(k2_blocks(batch, h, w)), kThreads, 0,
+      <<<static_cast<unsigned int>(k2_blocks(batch, hs, w)), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(x, offset, mask, weight,
                                               grad_out, d_offset, d_mask,
-                                              d_weight_partial, n, h, w, pad);
+                                              d_weight_partial, n, h, w, pad,
+                                              hs, y0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -570,7 +585,8 @@ int launch_k3(const float* x, const float* offset, const float* mask,
 
 // Blocks of a launch, which is the number of d_weight partial rows the
 // caller allocates: K2 (need_dx 0) one per 256 pixels of the flattened
-// (B, H, W); K3 (need_dx 1) one per 8 x 32 tile of each image.
+// (B, H, W), H a slab's rows; K3 (need_dx 1) one per 8 x 32 tile of each
+// image.
 extern "C" int64_t jspsr_deform_bwd_blocks(int need_dx, int64_t batch, int h,
                                            int w) {
   return need_dx ? batch * k3_tiles_y(h) * k3_tiles_x(w)
@@ -589,16 +605,18 @@ extern "C" void jspsr_deform_bwd_dx_window(int* out) {
 // mask (B,9,H,W), weight (9,), grad_out (B,1,H,W); outputs d_offset
 // (B,18,H,W), d_mask (B,9,H,W), d_weight_partial (jspsr_deform_bwd_blocks
 // rows, 9) and, for jspsr_deform_bwd_dx, d_x (B,1,H,W) through the
-// accumulator described there. Each launches on ``stream`` without
+// accumulator described there. K2's take a row slab: offset, mask,
+// grad_out, d_offset and d_mask of hs rows, image rows [y0, y0 + hs) of
+// x (hs = h, y0 = 0: the whole image). Each launches on ``stream`` without
 // synchronising and returns cudaGetLastError().
 extern "C" int jspsr_deform_bwd(const float* x, const float* offset,
                                 const float* mask, const float* weight,
                                 const float* grad_out, float* d_offset,
                                 float* d_mask, float* d_weight_partial,
-                                int64_t batch, int h, int w, int pad,
-                                void* stream) {
+                                int64_t batch, int h, int w, int pad, int hs,
+                                int y0, void* stream) {
   return launch_k2<false>(x, offset, mask, weight, grad_out, d_offset, d_mask,
-                          d_weight_partial, batch, h, w, pad, stream);
+                          d_weight_partial, batch, h, w, pad, hs, y0, stream);
 }
 
 // K2's bf16-sampling mode: as jspsr_deform_bwd.
@@ -607,9 +625,9 @@ extern "C" int jspsr_deform_bwd_bf16(const float* x, const float* offset,
                                      const float* grad_out, float* d_offset,
                                      float* d_mask, float* d_weight_partial,
                                      int64_t batch, int h, int w, int pad,
-                                     void* stream) {
+                                     int hs, int y0, void* stream) {
   return launch_k2<true>(x, offset, mask, weight, grad_out, d_offset, d_mask,
-                         d_weight_partial, batch, h, w, pad, stream);
+                         d_weight_partial, batch, h, w, pad, hs, y0, stream);
 }
 
 // K3's scratch, in int64 words, all zeroed by the caller: the d_x

@@ -71,6 +71,15 @@
 // float to int is undefined. The mask is zero-sum and signed; it is used
 // as is.
 //
+// Row slabs (a spatially sharded forward, parallel/spatial.py): the output,
+// the offsets and the mask may be a slab of Hs rows of the image, whose
+// first row is image row y0 (``row0``), while x stays the whole image of H
+// rows: output row h samples at image row y0 + h. The tiles walk the slab;
+// each tile's window origin and positions are in image rows, and the image
+// tensor map (and its zero fill off the image) stays on the whole image,
+// so a slab's rows are the same bits as those rows of the whole output.
+// y0 = 0 and Hs = H is the whole image, as before.
+//
 // bf16-sampling mode (kBf16; the TPU kernel's sample_dtype='bfloat16',
 // entry point jspsr_deform_fwd_bf16): each tap's row product rounds the
 // four corners and the row weights (1 - ty, ty) to bf16, to nearest even,
@@ -146,10 +155,13 @@ struct Params {
   // the copy path reads the planes itself
   const float* offset;
   const float* mask;
-  int h, w, pad, tiles_x, tiles_y, n_tiles;
+  // h: the image's rows; hs: the slab's (output, offset and mask rows),
+  // whose first is image row row0
+  int h, w, pad, hs, row0, tiles_x, tiles_y, n_tiles;
 };
 
-// a tile of one image and the origin of its window
+// a tile of one image (its first row in the slab) and the origin of its
+// window (in image rows)
 struct Tile {
   int b, y0, x0, wy0, wx0;
 };
@@ -159,7 +171,7 @@ __device__ __forceinline__ Tile tile_at(int t, const Params& p) {
   t /= p.tiles_x;
   const int y0 = (t % p.tiles_y) * kTileH, x0 = tx * kTileW;
   // an arithmetic shift floors negative columns too
-  return {t / p.tiles_y, y0, x0, y0 - p.pad - kMargin,
+  return {t / p.tiles_y, y0, x0, y0 + p.row0 - p.pad - kMargin,
           ((x0 - p.pad - kMargin) >> 2) << 2};
 }
 
@@ -183,7 +195,8 @@ __device__ __forceinline__ void accumulate(float* acc, const float* st,
 #pragma unroll
   for (int k = 0; k < kPxPerThread; ++k) {
     const int q = ctid + k * kConsumers;
-    const float fy = static_cast<float>(tl.y0 + q / kTileW - p.pad);
+    const float fy =
+        static_cast<float>(tl.y0 + p.row0 + q / kTileW - p.pad);
     const float fx = static_cast<float>(tl.x0 + q % kTileW - p.pad);
 #pragma unroll
     for (int t = 0; t < kTaps; ++t) {
@@ -258,8 +271,8 @@ __device__ __forceinline__ void store(const float* acc, const Tile& tl,
   for (int k = 0; k < kPxPerThread; ++k) {
     const int q = ctid + k * kConsumers;
     const int y = tl.y0 + q / kTileW, xo = tl.x0 + q % kTileW;
-    if (y < p.h && xo < p.w)
-      p.out[(static_cast<int64_t>(tl.b) * p.h + y) * p.w + xo] = acc[k];
+    if (y < p.hs && xo < p.w)
+      p.out[(static_cast<int64_t>(tl.b) * p.hs + y) * p.w + xo] = acc[k];
   }
 }
 
@@ -274,24 +287,27 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
 __device__ __forceinline__ void copy_tile(float* st, const Tile& tl,
                                           const Params& p, int tid) {
   const int64_t hw = static_cast<int64_t>(p.h) * p.w;
+  const int64_t hws = static_cast<int64_t>(p.hs) * p.w;  // a slab plane
   for (int e = tid; e < kStageFloats; e += kConsumers) {
     const float* src;
-    int gy, gx;
+    int gy, gx, rows;
     if (e < kOffFloats + kMaskFloats) {
       const bool is_off = e < kOffFloats;
       const int e2 = is_off ? e : e - kOffFloats;
       const int plane = e2 / kTilePx, q = e2 % kTilePx;
       gy = tl.y0 + q / kTileW;
       gx = tl.x0 + q % kTileW;
-      src = is_off ? p.offset + (tl.b * (2 * kTaps) + plane) * hw
-                   : p.mask + (tl.b * kTaps + plane) * hw;
+      src = is_off ? p.offset + (tl.b * (2 * kTaps) + plane) * hws
+                   : p.mask + (tl.b * kTaps + plane) * hws;
+      rows = p.hs;
     } else {
       const int e2 = e - kOffFloats - kMaskFloats;
       gy = tl.wy0 + e2 / kWinW;
       gx = tl.wx0 + e2 % kWinW;
       src = p.x + tl.b * hw;
+      rows = p.h;
     }
-    const bool valid = gy >= 0 && gy < p.h && gx >= 0 && gx < p.w;
+    const bool valid = gy >= 0 && gy < rows && gx >= 0 && gx < p.w;
     cp_async4(smem_u32(st + e),
               valid ? src + static_cast<int64_t>(gy) * p.w + gx : p.x, valid);
   }
@@ -484,24 +500,26 @@ extern "C" int jspsr_deform_fwd_path(const void* x, const void* offset,
 namespace {
 
 // The launch of either mode. All tensors are contiguous fp32 on the
-// current device: x (B,1,H,W), offset (B,18,H,W), mask (B,9,H,W), weight
-// (9,), bias (1,), out (B,1,H,W). Launches on ``stream`` without
-// synchronising and returns cudaGetLastError(), or cudaErrorNotSupported
-// where libcuda has no tensor-map encoder and the shape needs one.
+// current device: x (B,1,H,W), offset (B,18,Hs,W), mask (B,9,Hs,W), weight
+// (9,), bias (1,), out (B,1,Hs,W), the slab of image rows [y0, y0 + Hs).
+// Launches on ``stream`` without synchronising and returns
+// cudaGetLastError(), or cudaErrorNotSupported where libcuda has no
+// tensor-map encoder and the shape needs one.
 template <bool kBf16>
 int launch(const float* x, const float* offset, const float* mask,
            const float* weight, const float* bias, float* out, int64_t batch,
-           int h, int w, int pad, void* stream) {
-  if (batch == 0 || h == 0 || w == 0) return 0;
+           int h, int w, int pad, int hs, int y0, void* stream) {
+  if (y0 < 0 || hs < 0 || y0 > h - hs) return cudaErrorInvalidValue;
+  if (batch == 0 || hs == 0 || w == 0) return 0;
   // the floor in accumulate() is exact below 2^22
   if (h >= (1 << 22) || w >= (1 << 22)) return cudaErrorInvalidValue;
   const int tiles_x = (w + kTileW - 1) / kTileW;
-  const int tiles_y = (h + kTileH - 1) / kTileH;
+  const int tiles_y = (hs + kTileH - 1) / kTileH;
   const int64_t n_tiles = batch * tiles_x * tiles_y;
   if (n_tiles >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
   const int sms = sm_count();
   if (sms == 0) return static_cast<int>(cudaGetLastError());
-  const Params p{x, weight, bias, out, offset, mask, h, w, pad,
+  const Params p{x, weight, bias, out, offset, mask, h, w, pad, hs, y0,
                  tiles_x, tiles_y, static_cast<int>(n_tiles)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap maps[3] = {};
@@ -517,10 +535,10 @@ int launch(const float* x, const float* offset, const float* mask,
   if (tma) {
     EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    if (encode3d(encode, &maps[0], offset, w, h, batch * 2 * kTaps, kTileW,
+    if (encode3d(encode, &maps[0], offset, w, hs, batch * 2 * kTaps, kTileW,
                  kTileH, 2 * kTaps) != CUDA_SUCCESS ||
-        encode3d(encode, &maps[1], mask, w, h, batch * kTaps, kTileW, kTileH,
-                 kTaps) != CUDA_SUCCESS ||
+        encode3d(encode, &maps[1], mask, w, hs, batch * kTaps, kTileW,
+                 kTileH, kTaps) != CUDA_SUCCESS ||
         encode_window(encode, &maps[2], x, w, h, batch) != CUDA_SUCCESS)
       return static_cast<int>(cudaErrorInvalidValue);
     deform_fwd_kernel<true, kBf16><<<grid, kThreadsTma, kSmem, s>>>(
@@ -535,20 +553,22 @@ int launch(const float* x, const float* offset, const float* mask,
 }  // namespace
 
 // Plain C entry points, bound from Python with ctypes: the fp32 mode and
-// the bf16-sampling mode, each as ``launch`` above.
+// the bf16-sampling mode, each as ``launch`` above (hs = h, y0 = 0: the
+// whole image).
 extern "C" int jspsr_deform_fwd(const float* x, const float* offset,
                                 const float* mask, const float* weight,
                                 const float* bias, float* out, int64_t batch,
-                                int h, int w, int pad, void* stream) {
+                                int h, int w, int pad, int hs, int y0,
+                                void* stream) {
   return launch<false>(x, offset, mask, weight, bias, out, batch, h, w, pad,
-                       stream);
+                       hs, y0, stream);
 }
 
 extern "C" int jspsr_deform_fwd_bf16(const float* x, const float* offset,
                                      const float* mask, const float* weight,
                                      const float* bias, float* out,
                                      int64_t batch, int h, int w, int pad,
-                                     void* stream) {
+                                     int hs, int y0, void* stream) {
   return launch<true>(x, offset, mask, weight, bias, out, batch, h, w, pad,
-                      stream);
+                      hs, y0, stream);
 }

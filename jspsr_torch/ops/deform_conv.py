@@ -41,6 +41,17 @@ scatters each tap's g w_t m_t with the fp32 bilinear weights, exactly as
 the fp32 mode does: the TPU kernel rounds only its two image products.
 On CUDA tensors the ops launch the three kernels' bf16 modes.
 
+A row slab (``y0``; the spatially sharded forward of
+``parallel/spatial.py``): ``x`` stays the whole image (B,1,H,W) while
+``offset``, ``mask``, the output and its gradient are a slab (B,·,Hs,W)
+whose row h is image row ``y0 + h``: its positions are those rows' (exact
+integers in fp32), so a slab's output, d_offset and d_mask are the same
+rows of the whole image's, bit for bit, and its d_weight and d_bias are
+the slab's share of the whole image's sums. K1 and K2 take it (their
+launches count as ``deform_fwd_slab`` and ``deform_bwd_slab``); the input
+gradient (K3) takes whole images only and refuses a slab, and so do the
+bf16 modes' kernels (ROADMAP.md queue 1 items 7 and 11).
+
 ``bilinear_sample`` is the plain bilinear gather at given positions, with
 autograd to the image: NLSPN's 1x1 confidence taps, which the JAX package
 also leaves to XLA. The JAX package's ``mxu`` form exists only to avoid
@@ -73,26 +84,33 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
-def check_deform_args(x, offset, weight, bias, mask) -> None:
+def check_deform_args(x, offset, weight, bias, mask, y0: int = 0) -> None:
     """Raise unless the arguments are the supported case: x (B,1,H,W),
-    offset (B,18,H,W), mask (B,9,H,W), weight (1,1,3,3), bias (1,)."""
+    offset (B,18,Hs,W), mask (B,9,Hs,W), weight (1,1,3,3), bias (1,), the
+    slab of image rows [y0, y0 + Hs) within the image (Hs = H, y0 = 0: the
+    whole image). A ``bias`` of None is not checked (the backward's)."""
     if x.dim() != 4 or x.shape[1] != 1:
         raise ValueError(f"x must be (B, 1, H, W), got {tuple(x.shape)}")
     b, _, h, w = x.shape
-    want = {"offset": (offset, (b, 2 * TAPS, h, w)),
-            "mask": (mask, (b, TAPS, h, w)),
+    hs = offset.shape[2] if offset.dim() == 4 else h
+    if not 0 <= y0 <= h - hs:
+        raise ValueError(f"the slab of rows [{y0}, {y0 + hs}) is not within "
+                         f"the image's {h} rows")
+    want = {"offset": (offset, (b, 2 * TAPS, hs, w)),
+            "mask": (mask, (b, TAPS, hs, w)),
             "weight": (weight, (1, 1, KERNEL, KERNEL)),
             "bias": (bias, (1,))}
     for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
 
 
-def _positions(offset: torch.Tensor, padding: int):
-    """Sampling positions py, px of shape (B, K, H, W)."""
+def _positions(offset: torch.Tensor, padding: int, y0: int = 0):
+    """Sampling positions py, px of shape (B, K, H, W); the offsets' row h
+    is image row ``y0 + h``."""
     b, _, h, w = offset.shape
     dev, dt = offset.device, offset.dtype
-    oy = torch.arange(h, device=dev, dtype=dt) - padding
+    oy = torch.arange(y0, y0 + h, device=dev, dtype=dt) - padding
     ox = torch.arange(w, device=dev, dtype=dt) - padding
     k = torch.arange(KERNEL, device=dev, dtype=dt)
     tap_y = k.repeat_interleave(KERNEL)  # row-major taps
@@ -150,10 +168,11 @@ def bilinear_sample(x: torch.Tensor, py: torch.Tensor,
 
 
 def deform_im2col(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                  padding: int = 1) -> torch.Tensor:
+                  padding: int = 1, y0: int = 0) -> torch.Tensor:
     """Deformable im2col by four corner gathers, modulated by the mask:
-    columns (B, K, H, W)."""
-    return bilinear_sample(x, *_positions(offset, padding)) * mask
+    columns (B, K, H, W), of the slab whose first row is image row
+    ``y0``."""
+    return bilinear_sample(x, *_positions(offset, padding, y0)) * mask
 
 
 def _bf16_rows(v00, v01, v10, v11, ty):
@@ -165,25 +184,26 @@ def _bf16_rows(v00, v01, v10, v11, ty):
 
 
 def deform_conv2d_plain(x, offset, weight, bias, mask, padding: int = 1,
-                        sample_dtype=None) -> torch.Tensor:
+                        sample_dtype=None, y0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel: gather im2col, times the
     mask, contracted with the 3x3 weight, plus bias; with ``sample_dtype``
-    the bf16-sampling mode. Any device."""
-    check_deform_args(x, offset, weight, bias, mask)
+    the bf16-sampling mode; the output rows of the slab of ``offset`` and
+    ``mask`` whose first row is image row ``y0``. Any device."""
+    check_deform_args(x, offset, weight, bias, mask, y0)
     if bf16_sampling(sample_dtype):
         v00, v01, v10, v11, ty, tx = _bilinear_corners(
-            x, *_positions(offset, padding))
+            x, *_positions(offset, padding, y0))
         tmp0, tmp1, _ = _bf16_rows(v00, v01, v10, v11, ty)
         cols = (tmp0 * (1.0 - tx) + tmp1 * tx) * mask
     else:
-        cols = deform_im2col(x, offset, mask, padding)  # (B, K, H, W)
+        cols = deform_im2col(x, offset, mask, padding, y0)  # (B, K, Hs, W)
     y = torch.einsum("bkhw,k->bhw", cols, weight.reshape(TAPS))
     return (y + bias).unsqueeze(1)
 
 
 def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
                                  padding: int = 1, need_dx: bool = False,
-                                 sample_dtype=None):
+                                 sample_dtype=None, y0: int = 0):
     """Plain PyTorch version of the backward kernels, the same closed forms
     on tensors: returns (d_offset, d_mask, d_weight, d_bias) for
     ``grad_out`` (B,1,H,W), and with ``need_dx`` also d_x (B,1,H,W), each
@@ -193,10 +213,15 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
     positions it is the forward difference; off-image corners read 0 and
     receive nothing. With ``sample_dtype`` the bf16-sampling mode's
     gradients (the module's docstring); its d_x is the fp32 mode's, as the
-    TPU kernel keeps the scatter in fp32. Any device."""
+    TPU kernel keeps the scatter in fp32. On a row slab (``offset``,
+    ``mask`` and ``grad_out`` of Hs rows, the first image row ``y0``)
+    d_offset and d_mask are the slab's and d_weight and d_bias its share;
+    d_x takes whole images only, as K3. Any device."""
     bf16 = bf16_sampling(sample_dtype)
     b, _, h, w = x.shape
-    py, px = _positions(offset, padding)
+    if need_dx:
+        refuse_dx_slab(x, offset, y0)
+    py, px = _positions(offset, padding, y0)
     v00, v01, v10, v11, ty, tx = _bilinear_corners(x, py, px)
     gw = grad_out * weight.reshape(1, TAPS, 1, 1)
     gwm = gw * mask
@@ -211,7 +236,8 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
         val = (1.0 - ty) * top + ty * bot
         d_py = gwm * (bot - top)
         d_px = gwm * ((1.0 - ty) * (v01 - v00) + ty * (v11 - v10))
-    d_offset = torch.stack([d_py, d_px], dim=2).reshape(b, 2 * TAPS, h, w)
+    d_offset = torch.stack([d_py, d_px], dim=2).reshape(b, 2 * TAPS,
+                                                        *offset.shape[2:])
     d_weight = (grad_out * mask * val).sum(dim=(0, 2, 3)).view_as(weight)
     grads = (d_offset, gw * val, d_weight, grad_out.sum().view(1))
     if not need_dx:
@@ -225,6 +251,20 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
         d_x.index_add_(0, (idx + base).reshape(-1),
                        (gwm * wgt * valid.to(x.dtype)).reshape(-1))
     return (*grads, d_x.view_as(x))
+
+
+def is_slab(x: torch.Tensor, offset: torch.Tensor, y0: int) -> bool:
+    """Whether ``offset`` is a row slab of ``x``'s image and not the whole
+    image."""
+    return y0 != 0 or offset.shape[2] != x.shape[2]
+
+
+def refuse_dx_slab(x, offset, y0) -> None:
+    if is_slab(x, offset, y0):
+        raise NotImplementedError(
+            "deform_conv2d: the input gradient (K3) on a row slab is not "
+            "ported (ROADMAP.md queue 1 item 11): x must be the whole image "
+            "with y0 = 0, or not require its gradient")
 
 
 def _kernels(device: torch.device):
@@ -243,15 +283,16 @@ def _kernels(device: torch.device):
 def deform_conv2d_op(x: torch.Tensor, offset: torch.Tensor,
                      weight: torch.Tensor, bias: torch.Tensor,
                      mask: torch.Tensor, padding: int,
-                     sample_dtype: Optional[str]) -> torch.Tensor:
+                     sample_dtype: Optional[str], y0: int = 0) -> torch.Tensor:
     """The forward: K1 on CUDA tensors, ``deform_conv2d_plain`` on CPU
-    tensors, in the mode ``sample_dtype`` asks for."""
+    tensors, in the mode ``sample_dtype`` asks for, on the row slab that
+    starts at image row ``y0``."""
     cuda = _kernels(x.device)
     if cuda is not None:
         return cuda.deform_fwd(x, offset, weight, bias, mask, padding,
-                               sample_dtype=sample_dtype)
+                               sample_dtype=sample_dtype, y0=y0)
     return deform_conv2d_plain(x, offset, weight, bias, mask, padding,
-                               sample_dtype=sample_dtype)
+                               sample_dtype=sample_dtype, y0=y0)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::deform_conv2d_backward",
@@ -259,17 +300,18 @@ def deform_conv2d_op(x: torch.Tensor, offset: torch.Tensor,
 def deform_conv2d_backward_op(
         x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
         mask: torch.Tensor, grad_out: torch.Tensor, padding: int,
-        sample_dtype: Optional[str]
+        sample_dtype: Optional[str], y0: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward without the input gradient: K2 on CUDA tensors,
-    ``deform_conv2d_backward_plain`` on CPU tensors; (d_offset, d_mask,
-    d_weight, d_bias)."""
+    ``deform_conv2d_backward_plain`` on CPU tensors, on the row slab that
+    starts at image row ``y0``; (d_offset, d_mask, d_weight, d_bias)."""
     cuda = _kernels(x.device)
     if cuda is not None:
         return cuda.deform_bwd(x, offset, weight, mask, grad_out, padding,
-                               sample_dtype=sample_dtype)
+                               sample_dtype=sample_dtype, y0=y0)
     return deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
-                                        padding, sample_dtype=sample_dtype)
+                                        padding, sample_dtype=sample_dtype,
+                                        y0=y0)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::deform_conv2d_backward_dx",
@@ -299,10 +341,10 @@ def _new(like: torch.Tensor, *shape) -> torch.Tensor:
 
 
 @deform_conv2d_op.register_fake
-def _(x, offset, weight, bias, mask, padding, sample_dtype):
-    check_deform_args(x, offset, weight, bias, mask)
+def _(x, offset, weight, bias, mask, padding, sample_dtype, y0=0):
+    check_deform_args(x, offset, weight, bias, mask, y0)
     bf16_sampling(sample_dtype)
-    return _new(x, *x.shape)
+    return _new(x, x.shape[0], 1, *offset.shape[2:])
 
 
 def _fake_backward(x, offset, weight, mask):
@@ -311,7 +353,7 @@ def _fake_backward(x, offset, weight, mask):
 
 
 @deform_conv2d_backward_op.register_fake
-def _(x, offset, weight, mask, grad_out, padding, sample_dtype):
+def _(x, offset, weight, mask, grad_out, padding, sample_dtype, y0=0):
     bf16_sampling(sample_dtype)
     return _fake_backward(x, offset, weight, mask)
 
@@ -323,48 +365,54 @@ def _(x, offset, weight, mask, grad_out, padding, sample_dtype):
 
 
 def _setup_context(ctx, inputs, output):
-    x, offset, weight, _, mask, padding, sample_dtype = inputs
+    x, offset, weight, _, mask, padding, sample_dtype, y0 = inputs
     ctx.save_for_backward(x, offset, weight, mask)
     ctx.padding = padding
     ctx.sample_dtype = sample_dtype
+    ctx.y0 = y0
 
 
 def _backward(ctx, grad_out):
     """K3 (``deform_conv2d_backward_dx``) where ``x`` needs its gradient,
     K2 (``deform_conv2d_backward``) where it does not, in the forward's
-    mode."""
+    mode and on its row slab (K3 refuses a slab)."""
     x, offset, weight, mask = ctx.saved_tensors
     need = ctx.needs_input_grad
     # autograd may hand over an expanded (stride-0) gradient
     args = (x, offset, weight, mask, grad_out.contiguous(), ctx.padding,
             ctx.sample_dtype)
     if need[0]:
+        refuse_dx_slab(x, offset, ctx.y0)
         *grads, d_x = deform_conv2d_backward_dx_op(*args)
     else:
-        grads, d_x = deform_conv2d_backward_op(*args), None
+        grads = deform_conv2d_backward_op(*args, ctx.y0)
+        d_x = None
     d_offset, d_mask, d_weight, d_bias = grads
     return (d_x, d_offset if need[1] else None,
             d_weight if need[2] else None, d_bias if need[3] else None,
-            d_mask if need[4] else None, None, None)
+            d_mask if need[4] else None, None, None, None)
 
 
 deform_conv2d_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def deform_conv2d(x, offset, weight, bias, mask, padding: int = 1,
-                  sample_dtype=None) -> torch.Tensor:
+                  sample_dtype=None, y0: int = 0) -> torch.Tensor:
     """Modulated deformable conv: x (B,1,H,W), offset (B,18,H,W),
     weight (1,1,3,3), bias (1,), mask (B,9,H,W) -> (B,1,H,W);
-    ``sample_dtype="bfloat16"`` the bf16-sampling mode.
+    ``sample_dtype="bfloat16"`` the bf16-sampling mode. With offset and
+    mask a row slab (B,·,Hs,W) whose first row is image row ``y0``, the
+    output is that slab's (B,1,Hs,W), the same rows of the whole image's
+    output (the module's docstring).
 
     The op ``jspsr::deform_conv2d``: a CUDA tensor launches the kernels
     (``deform_cuda.deform_fwd``, and ``deform_bwd_dx`` or ``deform_bwd``
     in the backward) in the mode asked for, or raises; there is no
     fallback. Only CPU tensors take the plain versions. Gradients flow to
     every tensor argument that requires one, in either mode."""
-    check_deform_args(x, offset, weight, bias, mask)
+    check_deform_args(x, offset, weight, bias, mask, y0)
     return deform_conv2d_op(x, offset, weight, bias, mask, int(padding),
-                            sample_dtype)
+                            sample_dtype, int(y0))
 
 
 def insert_zero_center_offset(offset: torch.Tensor,

@@ -22,7 +22,12 @@
   ``jspsr_deform_bwd_bf16`` and ``jspsr_deform_bwd_dx_bf16``), replacing
   ``_fwd_kernel`` and ``_bwd_kernel`` (need_dx False and True) with
   ``sample_dtype='bfloat16'``: the row products in bf16, as
-  ``ops.deform_conv`` defines them (K3's d_x stays the fp32 mode's).
+  ``ops.deform_conv`` defines them (K3's d_x stays the fp32 mode's);
+- ``deform_fwd`` and ``deform_bwd`` on a row slab (``y0``; offsets, mask
+  and gradient of Hs rows, the image whole): K1 and K2 with their output
+  rows and window origins moved to image rows ``y0 + h``, for the
+  spatially sharded forward and backward (``parallel/spatial.py``), in the
+  fp32 mode; the bf16 modes and K3 refuse a slab.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -34,7 +39,8 @@ imports on a host without CUDA.
 a run resets it to show that its main path went through the kernels. The
 two backward kernels share a library (``deform_bwd``) and count apart;
 each bf16 mode counts under its own name (``deform_fwd_bf16``,
-``deform_bwd_bf16``, ``deform_bwd_dx_bf16``). The custom ops of
+``deform_bwd_bf16``, ``deform_bwd_dx_bf16``), and so does each kernel on a
+row slab (``deform_fwd_slab``, ``deform_bwd_slab``). The custom ops of
 ``ops.deform_conv`` call these wrappers from their real implementations
 only (never from their fakes), so a count is one launch, not a trace.
 """
@@ -46,7 +52,14 @@ import ctypes
 import torch
 
 from jspsr_torch.ops.cuda_build import build
-from jspsr_torch.ops.deform_conv import _corners, _positions, bf16_sampling
+from jspsr_torch.ops.deform_conv import (
+    _corners,
+    _positions,
+    bf16_sampling,
+    check_deform_args,
+    is_slab,
+    refuse_dx_slab,
+)
 
 TAPS = 9
 # K1's output tile (rows, columns) and window margin: the constants of
@@ -59,7 +72,8 @@ DX_TILE = (8, 32)
 DX_MARGIN = 4
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
-           "deform_bwd_bf16", "deform_bwd_dx_bf16")
+           "deform_bwd_bf16", "deform_bwd_dx_bf16", "deform_fwd_slab",
+           "deform_bwd_slab")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
@@ -70,12 +84,20 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-# kernel -> (library, number of pointer arguments before batch, h, w, pad)
-_ENTRY = {"deform_fwd": ("deform_fwd", 6), "deform_bwd": ("deform_bwd", 8),
-          "deform_bwd_dx": ("deform_bwd", 10),
-          "deform_fwd_bf16": ("deform_fwd", 6),
-          "deform_bwd_bf16": ("deform_bwd", 8),
-          "deform_bwd_dx_bf16": ("deform_bwd", 10)}
+# kernel -> (library, entry point, number of pointer arguments before
+# batch, h, w, pad, whether (hs, y0) follow: the row-slab form)
+_ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6, True),
+          "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 8, True),
+          "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 10, False),
+          "deform_fwd_bf16": ("deform_fwd", "jspsr_deform_fwd_bf16", 6,
+                              True),
+          "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 8,
+                              True),
+          "deform_bwd_dx_bf16": ("deform_bwd", "jspsr_deform_bwd_dx_bf16",
+                                 10, False),
+          # the fp32 kernels on a row slab: the same entry points
+          "deform_fwd_slab": ("deform_fwd", "jspsr_deform_fwd", 6, True),
+          "deform_bwd_slab": ("deform_bwd", "jspsr_deform_bwd", 8, True)}
 
 
 def _load(name: str):
@@ -83,12 +105,12 @@ def _load(name: str):
     library's block count, which sizes the d_weight partials, and K3's
     scratch size in int64 words."""
     if name not in _fns:
-        source, n_ptr = _ENTRY[name]
+        source, symbol, n_ptr, slab = _ENTRY[name]
         lib = ctypes.CDLL(str(build()[source][0]))
-        fn = getattr(lib, f"jspsr_{name}")
+        fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_int] * (2 * slab) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         if source == "deform_fwd":
             window = (ctypes.c_int * 5)()
@@ -137,27 +159,44 @@ def _check(tensors: dict, like: torch.Tensor) -> None:
         raise ValueError(f"deform kernel: H*W={h * w} exceeds int32 indexing")
 
 
+def _name(kernel: str, sample_dtype, x, offset, y0: int) -> str:
+    """The launch count's name: the kernel, its bf16 mode or its row-slab
+    form (fp32 only: a bf16 mode on a slab raises)."""
+    bf16 = bf16_sampling(sample_dtype)
+    if not is_slab(x, offset, y0):
+        return f"{kernel}_bf16" if bf16 else kernel
+    if bf16:
+        raise NotImplementedError(
+            f"{kernel}: the bf16-sampling mode on a row slab is not ported "
+            f"(ROADMAP.md queue 1 item 7)")
+    return f"{kernel}_slab"
+
+
 def deform_fwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor, mask: torch.Tensor, padding: int = 1,
-               sample_dtype=None) -> torch.Tensor:
+               sample_dtype=None, y0: int = 0) -> torch.Tensor:
     """Launch the forward kernel on CUDA tensors of the shapes that
     ``ops.deform_conv.check_deform_args`` admits, in its bf16-sampling mode
-    where ``sample_dtype`` asks for it; raises on anything else. No
-    autograd here: ``ops.deform_conv.deform_conv2d`` wraps it."""
-    name = "deform_fwd_bf16" if bf16_sampling(sample_dtype) else "deform_fwd"
+    where ``sample_dtype`` asks for it, on the row slab of ``offset`` and
+    ``mask`` whose first row is image row ``y0`` (the whole image by
+    default); raises on anything else. No autograd here:
+    ``ops.deform_conv.deform_conv2d`` wraps it."""
+    check_deform_args(x, offset, weight, bias, mask, y0)
+    name = _name("deform_fwd", sample_dtype, x, offset, y0)
     _check({"x": x, "offset": offset, "weight": weight, "bias": bias,
             "mask": mask}, x)
     b, _, h, w = x.shape
+    hs = offset.shape[2]
     if max(h, w) >= 2**22:
         raise ValueError(f"deform_fwd: H, W = {h}, {w}: each must be below "
                          f"2^22")
-    out = torch.empty_like(x)
+    out = x.new_empty(b, 1, hs, w)
     fn = _load(name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
                 weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                b, h, w, int(padding), stream)
+                b, h, w, int(padding), hs, int(y0), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -175,30 +214,34 @@ def fwd_path(x: torch.Tensor, offset: torch.Tensor,
     return "tma" if use else "copy"
 
 
-def _backward(name, x, offset, weight, mask, grad_out, padding):
+def _backward(name, x, offset, weight, mask, grad_out, padding, y0=0):
     _check({"x": x, "offset": offset, "weight": weight, "mask": mask,
             "grad_out": grad_out}, x)
-    if grad_out.shape != x.shape:
-        raise ValueError(f"grad_out must be {tuple(x.shape)}, got "
-                         f"{tuple(grad_out.shape)}")
     b, _, h, w = x.shape
+    hs = offset.shape[2]
+    if grad_out.shape != (b, 1, hs, w):
+        raise ValueError(f"grad_out must be {(b, 1, hs, w)}, got "
+                         f"{tuple(grad_out.shape)}")
     fn, blocks, scratch = _load(name)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    partial = torch.empty(blocks(b, h, w), TAPS, device=x.device,
+    partial = torch.empty(blocks(b, hs, w), TAPS, device=x.device,
                           dtype=torch.float32)
-    tail, d_x = [], []
+    tail, d_x, slab = [], [], []
     if name.startswith("deform_bwd_dx"):
         # the fixed-point accumulator, summed with atomics, starts at zero;
         # the bounds pass's partials after it are written whole
         d_x = [torch.empty_like(x)]
         tail = [torch.zeros(scratch(b, h, w), device=x.device,
                             dtype=torch.int64), d_x[0]]
+    else:
+        slab = [hs, int(y0)]
     ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, partial,
             *tail]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), *slab,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -208,15 +251,18 @@ def _backward(name, x, offset, weight, mask, grad_out, padding):
 
 def deform_bwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                mask: torch.Tensor, grad_out: torch.Tensor,
-               padding: int = 1, sample_dtype=None):
+               padding: int = 1, sample_dtype=None, y0: int = 0):
     """Launch the backward kernel without the input gradient on CUDA
-    tensors: x (B,1,H,W), offset (B,18,H,W), weight (1,1,3,3), mask
-    (B,9,H,W), grad_out (B,1,H,W), in its bf16-sampling mode where
-    ``sample_dtype`` asks for it. Returns ``(d_offset, d_mask, d_weight,
-    d_bias)``; d_weight is the kernel's per-block partials summed here,
-    d_bias the sum of ``grad_out``."""
-    name = "deform_bwd_bf16" if bf16_sampling(sample_dtype) else "deform_bwd"
-    return _backward(name, x, offset, weight, mask, grad_out, padding)
+    tensors: x (B,1,H,W), offset (B,18,Hs,W), weight (1,1,3,3), mask
+    (B,9,Hs,W), grad_out (B,1,Hs,W), the row slab whose first row is image
+    row ``y0`` (Hs = H, y0 = 0 by default: the whole image), in its
+    bf16-sampling mode where ``sample_dtype`` asks for it. Returns
+    ``(d_offset, d_mask, d_weight, d_bias)``; d_weight is the kernel's
+    per-block partials summed here, d_bias the sum of ``grad_out``: on a
+    slab, its share of the image's."""
+    check_deform_args(x, offset, weight, None, mask, y0)
+    name = _name("deform_bwd", sample_dtype, x, offset, y0)
+    return _backward(name, x, offset, weight, mask, grad_out, padding, y0)
 
 
 def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
@@ -227,7 +273,9 @@ def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     d_x)``. d_x is summed in fixed point, scaled per image on the device,
     so every output is the same, bit for bit, on every run. In the
     bf16-sampling mode d_offset, d_mask and d_weight are ``deform_bwd``'s
-    in that mode and d_x is the fp32 mode's."""
+    in that mode and d_x is the fp32 mode's. Whole images only."""
+    check_deform_args(x, offset, weight, None, mask)
+    refuse_dx_slab(x, offset, 0)
     name = ("deform_bwd_dx_bf16" if bf16_sampling(sample_dtype)
             else "deform_bwd_dx")
     return _backward(name, x, offset, weight, mask, grad_out, padding)

@@ -13,6 +13,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from jspsr_torch.parallel import spatial
+from jspsr_torch.parallel.mesh import active_sharding
+
 _SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
 _SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
 
@@ -38,8 +41,11 @@ def replicate_pad1(x: torch.Tensor) -> torch.Tensor:
 
 def spatial_gradient(x: torch.Tensor):
     """kornia-style normalized Sobel gradient: NCHW -> (gx, gy), each NCHW.
-    Replicate-padded, kernels divided by sum(|k|) = 8."""
-    xp = replicate_pad1(x)
+    Replicate-padded, kernels divided by sum(|k|) = 8; on a row slab under
+    a spatial sharding, padded with its neighbours' rows
+    (``parallel.spatial.replicate_halo1``)."""
+    xp = (replicate_pad1(x) if active_sharding() is None
+          else spatial.replicate_halo1(x))
     gx = _depthwise(xp, torch.tensor(_SOBEL_X, device=x.device) / 8.0)
     gy = _depthwise(xp, torch.tensor(_SOBEL_Y, device=x.device) / 8.0)
     return gx, gy

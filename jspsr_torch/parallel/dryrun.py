@@ -1,6 +1,5 @@
 """The multi-process dry run (counterpart of ``dryrun_multichip`` in the JAX
-package's ``__graft_entry__.py:57-271``, without its 2-D spatially
-sharded forward, which the port does not have):
+package's ``__graft_entry__.py:57-271``):
 
     python -m jspsr_torch.parallel.dryrun [N] [--device cpu|cuda]
 
@@ -19,7 +18,16 @@ gloo, all ranks on ``cpu`` or sharing ``cuda:0``) and checks on it:
    3e-4 relative (``__graft_entry__.py:185-187``);
 3. the device scene cache over the group: each rank samples its loader
    shard, and the gathered global batch is bit-equal to one cache sampling
-   the global batch's indices, whole and split over an ``n``-entry mesh.
+   the global batch's indices, whole and split over an ``n``-entry mesh;
+4. for an even ``n``, the 2-D leg (``__graft_entry__.py:132-154``): the
+   same world as a ``(n // 2) x 2`` (data x space) mesh
+   (``mesh.make_2d_mesh``, ``spatial_sharding``), the tiny flagship's eval
+   forward on the batch's first ``n // 2`` rows spatially sharded, its
+   gathered output within rtol 1e-4 / atol 1e-5 of the same forward on
+   each rank alone (``tests/test_train.py:308``'s bounds). The JAX leg
+   takes the first ``2 (n // 2)`` devices of an odd count; a mesh of the
+   port's spans its whole process group, so an odd ``n`` skips the leg and
+   says so.
 """
 
 from __future__ import annotations
@@ -175,9 +183,43 @@ def cache_over_group(dev, root: str, rank: int, world: int) -> dict:
             "global_rows": int(got[-1].shape[0])}
 
 
+def eval_forward(dev, batch: int, sharding=None) -> np.ndarray:
+    """The tiny flagship's eval forward on the dry run's first ``batch``
+    rows: on one process, or spatially sharded over ``sharding`` and
+    gathered; NCHW numpy."""
+    from jspsr_torch.parallel.spatial import sharded_forward
+    from jspsr_torch.utils.device import set_strict_fp32
+
+    if dev.type == "cuda":
+        set_strict_fp32()
+    model = _flagship().to(dev).eval()
+    inputs = [_nchw(a, dev) for a in _example(batch)[:3]]
+    with torch.no_grad():
+        y = (model(inputs) if sharding is None
+             else sharded_forward(model, inputs, sharding))
+    return y.cpu().numpy()
+
+
+def spatial_leg(dev, world: int) -> dict:
+    """The 2-D leg on this rank: the world as a ``(world // 2) x 2`` mesh,
+    the eval forward on ``world // 2`` rows sharded over it and gathered,
+    the rank's deform launches in it, and the same forward on this
+    process alone (the one-process reference)."""
+    from jspsr_torch.ops import deform_cuda
+    from jspsr_torch.parallel.mesh import make_2d_mesh, spatial_sharding
+
+    sharding = spatial_sharding(make_2d_mesh(world // 2, 2))
+    deform_cuda.reset_launches()
+    y = eval_forward(dev, world // 2, sharding)
+    launches = dict(deform_cuda.LAUNCHES)
+    return {"sharded": y, "launches": launches,
+            "one_process": eval_forward(dev, world // 2)}
+
+
 def _rank_checks(rank: int, world: int, root: str, device: str) -> dict:
-    """The three checks on one rank, with the rank's deform kernel
-    launches (``ops.deform_cuda.LAUNCHES``; none on the CPU)."""
+    """The checks on one rank, with the rank's deform kernel launches
+    (``ops.deform_cuda.LAUNCHES``; none on the CPU), those of the 2-D leg
+    apart."""
     from jspsr_torch.ops import deform_cuda
     from jspsr_torch.parallel.mesh import process_device
 
@@ -187,6 +229,8 @@ def _rank_checks(rank: int, world: int, root: str, device: str) -> dict:
     out["cache"] = cache_over_group(dev, root, rank, world)
     out["device"] = str(dev)
     out["launches"] = dict(deform_cuda.LAUNCHES)
+    if world % 2 == 0:
+        out["spatial"] = spatial_leg(dev, world)
     return out
 
 
@@ -226,7 +270,21 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
           f"checksum {first['checksum']:.6f} (one process "
           f"{ref['checksum']:.6f}), ranks bit-equal; mesh eval "
           f"{first['eval']}; device cache {first['cache']}", flush=True)
-    return {"backend": backend, "ranks": ranks, "one_process": ref}
+    out = {"backend": backend, "ranks": ranks, "one_process": ref}
+    if n % 2:
+        print(f"dryrun_multichip: no 2D leg on an odd world of {n} ranks",
+              flush=True)
+    else:
+        for r in ranks:
+            leg = r.pop("spatial")
+            y, one = leg.pop("sharded"), leg.pop("one_process")
+            np.testing.assert_allclose(y, one, rtol=1e-4, atol=1e-5)
+            r["spatial"] = {"max_abs": float(np.abs(y - one).max()), **leg}
+        print(f"dryrun_multichip: 2D mesh (data={n // 2}, space=2) "
+              f"spatially-sharded forward OK {tuple(one.shape)} (max |diff| "
+              f"from one process {first['spatial']['max_abs']:.3g})",
+              flush=True)
+    return out
 
 
 def main(argv=None) -> int:

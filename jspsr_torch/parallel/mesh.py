@@ -1,5 +1,6 @@
-"""Data-parallel training over processes and tile-parallel inference over
-local devices (counterpart of ``jspsr_tpu/parallel/mesh.py``).
+"""Data-parallel training over processes, the 2-D (data x space) mesh of
+processes and tile-parallel inference over local devices (counterpart of
+``jspsr_tpu/parallel/mesh.py``).
 
 The JAX package runs one program over a device mesh and lets XLA insert
 the collectives. The port follows PyTorch's layout instead:
@@ -23,8 +24,15 @@ the collectives. The port follows PyTorch's layout instead:
   batch on each with a replica of the model there and gathers the
   results. A list may name one device twice (a one-card host, the CPU).
 
-The 2-D (data x space) spatially sharded forward of the JAX package
-(``make_2d_mesh``, ``spatial_sharding``) has no counterpart here.
+- **The 2-D (data x space) spatially sharded forward: one process per
+  block.** ``make_2d_mesh(n_data, n_space)`` lays the process group out as
+  the JAX package's ``reshape(n_data, n_space)`` of its devices: rank r is
+  at (r // n_space, r % n_space), with a data group per space index and a
+  space group per data index. ``spatial_sharding(mesh2d)`` gives each rank
+  its block of an NCHW batch (its rows of the batch, its slab of image
+  rows: ``P("data", "space")`` on NHWC), gathers results back, and opens
+  the context in which the layers that need a neighbour's rows exchange
+  them (``parallel/spatial.py`` says which, and why processes).
 """
 
 from __future__ import annotations
@@ -87,6 +95,17 @@ def data_parallel(group):
 def step_group():
     """The group of the data-parallel step running now, else None."""
     return _STEP_GROUP
+
+
+# the spatial sharding whose context is open (``SpatialSharding.active``)
+_SHARDING = None
+
+
+def active_sharding():
+    """The ``SpatialSharding`` whose context is open now, else None: what
+    the layers of ``parallel/spatial.py``'s list read. A module global, as
+    ``data_parallel``'s group, for autograd's device threads."""
+    return _SHARDING
 
 
 def local_rank(rank: int | None = None) -> int:
@@ -176,21 +195,25 @@ def _through_flat(tensors, collective, device) -> None:
                 off += n
 
 
-def all_reduce_grads(params, group=None) -> None:
+def all_reduce_grads(params, group=None, average: bool = True) -> None:
     """The mean gradient over the process group, in place: one flat
     buffer per dtype in parameter order, summed, then divided by the world
-    size (XLA's one gradient all-reduce). Nothing without a group."""
+    size (XLA's one gradient all-reduce). Nothing without a group. With
+    ``average`` False the sum: under a 2-D mesh each rank's loss is its
+    block's share of the whole batch's (``parallel/spatial.py``), so the
+    summed gradient is the whole batch's."""
     group = group or process_group()
     if group is None:
         return
     grads = [q.grad for q in params]
     world = dist.get_world_size(group)
 
-    def mean(flat):
+    def reduce(flat):
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-        flat.div_(world)
+        if average:
+            flat.div_(world)
 
-    _through_flat(grads, mean, grads[0].device)
+    _through_flat(grads, reduce, grads[0].device)
 
 
 def reduce_step_outputs(out: dict, group=None) -> dict:
@@ -219,13 +242,22 @@ def reduce_step_outputs(out: dict, group=None) -> dict:
     return reduced
 
 
+def all_gather_list(x: torch.Tensor, group=None) -> list:
+    """The ranks' ``x`` (equal shapes) in rank order. The collective copies
+    bytes, so the input and the outputs are contiguous alike (a tensor
+    with other strides, an autograd gradient among them, is copied
+    first)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return parts
+
+
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """The ranks' ``x`` (equal shapes) concatenated along dim 0 in rank
     order: the global batch whose shards the ranks hold."""
-    parts = [torch.empty_like(x)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    return torch.cat(all_gather_list(x, group))
 
 
 def global_rows(batch: int) -> tuple[int, int]:
@@ -455,6 +487,126 @@ def shard_batch(mesh: Mesh, tree) -> list:
         return _map(cut, tree)
 
     return [piece(i, dev) for i, dev in enumerate(mesh.devices)]
+
+
+# ---------------------------------------------------------------------------
+# the 2-D (data x space) mesh of processes
+# ---------------------------------------------------------------------------
+
+# an image's rows must divide into equal slabs at every level of the
+# flagship's encoder: three stride-2 stages, each slab starting on an even
+# row
+ROW_MULTIPLE = 8
+
+
+class Mesh2D:
+    """A process group laid out as ``n_data`` x ``n_space``: this rank's
+    place (``data_index``, ``space_index``), the group of its space index
+    across the data axis (``data_group``), the group of its data index
+    across the space axis (``space_group``, which a row slab's halos and
+    pools reduce over) and the whole group (``group``, which train-mode
+    BatchNorm and the losses reduce over)."""
+
+    def __init__(self, n_data, n_space, rank, group, data_group,
+                 space_group):
+        self.n_data, self.n_space = n_data, n_space
+        self.rank, self.world = rank, n_data * n_space
+        self.data_index, self.space_index = divmod(rank, n_space)
+        self.group = group
+        self.data_group, self.space_group = data_group, space_group
+
+
+def make_2d_mesh(n_data: int, n_space: int, group=None) -> Mesh2D:
+    """The 2-D mesh over ``group`` (the default process group), whose
+    world must be ``n_data * n_space``: rank r at (r // n_space, r %
+    n_space), row-major as the JAX package's ``reshape(n_data, n_space)``
+    (``jspsr_tpu/parallel/mesh.py:82-86``). Every rank builds every data
+    and space group (``dist.new_group``), in one order: data groups by
+    space index, then space groups by data index."""
+    group = group or process_group()
+    if group is None:
+        raise RuntimeError("make_2d_mesh needs a process group of "
+                           f"n_data * n_space = {n_data * n_space} ranks "
+                           "(init_distributed, or parallel.spawn.run_ranks)")
+    world = dist.get_world_size(group)
+    if world != n_data * n_space:
+        raise ValueError(f"make_2d_mesh({n_data}, {n_space}) needs a world "
+                         f"of {n_data * n_space} ranks, the group has "
+                         f"{world}")
+    ranks = dist.get_process_group_ranks(group)
+    timeout = timedelta(seconds=DIST_TIMEOUT_S)
+    rank = dist.get_rank(group)
+    data_groups = [dist.new_group([ranks[d * n_space + s]
+                                   for d in range(n_data)], timeout=timeout)
+                   for s in range(n_space)]
+    space_groups = [dist.new_group([ranks[d * n_space + s]
+                                    for s in range(n_space)], timeout=timeout)
+                    for d in range(n_data)]
+    d, s = divmod(rank, n_space)
+    return Mesh2D(n_data, n_space, rank, group, data_groups[s],
+                  space_groups[d])
+
+
+class SpatialSharding:
+    """NCHW batches over a ``Mesh2D``: rows of the batch over the data
+    axis, image rows (H) over the space axis, as the JAX package's
+    ``P("data", "space")`` on NHWC (``jspsr_tpu/parallel/mesh.py:89-92``).
+
+    ``shard(x)`` is this rank's block of a whole batch, ``gather(y)`` the
+    whole batch from every rank's block (on every rank), and inside
+    ``active()`` a model's forward on the blocks computes the whole batch's
+    blocks (``parallel/spatial.py``)."""
+
+    def __init__(self, mesh: Mesh2D):
+        self.mesh = mesh
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole NCHW batch ``x``: batch rows
+        ``[d * B/n_data, (d+1) * B/n_data)``,
+        image rows ``[s * H/n_space, (s+1) * H/n_space)``, contiguous.
+        Refuses a batch that does not divide by ``n_data`` and an H that
+        does not divide by ``ROW_MULTIPLE * n_space``."""
+        m = self.mesh
+        if x.dim() != 4:
+            raise ValueError(f"shard takes NCHW batches, got shape "
+                             f"{tuple(x.shape)}")
+        b, _, h, _ = x.shape
+        if b % m.n_data:
+            raise ValueError(f"batch {b} does not divide over the data "
+                             f"axis's {m.n_data} ranks")
+        if h % (ROW_MULTIPLE * m.n_space):
+            raise ValueError(
+                f"H = {h} does not divide by {ROW_MULTIPLE} x {m.n_space} "
+                f"(the space axis): every slab must start on an even row "
+                f"at each of the encoder's three stride-2 levels")
+        rb, rh = b // m.n_data, h // m.n_space
+        return x[m.data_index * rb:(m.data_index + 1) * rb, :,
+                 m.space_index * rh:(m.space_index + 1) * rh].contiguous()
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """The whole batch, on every rank, from every rank's NCHW block
+        ``y`` (equal shapes): the slabs concatenated along H in space order,
+        then the data rows along the batch in data order. Not
+        differentiable."""
+        m = self.mesh
+        rows = torch.cat(all_gather_list(y.detach(), m.space_group), dim=2)
+        return torch.cat(all_gather_list(rows, m.data_group))
+
+    @contextlib.contextmanager
+    def active(self):
+        """Within it, a forward on this rank's block is that block of the
+        whole batch's forward (``parallel/spatial.py``)."""
+        global _SHARDING
+        prev, _SHARDING = _SHARDING, self
+        try:
+            yield self
+        finally:
+            _SHARDING = prev
+
+
+def spatial_sharding(mesh: Mesh2D) -> SpatialSharding:
+    """The sharding of NCHW batches over ``mesh``'s (data, space) axes."""
+    return SpatialSharding(mesh)
 
 
 def pad_batch_to(tree, batch: int):

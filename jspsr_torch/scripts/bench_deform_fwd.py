@@ -124,17 +124,20 @@ def deform_inputs(b, h, w, scale, gen, dev):
     return x, offset, weight, bias, mask
 
 
-def deform_library(x, offset, weight, bias, mask):
+def deform_library(x, offset, weight, bias, mask, y0: int = 0):
     """The same function as one ``grid_sample`` call (bilinear, zero
     padding, align_corners=True puts pixel centres on integer positions)
-    plus the mask-weight reduction: a yardstick, never called by the port."""
+    plus the mask-weight reduction, on the row slab of ``offset`` and
+    ``mask`` whose first row is image row ``y0``: a yardstick, never called
+    by the port."""
     b, _, h, w = x.shape
-    py, px = _positions(offset, 1)  # (B, 9, H, W)
+    hs = offset.shape[2]
+    py, px = _positions(offset, 1, y0)  # (B, 9, Hs, W)
     grid = torch.stack([px * (2.0 / (w - 1)) - 1.0,
                         py * (2.0 / (h - 1)) - 1.0], dim=-1)
-    val = F.grid_sample(x, grid.view(b, 9 * h, w, 2), mode="bilinear",
+    val = F.grid_sample(x, grid.view(b, 9 * hs, w, 2), mode="bilinear",
                         padding_mode="zeros", align_corners=True)
-    return (val.view(b, 9, h, w) * mask * weight.view(1, 9, 1, 1)).sum(
+    return (val.view(b, 9, hs, w) * mask * weight.view(1, 9, 1, 1)).sum(
         1, keepdim=True) + bias
 
 

@@ -73,6 +73,39 @@ def test_kernel_matches_plain(cuda_device, b, h, w, scale):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("h,w,y0,hs,scale", [
+    (16, 16, 8, 8, 1.5), (128, 128, 64, 64, 20.0), (13, 20, 5, 6, 1.5),
+    (333, 335, 111, 111, 1.5)])
+def test_row_slab_kernels_are_the_whole_images_rows(cuda_device, h, w, y0,
+                                                    hs, scale):
+    """K1 and K2 on a row slab (``y0``; TMA and copy paths, slabs off K1's
+    4-row tile): output, d_offset and d_mask bit-equal to those rows of the
+    whole-image kernels' and within rtol = atol = 1e-5 of their plain
+    versions; one ``deform_fwd_slab`` and one ``deform_bwd_slab`` launch."""
+    x, offset, weight, bias, mask = _args(2, h, w, scale, cuda_device)
+    rows = slice(y0, y0 + hs)
+    off, msk = offset[:, :, rows].contiguous(), mask[:, :, rows].contiguous()
+    g = torch.randn(2, 1, h, w, device=cuda_device)
+    before = dict(deform_cuda.LAUNCHES)
+    got = deform_cuda.deform_fwd(x, off, weight, bias, msk, y0=y0)
+    got_b = deform_cuda.deform_bwd(x, off, weight, msk,
+                                   g[:, :, rows].contiguous(), y0=y0)
+    torch.cuda.synchronize()
+    assert {k: deform_cuda.LAUNCHES[k] - before[k] for k in before} == {
+        **NO_LAUNCHES, "deform_fwd_slab": 1, "deform_bwd_slab": 1}
+    whole = deform_cuda.deform_fwd(x, offset, weight, bias, mask)
+    whole_b = deform_cuda.deform_bwd(x, offset, weight, mask, g)
+    assert torch.equal(got, whole[:, :, rows])
+    for a, full in zip(got_b[:2], whole_b[:2]):
+        assert torch.equal(a, full[:, :, rows])
+    torch.testing.assert_close(got, deform_conv2d_plain(
+        x, off, weight, bias, msk, y0=y0), rtol=1e-5, atol=1e-5)
+    ref_b = deform_conv2d_backward_plain(x, off, weight, msk,
+                                         g[:, :, rows].contiguous(), y0=y0)
+    for a, r in zip(got_b[:2], ref_b[:2]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
 # K1's load paths: sides its 4 x 64 tile does not divide, one smaller
 # than a tile (TMA), W % 4 != 0 (the copy path), at integer positions,
 # sub-pixel offsets and far off the image
