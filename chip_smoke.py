@@ -88,9 +88,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    slab of the mesh, offsets at 0, 1.5 and 20 px: against their plain
    versions with the same row origin (as 3 and 3b), and bit for bit
    against the whole-image kernel (the slab's output, d_offset and d_mask
-   are those rows of it; ``y0=0`` on the whole image is it), timed beside
+   are those rows of it; ``y0=0`` on the whole image is it; the slabs'
+   d_weight and d_bias sum to its within 1e-6 of the terms' magnitude
+   sums), timed beside
    the plain version, the ``grid_sample`` form on the slab and the slab's
-   bound;
+   bound; then the same in the bf16-sampling mode (``deform_fwd_bf16_slab``,
+   ``deform_bwd_bf16_slab``, against the whole-image bf16 kernel), with
+   one slab more: 25 x 64 x 128, the shipped bf16 batch of 50 on the mesh;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -308,7 +312,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    relative L2, ``SPATIAL_GRAD_REL_L2``), every rank's bit-equal; each
    twice, with each run's launches (one K1 on a slab per forward, one K1
    and one K2 on a slab per gradient, on every rank) and seconds through
-   gloo (a correctness run, not a scaling figure).
+   gloo (a correctness run, not a scaling figure); then, once each, the
+   other cases (``SPATIAL_CASES``), each against one process on the card
+   that rank 0 runs after it: the shipped bf16 flagship
+   (configs/jspsr_r8_img_msk_bf16.yml, phase 4's weights) and the same
+   with ``spn_sample_dtype: bfloat16`` (within twice the one-process bf16
+   model's distance from its fp32 one), the fp32 flagship with
+   ``fuse_stems`` and ``eval_grouped`` (forward) and ``remat_stages``
+   (gradients), EDSR (configs/edsr_r8_img.yml) with and without ``spn``,
+   LRRU (configs/lrru_r8_img.yml, LRRU_HOLES of voids; its forward at 2 x
+   256², held to float64 on the CPU) and the flagship's gradients under
+   L1 + BerHu + SSIM + TV; each case's launches exact on every rank.
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
@@ -828,59 +842,80 @@ def k2_bound(b, h, w, bandwidth, fp32_peak):
                                    else "operations")
 
 
-def spatial_slabs() -> list:
+def spatial_slabs(sample_dtype=None) -> list:
     """K1's and K2's row slabs on phase 17's paths, from its constants:
-    for (a) and (b), each rank's (batch rows, image side) and its slab's
-    rows; the y0 of each space index."""
+    each rank's (batch rows, image side), its slab's rows, the y0 of each
+    space index, and whether K2 runs there: (a)'s forward (K1 only) and
+    (b)'s gradients (K1 and K2). The fp32 mode adds the forward of the
+    cases at SPATIAL_FP64_FWD (K1 only: LRRU's four rounds), the
+    bf16-sampling mode the shipped bf16 batch of 50 x 128^2 on the mesh
+    (SPATIAL_BF16_BATCH, both)."""
     n_data, n_space = SPATIAL_MESH
+    shapes = [(SPATIAL_FWD, False), (SPATIAL_GRAD, True)]
+    shapes.append((SPATIAL_FP64_FWD, False) if sample_dtype is None
+                  else (SPATIAL_BF16_BATCH, True))
     return [(b // n_data, side, side // n_space,
-             [s * (side // n_space) for s in range(n_space)])
-            for b, side in (SPATIAL_FWD, SPATIAL_GRAD)]
+             [s * (side // n_space) for s in range(n_space)], with_bwd)
+            for (b, side), with_bwd in shapes]
 
 
-def check_deform_slabs(dev, bandwidth, fp32_peak, seed: int = 7):
+def check_deform_slabs(dev, bandwidth, fp32_peak, seed: int = 7,
+                       sample_dtype=None):
     """K1 and K2 on row slabs (``y0``; ``deform_fwd_slab``,
-    ``deform_bwd_slab``) at phase 17's slabs (``spatial_slabs``: K1 at
-    (a)'s and (b)'s, K2 at (b)'s), each y0 of the mesh, offsets at each of
-    OFFSET_SCALES: against their plain versions with the same row origin
-    (rtol = atol = 1e-5, K2's d_weight within 1e-5 of its terms' magnitude
-    sum, as ``check_deform_kernel`` and ``check_deform_backward``), and bit
-    for bit against the whole-image kernel: the slab's output, d_offset and
-    d_mask are those rows of the whole image's, and a call with ``y0=0``
-    and the whole image is the whole-image kernel's; timed at TIMED_SCALE
-    and the last y0 beside the plain version, the ``grid_sample`` form on
-    the slab (for K2 autograd's backward through it) and the bound of the
-    slab's own pixels. Returns K1's rows and K2's."""
+    ``deform_bwd_slab``, or with ``sample_dtype`` bf16 their bf16-sampling
+    modes, ``deform_fwd_bf16_slab``, ``deform_bwd_bf16_slab``) at phase
+    17's slabs (``spatial_slabs``: K1 at each, K2 where it runs), each
+    y0 of the mesh on one image, offsets at each of OFFSET_SCALES: against
+    their plain versions in the same mode with the same row origin (rtol
+    = atol = 1e-5, K2's d_weight within 1e-5 of its terms' magnitude sum,
+    as ``check_deform_kernel`` and ``check_deform_backward``), and bit for
+    bit against the whole-image kernel in the same mode: the slab's output,
+    d_offset and d_mask are those rows of the whole image's, a call with
+    ``y0=0`` and the whole image is the whole-image kernel's, and the
+    slabs' d_weight and d_bias summed are the whole image's within 1e-6
+    of the terms' magnitude sums; timed at TIMED_SCALE and the last y0
+    beside the plain version, the fp32 ``grid_sample`` form on the slab
+    (for K2 autograd's backward through it) and the bound of the slab's
+    own pixels (the fp32 mode's bytes). Returns K1's rows and K2's."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 * 2**20, device=dev)
+    mode = "_bf16" if sample_dtype is not None else ""
+    kw = {"sample_dtype": sample_dtype}
     fwd_rows, bwd_rows = [], []
-    for i, (b, side, hs, y0s) in enumerate(spatial_slabs()):
-        with_bwd = i == 1
+    for b, side, hs, y0s, with_bwd in spatial_slabs(sample_dtype):
         fwd = {"shape": [b, 1, hs, side], "image": [b, 1, side, side],
                "y0": y0s, "max_abs_err": 0.0}
-        bwd = dict(fwd, d_weight_err_over_abs_sum=0.0)
-        for y0 in y0s:
-            rows = slice(y0, y0 + hs)
-            for scale in OFFSET_SCALES:
-                x, off, wt, bias, mask = deform_inputs(b, side, side, scale,
-                                                       gen, dev)
+        bwd = dict(fwd, d_weight_err_over_abs_sum=0.0,
+                   d_weight_sum_rel_err=0.0)
+        for scale in OFFSET_SCALES:
+            x, off, wt, bias, mask = deform_inputs(b, side, side, scale,
+                                                   gen, dev)
+            g = torch.randn(b, 1, side, side, generator=gen, device=dev)
+            with torch.inference_mode():
+                whole = deform_cuda.deform_fwd(x, off, wt, bias, mask, **kw)
+                zero = deform_cuda.deform_fwd(x, off, wt, bias, mask, y0=0,
+                                              **kw)
+            whole_b = (deform_cuda.deform_bwd(x, off, wt, mask, g, **kw)
+                       if with_bwd else None)
+            sums = [0.0, 0.0]
+            for y0 in y0s:
+                rows = slice(y0, y0 + hs)
                 o, m = off[:, :, rows].contiguous(), mask[:, :, rows] \
                     .contiguous()
                 with torch.inference_mode():
-                    got = deform_cuda.deform_fwd(x, o, wt, bias, m, y0=y0)
-                    whole = deform_cuda.deform_fwd(x, off, wt, bias, mask)
-                    zero = deform_cuda.deform_fwd(x, off, wt, bias, mask,
-                                                  y0=0)
-                    ref = deform_conv2d_plain(x, o, wt, bias, m, y0=y0)
+                    got = deform_cuda.deform_fwd(x, o, wt, bias, m, y0=y0,
+                                                 **kw)
+                    ref = deform_conv2d_plain(x, o, wt, bias, m, y0=y0,
+                                              **kw)
                 torch.cuda.synchronize()
                 if not (torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
                         and torch.equal(got, whole[:, :, rows])
                         and torch.equal(zero, whole)):
                     raise AssertionError(
-                        f"deform_fwd_slab at {fwd['shape']} y0 {y0} offset "
-                        f"scale {scale}: max |err| from the plain version "
-                        f"{(got - ref).abs().max().item()}, from the whole "
-                        f"image's rows "
+                        f"deform_fwd{mode}_slab at {fwd['shape']} y0 {y0} "
+                        f"offset scale {scale}: max |err| from the plain "
+                        f"version {(got - ref).abs().max().item()}, from "
+                        f"the whole image's rows "
                         f"{(got - whole[:, :, rows]).abs().max().item()}")
                 fwd["max_abs_err"] = max(fwd["max_abs_err"],
                                          (got - ref).abs().max().item())
@@ -889,65 +924,85 @@ def check_deform_slabs(dev, bandwidth, fp32_peak, seed: int = 7):
                     with torch.inference_mode():
                         fwd["kernel_ms"] = time_ms(
                             lambda: deform_cuda.deform_fwd(
-                                x, o, wt, bias, m, y0=y0), flush)
+                                x, o, wt, bias, m, y0=y0, **kw), flush)
                         fwd["plain_ms"] = time_ms(
                             lambda: deform_conv2d_plain(x, o, wt, bias, m,
-                                                        y0=y0), flush)
+                                                        y0=y0, **kw), flush)
                         fwd["library_ms"] = time_ms(
                             lambda: deform_library(x, o, wt, bias, m, y0),
                             flush)
                 if not with_bwd:
                     continue
-                g = torch.randn(b, 1, side, side, generator=gen, device=dev)
                 gs = g[:, :, rows].contiguous()
-                got_b = deform_cuda.deform_bwd(x, o, wt, m, gs, y0=y0)
-                whole_b = deform_cuda.deform_bwd(x, off, wt, mask, g)
-                ref_b = deform_conv2d_backward_plain(x, o, wt, m, gs, y0=y0)
+                got_b = deform_cuda.deform_bwd(x, o, wt, m, gs, y0=y0, **kw)
+                ref_b = deform_conv2d_backward_plain(x, o, wt, m, gs, y0=y0,
+                                                     **kw)
                 abs_sum = deform_conv2d_backward_plain(
-                    x.abs(), o, wt, m.abs(), gs.abs(), y0=y0)[2]
+                    x.abs(), o, wt, m.abs(), gs.abs(), y0=y0, **kw)[2]
                 torch.cuda.synchronize()
+                sums = [sums[0] + got_b[2], sums[1] + got_b[3]]
                 w_err = ((got_b[2] - ref_b[2]).abs() / abs_sum).max().item()
                 for part, a, r, full in zip(("d_offset", "d_mask"), got_b,
                                             ref_b, whole_b):
                     if not (torch.allclose(a, r, rtol=1e-5, atol=1e-5)
                             and torch.equal(a, full[:, :, rows])):
                         raise AssertionError(
-                            f"deform_bwd_slab {part} at {bwd['shape']} y0 "
-                            f"{y0} offset scale {scale}: max |err| "
-                            f"{(a - r).abs().max().item()}, from the whole "
-                            f"image's rows "
+                            f"deform_bwd{mode}_slab {part} at "
+                            f"{bwd['shape']} y0 {y0} offset scale {scale}: "
+                            f"max |err| {(a - r).abs().max().item()}, from "
+                            f"the whole image's rows "
                             f"{(a - full[:, :, rows]).abs().max().item()}")
                     bwd["max_abs_err"] = max(bwd["max_abs_err"],
                                              (a - r).abs().max().item())
                 if w_err > 1e-5 or not torch.allclose(got_b[3], ref_b[3],
                                                       rtol=1e-5, atol=1e-5):
                     raise AssertionError(
-                        f"deform_bwd_slab d_weight / d_bias at "
+                        f"deform_bwd{mode}_slab d_weight / d_bias at "
                         f"{bwd['shape']} y0 {y0}: d_weight error {w_err} of "
                         f"the terms' magnitude sum")
                 bwd["d_weight_err_over_abs_sum"] = max(
                     bwd["d_weight_err_over_abs_sum"], w_err)
                 if timed:
                     bwd["kernel_ms"] = time_ms(lambda: deform_cuda.deform_bwd(
-                        x, o, wt, m, gs, y0=y0), flush)
+                        x, o, wt, m, gs, y0=y0, **kw), flush)
                     bwd["plain_ms"] = time_ms(
                         lambda: deform_conv2d_backward_plain(
-                            x, o, wt, m, gs, y0=y0), flush)
+                            x, o, wt, m, gs, y0=y0, **kw), flush)
                     leaves = [t.detach().clone().requires_grad_(True)
                               for t in (o, wt, bias, m)]
                     out = deform_library(x, *leaves, y0)
                     bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(
                         out, leaves, gs, retain_graph=True), flush)
                     del out, leaves
+            if with_bwd:
+                # the slabs' shares of d_weight and d_bias sum to the whole
+                # image's (the gradient all-reduce's sum), within 1e-6 of
+                # the terms' magnitude sums: each is a sum of b x H x W
+                # signed terms, which cancel (at 20 px, 2.6e-6 of the
+                # largest d_weight itself on an H100)
+                abs_w = deform_conv2d_backward_plain(
+                    x.abs(), off, wt, mask.abs(), g.abs(), **kw)[2]
+                sum_err = max(
+                    _err_over_abs_sum(sums[0], whole_b[2], abs_w),
+                    ((sums[1] - whole_b[3]).abs().max()
+                     / g.abs().sum()).item())
+                if sum_err > 1e-6:
+                    raise AssertionError(
+                        f"deform_bwd{mode}_slab at {bwd['shape']} offset "
+                        f"scale {scale}: the slabs' d_weight / d_bias sum "
+                        f"{sum_err} of the terms' magnitude sum from the "
+                        f"whole image's")
+                bwd["d_weight_sum_rel_err"] = max(
+                    bwd["d_weight_sum_rel_err"], sum_err)
         fwd["bound_ms"], fwd["bound_by"] = k1_bound(b, hs, side, bandwidth,
                                                     fp32_peak)
         fwd_rows.append(fwd)
-        print(f"deform_fwd_slab {fwd}", flush=True)
+        print(f"deform_fwd{mode}_slab {fwd}", flush=True)
         if with_bwd:
             bwd["bound_ms"], bwd["bound_by"] = k2_bound(b, hs, side,
                                                         bandwidth, fp32_peak)
             bwd_rows.append(bwd)
-            print(f"deform_bwd_slab {bwd}", flush=True)
+            print(f"deform_bwd{mode}_slab {bwd}", flush=True)
     return fwd_rows, bwd_rows
 
 
@@ -3599,6 +3654,9 @@ def data_parallel(root: Path, work: Path, dev: torch.device, flagship,
 SPATIAL_MESH = (2, 2)
 SPATIAL_FWD = (2, 512)
 SPATIAL_GRAD = (4, 128)
+# phase 3e's third slab in the bf16-sampling mode: the shipped bf16
+# flagship's batch (configs/jspsr_r8_img_msk_bf16.yml) on the mesh
+SPATIAL_BF16_BATCH = (50, 128)
 SPATIAL_RUNS = 2
 SPATIAL_TIMEOUT_S, SPATIAL_INIT_TIMEOUT_S = 600, 120
 # (b)'s bound against one process, tests/test_torch_spatial.py's for fp32:
@@ -3606,6 +3664,58 @@ SPATIAL_TIMEOUT_S, SPATIAL_INIT_TIMEOUT_S = 600, 120
 # kink may fall on the other side in the sharded forward's summation
 # order), the losses within rtol 1e-5
 SPATIAL_GRAD_REL_L2 = 5e-2
+
+
+# Phase 17's other cases on the same mesh, each once, at published widths
+# with seeded weights (phase 4's checkpoint for the flagship's): the eval
+# forward at SPATIAL_FWD and the gradients at SPATIAL_GRAD, each against
+# one process on the card (rank 0 computes it after the sharded run).
+# name -> (config, model_kwargs over its own, loss over its own, weights,
+# forward, gradients, each deform kernel's launches per sharded forward /
+# gradient on every rank)
+SLAB, SLAB_B = "deform_fwd_slab", "deform_bwd_slab"
+SLAB_BF, SLAB_BF_B = "deform_fwd_bf16_slab", "deform_bwd_bf16_slab"
+SPATIAL_CASES = {
+    # the shipped bf16 flagship, then with bf16 sampling
+    "bf16": (BF16_CONFIG, {}, None, "flagship", {SLAB: 1},
+             {SLAB: 1, SLAB_B: 1}),
+    "bf16_sampling": (BF16_CONFIG, {"spn_sample_dtype": BF16}, None,
+                      "flagship", {SLAB_BF: 1}, {SLAB_BF: 1, SLAB_BF_B: 1}),
+    # the fp32 flagship's execution options
+    "options": (FLAGSHIP, {"fuse_stems": True, "eval_grouped": True}, None,
+                "flagship", {SLAB: 1}, None),
+    "remat_stages": (FLAGSHIP, {"remat_stages": True}, None, "flagship",
+                     None, {SLAB: 1, SLAB_B: 1}),
+    # EDSR as shipped (16 blocks, 64 features) and with its SPN head
+    "edsr": (EDSR_CONFIG, {}, None, "seeded", {}, {}),
+    "edsr_spn": (EDSR_CONFIG, {"spn": True}, None, "seeded", {SLAB: 1},
+                 {SLAB: 1, SLAB_B: 1}),
+    # LRRU as shipped (bc 16), its DEM with LRRU_HOLES of voids: four
+    # rounds, the last one's gradient
+    "lrru": (LRRU_CONFIG, {}, None, "seeded", {SLAB: 4},
+             {SLAB: 4, SLAB_B: 1}),
+    # the flagship under the losses no shipped config names
+    "losses": (FLAGSHIP, {}, {"L1": 1, "BerHu": 1, "SSIM": 1, "TV": 0.1},
+               "flagship", None, {SLAB: 1, SLAB_B: 1}),
+}
+# a bf16 result against one process: within twice the one-process bf16
+# model's distance from its fp32 one (tests/test_torch_bf16.py's FACTOR);
+# so are the witnesses, the sharded bf16 model's distances from the fp32
+# model and (gradients) from the sharded fp32 model
+SPATIAL_BF16_FACTOR = 2.0
+# The cases whose sharded forward is held to the one-process forward in
+# float64 (on the CPU: the kernels take fp32 only), at LRRU_RTOL /
+# LRRU_ATOL plus three times the card's one-process fp32 forward's own
+# distance from it (``hold_to_float64``'s rule): the full-width
+# random-weight LRRU is ill-conditioned in fp32, and a rehearsal of this
+# phase on the CPU put its sharded forward 5.6e-5 from its one-process one
+# (2.45 times rtol 1e-4 / atol 1e-5), the distance two fp32 orders of
+# summation give it (phase 12's note at LRRU_RTOL).
+SPATIAL_FP64_FORWARD = ("lrru",)
+# ... and their forward at 2 x 256²: the float64 forward of the full-width
+# LRRU on the host's CPU took most of phase 17's 85 s outside the ranks at
+# 2 x 512² (NVIDIA H100 80GB HBM3, 700.00 W host)
+SPATIAL_FP64_FWD = (2, 256)
 
 
 def spatial_batches(p):
@@ -3623,6 +3733,238 @@ def spatial_model(ckpt, dev) -> torch.nn.Module:
     model, on ``dev``."""
     return load_model_params(build_model(create_config(FLAGSHIP)),
                              ckpt).to(dev)
+
+
+def spatial_case_model(case: str, ckpt, dev, fp32: bool = False):
+    """Case ``case``'s model on ``dev`` (with ``fp32``, the bf16 cases'
+    model with the fp32 body and sampling, the same weights), its config
+    and its loss."""
+    config, kwargs, loss, weights = SPATIAL_CASES[case][:4]
+    p = create_config(config)
+    if fp32:
+        kwargs = {"compute_dtype": None, "spn_sample_dtype": None}
+    q = create_config_over(p, kwargs)
+    if weights == "flagship":
+        model = load_model_params(build_model(q), ckpt)
+    else:
+        model = perturb_weights(build_model(
+            q, generator=torch.Generator().manual_seed(0)), seed=1)
+    return model.to(dev), q, dict(loss or p.loss)
+
+
+def spatial_case_batches(case: str, q):
+    """Case ``case``'s batches on the CPU: the forward's inputs, the
+    gradients' inputs and target (``random_batch``, seeded; LRRU's DEM
+    with LRRU_HOLES of its pixels set to 0, as phase 12's)."""
+    holes = LRRU_HOLES if q.model_name.lower() == "lrru" else 0.0
+    b, side = (SPATIAL_FP64_FWD if case in SPATIAL_FP64_FORWARD
+               else SPATIAL_FWD)
+    fwd_inputs, _ = random_batch(q, b, side, "cpu", seed=19)
+    grad_inputs, gt = random_batch(q, SPATIAL_GRAD[0], SPATIAL_GRAD[1],
+                                   "cpu", seed=20)
+    if holes:
+        for inputs, seed in ((fwd_inputs, 19), (grad_inputs, 20)):
+            gen = torch.Generator().manual_seed(seed)
+            inputs[0] = inputs[0].masked_fill(
+                torch.rand(inputs[0].shape, generator=gen) < holes, 0.0)
+    return fwd_inputs, grad_inputs, gt
+
+
+def _one_process(model, criterion, fwd_inputs, grad_inputs, gt, dev):
+    """``model``'s eval forward and train-mode losses and gradients on the
+    whole batches in this process (None where the batch is None)."""
+    y = losses = grads = None
+    if fwd_inputs is not None:
+        model.eval()
+        with torch.no_grad():
+            y = model([x.to(dev) for x in fwd_inputs]).double().cpu()
+    if grad_inputs is not None:
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = criterion(model([x.to(dev) for x in grad_inputs]), gt.to(dev))
+        out["Total"].backward()
+        losses = {k: float(v.detach()) for k, v in out.items()}
+        grads = {k: q.grad.detach().double().cpu()
+                 for k, q in model.named_parameters() if q.grad is not None}
+    return y, losses, grads
+
+
+def _grad_rel_l2(got: dict, ref: dict) -> dict:
+    return {k: float((got[k].double() - v).norm()
+                     / max(float(v.norm()), 1e-30)) for k, v in ref.items()}
+
+
+def spatial_case(case: str, rank: int, sharding, ckpt, dev) -> dict:
+    """Case ``case`` of phase 17 on this rank: the sharded forward and
+    gradients (the launches of each counted from 0), a hash of the summed
+    gradients' bytes, the rank's peak device memory through them; on rank
+    0 their distance from one process on the card (and, for a bf16 case,
+    that one process's distance from the same weights' fp32 model, and
+    the witnesses: the sharded model's distance from that fp32 model and
+    from the sharded fp32 model, which every rank then runs on the same
+    batch, uncounted)."""
+    import hashlib
+
+    from jspsr_torch.parallel.spatial import sharded_forward, sharded_grads
+
+    model, q, loss = spatial_case_model(case, ckpt, dev)
+    criterion = build_criterion(loss)
+    fwd_inputs, grad_inputs, gt = spatial_case_batches(case, q)
+    want_fwd, want_grads = SPATIAL_CASES[case][4:]
+    if want_fwd is None:
+        fwd_inputs = None
+    if want_grads is None:
+        grad_inputs = None
+    out = {"launches": {}, "sharded_s": 0.0}
+    y_one = None
+    torch.cuda.reset_peak_memory_stats(dev)
+    if fwd_inputs is not None:
+        model.eval()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = sharded_forward(model, [x.to(dev) for x in fwd_inputs],
+                                sharding).double().cpu()
+        torch.cuda.synchronize(dev)
+        out["sharded_s"] += time.perf_counter() - t0
+        out["launches"]["forward"] = dict(deform_cuda.LAUNCHES)
+        if rank == 0:  # before the train step moves BatchNorm's statistics
+            y_one = _one_process(model, criterion, fwd_inputs, None, gt,
+                                 dev)[0]
+            if case in SPATIAL_FP64_FORWARD:  # held by the caller
+                out["y"], out["y_one"] = y.numpy(), y_one.numpy()
+    if grad_inputs is not None:
+        t0 = time.perf_counter()
+        model.train()
+        reset_launches()
+        losses, grads = sharded_grads(model, criterion,
+                                      [x.to(dev) for x in grad_inputs],
+                                      gt.to(dev), sharding)
+        torch.cuda.synchronize(dev)
+        out["launches"]["gradients"] = dict(deform_cuda.LAUNCHES)
+        digest = hashlib.sha256()
+        for k in sorted(grads):
+            digest.update(grads[k].cpu().numpy().tobytes())
+        out["sharded_s"] += time.perf_counter() - t0
+        out["grads_sha256"] = digest.hexdigest()
+        out["losses"] = losses
+    # the rank's own allocations (its process): rank 0's one-process
+    # forward is in it, its one-process gradients are not
+    out["peak_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    if case.startswith("bf16") and grad_inputs is not None:
+        sharded32 = spatial_case_model(case, ckpt, dev, fp32=True)[0]
+        grads_sh32 = {k: v.detach().double().cpu() for k, v in sharded_grads(
+            sharded32.train(), criterion, [x.to(dev) for x in grad_inputs],
+            gt.to(dev), sharding)[1].items()}
+        del sharded32
+    if rank != 0:
+        return out
+    if grad_inputs is not None:
+        grads = {k: v.detach().double().cpu() for k, v in grads.items()}
+    _, losses_one, grads_one = _one_process(model, criterion, None,
+                                            grad_inputs, gt, dev)
+    if fwd_inputs is not None:
+        out["forward_max_abs"] = float((y - y_one).abs().max())
+        out["forward_mean_abs"] = float((y - y_one).abs().mean())
+        out["forward_max_abs_output"] = float(y_one.abs().max())
+        out["forward_rel_to_tol"] = float(
+            ((y - y_one).abs() / (1e-5 + 1e-4 * y_one.abs())).max())
+    if grad_inputs is not None:
+        out["grad_rel_l2"] = _grad_rel_l2(grads, grads_one)
+        out["same_grad_keys"] = sorted(grads) == sorted(grads_one)
+        out["loss_rel_err"] = {k: abs(losses[k] - v) / max(abs(v), 1e-30)
+                               for k, v in losses_one.items()}
+    if case.startswith("bf16"):
+        del model
+        fp32, *_ = spatial_case_model(case, ckpt, dev, fp32=True)
+        y32, losses32, grads32 = _one_process(fp32, criterion, fwd_inputs,
+                                              grad_inputs, gt, dev)
+        out["bf16_own_fwd_max_abs"] = float((y_one - y32).abs().max())
+        out["bf16_own_fwd_mean_abs"] = float((y_one - y32).abs().mean())
+        out["bf16_own_grad_rel_l2"] = _grad_rel_l2(grads_one, grads32)
+        out["bf16_own_loss_rel_err"] = {
+            k: abs(v - losses32[k]) / max(abs(v), 1e-30)
+            for k, v in losses_one.items()}
+        # the witness: a sound sharded bf16 model sits about as far from
+        # the fp32 model as one process's bf16 model does
+        if fwd_inputs is not None:
+            out["bf16_sharded_fwd_max_abs"] = float((y - y32).abs().max())
+        if grad_inputs is not None:
+            out["bf16_sharded_grad_rel_l2"] = _grad_rel_l2(grads, grads32)
+            out["bf16_vs_sharded_fp32_grad_rel_l2"] = _grad_rel_l2(
+                grads, grads_sh32)
+            out["sharded_fp32_grad_rel_l2"] = _grad_rel_l2(grads_sh32,
+                                                           grads32)
+    out["peak_mb_with_reference"] = (torch.cuda.max_memory_allocated(dev)
+                                     / 2**20)
+    return out
+
+
+def spatial_fp64_forward(case: str, ckpt, y, y_one) -> dict:
+    """Case ``case``'s sharded forward ``y`` held to its one-process
+    forward in float64 on the CPU (the same weights and batch), with the
+    card's one-process fp32 forward ``y_one``'s own distance from it
+    (SPATIAL_FP64_FORWARD's rule)."""
+    model, q, _ = spatial_case_model(case, ckpt, torch.device("cpu"))
+    fwd_inputs = spatial_case_batches(case, q)[0]
+    with torch.no_grad():
+        y64 = model.double().eval()([x.double() for x in fwd_inputs])
+    y64 = y64.numpy()
+    own = float(np.abs(y_one - y64).max())
+    return {"sharded_vs_fp64_max_abs": float(np.abs(y - y64).max()),
+            "one_vs_fp64_max_abs": own,
+            "rel_to_tol": float((np.abs(y - y64) / (
+                LRRU_ATOL + 3 * own + LRRU_RTOL * np.abs(y64))).max())}
+
+
+def spatial_case_failures(case: str, r0: dict, ranks: list) -> list:
+    """What fails in case ``case`` of phase 17 (rank 0's ``spatial_case``
+    result ``r0``, every rank's ``ranks``): the bounds of its docstring."""
+    want_fwd, want_grads = SPATIAL_CASES[case][4:]
+    want = {k: deform_counts(**v) for k, v in
+            (("forward", want_fwd), ("gradients", want_grads))
+            if v is not None}
+    fails = [f"rank {i} launches {r['launches']} != {want}"
+             for i, r in enumerate(ranks) if r["launches"] != want]
+    bf16 = case.startswith("bf16")
+    factor = SPATIAL_BF16_FACTOR
+    if want_fwd is not None:
+        if bf16:
+            if (r0["forward_max_abs"] > factor * r0["bf16_own_fwd_max_abs"]
+                    or r0["forward_mean_abs"]
+                    > factor * r0["bf16_own_fwd_mean_abs"]):
+                fails.append("forward beyond the bf16 rule")
+            if (r0["bf16_sharded_fwd_max_abs"]
+                    > factor * r0["bf16_own_fwd_max_abs"]):
+                fails.append("sharded bf16 forward beyond the bf16 rule "
+                             "from the fp32 model")
+        elif case in SPATIAL_FP64_FORWARD:
+            if r0["forward_fp64"]["rel_to_tol"] > 1:
+                fails.append("forward beyond its float64 rule")
+        elif r0["forward_rel_to_tol"] > 1:
+            fails.append("forward beyond rtol 1e-4 / atol 1e-5")
+    if want_grads is not None:
+        if not r0["same_grad_keys"]:
+            fails.append("gradient keys differ")
+        if any(r["grads_sha256"] != r0["grads_sha256"] for r in ranks):
+            fails.append("summed gradients differ between ranks")
+        for k, e in r0["loss_rel_err"].items():
+            bound = (factor * r0["bf16_own_loss_rel_err"][k] if bf16
+                     else 1e-5)
+            if e > bound:
+                fails.append(f"loss {k}: rel err {e} > {bound}")
+        for k, e in r0["grad_rel_l2"].items():
+            bound = (factor * r0["bf16_own_grad_rel_l2"][k] + 1e-6 if bf16
+                     else SPATIAL_GRAD_REL_L2)
+            if e > bound:
+                fails.append(f"gradient {k}: rel L2 {e} > {bound}")
+            for witness in (("bf16_sharded_grad_rel_l2",
+                             "bf16_vs_sharded_fp32_grad_rel_l2") if bf16
+                            else ()):
+                if r0[witness][k] > bound:
+                    fails.append(f"gradient {k}: {witness} "
+                                 f"{r0[witness][k]} > {bound}")
+    return fails
 
 
 def spatial_rank(rank: int, world: int, ckpt: str, device: str) -> dict:
@@ -3674,6 +4016,22 @@ def spatial_rank(rank: int, world: int, ckpt: str, device: str) -> dict:
             if rank == 0:
                 out["y"] = y.cpu().numpy()
                 out["grads"] = {k: v.cpu().numpy() for k, v in grads.items()}
+    del model, y, grads
+    torch.cuda.empty_cache()
+    # a bf16 tensor through gloo on the card as it is (``all_gather_list``
+    # sends bf16 as bytes whatever the backend takes)
+    x = torch.ones(4, device=dev, dtype=torch.bfloat16)
+    try:
+        torch.distributed.all_gather([torch.empty_like(x)
+                                      for _ in range(world)], x)
+        out["gloo_bf16_on_cuda"] = "taken"
+    except RuntimeError as err:
+        out["gloo_bf16_on_cuda"] = f"refused: {err}"
+    out["cases"] = {}
+    for case in SPATIAL_CASES:
+        out["cases"][case] = spatial_case(case, rank, sharding, Path(ckpt),
+                                          dev)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3724,6 +4082,7 @@ def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
                       init_timeout_s=SPATIAL_INIT_TIMEOUT_S,
                       timeout_s=SPATIAL_TIMEOUT_S)
     ranks_s = time.perf_counter() - t0
+    mark("spatial sharding: the ranks")
     r0 = ranks[0]
     y, grads = r0.pop("y"), r0.pop("grads")
     fwd_err = float(np.abs(y - y_one).max())
@@ -3769,9 +4128,67 @@ def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
                                 "gradients": deform_counts(deform_fwd=1,
                                                            deform_bwd=1)}):
         raise AssertionError(f"spatial sharding: {out}")
+    out["gloo_bf16_on_cuda"] = r0["gloo_bf16_on_cuda"]
+    cases, fails = {}, {}
+    for case in SPATIAL_CASES:
+        rows = [r["cases"][case] for r in ranks]
+        if case in SPATIAL_FP64_FORWARD:
+            rows[0]["forward_fp64"] = spatial_fp64_forward(
+                case, ckpt, rows[0].pop("y"), rows[0].pop("y_one"))
+            mark(f"spatial sharding: {case} in float64 on the CPU")
+        cases[case] = dict(rows[0], launches_per_rank=[
+            r["launches"] for r in rows], sharded_s=[
+            r["sharded_s"] for r in rows], peak_mb_per_rank=[
+            r["peak_mb"] for r in rows])
+        for k in ("launches", "peak_mb"):
+            cases[case].pop(k)
+        c = cases[case]
+        if "grad_rel_l2" in c:
+            c["grad_worst"] = max(c["grad_rel_l2"], key=c["grad_rel_l2"].get)
+            c["grad_max_rel_l2"] = c["grad_rel_l2"][c["grad_worst"]]
+            if "bf16_own_grad_rel_l2" in c:
+                ratio = {k: v / max(c["bf16_own_grad_rel_l2"][k], 1e-30)
+                         for k, v in c["grad_rel_l2"].items()}
+                c["bf16_worst_ratio"] = max(ratio.values())
+                c["bf16_worst_ratio_tensor"] = max(ratio, key=ratio.get)
+                c["bf16_median_ratio"] = float(np.median(list(
+                    ratio.values())))
+                # the witness's ratios: the sharded bf16 model's distance
+                # from the fp32 one over one process's
+                worst = c["bf16_worst_ratio_tensor"]
+                for key, name in (
+                        ("bf16_sharded_grad_rel_l2", "bf16_witness"),
+                        ("bf16_vs_sharded_fp32_grad_rel_l2",
+                         "bf16_witness_sharded_fp32")):
+                    witness = {k: v / max(c["bf16_own_grad_rel_l2"][k],
+                                          1e-30) for k, v in c[key].items()}
+                    c[f"{name}_worst_ratio"] = max(witness.values())
+                    c[f"{name}_worst_tensor"] = max(witness,
+                                                    key=witness.get)
+                    c[f"{name}_median_ratio"] = float(
+                        np.median(list(witness.values())))
+                    c[f"{name}_at_worst_ratio_tensor"] = witness[worst]
+                # sharding's own effect in fp32 there, over the same
+                c["sharded_fp32_at_worst_ratio_tensor"] = (
+                    c["sharded_fp32_grad_rel_l2"][worst]
+                    / max(c["bf16_own_grad_rel_l2"][worst], 1e-30))
+                c["sharded_fp32_max_rel_l2"] = max(
+                    c["sharded_fp32_grad_rel_l2"].values())
+                for k in ("bf16_own_grad_rel_l2", "bf16_sharded_grad_rel_l2",
+                          "bf16_vs_sharded_fp32_grad_rel_l2",
+                          "sharded_fp32_grad_rel_l2"):
+                    c.pop(k)
+            c.pop("grad_rel_l2")
+        print(f"spatial sharding, {case}: {c}", flush=True)
+        fails[case] = spatial_case_failures(case, rows[0], rows)
+    out["cases"] = cases
     paths = {f"spatial_rank{r['rank']}": sum_launches(
-        {f"{i}_{k}": v for i, run in enumerate(r["launches"])
-         for k, v in run.items()}) for r in ranks}
+        {**{f"{i}_{k}": v for i, run in enumerate(r["launches"])
+            for k, v in run.items()},
+         **{f"{case}_{k}": v for case, c in r["cases"].items()
+            for k, v in c["launches"].items()}}) for r in ranks}
+    if any(fails.values()):
+        raise AssertionError(f"spatial sharding cases: {fails}")
     return out, paths
 
 
@@ -3843,9 +4260,11 @@ def main() -> int:
     bwd_bf16_rows = check_deform_backward(dev, bandwidth, fp32_peak,
                                           BF16_BWD_SHAPES, BF16, seed=6)
     dx_rows = check_deform_backward_dx(dev, bandwidth, fp32_peak)
-    # 3e. K1 and K2 on phase 17's row slabs
+    # 3e. K1 and K2 on phase 17's row slabs, in each sampling mode
     slab_fwd_rows, slab_bwd_rows = check_deform_slabs(dev, bandwidth,
                                                       fp32_peak)
+    slab_fwd_bf16_rows, slab_bwd_bf16_rows = check_deform_slabs(
+        dev, bandwidth, fp32_peak, seed=8, sample_dtype=BF16)
     # 3d. K3's bf16-sampling mode, then through the op's autograd
     dx_bf16_rows = check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak)
     paths = {"k3_bf16_autograd": k3_bf16_autograd(dev)}
@@ -4005,6 +4424,22 @@ def main() -> int:
                     "jspsr_tpu/ops/pallas_deform.py:175",
                     "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
                     "(need_dx=False, a row slab)", slab_bwd_rows,
+                    [SPATIAL_GRAD[0] // SPATIAL_MESH[0], 1,
+                     SPATIAL_GRAD[1] // SPATIAL_MESH[1], SPATIAL_GRAD[1]]),
+        kernel_line("deform_fwd_bf16_slab",
+                    "jspsr_torch/ops/csrc/deform_fwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:108",
+                    "jspsr_tpu/ops/pallas_deform.py::_fwd_kernel "
+                    "(sample_dtype='bfloat16', a row slab)",
+                    slab_fwd_bf16_rows,
+                    [SPATIAL_FWD[0] // SPATIAL_MESH[0], 1,
+                     SPATIAL_FWD[1] // SPATIAL_MESH[1], SPATIAL_FWD[1]]),
+        kernel_line("deform_bwd_bf16_slab",
+                    "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=False, sample_dtype='bfloat16', a row slab)",
+                    slab_bwd_bf16_rows,
                     [SPATIAL_GRAD[0] // SPATIAL_MESH[0], 1,
                      SPATIAL_GRAD[1] // SPATIAL_MESH[1], SPATIAL_GRAD[1]]),
         kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same_bf16.cu",

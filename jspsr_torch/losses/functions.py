@@ -4,15 +4,19 @@ reference losses/loss_functions.py) on NCHW tensors.
 All take (pred, gt) and return a scalar tensor. The channel axis is dim 1
 where the JAX package, on NHWC, reduces over the last axis.
 
-Under a spatial sharding (``parallel/spatial.py``) L1, L2, Charbonnier and
-Grad are this rank's share of the whole batch's loss (its sum over the
-whole count; Grad's Sobel with its halo row), so that the ranks' losses
-sum to it; every other loss is refused there.
+Under a spatial sharding (``parallel/spatial.py``) each loss is this
+rank's share of the whole batch's loss, so that the ranks' losses sum to
+it and their summed gradients are its gradients: the means are sums over
+the whole batch's count (``_mean``); Grad's Sobel and TV's vertical
+differences take halo rows from the slab below (and above, for the
+Sobel); SSIM's valid window ten rows below (``ops.filters.ssim``), a slab
+owning the window positions that start in it; BerHu's threshold is the
+mesh's largest error, and softmax CE's valid count and balanced BCE's
+class counts are the mesh's, all detached, as they are constants of the
+one-process gradient.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -30,13 +34,12 @@ def _mean(t: torch.Tensor) -> torch.Tensor:
     return t.mean()
 
 
-def _unsharded(fn):
-    """A loss that is refused under a spatial sharding."""
-    @functools.wraps(fn)
-    def loss(*args, **kwargs):
-        spatial.refuse(f"the {fn.__name__}", "losses")
-        return fn(*args, **kwargs)
-    return loss
+def _count(t: torch.Tensor) -> torch.Tensor:
+    """``t.sum()``; under a spatial sharding, the whole batch's, detached
+    (a count: no gradient flows through it)."""
+    if active_sharding() is not None:
+        return spatial.mesh_sum(t)
+    return t.sum()
 
 
 def l1_loss(pred, gt):
@@ -60,51 +63,61 @@ def charbonnier_loss(pred, gt, eps: float = 1e-9):
     return _mean(torch.sqrt(d * d + eps))
 
 
-@_unsharded
 def berhu_loss(pred, gt, delta: float = 0.6):
-    """Reversed Huber; threshold = delta * max|err|, detached (the
-    reference's ``.item()`` at loss_functions.py:197)."""
+    """Reversed Huber; threshold = delta * max|err| over the whole batch,
+    detached (the reference's ``.item()`` at loss_functions.py:197)."""
     diff = (pred - gt).abs()
-    th = (delta * diff.max()).detach()
-    return torch.where(diff <= th, diff, (diff**2 + th**2) / (2 * th)).mean()
+    top = (spatial.mesh_max(diff) if active_sharding() is not None
+           else diff.max())
+    th = (delta * top).detach()
+    return _mean(torch.where(diff <= th, diff,
+                             (diff**2 + th**2) / (2 * th)))
 
 
-@_unsharded
 def tv_loss(pred, gt=None, weight: float = 1.0):
-    """Total variation (reference loss_functions.py:126-149). gt ignored."""
+    """Total variation (reference loss_functions.py:126-149). gt ignored.
+    On a row slab the vertical differences take the first row of the slab
+    below (the image's last row has none), the counts the whole batch's."""
     x = pred
-    b = x.shape[0]
-    h_tv = (x[:, :, 1:] - x[:, :, :-1]).square().sum()
+    if active_sharding() is None:
+        b, c, h, w = x.shape
+        h_tv = (x[:, :, 1:] - x[:, :, :-1]).square().sum()
+    else:
+        b, c, h, w = spatial.whole_shape(x)
+        xp = spatial.halo(x, 0, 1)
+        dh = (xp[:, :, 1:] - xp[:, :, :-1]).square()
+        # the same graph on every rank: the last slab's last difference
+        # (with the zeros below the image) is sliced off, not branched on
+        h_tv = dh[:, :, :dh.shape[2] - int(spatial.last_slab())].sum()
     w_tv = (x[:, :, :, 1:] - x[:, :, :, :-1]).square().sum()
-    count_h = x[:, :, 1:].numel() // b
-    count_w = x[:, :, :, 1:].numel() // b
+    count_h = c * (h - 1) * w
+    count_w = c * h * (w - 1)
     return weight * 2 * (h_tv / count_h + w_tv / count_w) / b
 
 
-@_unsharded
 def surface_normal_loss(pred, gt):
     """1 - cosine similarity over the channel axis
     (loss_functions.py:211-226)."""
     eps = 1e-12
     pn = pred / pred.norm(dim=1, keepdim=True).clamp_min(eps)
     gn = gt / gt.norm(dim=1, keepdim=True).clamp_min(eps)
-    return (1.0 - (pn * gn).sum(dim=1)).mean()
+    return _mean(1.0 - (pn * gn).sum(dim=1))
 
 
-@_unsharded
 def ssim_loss(pred, gt):
     """1 - SSIM (reference loss_functions.py:232-239; piq semantics:
-    gaussian 11/1.5, valid padding, data_range 1)."""
-    return 1.0 - ssim(pred.clamp(0.0, 1.0), gt, padding="valid")
+    gaussian 11/1.5, valid padding, data_range 1); on a row slab, this
+    rank's share of 1 less its share of the whole batch's SSIM."""
+    one = (1.0 / spatial.world() if active_sharding() is not None
+           else 1.0)
+    return one - ssim(pred.clamp(0.0, 1.0), gt, padding="valid")
 
 
-@_unsharded
 def bce_with_logits_loss(pred, gt):
-    return (pred.clamp_min(0) - pred * gt
-            + torch.log1p(torch.exp(-pred.abs()))).mean()
+    return _mean(pred.clamp_min(0) - pred * gt
+                 + torch.log1p(torch.exp(-pred.abs())))
 
 
-@_unsharded
 def softmax_ce_loss(pred, label, ignore_index: int = 255):
     """Semantic-seg cross entropy with an ignore label (reference
     loss_functions.py:11-28). pred (N, C, H, W) logits; label (N, 1, H, W)
@@ -115,17 +128,16 @@ def softmax_ce_loss(pred, label, ignore_index: int = 255):
     logp = F.log_softmax(pred, dim=1)
     safe = torch.where(valid, label, torch.zeros_like(label))
     nll = -logp.gather(1, safe.unsqueeze(1)).squeeze(1)
-    return (nll * valid).sum() / valid.sum().clamp_min(1)
+    return (nll * valid).sum() / _count(valid).clamp_min(1)
 
 
-@_unsharded
 def balanced_bce_loss(pred, gt, pos_weight=None):
     """HED-style class-balanced BCE-with-logits (reference
     loss_functions.py:31-80), size-averaged."""
     labels = (gt >= 0.5).to(pred.dtype)
     if pos_weight is None:
-        n_pos = labels.sum()
-        n_neg = (1.0 - labels).sum()
+        n_pos = _count(labels)
+        n_neg = _count(1.0 - labels)
         w = n_neg / (n_pos + n_neg).clamp_min(1.0)
     else:
         w = pos_weight
@@ -134,7 +146,9 @@ def balanced_bce_loss(pred, gt, pos_weight=None):
         torch.exp(pred - 2.0 * pred * gt0))
     loss_pos = -(labels * loss_val).sum()
     loss_neg = -((1.0 - labels) * loss_val).sum()
-    return (w * loss_pos + (1.0 - w) * loss_neg) / gt.numel()
+    numel = (gt.numel() * spatial.world() if active_sharding() is not None
+             else gt.numel())
+    return (w * loss_pos + (1.0 - w) * loss_neg) / numel
 
 
 _REGISTRY = {

@@ -142,7 +142,7 @@ class CompletionFormer(nn.Module):
     def forward(self, inputs, generator: torch.Generator | None = None):
         """inputs: [dem (B,1,H,W), guidance (B,C,H,W)] -> (B,1,H,W).
         ``generator`` draws the backbone's drop-path masks in training."""
-        spatial.refuse("CompletionFormer", "completionformer")
+        spatial.refuse("CompletionFormer")
         if len(inputs) != 2:
             raise ValueError(f"expected inputs {self.input_keys()}, got "
                              f"{len(inputs)}")

@@ -9,6 +9,12 @@ layout: ``ResBlock`` -> ``body.0`` / ``body.2``, ``Upscaler`` -> ``0`` (and
 ``2`` at scale 4). EDSR's own convs are initialised with the reference's
 normal fan-out scheme; the SPN head's with the JSPSR scheme, as in the JAX
 package.
+
+EDSR's convs are the port's hooked ``nn.Conv2d`` (``jspsr_torch.nn``; a
+subclass of torch's, the same keys and init), so under a spatial sharding
+(``parallel/spatial.py``) the forward runs on a row slab: every conv takes
+its halo rows, the SPN head samples the gathered DEM. It never
+downsamples: ``ROW_MULTIPLE`` is 1.
 """
 
 from __future__ import annotations
@@ -19,7 +25,6 @@ from torch import nn
 from jspsr_torch import nn as jnn
 from jspsr_torch.models.spn import Generator, PostProcessor
 from jspsr_torch.nn.initializers import normal_fan_out_
-from jspsr_torch.parallel import spatial
 
 # default public-checkpoint path for ``model_kwargs.pretrained: true``
 # (reference models/EDSR.py:87), loaded by tensor position
@@ -27,8 +32,8 @@ from jspsr_torch.parallel import spatial
 DEFAULT_PRETRAINED = "./models/pretrained/EDSR-b32f128x2.bin"
 
 
-def _conv(cin: int, cout: int, k: int = 3) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=k // 2, bias=True)
+def _conv(cin: int, cout: int, k: int = 3) -> jnn.Conv2d:
+    return jnn.Conv2d(cin, cout, k, padding=k // 2, bias=True)
 
 
 class ResBlock(nn.Module):
@@ -59,6 +64,8 @@ class Upscaler(nn.Sequential):
 
 
 class EDSR(nn.Module):
+    ROW_MULTIPLE = 1  # every conv has stride 1 (``spatial.check_rows``)
+
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
                  n_resblocks: int = 16, n_features: int = 64, scale: int = 1,
                  res_scale: float = 0.1, spn: bool = False,
@@ -94,7 +101,6 @@ class EDSR(nn.Module):
         """``x``: the channel-stacked inputs (B, C, H, W), or a list of
         tensors to stack, the DEM first. ``generator`` is accepted as every
         model's forward accepts it; EDSR draws nothing."""
-        spatial.refuse("EDSR", "edsr")
         if isinstance(x, (list, tuple)):
             x = torch.cat(list(x), dim=1)
         xs = self.entry(x)

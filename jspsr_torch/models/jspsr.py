@@ -51,10 +51,12 @@ The JAX package's three execution options, each the same function:
 
 Every parameter keeps its key: a checkpoint loads with or without them.
 
-Under a spatial sharding (``parallel/spatial.py``) the fp32 forward runs
-unchanged on a row slab; the three options and the bf16 modes are refused
-there (``_fused_stems`` and ``_grouped_stage`` call ``F.conv2d``
-directly, which would skip the halo).
+Under a spatial sharding (``parallel/spatial.py``) the forward runs
+unchanged on a row slab, in either dtype and sampling mode and with each
+option: the fused stems' and grouped blocks' convs take their halo rows
+through ``spatial.conv2d`` (``_conv``), and ``remat_stages`` replays a
+stage's collectives in one order on every rank. H must divide by
+``ROW_MULTIPLE`` (three stride-2 stages) times the space axis.
 """
 
 from __future__ import annotations
@@ -75,11 +77,23 @@ from jspsr_torch.models.components import (
 )
 from jspsr_torch.models.spn import Generator, PostProcessor
 from jspsr_torch.parallel import spatial
+from jspsr_torch.parallel.mesh import active_sharding
 
 AUX_KEYS = ("mask", "canopy", "coord")
 # module names that ``remat_stages`` recomputes (the JAX package's ``run``)
 REMAT_PREFIXES = ("layer", "conv", "generator")
 COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16}
+
+
+def _conv(x, like, weight, groups: int = 1):
+    """``F.conv2d`` of ``x`` with an assembled ``weight`` (no bias) at
+    ``like``'s (an ``nn.Conv2d``) stride, padding and dilation, in
+    ``groups`` groups; on a row slab under a spatial sharding, with its
+    halo rows."""
+    if active_sharding() is not None:
+        return spatial.conv2d(like, x, weight, None, groups=groups)
+    return F.conv2d(x, weight, None, like.stride, like.padding,
+                    like.dilation, groups)
 
 
 def _make_branch_layer(inplanes, planes, blocks, stride, res_scale, fused_in):
@@ -95,6 +109,10 @@ def _make_branch_layer(inplanes, planes, blocks, stride, res_scale, fused_in):
 
 
 class JSPSR(nn.Module):
+    # an image's rows divide into equal slabs at every level of the
+    # encoder's three stride-2 stages (``parallel.spatial.check_rows``)
+    ROW_MULTIPLE = 8
+
     def __init__(
         self,
         in_channels: dict,
@@ -227,7 +245,7 @@ class JSPSR(nn.Module):
             if conv.bias is not None:
                 b[i * nf:(i + 1) * nf] = conv.bias.to(xs.dtype)
             ci += x.shape[1]
-        y = F.conv2d(xs, w, padding=2) + b.view(1, -1, 1, 1)
+        y = _conv(xs, self.conv_dem.conv[0], w) + b.view(1, -1, 1, 1)
         feats = {}
         for i, (name, key, _) in enumerate(stems):
             sl = y[:, i * nf:(i + 1) * nf]
@@ -246,8 +264,7 @@ class JSPSR(nn.Module):
 
         def gconv(convs, xx):
             w = torch.cat([c.weight for c in convs]).to(xx.dtype)
-            return F.conv2d(xx, w, None, convs[0].stride, convs[0].padding,
-                            groups=nb)
+            return _conv(xx, convs[0], w, groups=nb)
 
         def gbn(bns, xx):
             return batch_norm_apply(
@@ -293,18 +310,6 @@ class JSPSR(nn.Module):
                 acts.update(zip(grp, outs))
         return acts
 
-    def _refuse_under_sharding(self) -> None:
-        """Under a spatial sharding, raise for what is not ported there."""
-        for flag, on in (("fuse_stems", self.fuse_stems),
-                         ("eval_grouped", self.eval_grouped),
-                         ("remat_stages", self.remat_stages)):
-            if on:
-                spatial.refuse(f"JSPSR's {flag}", "options")
-        if self.compute_dtype is not None:
-            spatial.refuse("JSPSR's compute_dtype='bfloat16'", "bf16")
-        if self.spn and self.postprocessor.sample_dtype == "bfloat16":
-            spatial.refuse("JSPSR's spn_sample_dtype='bfloat16'", "bf16")
-
     def forward(self, inputs, generator=None):
         """inputs: list of NCHW tensors in input_keys() order -> (B,1,H,W).
         ``generator`` is accepted as every model's forward accepts it; JSPSR
@@ -312,7 +317,6 @@ class JSPSR(nn.Module):
         keys = self.input_keys()
         if len(inputs) != len(keys):
             raise ValueError(f"expected inputs {keys}, got {len(inputs)}")
-        self._refuse_under_sharding()
         dem = inputs[0]
         cdt = self.compute_dtype
 

@@ -25,6 +25,13 @@ port's ``PostProcessor``, ``LBasic2dTrans`` -> ``conv`` / ``bn``, ``LDownsample`
 ``0`` / ``1``, ``BasicDepthEncoder``'s heads -> ``conv_weight`` /
 ``conv_offset`` (plain convs). ``conv1x1``, ``conv3x3``, ``LDownsample``
 and ``LBasicBlock`` are also PVT's building blocks.
+
+Under a spatial sharding (``parallel/spatial.py``) the forward runs on a
+row slab: its convs and transposed convs are the port's hooked ones
+(``jspsr_torch.nn``), the fused 1x1 heads need no halo, and each round's
+post-process samples the gathered DEM at its slab's rows (fp32 K1, and
+K2 in the last round: the rounds detach their input). H must divide by
+``ROW_MULTIPLE`` (four stride-2 stages) times the space axis.
 """
 
 from __future__ import annotations
@@ -43,7 +50,6 @@ from jspsr_torch.models.components import (  # noqa: F401 (re-exported)
 )
 from jspsr_torch.models.spn import PostProcessor
 from jspsr_torch.ops.deform_conv import insert_zero_center_offset
-from jspsr_torch.parallel import spatial
 
 
 class LBasic2dTrans(nn.Module):
@@ -52,8 +58,8 @@ class LBasic2dTrans(nn.Module):
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
-        self.conv = nn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1,
-                                       output_padding=1, bias=False)
+        self.conv = jnn.ConvTranspose2d(cin, cout, 3, stride=2, padding=1,
+                                        output_padding=1, bias=False)
         self.bn = jnn.BatchNorm2d(cout)
 
     def forward(self, x):
@@ -128,6 +134,10 @@ class BasicDepthEncoder(nn.Module):
 
 
 class LRRU(nn.Module):
+    # an image's rows divide into equal slabs at every level of the
+    # encoder's four stride-2 stages (``parallel.spatial.check_rows``)
+    ROW_MULTIPLE = 16
+
     def __init__(self, in_channels: dict, out_channels: int = 1,
                  kernel_size: int = 3, bc: int = 16, prob: float = 1.0,
                  dkn_residual: bool = True, layers=(2, 2, 2, 2, 2),
@@ -218,7 +228,6 @@ class LRRU(nn.Module):
         """``inputs``: [lr_dem (B,1,H,W), image (B,3,H,W)], H and W
         multiples of 16. ``generator`` is accepted as every model's forward
         accepts it; LRRU draws nothing (see the module docstring)."""
-        spatial.refuse("LRRU", "lrru")
         depth, img = inputs[0], inputs[1]
         c0_img = self.conv_img(img)
         c0_lidar = self.conv_lidar(depth)

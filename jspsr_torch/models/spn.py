@@ -94,8 +94,7 @@ class PostProcessor(nn.Module):
         x, y0 = init_dem.contiguous(), 0
         if active_sharding() is not None:
             if init_dem.requires_grad:
-                spatial.refuse("the deform op's input gradient (K3)",
-                               "completionformer")
+                spatial.refuse("the deform op's input gradient (K3)")
             x, y0 = spatial.gather_rows(x), spatial.row_origin(x)
         refined = deform_conv2d(x, offset, self.w, self.b, weight,
                                 padding=pad, sample_dtype=self.sample_dtype,

@@ -22,6 +22,12 @@ bit for bit:
 
 A module that holds a BatchNorm of another class (torch's own) would
 update twice: ``check_recomputable`` refuses it.
+
+Under a spatial sharding (``parallel/spatial.py``) the recompute replays
+the region's collectives (halo ``all_gather``s, the pools' gathers,
+BatchNorm's all-reduces): every rank builds the same graph, so every
+rank replays them in one order, and the replayed BatchNorm, whose
+statistics are the mesh's, again updates nothing.
 """
 
 from __future__ import annotations

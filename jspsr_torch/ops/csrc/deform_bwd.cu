@@ -136,8 +136,10 @@
 // whole image: slab row h is image row y0 + h, so d_offset and d_mask are
 // those rows of the whole image's, bit for bit, and the d_weight partials
 // are the slab's share (the caller's gradient reduction sums the slabs').
-// y0 = 0 and Hs = H is the whole image, as before. K3 takes whole images
-// only.
+// y0 = 0 and Hs = H is the whole image, as before. Both modes take a slab
+// (deform_bwd_slab, deform_bwd_bf16_slab): the slab planes and row0 are
+// the same code for kBf16, which changes only pixel_backward's values.
+// K3 takes whole images only.
 //
 // K3's bf16-sampling mode (the same flag on deform_bwd_dx_kernel; the TPU
 // kernel's sample_dtype='bfloat16' with need_dx=True, entry point

@@ -78,7 +78,10 @@
 // each tile's window origin and positions are in image rows, and the image
 // tensor map (and its zero fill off the image) stays on the whole image,
 // so a slab's rows are the same bits as those rows of the whole output.
-// y0 = 0 and Hs = H is the whole image, as before.
+// y0 = 0 and Hs = H is the whole image, as before. Both modes take a slab
+// (launch names deform_fwd_slab, deform_fwd_bf16_slab): the tile walk, the
+// window origins, the TMA boxes and the cp.async fill are the same code
+// for kBf16, which changes only a tap's value below.
 //
 // bf16-sampling mode (kBf16; the TPU kernel's sample_dtype='bfloat16',
 // entry point jspsr_deform_fwd_bf16): each tap's row product rounds the

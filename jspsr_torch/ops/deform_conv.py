@@ -47,10 +47,11 @@ A row slab (``y0``; the spatially sharded forward of
 whose row h is image row ``y0 + h``: its positions are those rows' (exact
 integers in fp32), so a slab's output, d_offset and d_mask are the same
 rows of the whole image's, bit for bit, and its d_weight and d_bias are
-the slab's share of the whole image's sums. K1 and K2 take it (their
-launches count as ``deform_fwd_slab`` and ``deform_bwd_slab``); the input
-gradient (K3) takes whole images only and refuses a slab, and so do the
-bf16 modes' kernels (ROADMAP.md queue 1 items 7 and 11).
+the slab's share of the whole image's sums. K1 and K2 take it in either
+mode (their launches count as ``deform_fwd_slab`` and ``deform_bwd_slab``,
+``deform_fwd_bf16_slab`` and ``deform_bwd_bf16_slab``); the input gradient
+(K3) takes whole images only and refuses a slab (ROADMAP.md queue 1 item
+11).
 
 ``bilinear_sample`` is the plain bilinear gather at given positions, with
 autograd to the image: NLSPN's 1x1 confidence taps, which the JAX package

@@ -26,8 +26,10 @@
 - ``deform_fwd`` and ``deform_bwd`` on a row slab (``y0``; offsets, mask
   and gradient of Hs rows, the image whole): K1 and K2 with their output
   rows and window origins moved to image rows ``y0 + h``, for the
-  spatially sharded forward and backward (``parallel/spatial.py``), in the
-  fp32 mode; the bf16 modes and K3 refuse a slab.
+  spatially sharded forward and backward (``parallel/spatial.py``), in
+  either mode (the slab's rows are the same template code as the whole
+  image's, so a slab's outputs are those rows of the whole image's, bit
+  for bit); K3 refuses a slab.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -40,7 +42,8 @@ a run resets it to show that its main path went through the kernels. The
 two backward kernels share a library (``deform_bwd``) and count apart;
 each bf16 mode counts under its own name (``deform_fwd_bf16``,
 ``deform_bwd_bf16``, ``deform_bwd_dx_bf16``), and so does each kernel on a
-row slab (``deform_fwd_slab``, ``deform_bwd_slab``). The custom ops of
+row slab in each mode (``deform_fwd_slab``, ``deform_bwd_slab``,
+``deform_fwd_bf16_slab``, ``deform_bwd_bf16_slab``). The custom ops of
 ``ops.deform_conv`` call these wrappers from their real implementations
 only (never from their fakes), so a count is one launch, not a trace.
 """
@@ -73,7 +76,7 @@ DX_MARGIN = 4
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
            "deform_bwd_bf16", "deform_bwd_dx_bf16", "deform_fwd_slab",
-           "deform_bwd_slab")
+           "deform_bwd_slab", "deform_fwd_bf16_slab", "deform_bwd_bf16_slab")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
@@ -85,7 +88,8 @@ def reset_launches() -> None:
 
 
 # kernel -> (library, entry point, number of pointer arguments before
-# batch, h, w, pad, whether (hs, y0) follow: the row-slab form)
+# batch, h, w, pad, whether (hs, y0) follow: the row-slab form). A kernel
+# on a row slab (``<kernel>_slab``) is its kernel's entry point.
 _ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6, True),
           "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 8, True),
           "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 10, False),
@@ -94,16 +98,14 @@ _ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6, True),
           "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 8,
                               True),
           "deform_bwd_dx_bf16": ("deform_bwd", "jspsr_deform_bwd_dx_bf16",
-                                 10, False),
-          # the fp32 kernels on a row slab: the same entry points
-          "deform_fwd_slab": ("deform_fwd", "jspsr_deform_fwd", 6, True),
-          "deform_bwd_slab": ("deform_bwd", "jspsr_deform_bwd", 8, True)}
+                                 10, False)}
 
 
 def _load(name: str):
     """The kernel's ctypes function; for the backward kernels with the
     library's block count, which sizes the d_weight partials, and K3's
     scratch size in int64 words."""
+    name = name.removesuffix("_slab")
     if name not in _fns:
         source, symbol, n_ptr, slab = _ENTRY[name]
         lib = ctypes.CDLL(str(build()[source][0]))
@@ -160,16 +162,10 @@ def _check(tensors: dict, like: torch.Tensor) -> None:
 
 
 def _name(kernel: str, sample_dtype, x, offset, y0: int) -> str:
-    """The launch count's name: the kernel, its bf16 mode or its row-slab
-    form (fp32 only: a bf16 mode on a slab raises)."""
-    bf16 = bf16_sampling(sample_dtype)
-    if not is_slab(x, offset, y0):
-        return f"{kernel}_bf16" if bf16 else kernel
-    if bf16:
-        raise NotImplementedError(
-            f"{kernel}: the bf16-sampling mode on a row slab is not ported "
-            f"(ROADMAP.md queue 1 item 7)")
-    return f"{kernel}_slab"
+    """The launch count's name: the kernel, its bf16 mode, and its
+    row-slab form (``_slab``) in either mode."""
+    name = f"{kernel}_bf16" if bf16_sampling(sample_dtype) else kernel
+    return f"{name}_slab" if is_slab(x, offset, y0) else name
 
 
 def deform_fwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,

@@ -3,7 +3,8 @@
 ``Grad`` loss and the gaussian-window SSIM of the ``SSIM`` loss, and the
 metric-only filters of the meters (``metrics/meters.py``): the reference's
 2x Sobel magnitude, its exponential SSIM window, skimage's row SSIM and
-Horn's slope.
+Horn's slope. The two loss filters also run on a row slab under a spatial
+sharding (``parallel/spatial.py``), with their halo rows.
 """
 
 from __future__ import annotations
@@ -89,10 +90,31 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor, data_range: float = 1.0,
          per_sample: bool = False) -> torch.Tensor:
     """SSIM over NCHW with a 2D window. ``padding='valid'`` with the
     gaussian window is the reference's ``piq.ssim(..., downsample=False)``;
-    ``'same'`` zero-pads by half the window. ``per_sample`` returns (B,)."""
+    ``'same'`` zero-pads by half the window. ``per_sample`` returns (B,).
+
+    On a row slab under a spatial sharding (``padding='valid'``, the whole
+    batch's mean: the SSIM loss) this rank's share of the whole batch's
+    SSIM: the slab takes the window's reach (``window_size - 1`` rows)
+    from the slab below, owns the valid window positions that start in it
+    (the last slab's last ``reach`` rows start none) and sums their map
+    over the whole batch's count of valid positions."""
     win = (gaussian_window(window_size, sigma, pred.device) if window is None
            else window)
     pad = window_size // 2 if padding == "same" else 0
+    sharded = active_sharding() is not None
+    if sharded:
+        reach = win.shape[0] - 1
+        if padding != "valid" or per_sample:
+            raise NotImplementedError(
+                "spatial sharding of SSIM takes padding='valid' and the "
+                "whole batch's mean (the SSIM loss)")
+        if pred.shape[2] < reach:
+            raise ValueError(
+                f"SSIM's {win.shape[0]} x {win.shape[1]} window reaches "
+                f"{reach} rows below: slabs of at least {reach} rows, got "
+                f"{pred.shape[2]}")
+        whole = spatial.whole_shape(pred)
+        pred, gt = spatial.halo(pred, 0, reach), spatial.halo(gt, 0, reach)
 
     def f(v):
         return _depthwise(v, win, pad)
@@ -106,6 +128,11 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor, data_range: float = 1.0,
     c2 = (0.03 * data_range) ** 2
     ssim_map = ((2 * mu12 + c1) * (2 * s12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
+    if sharded:
+        b, c, h, w = whole
+        own = ssim_map.shape[2] - reach * int(spatial.last_slab())
+        return ssim_map[:, :, :own].sum() / (
+            b * c * (h - reach) * (w - win.shape[1] + 1))
     if per_sample:
         return ssim_map.mean(dim=(1, 2, 3))
     return ssim_map.mean()

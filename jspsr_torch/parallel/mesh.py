@@ -246,12 +246,18 @@ def all_gather_list(x: torch.Tensor, group=None) -> list:
     """The ranks' ``x`` (equal shapes) in rank order. The collective copies
     bytes, so the input and the outputs are contiguous alike (a tensor
     with other strides, an autograd gradient among them, is copied
-    first)."""
+    first). A bf16 tensor travels as its bytes (a uint8 view, exact):
+    gloo's collectives refuse int16, and which take bf16 depends on the
+    build."""
     x = x.contiguous()
-    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+    wire = (x.reshape(-1).view(torch.uint8) if x.dtype == torch.bfloat16
+            else x)
+    parts = [torch.empty_like(wire, memory_format=torch.contiguous_format)
              for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
-    return parts
+    dist.all_gather(parts, wire, group=group)
+    if wire is x:
+        return parts
+    return [p.view(x.dtype).view(x.shape) for p in parts]
 
 
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -493,12 +499,6 @@ def shard_batch(mesh: Mesh, tree) -> list:
 # the 2-D (data x space) mesh of processes
 # ---------------------------------------------------------------------------
 
-# an image's rows must divide into equal slabs at every level of the
-# flagship's encoder: three stride-2 stages, each slab starting on an even
-# row
-ROW_MULTIPLE = 8
-
-
 class Mesh2D:
     """A process group laid out as ``n_data`` x ``n_space``: this rank's
     place (``data_index``, ``space_index``), the group of its space index
@@ -565,7 +565,8 @@ class SpatialSharding:
         ``[d * B/n_data, (d+1) * B/n_data)``,
         image rows ``[s * H/n_space, (s+1) * H/n_space)``, contiguous.
         Refuses a batch that does not divide by ``n_data`` and an H that
-        does not divide by ``ROW_MULTIPLE * n_space``."""
+        does not divide by ``n_space`` (a model's own row multiple:
+        ``parallel.spatial.check_rows``)."""
         m = self.mesh
         if x.dim() != 4:
             raise ValueError(f"shard takes NCHW batches, got shape "
@@ -574,11 +575,9 @@ class SpatialSharding:
         if b % m.n_data:
             raise ValueError(f"batch {b} does not divide over the data "
                              f"axis's {m.n_data} ranks")
-        if h % (ROW_MULTIPLE * m.n_space):
-            raise ValueError(
-                f"H = {h} does not divide by {ROW_MULTIPLE} x {m.n_space} "
-                f"(the space axis): every slab must start on an even row "
-                f"at each of the encoder's three stride-2 levels")
+        if h % m.n_space:
+            raise ValueError(f"H = {h} does not divide over the space "
+                             f"axis's {m.n_space} ranks")
         rb, rh = b // m.n_data, h // m.n_space
         return x[m.data_index * rb:(m.data_index + 1) * rb, :,
                  m.space_index * rh:(m.space_index + 1) * rh].contiguous()

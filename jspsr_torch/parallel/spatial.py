@@ -9,21 +9,33 @@ each rank runs the ordinary modules on its block of the batch, and under
 neighbours take them from here:
 
 - a conv (``nn.layers.Conv2d``, ``ConvTranspose2d``; ``conv2d``,
-  ``conv_transpose2d`` below) pads its slab with its neighbours' rows
-  (``halo``), as many above and below as its kernel, stride and padding
-  reach (zeros at the image's top and bottom, what its padding gives),
-  then convolves with no padding along H;
+  ``conv_transpose2d`` below; JSPSR's fused stems and grouped blocks with
+  their own ``groups``) pads its slab with its neighbours' rows (``halo``),
+  as many above and below as its kernel, stride and padding reach (zeros
+  at the image's top and bottom, what its padding gives), then convolves
+  with no padding along H; a bf16 body's halos carry bf16;
 - the global average and max pools (``nn.layers``; the channel
-  attention) reduce over the space group (``all_gather``);
+  attention) reduce over the space group (``all_gather``), a bf16 mean's
+  sums in fp32, rounded once;
 - train-mode BatchNorm takes its statistics over the whole mesh
-  (``nn.layers.BatchNorm2d``);
-- the SPN head's deformable conv (``models/spn.py``) samples the whole
-  raw DEM of its images (its offsets are unbounded) for its own output
-  rows (``gather_rows``, then the op's row origin ``y0``);
-- the mean losses divide by the whole batch's count, and the Grad loss's
-  Sobel takes its one halo row here too (``losses``, ``ops/filters.py``),
-  so that the ranks' losses sum to the whole batch's loss and their
-  summed gradients (``sharded_grads``) are its gradients.
+  (``nn.layers.BatchNorm2d``), in fp32 for a bf16 body;
+- the SPN head's deformable conv (``models/spn.py``; JSPSR, EDSR's head,
+  LRRU's four rounds) samples the whole raw DEM of its images (its
+  offsets are unbounded) for its own output rows (``gather_rows``, then
+  the op's row origin ``y0``), in either sampling mode;
+- every loss of the registry is this rank's share of the whole batch's
+  loss (``losses``, ``ops/filters.py``): the means divide by the whole
+  batch's count, the Grad loss's Sobel takes one halo row each side, TV one
+  below and SSIM's 11 x 11 valid window ten below; BerHu's threshold is
+  the mesh's max (``mesh_max``) and softmax CE's and balanced BCE's counts
+  the mesh's (``mesh_sum``), so that the ranks' losses sum to the whole
+  batch's loss and their summed gradients (``sharded_grads``) are its
+  gradients.
+
+A model's image rows must divide into equal slabs at every level of its
+encoder: H by its ``ROW_MULTIPLE`` (JSPSR 8, three stride-2 stages; LRRU
+16, four; EDSR 1) times the space axis (``check_rows``, which refuses a
+model that has none, CompletionFormer).
 
 Why processes, and not one process with a list of devices: with a process
 per block the ordinary modules run unchanged on a slab, and only those
@@ -32,14 +44,22 @@ dispatch over the blocks (a tensor subclass), as XLA's partitioner does
 for the JAX package.
 
 The exchanges use ``all_gather`` only (``torch.distributed``), forward and
-backward: gloo takes it on CPU and CUDA tensors, and so does NCCL. gloo
-has no ``reduce_scatter``, and ``torch.distributed.nn``'s ``all_gather``
-backward goes through ``all_to_all``, which gloo lacks too.
+backward, besides BatchNorm's differentiable all-reduces and the losses'
+detached ones: gloo takes it on CPU and CUDA tensors, and so does NCCL.
+gloo has no ``reduce_scatter``, and ``torch.distributed.nn``'s
+``all_gather`` backward goes through ``all_to_all``, which gloo lacks too.
 
-Out of this slice, each refused with a message that names its ROADMAP.md
-item: JSPSR's bf16 body and sampling, its ``fuse_stems``,
-``eval_grouped`` and ``remat_stages``, EDSR, LRRU and CompletionFormer,
-and the losses other than L1, L2, Grad and Charbonnier.
+Recomputation (JSPSR's ``remat_stages``, ``nn.remat.checkpoint``) replays
+a region's halo ``all_gather``s, pool gathers and BatchNorm all-reduces in
+the backward. Every rank builds the same autograd graph (equal slabs; a
+rank's own position enters only as data, e.g. ``replicate_halo1``'s edge
+weights, or as the length of a slice, never as a branch around a
+collective), and autograd runs a graph's nodes in one order, so every rank
+issues the replayed collectives in one order; the replayed BatchNorm
+updates no statistics (``remat.recomputing``).
+
+Still refused, with a message that names ROADMAP.md queue 1 item 11:
+CompletionFormer and the deform op's input gradient (K3) on a slab.
 """
 
 from __future__ import annotations
@@ -54,18 +74,23 @@ from jspsr_torch.parallel.mesh import (
     all_reduce_grads,
 )
 
-ROADMAP_ITEMS = {"bf16": 7, "options": 8, "edsr": 9, "lrru": 10,
-                 "completionformer": 11, "losses": 12}
+# the ROADMAP.md queue 1 item that ports what is still refused
+ROADMAP_ITEM = 11
 
 
-def refuse(what: str, item: str) -> None:
+def _not_ported(what: str) -> NotImplementedError:
+    """The error that says ``what`` is not ported to a spatial sharding
+    (ROADMAP.md queue 1, ``ROADMAP_ITEM``)."""
+    return NotImplementedError(
+        f"spatial sharding of {what} is not ported (ROADMAP.md queue 1 "
+        f"item {ROADMAP_ITEM})")
+
+
+def refuse(what: str) -> None:
     """Raise, under an open spatial sharding, that ``what`` is not ported
-    there (ROADMAP.md queue 1, ``ROADMAP_ITEMS[item]``); nothing outside
-    one."""
+    there; nothing outside one."""
     if active_sharding() is not None:
-        raise NotImplementedError(
-            f"spatial sharding of {what} is not ported (ROADMAP.md queue 1 "
-            f"item {ROADMAP_ITEMS[item]})")
+        raise _not_ported(what)
 
 
 class _AllGather(torch.autograd.Function):
@@ -156,13 +181,14 @@ def row_origin(x: torch.Tensor) -> int:
     return active_sharding().mesh.space_index * x.shape[2]
 
 
-def conv2d(conv, x: torch.Tensor, weight, bias) -> torch.Tensor:
-    """``conv`` (an ``nn.Conv2d``) on this rank's slab: the slab with the
+def conv2d(conv, x: torch.Tensor, weight, bias,
+           groups: int | None = None) -> torch.Tensor:
+    """``conv`` (an ``nn.Conv2d``; ``weight`` in ``groups`` groups,
+    ``conv.groups`` by default) on this rank's slab: the slab with the
     halo its kernel reaches, ``padding`` rows above and ``k_eff - stride -
-    padding`` below, convolved without padding along H: output row j of
-    space index r's slab is output row ``r * Hs / stride + j`` of the
-    image's. The image's output rows must be ``H / stride`` (the model's
-    convs)."""
+    padding`` below, convolved without padding along H: output row j of space index r's slab is output row
+    ``r * Hs / stride + j`` of the image's. The image's output rows must
+    be ``H / stride`` (the model's convs)."""
     k = conv.dilation[0] * (conv.kernel_size[0] - 1) + 1
     s, p = conv.stride[0], conv.padding[0]
     hs = x.shape[2]
@@ -174,7 +200,7 @@ def conv2d(conv, x: torch.Tensor, weight, bias) -> torch.Tensor:
             f"padding {conv.padding}) on slabs of {hs} rows")
     xp = halo(x, p, max(0, k - s - p))
     return F.conv2d(xp, weight, bias, conv.stride, (0, conv.padding[1]),
-                    conv.dilation, conv.groups)
+                    conv.dilation, conv.groups if groups is None else groups)
 
 
 def conv_transpose2d(conv, x: torch.Tensor, weight, bias) -> torch.Tensor:
@@ -203,10 +229,12 @@ def conv_transpose2d(conv, x: torch.Tensor, weight, bias) -> torch.Tensor:
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """The mean over the whole images' H and W of NCHW slabs: each rank's
     sums, gathered over the space group and summed in space order, over
-    the images' pixel count."""
+    the images' pixel count. A bf16 slab's sums are fp32 and the mean is
+    rounded to bf16 once, as the one-process mean of a bf16 tensor is."""
     n = active_sharding().mesh.n_space
-    sums = all_gather(x.sum(dim=(2, 3), keepdim=True)).sum(0)
-    return sums / (x.shape[2] * n * x.shape[3])
+    xs = x.float() if x.dtype == torch.bfloat16 else x
+    sums = all_gather(xs.sum(dim=(2, 3), keepdim=True)).sum(0)
+    return (sums / (x.shape[2] * n * x.shape[3])).to(x.dtype)
 
 
 def global_max_pool(x: torch.Tensor) -> torch.Tensor:
@@ -220,6 +248,41 @@ def mean(t: torch.Tensor) -> torch.Tensor:
     """This rank's share of the whole batch's mean of ``t``: its sum over
     the mesh's whole count (every block holds ``t.numel()`` entries)."""
     return t.sum() / (t.numel() * active_sharding().mesh.world)
+
+
+def mesh_max(t: torch.Tensor) -> torch.Tensor:
+    """The largest entry of ``t`` over the whole mesh, detached (BerHu's
+    threshold)."""
+    m = t.detach().amax()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX,
+                    group=active_sharding().mesh.group)
+    return m
+
+
+def mesh_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the whole mesh, detached (the losses'
+    counts)."""
+    s = t.detach().sum()
+    dist.all_reduce(s, group=active_sharding().mesh.group)
+    return s
+
+
+def last_slab() -> bool:
+    """Whether this rank's slab holds the images' last rows."""
+    m = active_sharding().mesh
+    return m.space_index == m.n_space - 1
+
+
+def whole_shape(x: torch.Tensor) -> tuple:
+    """(B, C, H, W) of the whole batch whose block is the NCHW ``x``."""
+    m = active_sharding().mesh
+    b, c, h, w = x.shape
+    return b * m.n_data, c, h * m.n_space, w
+
+
+def world() -> int:
+    """The mesh's rank count: the blocks of the whole batch."""
+    return active_sharding().mesh.world
 
 
 def replicate_halo1(x: torch.Tensor) -> torch.Tensor:
@@ -239,9 +302,28 @@ def replicate_halo1(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([xp[..., :1], xp, xp[..., -1:]], dim=-1)
 
 
+def check_rows(model, inputs: list, sharding) -> None:
+    """Refuse whole NCHW ``inputs`` whose H does not divide by ``model``'s
+    ``ROW_MULTIPLE`` times the space axis: every slab must start on a row
+    that each stride-2 level of the model keeps. A model with no row
+    multiple is not ported to a sharding (CompletionFormer)."""
+    mult = getattr(model, "ROW_MULTIPLE", None)
+    if mult is None:
+        raise _not_ported(type(model).__name__)
+    n = sharding.mesh.n_space
+    for x in inputs:
+        if x.shape[2] % (mult * n):
+            raise ValueError(
+                f"{type(model).__name__}: H = {x.shape[2]} does not divide "
+                f"by {mult} x {n} (its row multiple x the space axis): "
+                f"every slab must start on a row that each of its stride-2 "
+                f"levels keeps")
+
+
 def sharded_forward(model, inputs: list, sharding) -> torch.Tensor:
     """``model`` on this rank's blocks of the whole NCHW ``inputs`` under
     ``sharding``, the output gathered whole on every rank."""
+    check_rows(model, inputs, sharding)
     with sharding.active():
         y = model([sharding.shard(x) for x in inputs])
     return sharding.gather(y)
@@ -254,6 +336,7 @@ def sharded_grads(model, criterion, inputs: list, gt, sharding) -> tuple:
     batch's), ``backward``, then the gradients summed over the mesh
     (``all_reduce_grads(average=False)``), in place in ``.grad``. Returns
     ({loss name: the whole batch's value}, {parameter name: gradient})."""
+    check_rows(model, inputs, sharding)
     model.zero_grad(set_to_none=True)
     with sharding.active():
         pred = model([sharding.shard(x) for x in inputs])

@@ -1,6 +1,7 @@
 """Run a function on every rank of a fresh process group.
 
-    results = run_ranks(fn, world, *args, device="cpu")
+    results = run_ranks(fn, world, *args)               # on the card
+    results = run_ranks(fn, world, *args, device="cpu")  # on the CPU
 
 starts ``world`` Python processes (``python -m jspsr_torch.parallel.spawn``),
 joins them in one process group through ``mesh.init_distributed`` (a
@@ -12,9 +13,12 @@ file), by its file. Arguments and results travel as pickles in a
 temporary directory that this process made; keep them to numpy arrays and
 plain values.
 
-Every rank runs on ``device`` (``cpu``, or one card that the ranks share:
-``cuda:0``) with ``backend`` (``gloo`` by default: NCCL refuses two ranks
-on one GPU), one intra-op thread, and an init timeout of
+Every rank runs on ``device``: by default ``cuda``, the card of the rank's
+local index (``mesh.local_rank``: on a host with one card every rank
+shares ``cuda:0``, on a host with a card per rank each takes its own, as
+``mesh.process_device`` maps it); ``cpu`` where the caller asks for it.
+Each has ``backend`` (``gloo`` by default: NCCL refuses two ranks on one
+GPU), one intra-op thread, and an init timeout of
 ``init_timeout_s``. The whole run has one deadline, ``timeout_s``: at it,
 or when a rank fails, every rank still running is killed and the failure
 raised with the end of each failed rank's output.
@@ -43,7 +47,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(fn, world: int, *args, device: str = "cpu",
+def run_ranks(fn, world: int, *args, device: str = "cuda",
               backend: str = "gloo", init_timeout_s: float = 60,
               timeout_s: float = 600) -> list:
     """``fn(rank, world, *args)`` on each rank of a new ``world``-process

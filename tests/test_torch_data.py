@@ -228,7 +228,8 @@ def _two_rank_cli(cfg, tmp_path):
     path = _cli_config(dict(cfg, epochs=1, distributed=True,
                             train_batch_size=1, workers=1), tmp_path)
     run = tmp_path / "run"
-    out = run_ranks(_cli_rank, 2, str(path), str(run), timeout_s=240)
+    out = run_ranks(_cli_rank, 2, str(path), str(run), device="cpu",
+                    timeout_s=240)
     assert out[0] == out[1] and np.isfinite(out[0]["rmse"])
     logs = {q.name: q.read_text() for q in run.glob("train*.log")}
     assert set(logs) == {"train.log", "train.proc1.log"}

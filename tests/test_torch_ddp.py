@@ -257,7 +257,8 @@ def group(tmp_path_factory):
         "pvt_x": rng.normal(0, 1, (4, 64, 32, 32)).astype(np.float32),
         "feed_cfg": _feed_cfg(root),
     }
-    ranks = run_ranks(_group_checks, WORLD, data, timeout_s=300)
+    ranks = run_ranks(_group_checks, WORLD, data, device="cpu",
+                      timeout_s=300)
     return data, ranks
 
 
@@ -521,9 +522,10 @@ def test_two_rank_preemption_resume_matches_control(tmp_path):
         "best_metric": "RMSE", "verbose": False})
     ctl, run = str(tmp_path / "control"), str(tmp_path / "run")
     first = run_ranks(_preempt_rank, WORLD, cfg,
-                      [("control", ctl), ("crash", run)], timeout_s=400)
+                      [("control", ctl), ("crash", run)], device="cpu",
+                      timeout_s=400)
     second = run_ranks(_preempt_rank, WORLD, cfg, [("resume", run)],
-                       timeout_s=400)
+                       device="cpu", timeout_s=400)
     for r in range(WORLD):
         assert first[r]["crash"] == {"preempt_file": True}
         control, resume = first[r]["control"], second[r]["resume"]

@@ -106,6 +106,63 @@ def test_row_slab_kernels_are_the_whole_images_rows(cuda_device, h, w, y0,
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("h,w,y0,hs,scale", [
+    (16, 16, 8, 8, 1.5), (128, 128, 64, 64, 20.0), (13, 20, 5, 6, 1.5),
+    (128, 128, 0, 64, 0.0)])
+def test_bf16_row_slab_kernels_are_the_whole_images_rows(cuda_device, h, w,
+                                                         y0, hs, scale):
+    """K1's and K2's bf16-sampling modes on a row slab (TMA and copy paths,
+    a slab off K1's 4-row tile, integer positions): output, d_offset and
+    d_mask bit-equal to those rows of the whole-image bf16 kernels' and
+    within rtol = atol = 1e-5 of their plain bf16 versions (the same
+    roundings); the slabs' d_weight and d_bias summed over a partition of
+    the rows within 1e-6 of the whole image's terms' magnitude sums (sums
+    of signed terms that cancel); one ``deform_fwd_bf16_slab`` and one
+    ``deform_bwd_bf16_slab`` launch."""
+    bf16 = "bfloat16"
+    x, offset, weight, bias, mask = _args(2, h, w, scale, cuda_device,
+                                          seed=9)
+    rows = slice(y0, y0 + hs)
+    off, msk = offset[:, :, rows].contiguous(), mask[:, :, rows].contiguous()
+    g = torch.randn(2, 1, h, w, device=cuda_device)
+    gs = g[:, :, rows].contiguous()
+    before = dict(deform_cuda.LAUNCHES)
+    got = deform_cuda.deform_fwd(x, off, weight, bias, msk, sample_dtype=bf16,
+                                 y0=y0)
+    got_b = deform_cuda.deform_bwd(x, off, weight, msk, gs, sample_dtype=bf16,
+                                   y0=y0)
+    torch.cuda.synchronize()
+    assert {k: deform_cuda.LAUNCHES[k] - before[k] for k in before} == {
+        **NO_LAUNCHES, "deform_fwd_bf16_slab": 1, "deform_bwd_bf16_slab": 1}
+    whole = deform_cuda.deform_fwd(x, offset, weight, bias, mask,
+                                   sample_dtype=bf16)
+    whole_b = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                     sample_dtype=bf16)
+    assert torch.equal(got, whole[:, :, rows])
+    for a, full in zip(got_b[:2], whole_b[:2]):
+        assert torch.equal(a, full[:, :, rows])
+    torch.testing.assert_close(got, deform_conv2d_plain(
+        x, off, weight, bias, msk, sample_dtype=bf16, y0=y0), rtol=1e-5,
+        atol=1e-5)
+    ref_b = deform_conv2d_backward_plain(x, off, weight, msk, gs,
+                                         sample_dtype=bf16, y0=y0)
+    for a, r in zip(got_b[:2], ref_b[:2]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+    rest = [slice(0, y0), slice(y0 + hs, h)]
+    sums = [got_b[2].clone(), got_b[3].clone()]
+    for part in (r for r in rest if r.stop > r.start):
+        b = deform_cuda.deform_bwd(
+            x, offset[:, :, part].contiguous(), weight,
+            mask[:, :, part].contiguous(), g[:, :, part].contiguous(),
+            sample_dtype=bf16, y0=part.start)
+        sums = [sums[0] + b[2], sums[1] + b[3]]
+    abs_w = deform_conv2d_backward_plain(x.abs(), offset, weight,
+                                         mask.abs(), g.abs(),
+                                         sample_dtype=bf16)[2]
+    assert ((sums[0] - whole_b[2]).abs() <= 1e-6 * abs_w).all()
+    assert float((sums[1] - whole_b[3]).abs()) <= 1e-6 * float(g.abs().sum())
+
+
 # K1's load paths: sides its 4 x 64 tile does not divide, one smaller
 # than a tile (TMA), W % 4 != 0 (the copy path), at integer positions,
 # sub-pixel offsets and far off the image

@@ -40,12 +40,21 @@ its weights carried into the port by ``utils/weights.py``:
   in float64: the output, the input gradient and the summed weight
   gradient against the unsharded conv at rtol 1e-12.
 
+- the tiny flagship's sharded eval forward with each of its five
+  options (``fuse_stems``, ``eval_grouped``, ``remat_stages``,
+  ``compute_dtype`` and ``spn_sample_dtype`` bf16), and EDSR's and LRRU's,
+  against one process (fp32 at rtol 1e-4 / atol 1e-5; bf16 within
+  ``FACTOR`` x the one-process bf16 model's distance from its fp32 one,
+  ``tests/test_torch_bf16.py``'s rule). ``tests/test_torch_spatial_models.py``
+  holds these cases and every loss against the JAX package.
+
 In one process: K1's and K2's plain versions on a row slab (``y0``) are
 bit-equal to the same rows of the whole image's, and their d_weight and
 d_bias summed over the slabs match the whole image's at 1e-6 relative;
-the ops pass ``torch.library.opcheck`` with a row origin; and every case
-left out of this slice is refused with a message naming its ROADMAP.md
-item.
+the ops pass ``torch.library.opcheck`` with a row origin; the kernels'
+launch names on a slab in either mode; and what is still left out
+(CompletionFormer, the input gradient K3 on a slab) is refused with a
+message naming ROADMAP.md queue 1 item 11.
 """
 
 import numpy as np
@@ -71,6 +80,16 @@ WORLD = N_DATA * N_SPACE
 # float64 gradients, sharded against one process: every tensor within this
 # share of its largest magnitude
 F64_REL = 1e-9
+# tests/test_torch_bf16.py's rule for a bf16 result
+FACTOR = 2.0
+# the flagship's options (with the ROADMAP.md queue 1 item that ported each
+# to a row slab), and the other families, on the tiny SMALL batch
+OPTIONS = [({"fuse_stems": True}, 8), ({"eval_grouped": True}, 8),
+           ({"remat_stages": True}, 8), ({"compute_dtype": "bfloat16"}, 7),
+           ({"spn_sample_dtype": "bfloat16"}, 7)]
+FAMILIES = {"edsr.EDSR": {"in_channels": 4, "out_channels": 1,
+                          "n_resblocks": 2, "n_features": 8},
+            "lrru.LRRU": {"in_channels": dict(SMALL), "bc": 4}}
 
 
 def _nchw(a):
@@ -106,6 +125,24 @@ def _port(channels, state) -> JSPSR:
     model = JSPSR(dict(channels), num_feature=8, layers=(1, 1, 1, 1))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model
+
+
+def _option_model(state, kwargs) -> JSPSR:
+    """The tiny flagship of ``state`` with ``kwargs``'s option, in eval."""
+    model = JSPSR(dict(SMALL), num_feature=8, layers=(1, 1, 1, 1),
+                  **kwargs)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.eval()
+
+
+def _family(family) -> torch.nn.Module:
+    """``family``'s model at FAMILIES' tiny widths, seeded."""
+    import importlib
+
+    module, name = family.split(".")
+    cls = getattr(importlib.import_module(f"jspsr_torch.models.{module}"),
+                  name)
+    return cls(**FAMILIES[family], generator=torch.Generator().manual_seed(4))
 
 
 def _tensors(arrays, dtype=torch.float32):
@@ -211,6 +248,14 @@ def _rank_checks(rank, world, data):
                 "losses": losses,
                 "grads": {k: v.numpy().copy() for k, v in grads.items()}}
     out["convs"] = _conv_round_trip(sharding, rank)
+    with torch.no_grad():
+        out["options"] = [sharded_forward(
+            _option_model(data["fwd"]["state"], kw),
+            _tensors(data["fwd"]["inputs"]), sharding).numpy()
+            for kw, _ in OPTIONS]
+        out["families"] = {family: sharded_forward(
+            _family(family).eval(), _tensors(data["fwd"]["inputs"]),
+            sharding).numpy() for family in FAMILIES}
     case, channels, dtype = REFERENCES[rank]
     d = data[case]
     out["one_process"] = _one_process_grads(channels, d["state"], d["loss"],
@@ -272,7 +317,8 @@ def world():
         "inputs": [rng.uniform(0.05, 0.95, (4, c, 32, 32)).astype(np.float32)
                    for c in FLAGSHIP.values()],
         "gt": rng.uniform(0.05, 0.95, (4, 1, 32, 32)).astype(np.float32)}
-    ranks = run_ranks(_rank_checks, WORLD, data, timeout_s=240)
+    ranks = run_ranks(_rank_checks, WORLD, data, device="cpu",
+                      timeout_s=240)
     return data, ref, ranks
 
 
@@ -426,7 +472,7 @@ def _sharding() -> SpatialSharding:
 
 
 @pytest.mark.parametrize("shape, message", [
-    ((4, 1, 24, 32), "does not divide by 8 x 2"),
+    ((4, 1, 25, 32), "H = 25 does not divide over the space axis's 2"),
     ((3, 1, 32, 32), "batch 3 does not divide over the data axis's 2"),
 ])
 def test_shard_refuses_what_does_not_divide(shape, message):
@@ -434,28 +480,48 @@ def test_shard_refuses_what_does_not_divide(shape, message):
         _sharding().shard(torch.zeros(shape))
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    ({"fuse_stems": True}, 8), ({"eval_grouped": True}, 8),
-    ({"remat_stages": True}, 8), ({"compute_dtype": "bfloat16"}, 7),
-    ({"spn_sample_dtype": "bfloat16"}, 7)])
-def test_jspsr_refuses_what_is_out_of_this_slice(kwargs, item):
-    model = JSPSR(dict(SMALL), num_feature=8, layers=(1, 1, 1, 1), **kwargs)
-    inputs = [torch.zeros(2, c, 16, 16) for c in SMALL.values()]
-    with _sharding().active(), pytest.raises(
-            NotImplementedError,
-            match=rf"ROADMAP\.md queue 1 item {item}\)"):
-        model(inputs)
-    model(inputs)  # unsharded, every option runs
+@pytest.mark.parametrize("kwargs, item", OPTIONS)
+def test_jspsr_refuses_what_is_out_of_this_slice(world, kwargs, item):
+    """Each option the tiny flagship refused under a sharding before
+    (ROADMAP.md queue 1 ``item`` ported it): its sharded eval forward,
+    gathered, against the same model in one process: fp32 at rtol 1e-4 /
+    atol 1e-5, bf16 within FACTOR x the one-process bf16 model's distance
+    from its fp32 one (largest and mean)."""
+    data, _, ranks = world
+    got = ranks[0]["options"][OPTIONS.index((kwargs, item))]
+    state, inputs = data["fwd"]["state"], _tensors(data["fwd"]["inputs"])
+    with torch.no_grad():
+        want = _option_model(state, kwargs)(inputs).numpy()
+        fp32 = _option_model(state, {})(inputs).numpy()
+    if not any(v == "bfloat16" for v in kwargs.values()):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                                   err_msg=f"item {item}")
+        return
+    dist, own = np.abs(got - want), np.abs(want - fp32)
+    assert dist.max() <= FACTOR * own.max(), (item, dist.max(), own.max())
+    assert dist.mean() <= FACTOR * own.mean(), (item, dist.mean(),
+                                                 own.mean())
 
 
 @pytest.mark.parametrize("family, item", [
     ("edsr.EDSR", 9), ("lrru.LRRU", 10),
     ("completionformer.CompletionFormer", 11)])
-def test_other_families_are_refused_under_a_sharding(family, item):
-    """Each family's forward raises first thing under a sharding (so an
-    instance without its layers shows it)."""
+def test_other_families_are_refused_under_a_sharding(world, family, item):
+    """CompletionFormer's forward still raises first thing under a
+    sharding (so an instance without its layers shows it), naming ROADMAP.md
+    queue 1 item 11; EDSR and LRRU (items 9 and 10, ported) run there: the
+    sharded eval forward of each, gathered, equals one process's at rtol
+    1e-4 / atol 1e-5."""
     import importlib
 
+    if family in FAMILIES:
+        data, _, ranks = world
+        with torch.no_grad():
+            want = _family(family).eval()(_tensors(data["fwd"]["inputs"]))
+        np.testing.assert_allclose(ranks[0]["families"][family],
+                                   want.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"item {item}")
+        return
     module, name = family.split(".")
     cls = getattr(importlib.import_module(f"jspsr_torch.models.{module}"),
                   name)
@@ -468,18 +534,27 @@ def test_other_families_are_refused_under_a_sharding(family, item):
 
 
 def test_unported_losses_and_the_input_gradient_are_refused():
+    """What is still refused on a slab: the deform op's input gradient (K3,
+    ROADMAP.md queue 1 item 11). The bf16 modes of K1 and K2 take a slab
+    under launch names of their own, and every loss is ported (the BCE
+    here, with no collective, is this block's share of the whole batch's
+    mean; ``tests/test_torch_spatial_models.py`` holds each loss)."""
     from jspsr_torch.losses import get_loss
     from jspsr_torch.ops import deform_cuda
 
     pred = torch.rand(2, 1, 16, 16)
     with _sharding().active():
-        for name in ("berhu", "tv", "ssim", "bce"):
-            with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP\.md queue 1 item 12\)"):
-                get_loss(name)(pred, pred)
+        share = get_loss("bce")(pred, pred)
+    torch.testing.assert_close(share * WORLD, get_loss("bce")(pred, pred))
     x, offset, weight, bias, mask, _ = _deform_case(1, 8, 8, 1.5, 2)
     with pytest.raises(NotImplementedError, match="item 11"):
         deform_conv2d(x.requires_grad_(True), offset[:, :, 4:], weight, bias,
                       mask[:, :, 4:], y0=4).sum().backward()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        deform_cuda._name("deform_fwd", "bfloat16", x, offset[:, :, 4:], 4)
+    for kernel in ("deform_fwd", "deform_bwd"):
+        assert deform_cuda._name(kernel, "bfloat16", x, offset[:, :, 4:],
+                                 4) == f"{kernel}_bf16_slab"
+        assert deform_cuda._name(kernel, None, x, offset[:, :, 4:],
+                                 4) == f"{kernel}_slab"
+        assert deform_cuda._name(kernel, "bfloat16", x, offset, 0) == \
+            f"{kernel}_bf16"
+        assert f"{kernel}_bf16_slab" in deform_cuda.KERNELS
