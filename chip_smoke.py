@@ -81,7 +81,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    form, with K3's bound; then once through the op's autograd
    (``deform_conv2d(x requiring grad, ..., sample_dtype="bfloat16")
    .sum().backward()``: one K1-bf16 and one K3-bf16 launch, the path
-   ``k3_bf16_autograd``);
+   ``k3_bf16_autograd``; and on a row slab with ``y0``, one K1-bf16 and
+   one K3-bf16 on a slab, the path ``k3_bf16_slab_autograd``: no shipped
+   model samples in bf16 with the input's gradient);
 3e. K1 and K2 on row slabs (``y0``, counted as ``deform_fwd_slab`` and
    ``deform_bwd_slab``) at phase 17's slabs (K1 at 1 x 256 x 512 of a
    512^2 image and 2 x 64 x 128 of a 128^2 one, K2 at the latter), each
@@ -95,6 +97,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bound; then the same in the bf16-sampling mode (``deform_fwd_bf16_slab``,
    ``deform_bwd_bf16_slab``, against the whole-image bf16 kernel), with
    one slab more: 25 x 64 x 128, the shipped bf16 batch of 50 on the mesh;
+   then K3 and K3-bf16 on row slabs (``deform_bwd_dx_slab``,
+   ``deform_bwd_dx_bf16_slab``, ``check_k3_slabs``) at 2 x 64 x 128 of
+   128^2 (phase 17's gradient slab) and 8 x 64 x 128 (the shipped
+   CompletionFormer batch of 16 on the mesh), each y0, offsets at 0, 1.5
+   and 20 px: d_offset and d_mask bit-equal to those rows of the
+   whole-image K3's, each slab against its plain version (d_x, the whole
+   image's, and d_weight within 1e-5 of their magnitude sums), bit-equal
+   across two launches, and the slabs' d_x and d_weight summed within
+   1e-6 of the whole image's magnitude sums; timed beside the plain
+   version, the library form and the slab's bound;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -176,7 +188,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    through the port's CLI on that checkpoint (its scores equal to the
    final eval's at rtol 1e-5), the checkpoint evaluated by the port on
    the CPU (rtol 1e-4, the JAX package's reload tolerance); then the
-   resume gate for the flagship and for CompletionFormer: a fit of 2
+   resume gate for the flagship and for CompletionFormer (on its first
+   GATE_CF_CITIES train cities): a fit of 2
    epochs against a fit of 1 whose checkpoint a new Trainer resumes to
    epoch 2, their last parameters and buffers, best result and epoch
    losses bit-equal; each epoch's and each eval pass's seconds; then the
@@ -321,8 +334,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``fuse_stems`` and ``eval_grouped`` (forward) and ``remat_stages``
    (gradients), EDSR (configs/edsr_r8_img.yml) with and without ``spn``,
    LRRU (configs/lrru_r8_img.yml, LRRU_HOLES of voids; its forward at 2 x
-   256², held to float64 on the CPU) and the flagship's gradients under
-   L1 + BerHu + SSIM + TV; each case's launches exact on every rank.
+   256², held to float64 on the CPU), the flagship's gradients under
+   L1 + BerHu + SSIM + TV, and CompletionFormer as shipped
+   (configs/completionformer_r8_img_msk.yml, seeded and perturbed: PVT
+   attending over the gathered keys, NLSPN's 6 steps on the gathered
+   feature, 6 K1 on a slab per forward, 6 K1 and 6 K3 on a slab per
+   gradient); each case's launches exact on every rank.
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
@@ -347,6 +364,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -472,8 +490,13 @@ EXPORT_TOL = 1e-5
 # the artifact and the eager model at batch 50, each turn a median of this
 # many runs (a cut: 25 until the script passed 720 s, NVIDIA H100 80GB
 # HBM3, 700 W; a turn at batch 50 took about 6 s of it; 10 until phase 16
-# pushed it past 1,000 s on a slower host)
-EXPORT_TIME_REPS = 5
+# pushed it past 1,000 s on a slower host; 5 until phase 17's
+# CompletionFormer case took the script to 1,028 s)
+EXPORT_TIME_REPS = 3
+# phase 10's CompletionFormer resume gate trains on the first this many
+# cities of the tree (a cut: every city until phase 17's CompletionFormer
+# case took the script to 1,028 s): 48 samples, 3 steps of 16 per epoch
+GATE_CF_CITIES = 4
 # run in a fresh process: the artifact loaded with torch and the op library
 # alone, on the card, TF32 off and cuDNN's deterministic algorithms (as the
 # eager model runs in the parent: with cuDNN's defaults the fp32 forward
@@ -1006,6 +1029,151 @@ def check_deform_slabs(dev, bandwidth, fp32_peak, seed: int = 7,
     return fwd_rows, bwd_rows
 
 
+def k3_slabs() -> list:
+    """K3's row slabs on the card, from phase 17's constants: each rank's
+    (batch rows, image side), its slab's rows and the y0 of each space
+    index, at (b)'s gradient batch (SPATIAL_GRAD: phase 17's CompletionFormer
+    case runs K3 there) and at the shipped CompletionFormer's train batch
+    on the mesh (CF_SPATIAL_BATCH)."""
+    n_data, n_space = SPATIAL_MESH
+    return [(b // n_data, side, side // n_space,
+             [s * (side // n_space) for s in range(n_space)])
+            for b, side in (SPATIAL_GRAD, CF_SPATIAL_BATCH)]
+
+
+def k3_slab_bound(b, h, w, hs, atomics, bandwidth, fp32_peak):
+    """K3's least time on a slab of ``hs`` of an image's ``h`` rows, ms,
+    and what sets it: each input read once, each output written once, x
+    and d_x the whole images' (4 B each per image pixel), the offsets, the
+    mask, g, d_offset and d_mask the slab's (220 B per slab pixel), weight
+    in and d_weight out 36 B each; K3's operations on the slab's pixels
+    (``check_deform_backward_dx``'s count, ``atomics`` the slab's in-image
+    corners)."""
+    nbytes = b * hs * w * (72 + 36 + 4 + 72 + 36) + b * h * w * 8 + 72
+    flops = b * hs * w * (315 + 18) + 2 * atomics
+    bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def check_k3_slabs(dev, bandwidth, fp32_peak, seed: int = 9,
+                   sample_dtype=None) -> list:
+    """K3 (``deform_bwd_dx_slab``, or with ``sample_dtype`` bf16
+    ``deform_bwd_dx_bf16_slab``) on row slabs (``k3_slabs``), each y0 of
+    the mesh on one batch, offsets at each of OFFSET_SCALES: d_offset and
+    d_mask bit-equal to those rows of the whole-image K3's in the same
+    mode, and within rtol = atol = 1e-5 of the plain version with the same
+    row origin; each slab's d_x (the whole image's) and d_weight within
+    DX_ERR_LIMIT of their terms' magnitude sums from the plain version's;
+    bit-equal across two launches; the slabs' d_x and d_weight summed (the
+    row gather's and the gradient all-reduce's sums) within 1e-6 of the
+    whole image's terms' magnitude sums from the whole-image K3's. Timed at
+    TIMED_SCALE and the last y0 beside the plain version and the library
+    form (autograd of the fp32 ``grid_sample`` form on the slab, ``x``
+    included), with the bound of the slab's own bytes
+    (``k3_slab_bound``). Returns one row per slab shape."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flush = torch.empty(64 * 2**20, device=dev)
+    name = ("deform_bwd_dx_bf16_slab" if sample_dtype is not None
+            else "deform_bwd_dx_slab")
+    kw = {"sample_dtype": sample_dtype}
+    rows_out = []
+    for b, side, hs, y0s in k3_slabs():
+        row = {"shape": [b, 1, hs, side], "image": [b, 1, side, side],
+               "y0": y0s, "max_abs_err": 0.0, "d_x_err_over_abs_sum": 0.0,
+               "d_weight_err_over_abs_sum": 0.0,
+               "d_x_sum_err_over_abs_sum": 0.0,
+               "d_weight_sum_err_over_abs_sum": 0.0}
+        for scale in OFFSET_SCALES:
+            x, off, wt, bias, mask = deform_inputs(b, side, side, scale, gen,
+                                                   dev)
+            g = torch.randn(b, 1, side, side, generator=gen, device=dev)
+            whole = deform_cuda.deform_bwd_dx(x, off, wt, mask, g, **kw)
+            sums = [torch.zeros_like(whole[4]), torch.zeros_like(whole[2])]
+            for y0 in y0s:
+                rows = slice(y0, y0 + hs)
+                o, m, gs = (t[:, :, rows].contiguous() for t in (off, mask,
+                                                                  g))
+                got = deform_cuda.deform_bwd_dx(x, o, wt, m, gs, y0=y0, **kw)
+                again = deform_cuda.deform_bwd_dx(x, o, wt, m, gs, y0=y0,
+                                                  **kw)
+                ref = deform_conv2d_backward_plain(x, o, wt, m, gs,
+                                                   need_dx=True, y0=y0, **kw)
+                abs_sum = deform_conv2d_backward_plain(
+                    x.abs(), o, wt.abs(), m.abs(), gs.abs(), need_dx=True,
+                    y0=y0, **kw)
+                torch.cuda.synchronize()
+                where = (f"{name} at {row['shape']} of {row['image']} y0 "
+                         f"{y0} offset scale {scale}")
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    raise AssertionError(f"{where}: two launches differ")
+                for part, a, r, full in zip(("d_offset", "d_mask"), got,
+                                            ref, whole):
+                    if not (torch.equal(a, full[:, :, rows])
+                            and torch.allclose(a, r, rtol=1e-5, atol=1e-5)):
+                        raise AssertionError(
+                            f"{where}: {part} max |err| from the plain "
+                            f"version {(a - r).abs().max().item()}, from "
+                            f"the whole image's rows "
+                            f"{(a - full[:, :, rows]).abs().max().item()}")
+                x_err = _err_over_abs_sum(got[4], ref[4], abs_sum[4])
+                w_err = _err_over_abs_sum(got[2], ref[2], abs_sum[2])
+                if x_err > DX_ERR_LIMIT or w_err > DX_ERR_LIMIT:
+                    raise AssertionError(
+                        f"{where}: d_x error {x_err}, d_weight error "
+                        f"{w_err} of the terms' magnitude sums")
+                row["max_abs_err"] = max(
+                    row["max_abs_err"], (got[0] - ref[0]).abs().max().item(),
+                    (got[1] - ref[1]).abs().max().item(),
+                    (got[4] - ref[4]).abs().max().item())
+                row["d_x_err_over_abs_sum"] = max(
+                    row["d_x_err_over_abs_sum"], x_err)
+                row["d_weight_err_over_abs_sum"] = max(
+                    row["d_weight_err_over_abs_sum"], w_err)
+                sums = [sums[0] + got[4], sums[1] + got[2]]
+                if scale == TIMED_SCALE and y0 == y0s[-1]:
+                    row["atomics"] = deform_cuda.dx_atomics(
+                        o, side, side, y0=y0)["corners"]
+                    row["kernel_ms"] = time_ms(
+                        lambda: deform_cuda.deform_bwd_dx(
+                            x, o, wt, m, gs, y0=y0, **kw), flush)
+                    row["plain_ms"] = time_ms(
+                        lambda: deform_conv2d_backward_plain(
+                            x, o, wt, m, gs, need_dx=True, y0=y0, **kw),
+                        flush)
+                    leaves = [t.detach().clone().requires_grad_(True)
+                              for t in (x, o, wt, bias, m)]
+                    out = deform_library(*leaves, y0)
+                    row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                        out, leaves, gs, retain_graph=True), flush)
+                    del out, leaves
+            abs_whole = deform_conv2d_backward_plain(
+                x.abs(), off, wt.abs(), mask.abs(), g.abs(), need_dx=True,
+                **kw)
+            sum_errs = (_err_over_abs_sum(sums[0], whole[4], abs_whole[4]),
+                        _err_over_abs_sum(sums[1], whole[2], abs_whole[2]))
+            if max(sum_errs) > 1e-6:
+                raise AssertionError(
+                    f"{name} at {row['shape']} offset scale {scale}: the "
+                    f"slabs' d_x / d_weight sums {sum_errs} of the terms' "
+                    f"magnitude sums from the whole image's")
+            row["d_x_sum_err_over_abs_sum"] = max(
+                row["d_x_sum_err_over_abs_sum"], sum_errs[0])
+            row["d_weight_sum_err_over_abs_sum"] = max(
+                row["d_weight_sum_err_over_abs_sum"], sum_errs[1])
+            print(f"{name} at {b} x {hs} x {side} of {side}^2, {scale} px: "
+                  f"d_offset and d_mask bit-equal to the whole image's "
+                  f"rows; slabs' d_x sum {sum_errs[0]:.3e}, d_weight sum "
+                  f"{sum_errs[1]:.3e} of the terms' magnitude sums (limit "
+                  f"1e-06)", flush=True)
+        row["bound_ms"], row["bound_by"] = k3_slab_bound(
+            b, side, side, hs, row["atomics"], bandwidth, fp32_peak)
+        row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
+        rows_out.append(row)
+        print(f"{name} {row}", flush=True)
+    return rows_out
+
+
 def _err_over_abs_sum(got, ref, abs_sum) -> float:
     """The largest |got - ref| relative to the sum of the terms' magnitudes
     (0 where there are no terms and both are 0)."""
@@ -1280,34 +1448,47 @@ def check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak):
     return rows
 
 
-def k3_bf16_autograd(dev) -> dict:
+def k3_bf16_autograd(dev) -> tuple:
     """K3's bf16 mode as the op's autograd reaches it: ``deform_conv2d(x
     requiring its gradient, ..., sample_dtype="bfloat16").sum()
     .backward()`` at 2 x 128^2 launches K1-bf16 once and K3-bf16 once,
     and gives the plain backward's gradients (d_x and d_mask at rtol =
-    atol = 1e-5 of K3-bf16's). Returns the launch counts."""
+    atol = 1e-5 of K3-bf16's); then the same on the row slab of image rows
+    [64, 128) (``y0``: K1-bf16 and K3-bf16 on a slab once each, d_x the
+    whole image's from the slab's rows). Returns the launch counts of
+    each."""
     gen = torch.Generator(device=dev).manual_seed(8)
     x, offset, weight, bias, mask = deform_inputs(2, 128, 128, TIMED_SCALE,
                                                   gen, dev)
-    leaves = [x.requires_grad_(True), mask.requires_grad_(True)]
-    reset_launches()
-    deform_conv2d(x, offset, weight, bias, mask,
-                  sample_dtype=BF16).sum().backward()
-    torch.cuda.synchronize()
-    launches = dict(deform_cuda.LAUNCHES)
-    print(f"K3-bf16 through the op's autograd: launches {launches}",
-          flush=True)
-    if launches != deform_counts(deform_fwd_bf16=1, deform_bwd_dx_bf16=1):
-        raise AssertionError(f"deform_conv2d(..., sample_dtype=bfloat16) "
-                             f"with x's gradient launched {launches}")
-    ref = deform_conv2d_backward_plain(
-        x.detach(), offset, weight, mask.detach(), torch.ones_like(x),
-        need_dx=True, sample_dtype=BF16)
-    for leaf, r in zip(leaves, (ref[4], ref[1])):
-        if not torch.allclose(leaf.grad, r, rtol=1e-5, atol=1e-5):
-            raise AssertionError("K3-bf16 through autograd disagrees with "
-                                 "the plain backward")
-    return launches
+    counts = []
+    for y0, want in ((0, deform_counts(deform_fwd_bf16=1,
+                                       deform_bwd_dx_bf16=1)),
+                     (64, deform_counts(deform_fwd_bf16_slab=1,
+                                        deform_bwd_dx_bf16_slab=1))):
+        off = offset[:, :, y0:].contiguous()
+        leaves = [x.detach().clone().requires_grad_(True),
+                  mask[:, :, y0:].contiguous().requires_grad_(True)]
+        reset_launches()
+        deform_conv2d(leaves[0], off, weight, bias, leaves[1],
+                      sample_dtype=BF16, y0=y0).sum().backward()
+        torch.cuda.synchronize()
+        launches = dict(deform_cuda.LAUNCHES)
+        print(f"K3-bf16 through the op's autograd, y0 {y0}: launches "
+              f"{launches}", flush=True)
+        if launches != want:
+            raise AssertionError(f"deform_conv2d(..., sample_dtype=bfloat16,"
+                                 f" y0={y0}) with x's gradient launched "
+                                 f"{launches}")
+        ref = deform_conv2d_backward_plain(
+            x, off, weight, leaves[1].detach(),
+            torch.ones_like(leaves[1][:, :1]), need_dx=True,
+            sample_dtype=BF16, y0=y0)
+        for leaf, r in zip(leaves, (ref[4], ref[1])):
+            if not torch.allclose(leaf.grad, r, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"K3-bf16 through autograd, y0 {y0}, "
+                                     f"disagrees with the plain backward")
+        counts.append(launches)
+    return tuple(counts)
 
 
 def write_scenes(root: Path, scenes, seed: int = 0, holes: float = 0.0):
@@ -1422,10 +1603,10 @@ def card_vs_cpu_scene(p, ckpt, scene_dir, dev, rtol, atol,
     magnitude, at least 1, with ``scale_atol``): (max |card - CPU|, warm
     card ms (best of 3), the output's largest magnitude)."""
     sample, _ = load_scene(scene_dir, p)
-    fwd_gpu = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    fwd_gpu = make_forward(checkpoint_model(p, ckpt).to(dev))
     got = upscale_dem(fwd_gpu, sample, p, dev)[0]
     warm_ms = min(upscale_dem(fwd_gpu, sample, p, dev)[1] for _ in range(3))
-    fwd_cpu = make_forward(load_model_params(build_model(p), ckpt))
+    fwd_cpu = make_forward(checkpoint_model(p, ckpt))
     ref = upscale_dem(fwd_cpu, sample, p, "cpu")[0]
     scale = float(np.abs(ref).max())
     if scale_atol:
@@ -1486,10 +1667,10 @@ def card_vs_float64_scene(p, ckpt, scene_dir, dev, rtol, atol) -> dict:
     (at least 1); with the warm card ms (best of 3) and that
     magnitude."""
     sample, _ = load_scene(scene_dir, p)
-    fwd_gpu = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    fwd_gpu = make_forward(checkpoint_model(p, ckpt).to(dev))
     got = upscale_dem(fwd_gpu, sample, p, dev)[0]
     warm_ms = min(upscale_dem(fwd_gpu, sample, p, dev)[1] for _ in range(3))
-    cpu = load_model_params(build_model(p), ckpt)
+    cpu = checkpoint_model(p, ckpt)
     fp32 = upscale_dem(make_forward(cpu), sample, p, "cpu")[0]
     ref = upscale_dem(make_forward(Float64(cpu)), sample, p, "cpu")[0]
     scale = max(1.0, float(np.abs(ref).max()))
@@ -1537,7 +1718,7 @@ def serve(work: Path, dev: torch.device, flagship):
     # script past 1,000 s on an NVIDIA H100 80GB HBM3 host, 700 W)
     (big, big_side), (name, side) = SCENES[-1], SCENES[0]
     sample, _ = load_scene(work / "scenes" / big, p)
-    fwd = make_forward(load_model_params(build_model(p), ckpt).to(dev))
+    fwd = make_forward(checkpoint_model(p, ckpt).to(dev))
     upscale_dem(fwd, sample, p, dev)
     warm = {f"{big_side}x{big_side}": min(
         upscale_dem(fwd, sample, p, dev)[1] for _ in range(3))}
@@ -1586,6 +1767,18 @@ def _rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """Relative L2 error of one tensor (absolute where ``ref`` is 0)."""
     diff = (got.double().cpu() - ref.double().cpu()).norm()
     return float(diff / max(float(ref.double().norm()), 1e-12))
+
+
+def checkpoint_model(p, ckpt) -> torch.nn.Module:
+    """``build_model(p)`` holding the weights of the checkpoint ``ckpt``,
+    built on the meta device and then allocated on the CPU: the random
+    init that the checkpoint replaces is skipped (seconds of host time per
+    build; every parameter and buffer of the shipped families is in the
+    checkpoint, so the model is bit for bit the one a built and loaded
+    model is)."""
+    with torch.device("meta"):
+        model = build_model(p)
+    return load_model_params(model.to_empty(device="cpu"), ckpt)
 
 
 def model_from_state(p, state) -> torch.nn.Module:
@@ -1931,7 +2124,7 @@ def serve_tiled(work: Path, dev: torch.device, flagship):
     for seed, (name, scenes) in enumerate(dirs.items()):
         write_scenes(work / name, scenes, seed=2 + seed)
     write_scenes(work / "rect", [TILED_RECT], seed=4)
-    model = load_model_params(build_model(p), ckpt).to(dev)
+    model = checkpoint_model(p, ckpt).to(dev)
     out, launches, expected = {}, {}, {}
 
     def served_vs_single(paths, scenes, root):
@@ -1997,7 +2190,7 @@ def serve_tiled(work: Path, dev: torch.device, flagship):
           flush=True)
 
     # the card against the port on the CPU, in metres
-    cpu_model = load_model_params(build_model(p), ckpt)
+    cpu_model = checkpoint_model(p, ckpt)
     cpu_err = {}
     for key, scene in (("334", work / "334" / TILED_SMALL[0][0]),
                        ("rect", rect)):
@@ -2123,9 +2316,9 @@ def serve_family(work: Path, dev: torch.device, label: str,
         rates.append(_scenes_per_s((res_dir / "train.log").read_text()))
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
     check_outputs(paths, scenes, root, near_input=False, relative=relative)
-    model = load_model_params(build_model(p), ckpt).to(dev)
-    cpu_model = load_model_params(build_model(p), ckpt)
-    f64_model = Float64(load_model_params(build_model(p), ckpt))
+    model = checkpoint_model(p, ckpt).to(dev)
+    cpu_model = checkpoint_model(p, ckpt)
+    f64_model = Float64(checkpoint_model(p, ckpt))
     tiled = {"scenes": len(scenes), "scenes_per_s": rates,
              "warm_scenes_per_s": rates[1], "peak_mb": peak,
              "against_float64": {}}
@@ -2224,12 +2417,16 @@ def phase_lrru(work: Path, root: Path, dev: torch.device):
     return {"lrru_training": training, "lrru_serving": serving}, paths
 
 
-def fit_config(config: Path, root: Path, epochs: int = FIT_EPOCHS):
+def fit_config(config: Path, root: Path, epochs: int = FIT_EPOCHS,
+               cities: int | None = None):
     """``config`` as it is on the synthetic tree at ``root``, but for its
-    epochs (the one cut)."""
+    epochs (the one cut) and, with ``cities``, its first ``cities`` train
+    cities."""
     p = create_config(config)
     p.dataset_path = str(root)
     p.epochs = epochs
+    if cities is not None:
+        p.train_set = list(p.train_set)[:cities]
     return p
 
 
@@ -2284,12 +2481,14 @@ class FitRecorder:
 
 def fit_run(config: Path, root: Path, work: Path, dev: torch.device,
             epochs: int = FIT_EPOCHS, initial_eval: bool = False,
-            resume_from=None, save_every: int = 0, backend: str = "npz"):
+            resume_from=None, save_every: int = 0, backend: str = "npz",
+            cities: int | None = None):
     """``Trainer(p, device=dev).fit(initial_eval)`` for ``epochs`` (after
     ``load(resume_from, resume=True)`` when given), with
-    ``save_every_steps: save_every`` and ``checkpoint_backend: backend``:
-    (fit's result, its recorder, the trainer)."""
-    p = fit_config(config, root, epochs)
+    ``save_every_steps: save_every`` and ``checkpoint_backend: backend``,
+    on ``cities`` train cities (``fit_config``): (fit's result, its
+    recorder, the trainer)."""
+    p = fit_config(config, root, epochs, cities)
     p.save_every_steps, p.checkpoint_backend = save_every, backend
     trainer = Trainer(p, result_dir=work, device=dev)
     if resume_from is not None:
@@ -2299,17 +2498,19 @@ def fit_run(config: Path, root: Path, work: Path, dev: torch.device,
 
 
 def resume_gate(config: Path, root: Path, work: Path, dev: torch.device,
-                uninterrupted=None):
+                uninterrupted=None, cities: int | None = None):
     """Run A fits FIT_EPOCHS epochs (or is ``uninterrupted``, ``fit_run``'s
     triple of such a fit); run B fits 1 (its checkpoint, saved at the end
     of epoch 0 as the first best, is renamed by ``finish``), then a new
-    Trainer loads it with ``resume=True`` and fits to FIT_EPOCHS. A's and
-    B's last parameters and buffers, best result and epoch losses must be
-    bit-equal: no tolerance."""
-    _, rec_a, a = uninterrupted or fit_run(config, root, work / "A", dev)
-    out_b1, rec_b1, _ = fit_run(config, root, work / "B1", dev, epochs=1)
+    Trainer loads it with ``resume=True`` and fits to FIT_EPOCHS, each on
+    ``cities`` train cities. A's and B's last parameters and buffers, best
+    result and epoch losses must be bit-equal: no tolerance."""
+    _, rec_a, a = uninterrupted or fit_run(config, root, work / "A", dev,
+                                           cities=cities)
+    out_b1, rec_b1, _ = fit_run(config, root, work / "B1", dev, epochs=1,
+                                cities=cities)
     _, rec_b2, b2 = fit_run(config, root, work / "B2", dev,
-                            resume_from=out_b1["checkpoint"])
+                            resume_from=out_b1["checkpoint"], cities=cities)
     unequal = [n for n in rec_a.final_state
                if not torch.equal(rec_a.final_state[n], rec_b2.final_state[n])]
     b_losses = rec_b1.losses + rec_b2.losses
@@ -2518,7 +2719,7 @@ def fit(root: Path, work: Path, dev: torch.device, smi: str):
                                   (out, rec, trainer)),
              "CompletionFormer": resume_gate(CF_CONFIG, root,
                                              work / "gate_CompletionFormer",
-                                             dev)}
+                                             dev, cities=GATE_CF_CITIES)}
     mark("resume gates")
     # save_every_steps: the flagship on the host feed, the bf16 flagship
     # from its device cache
@@ -2698,7 +2899,7 @@ def bf16_float64(cfg_path: Path, ckpt: Path):
     p64 = create_config(cfg_path)
     p64.model_kwargs.pop("compute_dtype", None)
     p64.model_kwargs.pop("spn_sample_dtype", None)
-    return Float64(load_model_params(build_model(p64), ckpt))
+    return Float64(checkpoint_model(p64, ckpt))
 
 
 def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
@@ -2727,10 +2928,9 @@ def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
         raise AssertionError(f"bf16 serving: launches {launches}")
     check_outputs(paths, SCENES, scenes_dir, near_input=True)
     sample, _ = load_scene(scenes_dir / SCENES[0][0], p)
-    got = upscale_dem(make_forward(load_model_params(build_model(p), ckpt)
+    got = upscale_dem(make_forward(checkpoint_model(p, ckpt)
                                    .to(dev)), sample, p, dev)[0]
-    bf16_cpu = upscale_dem(make_forward(load_model_params(build_model(p),
-                                                          ckpt)),
+    bf16_cpu = upscale_dem(make_forward(checkpoint_model(p, ckpt)),
                            sample, p, "cpu")[0]
     f64 = bf16_float64(cfg_path, ckpt)
     ref = upscale_dem(make_forward(f64), sample, p, "cpu")[0]
@@ -2753,7 +2953,7 @@ def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
     samples = [load_scene(tiled_dir / name, p)[0] for name, _ in TILED_SMALL]
     scaled = [scaled_raster(read_raster(path), sample, p)
               for path, sample in zip(served, samples)]
-    cpu = load_model_params(build_model(p), ckpt)
+    cpu = checkpoint_model(p, ckpt)
     out["tiled"] = {}
     for i in SERVED_FP64:
         name = TILED_SMALL[i][0]
@@ -2764,7 +2964,7 @@ def serve_bf16(work: Path, dev: torch.device, scenes_dir: Path,
             scaled[i], bf, r64, *BF16_TOL_SCALED,
             f"bf16 JSPSR served {name} (scaled)", cpu="bf16")
     # every served raster against its scene alone on the card
-    model = load_model_params(build_model(p), ckpt).to(dev)
+    model = checkpoint_model(p, ckpt).to(dev)
     served_err = {}
     for (name, _), got, sample in zip(TILED_SMALL, scaled, samples):
         single = scaled_raster(tile_inference_device(
@@ -2871,7 +3071,7 @@ def export_leg(label: str, flagship, work: Path, dev: torch.device,
                       for c in per_call.values()):
         raise AssertionError(f"{label}: the loader imported {foreign}, "
                              f"launched {per_call}")
-    model = load_model_params(build_model(p), ckpt).to(dev).eval()
+    model = checkpoint_model(p, ckpt).to(dev).eval()
     diffs = {}
     with np.load(work / f"{label}_out.npz") as z, torch.inference_mode():
         for b in EXPORT_BATCHES:
@@ -2968,7 +3168,7 @@ def options_forward(scenes_dir: Path, dev: torch.device, flagship) -> tuple:
     out, launches, ref = {}, {}, {}
     for label, options in OPTION_SETS.items():
         q = create_config_over(p, model_kwargs=options)
-        model = load_model_params(build_model(q), ckpt).to(dev).eval()
+        model = checkpoint_model(q, ckpt).to(dev).eval()
         fwd = make_forward(model)
         row = {}
         with torch.inference_mode():
@@ -3570,7 +3770,7 @@ def mesh_leg(root: Path, dev: torch.device, flagship, tiled_334: Path,
     p_serve, _, ckpt = flagship
     p = fit_config(FLAGSHIP, root, epochs=1)
     p.valid_batch_size = DP_VALID_BATCH
-    model = load_model_params(build_model(p), ckpt).to(dev)
+    model = checkpoint_model(p, ckpt).to(dev)
     step = make_eval_step(model, build_criterion(dict(p.loss)))
     ds = DFC30(split="valid", transform=build_transforms(p)[1],
                seed=p.get("seed", 0),
@@ -3657,6 +3857,9 @@ SPATIAL_GRAD = (4, 128)
 # phase 3e's third slab in the bf16-sampling mode: the shipped bf16
 # flagship's batch (configs/jspsr_r8_img_msk_bf16.yml) on the mesh
 SPATIAL_BF16_BATCH = (50, 128)
+# phase 3e's second K3 slab: the shipped CompletionFormer's train batch
+# (configs/completionformer_r8_img_msk.yml, 16 x 128^2) on the mesh
+CF_SPATIAL_BATCH = (16, 128)
 SPATIAL_RUNS = 2
 SPATIAL_TIMEOUT_S, SPATIAL_INIT_TIMEOUT_S = 600, 120
 # (b)'s bound against one process, tests/test_torch_spatial.py's for fp32:
@@ -3675,6 +3878,7 @@ SPATIAL_GRAD_REL_L2 = 5e-2
 # gradient on every rank)
 SLAB, SLAB_B = "deform_fwd_slab", "deform_bwd_slab"
 SLAB_BF, SLAB_BF_B = "deform_fwd_bf16_slab", "deform_bwd_bf16_slab"
+SLAB_DX = "deform_bwd_dx_slab"
 SPATIAL_CASES = {
     # the shipped bf16 flagship, then with bf16 sampling
     "bf16": (BF16_CONFIG, {}, None, "flagship", {SLAB: 1},
@@ -3697,6 +3901,11 @@ SPATIAL_CASES = {
     # the flagship under the losses no shipped config names
     "losses": (FLAGSHIP, {}, {"L1": 1, "BerHu": 1, "SSIM": 1, "TV": 0.1},
                "flagship", None, {SLAB: 1, SLAB_B: 1}),
+    # CompletionFormer as shipped (83.7 M parameters, NLSPN's 6 steps with
+    # its confidence): each step samples the gathered feature on the slab
+    # (K1), and its gradient runs K3 on the slab
+    "completionformer": (CF_CONFIG, {}, None, "seeded", {SLAB: 6},
+                         {SLAB: 6, SLAB_DX: 6}),
 }
 # a bf16 result against one process: within twice the one-process bf16
 # model's distance from its fp32 one (tests/test_torch_bf16.py's FACTOR);
@@ -3712,6 +3921,25 @@ SPATIAL_BF16_FACTOR = 2.0
 # (2.45 times rtol 1e-4 / atol 1e-5), the distance two fp32 orders of
 # summation give it (phase 12's note at LRRU_RTOL).
 SPATIAL_FP64_FORWARD = ("lrru",)
+# The cases whose forward is held to one process at the JAX suite's
+# CompletionFormer tolerance (tests/test_parity_completionformer.py), its
+# atol times the output's largest magnitude (at least 1), as phase 7 holds
+# the card's CompletionFormer to the CPU: the full-width fp32 model's
+# summation order moves its outputs (up to 14.6 here) by about 3e-4,
+# beyond the flagship's rtol 1e-4 / atol 1e-5 (NVIDIA H100 80GB HBM3,
+# 700.00 W: the sharded forward sat 18 times that bound from one
+# process, 0.16 of this one)
+SPATIAL_FWD_TOL = {"completionformer": (1e-3, 1e-4)}
+# The cases whose sharded gradients are held, each tensor within
+# SPATIAL_GRAD_REL_L2, to one process in float64 on the CPU (the same
+# weights and batch), not to the card's one-process fp32 gradients:
+# CompletionFormer's are ill-conditioned in fp32 at 4 x 128² (NVIDIA H100
+# 80GB HBM3, 700.00 W: the card's one-process gradient of
+# ``backbone.former.block1.1.resblock.ca.fc.0.weight`` sits 0.113 relative
+# L2 from float64, the sharded one 0.022, every sharded tensor within
+# 0.022 of float64). The distance from the card's one process is printed
+# beside it.
+SPATIAL_FP64_GRADS = ("completionformer",)
 # ... and their forward at 2 x 256²: the float64 forward of the full-width
 # LRRU on the host's CPU took most of phase 17's 85 s outside the ranks at
 # 2 x 512² (NVIDIA H100 80GB HBM3, 700.00 W host)
@@ -3731,8 +3959,7 @@ def spatial_batches(p):
 def spatial_model(ckpt, dev) -> torch.nn.Module:
     """Phase 4's seeded flagship checkpoint in the fp32 flagship config's
     model, on ``dev``."""
-    return load_model_params(build_model(create_config(FLAGSHIP)),
-                             ckpt).to(dev)
+    return checkpoint_model(create_config(FLAGSHIP), ckpt).to(dev)
 
 
 def spatial_case_model(case: str, ckpt, dev, fp32: bool = False):
@@ -3745,7 +3972,7 @@ def spatial_case_model(case: str, ckpt, dev, fp32: bool = False):
         kwargs = {"compute_dtype": None, "spn_sample_dtype": None}
     q = create_config_over(p, kwargs)
     if weights == "flagship":
-        model = load_model_params(build_model(q), ckpt)
+        model = checkpoint_model(q, ckpt)
     else:
         model = perturb_weights(build_model(
             q, generator=torch.Generator().manual_seed(0)), seed=1)
@@ -3863,12 +4090,19 @@ def spatial_case(case: str, rank: int, sharding, ckpt, dev) -> dict:
         grads = {k: v.detach().double().cpu() for k, v in grads.items()}
     _, losses_one, grads_one = _one_process(model, criterion, None,
                                             grad_inputs, gt, dev)
+    if case in SPATIAL_FP64_GRADS:  # held by the caller
+        out["grads"], out["grads_one"] = (
+            {k: v.float().numpy() for k, v in g.items()}
+            for g in (grads, grads_one))
     if fwd_inputs is not None:
         out["forward_max_abs"] = float((y - y_one).abs().max())
         out["forward_mean_abs"] = float((y - y_one).abs().mean())
         out["forward_max_abs_output"] = float(y_one.abs().max())
+        rtol, atol = SPATIAL_FWD_TOL.get(case, (1e-4, 1e-5))
+        if case in SPATIAL_FWD_TOL:
+            atol *= max(1.0, out["forward_max_abs_output"])
         out["forward_rel_to_tol"] = float(
-            ((y - y_one).abs() / (1e-5 + 1e-4 * y_one.abs())).max())
+            ((y - y_one).abs() / (atol + rtol * y_one.abs())).max())
     if grad_inputs is not None:
         out["grad_rel_l2"] = _grad_rel_l2(grads, grads_one)
         out["same_grad_keys"] = sorted(grads) == sorted(grads_one)
@@ -3900,21 +4134,65 @@ def spatial_case(case: str, rank: int, sharding, ckpt, dev) -> dict:
     return out
 
 
-def spatial_fp64_forward(case: str, ckpt, y, y_one) -> dict:
-    """Case ``case``'s sharded forward ``y`` held to its one-process
-    forward in float64 on the CPU (the same weights and batch), with the
+def spatial_fp64_references(ckpt) -> dict:
+    """The one-process float64 references on the CPU (the same weights and
+    batches as the cases'): each SPATIAL_FP64_FORWARD case's eval forward
+    (``"forward"``) and each SPATIAL_FP64_GRADS case's gradients
+    (``"grads"``), numpy. Four intra-op threads: it runs beside the
+    ranks (``spatial_phase``), which share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    refs = {}
+    try:
+        for case in (*SPATIAL_FP64_FORWARD, *SPATIAL_FP64_GRADS):
+            model, q, loss = spatial_case_model(case, ckpt,
+                                                torch.device("cpu"))
+            fwd_inputs, grad_inputs, gt = spatial_case_batches(case, q)
+            model, ref = model.double(), refs.setdefault(case, {})
+            if case in SPATIAL_FP64_FORWARD:
+                with torch.no_grad():
+                    ref["forward"] = model.eval()(
+                        [x.double() for x in fwd_inputs]).numpy()
+            if case in SPATIAL_FP64_GRADS:
+                model.train()
+                build_criterion(loss)(
+                    model([x.double() for x in grad_inputs]),
+                    gt.double())["Total"].backward()
+                ref["grads"] = {k: w.grad.numpy() for k, w in
+                                model.named_parameters()
+                                if w.grad is not None}
+    finally:
+        torch.set_num_threads(threads)
+    return refs
+
+
+def spatial_fp64_forward(y, y_one, y64) -> dict:
+    """A case's sharded forward ``y`` held to its one-process forward in
+    float64 on the CPU ``y64`` (the same weights and batch), with the
     card's one-process fp32 forward ``y_one``'s own distance from it
     (SPATIAL_FP64_FORWARD's rule)."""
-    model, q, _ = spatial_case_model(case, ckpt, torch.device("cpu"))
-    fwd_inputs = spatial_case_batches(case, q)[0]
-    with torch.no_grad():
-        y64 = model.double().eval()([x.double() for x in fwd_inputs])
-    y64 = y64.numpy()
     own = float(np.abs(y_one - y64).max())
     return {"sharded_vs_fp64_max_abs": float(np.abs(y - y64).max()),
             "one_vs_fp64_max_abs": own,
             "rel_to_tol": float((np.abs(y - y64) / (
                 LRRU_ATOL + 3 * own + LRRU_RTOL * np.abs(y64))).max())}
+
+
+def spatial_fp64_grads(grads: dict, grads_one: dict, g64: dict) -> dict:
+    """A case's sharded gradients ``grads`` and the card's one-process ones
+    ``grads_one`` (fp32 numpy) against one process's in float64 on the
+    CPU ``g64`` (SPATIAL_FP64_GRADS's rule): each tensor's relative L2,
+    and the worst of each."""
+    out = {}
+    for key, g in (("sharded", grads), ("one_process", grads_one)):
+        rel = {k: float(np.linalg.norm(g[k].astype(np.float64) - v)
+                        / max(float(np.linalg.norm(v)), 1e-30))
+               for k, v in g64.items()}
+        out[f"{key}_rel_l2"] = rel
+        out[f"{key}_worst"] = max(rel, key=rel.get)
+        out[f"{key}_max_rel_l2"] = rel[out[f"{key}_worst"]]
+    out["same_keys"] = sorted(grads) == sorted(g64)
+    return out
 
 
 def spatial_case_failures(case: str, r0: dict, ranks: list) -> list:
@@ -3942,7 +4220,8 @@ def spatial_case_failures(case: str, r0: dict, ranks: list) -> list:
             if r0["forward_fp64"]["rel_to_tol"] > 1:
                 fails.append("forward beyond its float64 rule")
         elif r0["forward_rel_to_tol"] > 1:
-            fails.append("forward beyond rtol 1e-4 / atol 1e-5")
+            fails.append("forward beyond its tolerance (rtol 1e-4 / atol "
+                         "1e-5, or SPATIAL_FWD_TOL's)")
     if want_grads is not None:
         if not r0["same_grad_keys"]:
             fails.append("gradient keys differ")
@@ -3953,7 +4232,12 @@ def spatial_case_failures(case: str, r0: dict, ranks: list) -> list:
                      else 1e-5)
             if e > bound:
                 fails.append(f"loss {k}: rel err {e} > {bound}")
-        for k, e in r0["grad_rel_l2"].items():
+        held = r0["grad_rel_l2"]
+        if case in SPATIAL_FP64_GRADS:
+            held = r0["grads_fp64"]["sharded_rel_l2"]
+            if not r0["grads_fp64"]["same_keys"]:
+                fails.append("gradient keys differ from float64's")
+        for k, e in held.items():
             bound = (factor * r0["bf16_own_grad_rel_l2"][k] + 1e-6 if bf16
                      else SPATIAL_GRAD_REL_L2)
             if e > bound:
@@ -4077,12 +4361,18 @@ def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = run_ranks(spatial_rank, SPATIAL_MESH[0] * SPATIAL_MESH[1],
-                      str(ckpt), str(dev), device=str(dev), backend="gloo",
-                      init_timeout_s=SPATIAL_INIT_TIMEOUT_S,
-                      timeout_s=SPATIAL_TIMEOUT_S)
-    ranks_s = time.perf_counter() - t0
-    mark("spatial sharding: the ranks")
+    # the float64 references on the host's CPU while the ranks run
+    with ThreadPoolExecutor(1) as pool:
+        running = pool.submit(spatial_fp64_references, ckpt)
+        ranks = run_ranks(spatial_rank, SPATIAL_MESH[0] * SPATIAL_MESH[1],
+                          str(ckpt), str(dev), device=str(dev),
+                          backend="gloo",
+                          init_timeout_s=SPATIAL_INIT_TIMEOUT_S,
+                          timeout_s=SPATIAL_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        mark("spatial sharding: the ranks")
+        fp64 = running.result()
+    mark("spatial sharding: the float64 references on the CPU")
     r0 = ranks[0]
     y, grads = r0.pop("y"), r0.pop("grads")
     fwd_err = float(np.abs(y - y_one).max())
@@ -4134,8 +4424,12 @@ def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
         rows = [r["cases"][case] for r in ranks]
         if case in SPATIAL_FP64_FORWARD:
             rows[0]["forward_fp64"] = spatial_fp64_forward(
-                case, ckpt, rows[0].pop("y"), rows[0].pop("y_one"))
-            mark(f"spatial sharding: {case} in float64 on the CPU")
+                rows[0].pop("y"), rows[0].pop("y_one"),
+                fp64[case]["forward"])
+        if case in SPATIAL_FP64_GRADS:
+            rows[0]["grads_fp64"] = spatial_fp64_grads(
+                rows[0].pop("grads"), rows[0].pop("grads_one"),
+                fp64[case]["grads"])
         cases[case] = dict(rows[0], launches_per_rank=[
             r["launches"] for r in rows], sharded_s=[
             r["sharded_s"] for r in rows], peak_mb_per_rank=[
@@ -4143,6 +4437,10 @@ def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
         for k in ("launches", "peak_mb"):
             cases[case].pop(k)
         c = cases[case]
+        if "grads_fp64" in c:
+            c["grads_fp64"] = {k: v for k, v in c["grads_fp64"].items()
+                               if not k.endswith("_rel_l2")
+                               or "_max_" in k}
         if "grad_rel_l2" in c:
             c["grad_worst"] = max(c["grad_rel_l2"], key=c["grad_rel_l2"].get)
             c["grad_max_rel_l2"] = c["grad_rel_l2"][c["grad_worst"]]
@@ -4265,9 +4563,15 @@ def main() -> int:
                                                       fp32_peak)
     slab_fwd_bf16_rows, slab_bwd_bf16_rows = check_deform_slabs(
         dev, bandwidth, fp32_peak, seed=8, sample_dtype=BF16)
+    # ... and K3 on phase 17's gradient slab and the shipped
+    # CompletionFormer batch's, in each sampling mode
+    slab_dx_rows = check_k3_slabs(dev, bandwidth, fp32_peak)
+    slab_dx_bf16_rows = check_k3_slabs(dev, bandwidth, fp32_peak, seed=10,
+                                       sample_dtype=BF16)
     # 3d. K3's bf16-sampling mode, then through the op's autograd
     dx_bf16_rows = check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak)
-    paths = {"k3_bf16_autograd": k3_bf16_autograd(dev)}
+    paths = dict(zip(("k3_bf16_autograd", "k3_bf16_slab_autograd"),
+                     k3_bf16_autograd(dev)))
     with tempfile.TemporaryDirectory(prefix="jspsr_chip_smoke_") as tmp:
         tmp = Path(tmp)
         phase(4, t_start)
@@ -4442,6 +4746,22 @@ def main() -> int:
                     slab_bwd_bf16_rows,
                     [SPATIAL_GRAD[0] // SPATIAL_MESH[0], 1,
                      SPATIAL_GRAD[1] // SPATIAL_MESH[1], SPATIAL_GRAD[1]]),
+        kernel_line("deform_bwd_dx_slab",
+                    "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=True, d_x at :227-242, a row slab)",
+                    slab_dx_rows,
+                    [SPATIAL_GRAD[0] // SPATIAL_MESH[0], 1,
+                     SPATIAL_GRAD[1] // SPATIAL_MESH[1], SPATIAL_GRAD[1]]),
+        kernel_line("deform_bwd_dx_bf16_slab",
+                    "jspsr_torch/ops/csrc/deform_bwd.cu",
+                    "jspsr_tpu/ops/pallas_deform.py:175",
+                    "jspsr_tpu/ops/pallas_deform.py::_bwd_kernel "
+                    "(need_dx=True, sample_dtype='bfloat16', a row slab)",
+                    slab_dx_bf16_rows,
+                    [SPATIAL_GRAD[0] // SPATIAL_MESH[0], 1,
+                     SPATIAL_GRAD[1] // SPATIAL_MESH[1], SPATIAL_GRAD[1]]),
         kernel_line("conv_same", "jspsr_torch/ops/csrc/conv_same_bf16.cu",
                     "scripts/bench_pallas_conv.py:38",
                     "scripts/bench_pallas_conv.py::pallas_conv_same",
@@ -4450,6 +4770,9 @@ def main() -> int:
                         "float32": "jspsr_torch/ops/csrc/conv_same_f32.cu"}),
     ]
     kernels[0]["host_us_per_call"] = fwd_host_us
+    unlaunched = [k["name"] for k in kernels if not k["launches"]]
+    if unlaunched:
+        raise AssertionError(f"kernels no main path launched: {unlaunched}")
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"cf_training": cf_training}), flush=True)

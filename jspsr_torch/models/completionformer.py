@@ -8,6 +8,14 @@ Inputs are explicit, as in the JAX package: ``[dem, guidance]`` with the
 guidance channels (image, then mask / canopy / coord) stacked, as
 ``data.loader.build_batch_inputs`` assembles them. The backbone halves the
 resolution five times: H and W must be multiples of 32.
+
+Under a spatial sharding (``parallel/spatial.py``) every conv, pool and
+BatchNorm takes its hooks, PVT attends over the whole image
+(``models/pvt.py``) and NLSPN samples the whole feature
+(``models/nlspn.py``); the slabs' rows must start on rows that all five
+halvings keep, and stage 1's spatial-reduction conv of 8 at H / 4 needs
+slab rows there that divide by 8: H divides by ``ROW_MULTIPLE`` (32) times
+the space axis.
 """
 
 from __future__ import annotations
@@ -19,15 +27,14 @@ from jspsr_torch import nn as jnn
 from jspsr_torch.models.components import CBAMBasicBlock
 from jspsr_torch.models.nlspn import NLSPN
 from jspsr_torch.models.pvt import PVT
-from jspsr_torch.parallel import spatial
 
 GUIDANCE_KEYS = ("image", "mask", "canopy", "coord")
 
 
 def conv_bn_relu(cin, cout, kernel, stride=1, padding=0, bn=True,
                  relu=True) -> nn.Sequential:
-    mods = [nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
-                      bias=not bn)]
+    mods = [jnn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
+                       bias=not bn)]
     if bn:
         mods.append(jnn.BatchNorm2d(cout))
     if relu:
@@ -37,9 +44,9 @@ def conv_bn_relu(cin, cout, kernel, stride=1, padding=0, bn=True,
 
 def convt_bn_relu(cin, cout, kernel, stride=1, padding=0, output_padding=0,
                   bn=True, relu=True) -> nn.Sequential:
-    mods = [nn.ConvTranspose2d(cin, cout, kernel, stride=stride,
-                               padding=padding, output_padding=output_padding,
-                               bias=not bn)]
+    mods = [jnn.ConvTranspose2d(cin, cout, kernel, stride=stride,
+                                padding=padding,
+                                output_padding=output_padding, bias=not bn)]
     if bn:
         mods.append(jnn.BatchNorm2d(cout))
     if relu:
@@ -49,7 +56,8 @@ def convt_bn_relu(cin, cout, kernel, stride=1, padding=0, output_padding=0,
 
 def _concat(fd, fe):
     """The decoder feature resized to the encoder's size (bilinear,
-    align_corners=True), then concatenated before it."""
+    align_corners=True; the sizes are equal, so the feature itself, on a
+    row slab too), then concatenated before it."""
     fd = jnn.bilinear_resize(fd, fe.shape[-2], fe.shape[-1],
                              align_corners=True)
     return torch.cat([fd, fe], dim=1)
@@ -88,7 +96,8 @@ class Backbone(nn.Module):
         if conf_prop:
             self.cf_dec1 = conv_bn_relu(64 + ch[0], 32, 3, 1, 1)
             self.cf_dec0 = nn.Sequential(
-                nn.Conv2d(32 + 64, 1, 3, padding=1, bias=True), nn.Sigmoid())
+                jnn.Conv2d(32 + 64, 1, 3, padding=1, bias=True),
+                nn.Sigmoid())
 
     def forward(self, rgb, depth, generator=None):
         """-> (initial depth, guidance, confidence or None), NCHW."""
@@ -113,6 +122,9 @@ class Backbone(nn.Module):
 
 
 class CompletionFormer(nn.Module):
+    # H divides by this times a spatial sharding's space axis
+    ROW_MULTIPLE = 32
+
     def __init__(self, in_channels: dict, out_channels: int = 1,
                  prop_time: int = 6, prop_kernel: int = 3,
                  conf_prop: bool = True, affinity: str = "TGASS",
@@ -142,7 +154,6 @@ class CompletionFormer(nn.Module):
     def forward(self, inputs, generator: torch.Generator | None = None):
         """inputs: [dem (B,1,H,W), guidance (B,C,H,W)] -> (B,1,H,W).
         ``generator`` draws the backbone's drop-path masks in training."""
-        spatial.refuse("CompletionFormer")
         if len(inputs) != 2:
             raise ValueError(f"expected inputs {self.input_keys()}, got "
                              f"{len(inputs)}")

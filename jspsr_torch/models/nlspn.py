@@ -21,6 +21,14 @@ Kept from the JAX package:
   that needs its gradient: on the card, the forward kernel and the
   backward kernel with the input gradient.
 
+On a row slab under a spatial sharding (``parallel/spatial.py``) the
+offset/affinity conv takes its halo, the confidence taps sample the whole
+confidence and each propagation step the whole feature, gathered over the
+space group (``spatial.gather_rows``, whose backward returns each row's
+gradient to the rank that owns it), at the slab's image rows
+(``row_origin + h``; the op's ``y0``: K1 and K3 on a slab); the
+affinities and ``preserve_input`` stay elementwise on the slab.
+
 The frozen kernels are parameters that do not require grad, as in the
 reference, so torch's AdamW leaves them alone; optax's AdamW (the JAX
 package) decays them by lr·weight_decay per step (1e-9 at the shipped
@@ -32,7 +40,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from jspsr_torch import nn as jnn
 from jspsr_torch.ops.deform_conv import bilinear_sample, deform_conv2d
+from jspsr_torch.parallel import spatial
+from jspsr_torch.parallel.mesh import active_sharding
 
 AFFINITIES = ("AS", "ASS", "TC", "TGASS")
 
@@ -57,8 +68,8 @@ class NLSPN(nn.Module):
         self.conf_prop = conf_prop
         self.preserve_input = preserve_input
 
-        self.conv_offset_aff = nn.Conv2d(ch_g, 3 * self.num, k_g,
-                                         padding=(k_g - 1) // 2, bias=True)
+        self.conv_offset_aff = jnn.Conv2d(ch_g, 3 * self.num, k_g,
+                                          padding=(k_g - 1) // 2, bias=True)
         scale = {"TC": float(self.num),
                  "TGASS": affinity_gamma * self.num}.get(affinity, 1.0)
         self.aff_scale_const = nn.Parameter(torch.full((1,), scale))
@@ -75,7 +86,10 @@ class NLSPN(nn.Module):
         self.conv_offset_aff.weight.zero_()
         self.conv_offset_aff.bias.zero_()
 
-    def _offset_affinity(self, guidance, confidence):
+    def _offset_affinity(self, guidance, confidence, y0: int = 0):
+        """Offsets and affinities of the rows of ``guidance``, image rows
+        ``y0 + h``; ``confidence`` the whole image's where it is a row
+        slab's."""
         b, _, h, w = guidance.shape
         num, ref = self.num, self.idx_ref
         off_aff = self.conv_offset_aff(guidance)
@@ -96,7 +110,8 @@ class NLSPN(nn.Module):
             # (1x1 tap, no padding) at that tap's offset
             taps = torch.cat([pairs[:, :ref], pairs[:, ref + 1:]],
                              dim=1).detach()
-            yy = torch.arange(h, device=offset.device, dtype=offset.dtype)
+            yy = torch.arange(y0, y0 + h, device=offset.device,
+                              dtype=offset.dtype)
             xx = torch.arange(w, device=offset.device, dtype=offset.dtype)
             conf = bilinear_sample(confidence, yy[:, None] + taps[:, :, 0],
                                    xx[None, :] + taps[:, :, 1])
@@ -114,8 +129,15 @@ class NLSPN(nn.Module):
 
     def forward(self, feat_init, guidance, confidence=None, feat_fix=None):
         """feat_init (B,1,H,W), guidance (B,ch_g,H,W), confidence (B,1,H,W)
-        or None, feat_fix (B,1,H,W) or None -> (feat, offset, affinity)."""
-        offset, aff = self._offset_affinity(guidance, confidence)
+        or None, feat_fix (B,1,H,W) or None -> (feat, offset, affinity).
+        On a row slab under a spatial sharding each is the slab's, and the
+        whole confidence and feature are gathered where they are
+        sampled."""
+        sharded = active_sharding() is not None
+        y0 = spatial.row_origin(feat_init) if sharded else 0
+        if sharded and self.conf_prop and confidence is not None:
+            confidence = spatial.gather_rows(confidence)
+        offset, aff = self._offset_affinity(guidance, confidence, y0)
         w, b = self.w.detach(), self.b.detach()
         preserve = self.preserve_input and feat_fix is not None
         if preserve:
@@ -125,5 +147,6 @@ class NLSPN(nn.Module):
         for _ in range(self.prop_time):
             if preserve:
                 feat = (1.0 - mask_fix) * feat + mask_fix * feat_fix
-            feat = deform_conv2d(feat, offset, w, b, aff, padding=1)
+            whole = spatial.gather_rows(feat) if sharded else feat
+            feat = deform_conv2d(whole, offset, w, b, aff, padding=1, y0=y0)
         return feat, offset, aff

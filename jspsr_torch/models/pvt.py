@@ -21,6 +21,13 @@ Kept from the JAX package:
   same (``PVT.drop_path_keep`` is where they are drawn);
 - attention is an explicit matmul and softmax (XLA in the JAX package, not
   a TPU kernel).
+
+Under a spatial sharding (``parallel/spatial.py``; a process per row slab)
+the convs (``sr``, the patch embeddings, ``concat_conv``, the CBAM and
+embedding blocks') take their halos, the queries stay on the slab and
+attend over the whole image's keys and values (``spatial.gather_tokens``),
+the position grid is resized on the whole grid and cut to the slab's rows,
+and the drop-path masks are the whole batch's.
 """
 
 from __future__ import annotations
@@ -29,10 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jspsr_torch import nn as jnn
 from jspsr_torch.models.components import CBAMBasicBlock
 from jspsr_torch.models.lrru import LBasicBlock, LDownsample
 from jspsr_torch.nn import bilinear_resize
-from jspsr_torch.parallel.mesh import global_rows
+from jspsr_torch.parallel import spatial
+from jspsr_torch.parallel.mesh import active_sharding, global_rows
 
 
 def _to_map(tokens: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -58,7 +67,8 @@ class Mlp(nn.Module):
 
 class Attention(nn.Module):
     """Spatial-reduction multi-head attention: keys and values come from
-    the tokens shrunk by a ``sr_ratio``-strided conv and a LayerNorm."""
+    the tokens shrunk by a ``sr_ratio``-strided conv and a LayerNorm; on a
+    row slab under a spatial sharding, from the whole image's."""
 
     def __init__(self, dim, num_heads=8, qkv_bias=False, sr_ratio=1):
         super().__init__()
@@ -72,7 +82,7 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.sr_ratio = sr_ratio
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
+            self.sr = jnn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = nn.LayerNorm(dim)
 
     def forward(self, x, h, w):
@@ -82,6 +92,8 @@ class Attention(nn.Module):
         kv_in = x
         if self.sr_ratio > 1:
             kv_in = self.norm(_to_tokens(self.sr(_to_map(x, h, w))))
+        if active_sharding() is not None:
+            kv_in = spatial.gather_tokens(kv_in)
         kv = self.kv(kv_in)
         m = kv.shape[1]
         k, v = kv.reshape(b, m, 2, nh, c // nh).permute(2, 0, 3, 1, 4)
@@ -100,7 +112,8 @@ class PVTBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self.resblock = CBAMBasicBlock(dim, dim, ratio=16)
-        self.concat_conv = nn.Conv2d(dim * 2, dim, 3, padding=1, bias=False)
+        self.concat_conv = jnn.Conv2d(dim * 2, dim, 3, padding=1,
+                                      bias=False)
         self.drop_path = drop_path
 
     def forward(self, x, h, w, keep: torch.Tensor | None = None):
@@ -123,8 +136,8 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.grid = (img_size // patch_size, img_size // patch_size)
         self.num_patches = self.grid[0] * self.grid[1]
-        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size,
-                              stride=patch_size)
+        self.proj = jnn.Conv2d(in_chans, embed_dim, patch_size,
+                               stride=patch_size)
         self.norm = nn.LayerNorm(embed_dim)
 
     def forward(self, x):
@@ -170,12 +183,20 @@ class PVT(nn.Module):
 
     def _pos(self, pos, pe: PatchEmbed, h, w):
         """The stored position grid resized to the runtime (h, w); note the
-        comparison with STAGE 1's patch count."""
-        if h * w == self.patch_embed1.num_patches:
+        comparison with STAGE 1's patch count. On a row slab under a
+        spatial sharding, the whole grid's (h x the space axis rows),
+        compared and resized as one process does, then this slab's
+        rows."""
+        sharding = active_sharding()
+        n = 1 if sharding is None else sharding.mesh.n_space
+        if h * n * w != self.patch_embed1.num_patches:
+            gh, gw = pe.grid
+            pos = _to_tokens(bilinear_resize(_to_map(pos, gh, gw), h * n, w,
+                                             align_corners=False))
+        if sharding is None:
             return pos
-        gh, gw = pe.grid
-        pos2d = _to_map(pos, gh, gw)
-        return _to_tokens(bilinear_resize(pos2d, h, w, align_corners=False))
+        first = sharding.mesh.space_index * h * w
+        return pos[:, first:first + h * w]
 
     def drop_path_keep(self, stage: int, block: int, batch: int,
                        generator: torch.Generator | None):
@@ -184,7 +205,10 @@ class PVT(nn.Module):
         rate of 0, or without a generator. In a data-parallel train step
         (``parallel.mesh.data_parallel``) every rank draws the mask of the
         global batch (its generator is seeded alike) and keeps its own
-        rows: the draws of one process stepping on the whole batch."""
+        rows: the draws of one process stepping on the whole batch. Under
+        a spatial sharding every rank draws the mask of the whole batch and
+        keeps the rows of its data index, so the slabs of one image share
+        its mask."""
         rate = getattr(self, f"block{stage + 1}")[block].drop_path
         if not self.training or rate <= 0.0 or generator is None:
             return None

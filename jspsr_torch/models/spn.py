@@ -10,7 +10,9 @@
   ``sample_dtype="bfloat16"`` the conv's bf16-sampling mode
   (``ops.deform_conv``). On a row slab under a spatial sharding it samples
   the whole raw DEM of its images (gathered over the space group; the
-  offsets are unbounded) for its own output rows (the op's ``y0``).
+  offsets are unbounded) for its own output rows (the op's ``y0``); where
+  the DEM needs its gradient, the gather's backward returns each row's
+  gradient (K3 on the slab) to the rank that owns it.
 
 The Generator computes in its inputs' dtype (bf16 under JSPSR's
 ``compute_dtype``, its two 1x1 heads and the sigmoid included); the
@@ -93,8 +95,6 @@ class PostProcessor(nn.Module):
         pad = (self.kernel_size - 1) // 2
         x, y0 = init_dem.contiguous(), 0
         if active_sharding() is not None:
-            if init_dem.requires_grad:
-                spatial.refuse("the deform op's input gradient (K3)")
             x, y0 = spatial.gather_rows(x), spatial.row_origin(x)
         refined = deform_conv2d(x, offset, self.w, self.b, weight,
                                 padding=pad, sample_dtype=self.sample_dtype,

@@ -139,7 +139,24 @@
 // y0 = 0 and Hs = H is the whole image, as before. Both modes take a slab
 // (deform_bwd_slab, deform_bwd_bf16_slab): the slab planes and row0 are
 // the same code for kBf16, which changes only pixel_backward's values.
-// K3 takes whole images only.
+//
+// K3 on a row slab (deform_bwd_dx_slab, deform_bwd_dx_bf16_slab; NLSPN's
+// propagation under a spatial sharding, and an SPN head whose DEM needs
+// its gradient): the slab planes and row0 as K2's, while x and the d_x
+// accumulator stay the whole image. Each block's 8 x 32 tile is a tile of
+// the slab (a last tile row that passes the slab's Hs rows is partial, as
+// at the image's bottom), and its output rows, its window origin and its
+// global-atomic fallback are image rows row0 + h: a slab scatters its own
+// contributions into the whole image's d_x. The bounds pass sums L_b over
+// the slab's own pixels, which bounds every contribution the slab
+// scatters, so the fixed point stays safe; the last pass converts the
+// whole image once, with that slab's scale. d_offset, d_mask and the
+// d_weight partials come from the per-pixel code K2 runs, so d_offset and
+// d_mask are those rows of the whole image's K3 output, bit for bit. The
+// slabs' d_x are then summed in fp32, in space order, by the caller
+// (parallel/spatial.py's row gather), not in the fixed point: each slab's
+// own scale makes that sum deterministic but not bit-equal to one
+// whole-image launch.
 //
 // K3's bf16-sampling mode (the same flag on deform_bwd_dx_kernel; the TPU
 // kernel's sample_dtype='bfloat16' with need_dx=True, entry point
@@ -371,10 +388,11 @@ deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
                 d_weight_partial + static_cast<int64_t>(blockIdx.x) * kTaps);
 }
 
-// K3: one block per 8 x 32 tile of one image, d_x through the window into
-// the fixed-point accumulator ``d_x_fixed``, scaled by the image's L1
-// bound in ``bound``; kBf16 the bf16-sampling mode (its d_x is the fp32
-// mode's)
+// K3: one block per 8 x 32 tile of one image's slab of image rows [row0,
+// row0 + hs) (the whole image: hs = h, row0 = 0), d_x through the window
+// into the whole image's fixed-point accumulator ``d_x_fixed``, scaled by
+// the image's L1 bound in ``bound``; kBf16 the bf16-sampling mode (its d_x
+// is the fp32 mode's)
 template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 deform_bwd_dx_kernel(const float* __restrict__ x,
@@ -386,7 +404,7 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
                      float* __restrict__ d_offset, float* __restrict__ d_mask,
                      float* __restrict__ d_weight_partial,
                      unsigned long long* __restrict__ d_x_fixed, int h, int w,
-                     int tiles_x, int tiles_y, int pad) {
+                     int tiles_x, int tiles_y, int pad, int hs, int row0) {
   __shared__ unsigned win_lo[kWinH * kWinW];
   __shared__ unsigned win_hi[kWinH * kWinW];
   const int64_t blk = blockIdx.x;
@@ -394,10 +412,13 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
   const int64_t rest = blk / tiles_x;
   const int ty_i = static_cast<int>(rest % tiles_y);
   const int64_t b = rest / tiles_y;
+  // the tile's first row in the slab, and in the image
   const int ty0 = ty_i * kTileH, tx0 = tx_i * kTileW;
-  const int y = ty0 + threadIdx.x / kTileW;
+  const int iy0 = row0 + ty0;
+  const int ys = ty0 + threadIdx.x / kTileW;  // the pixel's slab row
   const int xo = tx0 + threadIdx.x % kTileW;
   const int64_t hw = static_cast<int64_t>(h) * w;
+  const int64_t hws = static_cast<int64_t>(hs) * w;  // a slab plane
   unsigned long long* dimg = d_x_fixed + b * hw;
   // not ok: the last pass writes NaN, the scatter's values do not matter
   const FixedScale fs = fixed_scale(bound[b]);
@@ -412,15 +433,15 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int t = 0; t < kTaps; ++t) dw[t] = 0.f;
   // no early return: every thread takes part in the barriers below
-  if (y < h && xo < w) {
-    const int64_t p = static_cast<int64_t>(y) * w + xo;
+  if (ys < hs && xo < w) {
+    const int64_t p = static_cast<int64_t>(ys) * w + xo;
     const WindowScatter scatter{win_lo, win_hi, dimg, fs.scale,
-                                ty0 - kMargin, tx0 - kMargin, w};
-    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hw + p,
-                          mask + b * kTaps * hw + p, weight,
-                          d_offset + b * (2 * kTaps) * hw + p,
-                          d_mask + b * kTaps * hw + p, grad_out[b * hw + p],
-                          y, xo, h, w, hw, pad, dw, scatter);
+                                iy0 - kMargin, tx0 - kMargin, w};
+    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hws + p,
+                          mask + b * kTaps * hws + p, weight,
+                          d_offset + b * (2 * kTaps) * hws + p,
+                          d_mask + b * kTaps * hws + p, grad_out[b * hws + p],
+                          row0 + ys, xo, h, w, hws, pad, dw, scatter);
   }
   // its __syncthreads also ends every scatter into the window
   block_dweight(dw, d_weight_partial + blk * kTaps);
@@ -428,7 +449,7 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
   for (int e = threadIdx.x; e < kWinH * kWinW; e += kThreads) {
     const unsigned long long v =
         (static_cast<unsigned long long>(win_hi[e]) << 32) | win_lo[e];
-    const int yc = ty0 - kMargin + e / kWinW;
+    const int yc = iy0 - kMargin + e / kWinW;
     const int xc = tx0 - kMargin + e % kWinW;
     if (v != 0ull && yc >= 0 && yc < h && xc >= 0 && xc < w)
       atomicAdd(dimg + static_cast<int64_t>(yc) * w + xc, v);
@@ -542,27 +563,32 @@ int launch_k2(const float* x, const float* offset, const float* mask,
 int64_t k3_tiles_x(int w) { return (w + kTileW - 1) / kTileW; }
 int64_t k3_tiles_y(int h) { return (h + kTileH - 1) / kTileH; }
 
-// K3: the bounds pass, the kernel and the last pass on ``stream``, through
-// ``scratch`` (jspsr_deform_bwd_dx_scratch words); d_x (B,1,H,W) is written
-// by the last pass.
+// K3 on the slab of image rows [y0, y0 + hs) (the whole image: hs = h,
+// y0 = 0): the bounds pass over the slab's pixels, the kernel and the last
+// pass over the whole image on ``stream``, through ``scratch``
+// (jspsr_deform_bwd_dx_scratch words); d_x (B,1,H,W) is written by the last
+// pass.
 template <bool kBf16>
 int launch_k3(const float* x, const float* offset, const float* mask,
               const float* weight, const float* grad_out, float* d_offset,
               float* d_mask, float* d_weight_partial, long long* scratch,
-              float* d_x, int64_t batch, int h, int w, int pad,
-              void* stream) {
-  const int64_t blocks = batch * k3_tiles_y(h) * k3_tiles_x(w);
+              float* d_x, int64_t batch, int h, int w, int pad, int hs,
+              int y0, void* stream) {
+  if (y0 < 0 || hs < 0 || y0 > h - hs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = batch * k3_tiles_y(hs) * k3_tiles_x(w);
   if (blocks == 0) return 0;
   if (blocks >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t hw = static_cast<int64_t>(h) * w;
-  const int64_t chunks = k3_chunks(hw);
+  const int64_t hws = static_cast<int64_t>(hs) * w;
+  const int64_t chunks = k3_chunks(hws);
   double* bound = reinterpret_cast<double*>(scratch + batch * hw);
   double* part = bound + batch;
   unsigned* done = reinterpret_cast<unsigned*>(part + batch * chunks);
   dx_bounds_kernel<<<static_cast<unsigned int>(batch * chunks), kThreads, 0,
-                     s>>>(grad_out, weight, mask, batch, hw, chunks, part,
+                     s>>>(grad_out, weight, mask, batch, hws, chunks, part,
                           bound, done);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
@@ -570,7 +596,8 @@ int launch_k3(const float* x, const float* offset, const float* mask,
       <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
       x, offset, mask, weight, grad_out, bound, d_offset, d_mask,
       d_weight_partial, reinterpret_cast<unsigned long long*>(scratch), h, w,
-      static_cast<int>(k3_tiles_x(w)), static_cast<int>(k3_tiles_y(h)), pad);
+      static_cast<int>(k3_tiles_x(w)), static_cast<int>(k3_tiles_y(hs)), pad,
+      hs, y0);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
   // about 16 blocks per SM over the batch, at most one per 256 pixels
@@ -588,7 +615,7 @@ int launch_k3(const float* x, const float* offset, const float* mask,
 // Blocks of a launch, which is the number of d_weight partial rows the
 // caller allocates: K2 (need_dx 0) one per 256 pixels of the flattened
 // (B, H, W), H a slab's rows; K3 (need_dx 1) one per 8 x 32 tile of each
-// image.
+// image's slab of H rows.
 extern "C" int64_t jspsr_deform_bwd_blocks(int need_dx, int64_t batch, int h,
                                            int w) {
   return need_dx ? batch * k3_tiles_y(h) * k3_tiles_x(w)
@@ -607,9 +634,10 @@ extern "C" void jspsr_deform_bwd_dx_window(int* out) {
 // mask (B,9,H,W), weight (9,), grad_out (B,1,H,W); outputs d_offset
 // (B,18,H,W), d_mask (B,9,H,W), d_weight_partial (jspsr_deform_bwd_blocks
 // rows, 9) and, for jspsr_deform_bwd_dx, d_x (B,1,H,W) through the
-// accumulator described there. K2's take a row slab: offset, mask,
+// accumulator described there. Each takes a row slab: offset, mask,
 // grad_out, d_offset and d_mask of hs rows, image rows [y0, y0 + hs) of
-// x (hs = h, y0 = 0: the whole image). Each launches on ``stream`` without
+// x (hs = h, y0 = 0: the whole image); d_x is the whole image's (B,1,H,W)
+// either way. Each launches on ``stream`` without
 // synchronising and returns cudaGetLastError().
 extern "C" int jspsr_deform_bwd(const float* x, const float* offset,
                                 const float* mask, const float* weight,
@@ -632,26 +660,28 @@ extern "C" int jspsr_deform_bwd_bf16(const float* x, const float* offset,
                          d_weight_partial, batch, h, w, pad, hs, y0, stream);
 }
 
-// K3's scratch, in int64 words, all zeroed by the caller: the d_x
-// accumulator (B*H*W), the images' L1 bounds (B doubles), the bounds
-// pass's partials (one double per chunk of each image) and its counter.
-extern "C" int64_t jspsr_deform_bwd_dx_scratch(int64_t batch, int h, int w) {
+// K3's scratch, in int64 words, all zeroed by the caller: the whole
+// images' d_x accumulator (B*H*W), the images' L1 bounds (B doubles), the
+// bounds pass's partials (one double per chunk of each image's slab of hs
+// rows) and its counter.
+extern "C" int64_t jspsr_deform_bwd_dx_scratch(int64_t batch, int h, int w,
+                                               int hs) {
   const int64_t hw = static_cast<int64_t>(h) * w;
-  return batch * (hw + 1 + k3_chunks(hw)) + 1;
+  return batch * (hw + 1 + k3_chunks(static_cast<int64_t>(hs) * w)) + 1;
 }
 
-// K3: as described at launch_k3. All tensors as for jspsr_deform_bwd, plus
-// ``scratch`` and d_x (B,1,H,W).
+// K3: as described at launch_k3. All tensors as for jspsr_deform_bwd (the
+// same row slab), plus ``scratch`` and d_x (B,1,H,W), the whole images'.
 extern "C" int jspsr_deform_bwd_dx(const float* x, const float* offset,
                                    const float* mask, const float* weight,
                                    const float* grad_out, float* d_offset,
                                    float* d_mask, float* d_weight_partial,
                                    long long* scratch, float* d_x,
                                    int64_t batch, int h, int w, int pad,
-                                   void* stream) {
+                                   int hs, int y0, void* stream) {
   return launch_k3<false>(x, offset, mask, weight, grad_out, d_offset,
                           d_mask, d_weight_partial, scratch, d_x, batch, h,
-                          w, pad, stream);
+                          w, pad, hs, y0, stream);
 }
 
 // K3's bf16-sampling mode: as jspsr_deform_bwd_dx.
@@ -663,8 +693,8 @@ extern "C" int jspsr_deform_bwd_dx_bf16(const float* x, const float* offset,
                                         float* d_weight_partial,
                                         long long* scratch, float* d_x,
                                         int64_t batch, int h, int w, int pad,
-                                        void* stream) {
+                                        int hs, int y0, void* stream) {
   return launch_k3<true>(x, offset, mask, weight, grad_out, d_offset, d_mask,
                          d_weight_partial, scratch, d_x, batch, h, w, pad,
-                         stream);
+                         hs, y0, stream);
 }

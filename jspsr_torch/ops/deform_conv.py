@@ -47,11 +47,14 @@ A row slab (``y0``; the spatially sharded forward of
 whose row h is image row ``y0 + h``: its positions are those rows' (exact
 integers in fp32), so a slab's output, d_offset and d_mask are the same
 rows of the whole image's, bit for bit, and its d_weight and d_bias are
-the slab's share of the whole image's sums. K1 and K2 take it in either
-mode (their launches count as ``deform_fwd_slab`` and ``deform_bwd_slab``,
-``deform_fwd_bf16_slab`` and ``deform_bwd_bf16_slab``); the input gradient
-(K3) takes whole images only and refuses a slab (ROADMAP.md queue 1 item
-11).
+the slab's share of the whole image's sums. Where ``x`` needs its
+gradient, the slab's d_x is the whole image's (B,1,H,W): the slab's own
+contributions scattered onto every image row they reach, so the slabs'
+d_x summed (the space group's sum in ``parallel.spatial.gather_rows``'s
+backward) is the whole image's. K1, K2 and K3 take a slab in either mode
+(their launches count as ``deform_fwd_slab``, ``deform_bwd_slab`` and
+``deform_bwd_dx_slab``, and ``deform_fwd_bf16_slab``,
+``deform_bwd_bf16_slab`` and ``deform_bwd_dx_bf16_slab``).
 
 ``bilinear_sample`` is the plain bilinear gather at given positions, with
 autograd to the image: NLSPN's 1x1 confidence taps, which the JAX package
@@ -217,11 +220,10 @@ def deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
     TPU kernel keeps the scatter in fp32. On a row slab (``offset``,
     ``mask`` and ``grad_out`` of Hs rows, the first image row ``y0``)
     d_offset and d_mask are the slab's and d_weight and d_bias its share;
-    d_x takes whole images only, as K3. Any device."""
+    d_x is the whole image's, from the slab's contributions. Any
+    device."""
     bf16 = bf16_sampling(sample_dtype)
     b, _, h, w = x.shape
-    if need_dx:
-        refuse_dx_slab(x, offset, y0)
     py, px = _positions(offset, padding, y0)
     v00, v01, v10, v11, ty, tx = _bilinear_corners(x, py, px)
     gw = grad_out * weight.reshape(1, TAPS, 1, 1)
@@ -258,14 +260,6 @@ def is_slab(x: torch.Tensor, offset: torch.Tensor, y0: int) -> bool:
     """Whether ``offset`` is a row slab of ``x``'s image and not the whole
     image."""
     return y0 != 0 or offset.shape[2] != x.shape[2]
-
-
-def refuse_dx_slab(x, offset, y0) -> None:
-    if is_slab(x, offset, y0):
-        raise NotImplementedError(
-            "deform_conv2d: the input gradient (K3) on a row slab is not "
-            "ported (ROADMAP.md queue 1 item 11): x must be the whole image "
-            "with y0 = 0, or not require its gradient")
 
 
 def _kernels(device: torch.device):
@@ -320,19 +314,20 @@ def deform_conv2d_backward_op(
 def deform_conv2d_backward_dx_op(
         x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
         mask: torch.Tensor, grad_out: torch.Tensor, padding: int,
-        sample_dtype: Optional[str]
+        sample_dtype: Optional[str], y0: int = 0
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor]:
     """The backward with the input gradient: K3 on CUDA tensors, the plain
-    backward with ``need_dx`` on CPU tensors; (d_offset, d_mask, d_weight,
-    d_bias, d_x)."""
+    backward with ``need_dx`` on CPU tensors, on the row slab that starts
+    at image row ``y0``; (d_offset, d_mask, d_weight, d_bias, d_x), d_x the
+    whole image's."""
     cuda = _kernels(x.device)
     if cuda is not None:
         return cuda.deform_bwd_dx(x, offset, weight, mask, grad_out, padding,
-                                  sample_dtype=sample_dtype)
+                                  sample_dtype=sample_dtype, y0=y0)
     return deform_conv2d_backward_plain(x, offset, weight, mask, grad_out,
                                         padding, need_dx=True,
-                                        sample_dtype=sample_dtype)
+                                        sample_dtype=sample_dtype, y0=y0)
 
 
 def _new(like: torch.Tensor, *shape) -> torch.Tensor:
@@ -360,7 +355,7 @@ def _(x, offset, weight, mask, grad_out, padding, sample_dtype, y0=0):
 
 
 @deform_conv2d_backward_dx_op.register_fake
-def _(x, offset, weight, mask, grad_out, padding, sample_dtype):
+def _(x, offset, weight, mask, grad_out, padding, sample_dtype, y0=0):
     bf16_sampling(sample_dtype)
     return (*_fake_backward(x, offset, weight, mask), _new(x, *x.shape))
 
@@ -376,17 +371,16 @@ def _setup_context(ctx, inputs, output):
 def _backward(ctx, grad_out):
     """K3 (``deform_conv2d_backward_dx``) where ``x`` needs its gradient,
     K2 (``deform_conv2d_backward``) where it does not, in the forward's
-    mode and on its row slab (K3 refuses a slab)."""
+    mode and on its row slab."""
     x, offset, weight, mask = ctx.saved_tensors
     need = ctx.needs_input_grad
     # autograd may hand over an expanded (stride-0) gradient
     args = (x, offset, weight, mask, grad_out.contiguous(), ctx.padding,
-            ctx.sample_dtype)
+            ctx.sample_dtype, ctx.y0)
     if need[0]:
-        refuse_dx_slab(x, offset, ctx.y0)
         *grads, d_x = deform_conv2d_backward_dx_op(*args)
     else:
-        grads = deform_conv2d_backward_op(*args, ctx.y0)
+        grads = deform_conv2d_backward_op(*args)
         d_x = None
     d_offset, d_mask, d_weight, d_bias = grads
     return (d_x, d_offset if need[1] else None,

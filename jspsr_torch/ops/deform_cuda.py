@@ -23,13 +23,15 @@
   ``_fwd_kernel`` and ``_bwd_kernel`` (need_dx False and True) with
   ``sample_dtype='bfloat16'``: the row products in bf16, as
   ``ops.deform_conv`` defines them (K3's d_x stays the fp32 mode's);
-- ``deform_fwd`` and ``deform_bwd`` on a row slab (``y0``; offsets, mask
-  and gradient of Hs rows, the image whole): K1 and K2 with their output
-  rows and window origins moved to image rows ``y0 + h``, for the
-  spatially sharded forward and backward (``parallel/spatial.py``), in
-  either mode (the slab's rows are the same template code as the whole
-  image's, so a slab's outputs are those rows of the whole image's, bit
-  for bit); K3 refuses a slab.
+- ``deform_fwd``, ``deform_bwd`` and ``deform_bwd_dx`` on a row slab
+  (``y0``; offsets, mask and gradient of Hs rows, the image whole): K1,
+  K2 and K3 with their output rows and window origins moved to image rows
+  ``y0 + h``, for the spatially sharded forward and backward
+  (``parallel/spatial.py``), in either mode (the slab's rows are the same
+  template code as the whole image's, so a slab's outputs are those rows
+  of the whole image's, bit for bit; K3's d_x is the whole image's
+  gradient from the slab's contributions alone, in the slab's own fixed
+  point).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` at first use into a
 shared library of its own with a plain C entry point (``ops/cuda_build.py``
@@ -43,7 +45,8 @@ two backward kernels share a library (``deform_bwd``) and count apart;
 each bf16 mode counts under its own name (``deform_fwd_bf16``,
 ``deform_bwd_bf16``, ``deform_bwd_dx_bf16``), and so does each kernel on a
 row slab in each mode (``deform_fwd_slab``, ``deform_bwd_slab``,
-``deform_fwd_bf16_slab``, ``deform_bwd_bf16_slab``). The custom ops of
+``deform_bwd_dx_slab``, ``deform_fwd_bf16_slab``, ``deform_bwd_bf16_slab``,
+``deform_bwd_dx_bf16_slab``). The custom ops of
 ``ops.deform_conv`` call these wrappers from their real implementations
 only (never from their fakes), so a count is one launch, not a trace.
 """
@@ -61,7 +64,6 @@ from jspsr_torch.ops.deform_conv import (
     bf16_sampling,
     check_deform_args,
     is_slab,
-    refuse_dx_slab,
 )
 
 TAPS = 9
@@ -76,7 +78,8 @@ DX_MARGIN = 4
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
            "deform_bwd_bf16", "deform_bwd_dx_bf16", "deform_fwd_slab",
-           "deform_bwd_slab", "deform_fwd_bf16_slab", "deform_bwd_bf16_slab")
+           "deform_bwd_slab", "deform_fwd_bf16_slab", "deform_bwd_bf16_slab",
+           "deform_bwd_dx_slab", "deform_bwd_dx_bf16_slab")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
@@ -88,17 +91,15 @@ def reset_launches() -> None:
 
 
 # kernel -> (library, entry point, number of pointer arguments before
-# batch, h, w, pad, whether (hs, y0) follow: the row-slab form). A kernel
+# batch, h, w, pad, hs, y0: every entry point takes a row slab). A kernel
 # on a row slab (``<kernel>_slab``) is its kernel's entry point.
-_ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6, True),
-          "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 8, True),
-          "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 10, False),
-          "deform_fwd_bf16": ("deform_fwd", "jspsr_deform_fwd_bf16", 6,
-                              True),
-          "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 8,
-                              True),
+_ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6),
+          "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 8),
+          "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 10),
+          "deform_fwd_bf16": ("deform_fwd", "jspsr_deform_fwd_bf16", 6),
+          "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 8),
           "deform_bwd_dx_bf16": ("deform_bwd", "jspsr_deform_bwd_dx_bf16",
-                                 10, False)}
+                                 10)}
 
 
 def _load(name: str):
@@ -107,12 +108,11 @@ def _load(name: str):
     scratch size in int64 words."""
     name = name.removesuffix("_slab")
     if name not in _fns:
-        source, symbol, n_ptr, slab = _ENTRY[name]
+        source, symbol, n_ptr = _ENTRY[name]
         lib = ctypes.CDLL(str(build()[source][0]))
         fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int] + [
-            ctypes.c_int] * (2 * slab) + [ctypes.c_void_p]
+            ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         if source == "deform_fwd":
             window = (ctypes.c_int * 5)()
@@ -138,7 +138,8 @@ def _load(name: str):
                                    f"{tuple(window)} != {DX_TILE}, "
                                    f"{DX_MARGIN}")
             scratch = lib.jspsr_deform_bwd_dx_scratch
-            scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+            scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int]
             scratch.restype = ctypes.c_int64
             need_dx = int(name.startswith("deform_bwd_dx"))
             fn = (fn, lambda b, h, w: blocks(need_dx, b, h, w), scratch)
@@ -223,21 +224,20 @@ def _backward(name, x, offset, weight, mask, grad_out, padding, y0=0):
     d_mask = torch.empty_like(mask)
     partial = torch.empty(blocks(b, hs, w), TAPS, device=x.device,
                           dtype=torch.float32)
-    tail, d_x, slab = [], [], []
+    tail, d_x = [], []
     if name.startswith("deform_bwd_dx"):
-        # the fixed-point accumulator, summed with atomics, starts at zero;
-        # the bounds pass's partials after it are written whole
+        # the whole image's fixed-point accumulator, summed with atomics,
+        # starts at zero; the bounds pass's partials after it are written
+        # whole
         d_x = [torch.empty_like(x)]
-        tail = [torch.zeros(scratch(b, h, w), device=x.device,
+        tail = [torch.zeros(scratch(b, h, w, hs), device=x.device,
                             dtype=torch.int64), d_x[0]]
-    else:
-        slab = [hs, int(y0)]
     ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, partial,
             *tail]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), *slab,
-                stream)
+        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), hs,
+                int(y0), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
@@ -263,43 +263,45 @@ def deform_bwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
 
 def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
                   mask: torch.Tensor, grad_out: torch.Tensor,
-                  padding: int = 1, sample_dtype=None):
+                  padding: int = 1, sample_dtype=None, y0: int = 0):
     """Launch the backward kernel with the input gradient: as
-    ``deform_bwd``, and returns ``(d_offset, d_mask, d_weight, d_bias,
-    d_x)``. d_x is summed in fixed point, scaled per image on the device,
-    so every output is the same, bit for bit, on every run. In the
+    ``deform_bwd`` (the row slab of image row ``y0`` included), and returns
+    ``(d_offset, d_mask, d_weight, d_bias, d_x)``, d_x (B,1,H,W) the whole
+    image's gradient from the slab's contributions. d_x is summed in fixed
+    point, scaled per image (from the slab's own pixels) on the device, so
+    every output is the same, bit for bit, on every run. In the
     bf16-sampling mode d_offset, d_mask and d_weight are ``deform_bwd``'s
-    in that mode and d_x is the fp32 mode's. Whole images only."""
-    check_deform_args(x, offset, weight, None, mask)
-    refuse_dx_slab(x, offset, 0)
-    name = ("deform_bwd_dx_bf16" if bf16_sampling(sample_dtype)
-            else "deform_bwd_dx")
-    return _backward(name, x, offset, weight, mask, grad_out, padding)
+    in that mode and d_x is the fp32 mode's."""
+    check_deform_args(x, offset, weight, None, mask, y0)
+    name = _name("deform_bwd_dx", sample_dtype, x, offset, y0)
+    return _backward(name, x, offset, weight, mask, grad_out, padding, y0)
 
 
 def dx_atomics(offset: torch.Tensor, h: int, w: int, padding: int = 1,
-               tile=DX_TILE, margin: int = DX_MARGIN) -> dict:
-    """Where K3's d_x contributions go for these offsets (B, 18, H, W), on
-    their device: one per in-bounds corner of every tap (``corners``),
-    into the block's shared-memory window (``shared``) when the corner lies
-    within ``margin`` of its pixel's output tile, else straight to global
-    memory (``direct``). ``flush`` counts the in-image window cells that
-    receive a contribution, one global atomic each (an upper bound: the
-    kernel skips a cell whose sum is exactly 0); ``global`` is ``direct +
-    flush``. Plain PyTorch. Without the window every corner would go
-    global."""
-    b = offset.shape[0]
+               tile=DX_TILE, margin: int = DX_MARGIN, y0: int = 0) -> dict:
+    """Where K3's d_x contributions go for these offsets (B, 18, Hs, W), the
+    row slab of an H x W image whose first row is image row ``y0`` (the
+    whole image by default), on their device: one per in-bounds corner of
+    every tap (``corners``), into the block's shared-memory window
+    (``shared``) when the corner lies within ``margin`` of its pixel's
+    output tile (a tile of the slab, at image rows ``y0 + h``), else
+    straight to global memory (``direct``). ``flush`` counts the in-image
+    window cells that receive a contribution, one global atomic each (an
+    upper bound: the kernel skips a cell whose sum is exactly 0);
+    ``global`` is ``direct + flush``. Plain PyTorch. Without the window
+    every corner would go global."""
+    b, _, hs, _ = offset.shape
     th, tw = tile
     win_h, win_w = th + 2 * margin, tw + 2 * margin
-    tiles_y, tiles_x = -(-h // th), -(-w // tw)
+    tiles_y, tiles_x = -(-hs // th), -(-w // tw)
     dev = offset.device
-    yy = torch.arange(h, device=dev).view(1, 1, h, 1)
+    yy = torch.arange(hs, device=dev).view(1, 1, hs, 1)
     xx = torch.arange(w, device=dev).view(1, 1, 1, w)
-    # each output pixel's window origin and block
-    wy0, wx0 = (yy // th) * th - margin, (xx // tw) * tw - margin
+    # each output pixel's window origin (an image row) and block
+    wy0, wx0 = y0 + (yy // th) * th - margin, (xx // tw) * tw - margin
     block = (torch.arange(b, device=dev).view(b, 1, 1, 1) * tiles_y
              + yy // th) * tiles_x + xx // tw
-    corners, _, _ = _corners(*_positions(offset, padding), h, w)
+    corners, _, _ = _corners(*_positions(offset, padding, y0), h, w)
     counts = {"corners": 0, "shared": 0, "direct": 0}
     cells = []
     for idx, valid in corners:

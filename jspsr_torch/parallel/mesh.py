@@ -267,8 +267,14 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def global_rows(batch: int) -> tuple[int, int]:
-    """(global batch, this rank's first row) for a per-rank ``batch`` in
-    the data-parallel step running now; (batch, 0) outside one."""
+    """(global batch, this rank's first row) for a per-rank ``batch``:
+    under an open spatial sharding, the whole batch over the data axis and
+    the first row of this rank's data index (every rank of a space group
+    holds the same batch rows); in the data-parallel step running now, its
+    group's; (batch, 0) outside both."""
+    if _SHARDING is not None:
+        m = _SHARDING.mesh
+        return batch * m.n_data, batch * m.data_index
     group = step_group()
     if group is None:
         return batch, 0

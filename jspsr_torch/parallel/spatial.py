@@ -22,7 +22,23 @@ neighbours take them from here:
 - the SPN head's deformable conv (``models/spn.py``; JSPSR, EDSR's head,
   LRRU's four rounds) samples the whole raw DEM of its images (its
   offsets are unbounded) for its own output rows (``gather_rows``, then
-  the op's row origin ``y0``), in either sampling mode;
+  the op's row origin ``y0``), in either sampling mode, and so does each
+  of NLSPN's propagation steps (``models/nlspn.py``; CompletionFormer)
+  with the whole feature, and its confidence taps with the whole
+  confidence. ``gather_rows`` is differentiable: where the sampled image
+  needs its gradient (NLSPN's feature; an SPN head whose DEM is not
+  detached) the op's backward on the slab (K3 with the row origin) gives
+  the whole image's gradient of the slab's rows, and the gather's
+  backward sums those over the space group, in space order, into each
+  rank's own rows;
+- PVT's spatial-reduction attention (``models/pvt.py``) keeps its queries
+  on the slab and attends over the whole image's keys and values: the
+  reduced and normalised tokens (the tokens themselves at ``sr_ratio``
+  1) gathered over the space group (``gather_tokens``: whole-width row
+  blocks in space order are the whole grid's row-major order), its
+  position embedding resized on the whole grid and cut to the slab's rows,
+  and its drop-path masks those of the whole batch, the rows of this
+  rank's data index (``parallel.mesh.global_rows``);
 - every loss of the registry is this rank's share of the whole batch's
   loss (``losses``, ``ops/filters.py``): the means divide by the whole
   batch's count, the Grad loss's Sobel takes one halo row each side, TV one
@@ -34,8 +50,9 @@ neighbours take them from here:
 
 A model's image rows must divide into equal slabs at every level of its
 encoder: H by its ``ROW_MULTIPLE`` (JSPSR 8, three stride-2 stages; LRRU
-16, four; EDSR 1) times the space axis (``check_rows``, which refuses a
-model that has none, CompletionFormer).
+16, four; CompletionFormer 32, five, and its first PVT stage's
+spatial-reduction conv of 8 at H / 4; EDSR 1) times the space axis
+(``check_rows``).
 
 Why processes, and not one process with a list of devices: with a process
 per block the ordinary modules run unchanged on a slab, and only those
@@ -58,8 +75,7 @@ collective), and autograd runs a graph's nodes in one order, so every rank
 issues the replayed collectives in one order; the replayed BatchNorm
 updates no statistics (``remat.recomputing``).
 
-Still refused, with a message that names ROADMAP.md queue 1 item 11:
-CompletionFormer and the deform op's input gradient (K3) on a slab.
+Every model and option of the port runs under a sharding.
 """
 
 from __future__ import annotations
@@ -73,25 +89,6 @@ from jspsr_torch.parallel.mesh import (
     all_gather_list,
     all_reduce_grads,
 )
-
-# the ROADMAP.md queue 1 item that ports what is still refused
-ROADMAP_ITEM = 11
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    """The error that says ``what`` is not ported to a spatial sharding
-    (ROADMAP.md queue 1, ``ROADMAP_ITEM``)."""
-    return NotImplementedError(
-        f"spatial sharding of {what} is not ported (ROADMAP.md queue 1 "
-        f"item {ROADMAP_ITEM})")
-
-
-def refuse(what: str) -> None:
-    """Raise, under an open spatial sharding, that ``what`` is not ported
-    there; nothing outside one."""
-    if active_sharding() is not None:
-        raise _not_ported(what)
-
 
 class _AllGather(torch.autograd.Function):
     """Every rank's ``x`` (equal shapes) stacked in rank order, with the
@@ -157,22 +154,38 @@ class _Halo(torch.autograd.Function):
 def halo(x: torch.Tensor, top: int, bottom: int) -> torch.Tensor:
     """This rank's NCHW slab ``x`` with ``top`` rows of the slab above and
     ``bottom`` rows of the slab below it on the space axis, zeros beyond
-    the image's first and last rows; differentiable."""
+    the image's first and last rows; differentiable. A halo that reaches
+    past the neighbouring slabs (a 7 x 7 conv on slabs of 1 or 2 rows,
+    CompletionFormer's deepest levels) is cut from the whole images
+    (``gather_rows``), padded with zeros: the slabs' heights, not their
+    places, choose the path, so every rank issues the same
+    collectives."""
     if top == 0 and bottom == 0:
         return x
-    if max(top, bottom) > x.shape[2]:
-        raise ValueError(f"a halo of {top} + {bottom} rows needs slabs of "
-                         f"at least that many rows, got {x.shape[2]}")
     m = active_sharding().mesh
+    hs = x.shape[2]
+    if max(top, bottom) > hs:
+        whole = F.pad(gather_rows(x), (0, 0, top, bottom))
+        first = m.space_index * hs
+        return whole[:, :, first:first + top + hs + bottom]
     return _Halo.apply(x, top, bottom, m.space_group, m.space_index,
                        m.n_space)
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """The whole images of this rank's batch rows from the space group's
-    NCHW slabs, on every rank of the group; not differentiable."""
-    m = active_sharding().mesh
-    return torch.cat(all_gather_list(x.detach(), m.space_group), dim=2)
+    NCHW slabs, on every rank of the group; differentiable: every rank's
+    gradient of the whole images is summed over the space group, in space
+    order, and each rank keeps its own rows (``_AllGather``'s backward)."""
+    return torch.cat(all_gather(x).unbind(0), dim=2)
+
+
+def gather_tokens(t: torch.Tensor) -> torch.Tensor:
+    """The whole grid's (B, N, C) tokens from the space group's slabs'
+    tokens (each slab's row-major (h, w) grid of whole-width rows), in
+    space order: the whole grid's row-major order; differentiable, as
+    ``gather_rows``."""
+    return torch.cat(all_gather(t).unbind(0), dim=1)
 
 
 def row_origin(x: torch.Tensor) -> int:
@@ -305,11 +318,8 @@ def replicate_halo1(x: torch.Tensor) -> torch.Tensor:
 def check_rows(model, inputs: list, sharding) -> None:
     """Refuse whole NCHW ``inputs`` whose H does not divide by ``model``'s
     ``ROW_MULTIPLE`` times the space axis: every slab must start on a row
-    that each stride-2 level of the model keeps. A model with no row
-    multiple is not ported to a sharding (CompletionFormer)."""
-    mult = getattr(model, "ROW_MULTIPLE", None)
-    if mult is None:
-        raise _not_ported(type(model).__name__)
+    that each stride-2 level of the model keeps."""
+    mult = model.ROW_MULTIPLE
     n = sharding.mesh.n_space
     for x in inputs:
         if x.shape[2] % (mult * n):
@@ -329,17 +339,22 @@ def sharded_forward(model, inputs: list, sharding) -> torch.Tensor:
     return sharding.gather(y)
 
 
-def sharded_grads(model, criterion, inputs: list, gt, sharding) -> tuple:
+def sharded_grads(model, criterion, inputs: list, gt, sharding,
+                  generator: torch.Generator | None = None) -> tuple:
     """The whole batch's loss and parameter gradients from this rank's
     blocks of the whole NCHW ``inputs`` and ``gt``: the forward and the
     loss under ``sharding`` (each rank's loss is its share of the whole
     batch's), ``backward``, then the gradients summed over the mesh
-    (``all_reduce_grads(average=False)``), in place in ``.grad``. Returns
-    ({loss name: the whole batch's value}, {parameter name: gradient})."""
+    (``all_reduce_grads(average=False)``), in place in ``.grad``.
+    ``generator``, where given, goes to the model's forward (PVT's
+    drop-path masks: every rank seeds it alike and draws the whole
+    batch's). Returns ({loss name: the whole batch's value}, {parameter
+    name: gradient})."""
     check_rows(model, inputs, sharding)
     model.zero_grad(set_to_none=True)
+    kw = {} if generator is None else {"generator": generator}
     with sharding.active():
-        pred = model([sharding.shard(x) for x in inputs])
+        pred = model([sharding.shard(x) for x in inputs], **kw)
         losses = criterion(pred, sharding.shard(gt))
         losses["Total"].backward()
     named = [(k, q) for k, q in model.named_parameters()

@@ -163,6 +163,63 @@ def test_bf16_row_slab_kernels_are_the_whole_images_rows(cuda_device, h, w,
     assert float((sums[1] - whole_b[3]).abs()) <= 1e-6 * float(g.abs().sum())
 
 
+@pytest.mark.parametrize("sample_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("h,w,y0,hs,scale", [
+    (16, 16, 8, 8, 1.5), (128, 128, 64, 64, 20.0), (30, 20, 5, 11, 1.5),
+    (128, 128, 0, 64, 0.0)])
+def test_k3_row_slab_is_the_whole_images(cuda_device, h, w, y0, hs, scale,
+                                         sample_dtype):
+    """K3 and K3-bf16 on a row slab (``y0``; a slab of 11 rows off K3's
+    8-row tile, whose last tile row is partial): d_offset and d_mask
+    bit-equal to those rows of the whole-image K3's; d_x the whole image's
+    shape; over a partition of the rows the slabs' d_x and d_weight summed
+    within 1e-6 of the whole image's terms' magnitude sums; each slab
+    against its plain version (d_offset, d_mask at rtol = atol = 1e-5, d_x
+    within 1e-5 of its magnitude sum); bit-equal across two launches; one
+    ``deform_bwd_dx_slab`` (``deform_bwd_dx_bf16_slab``) launch per
+    call."""
+    x, offset, weight, _, mask = _args(2, h, w, scale, cuda_device, seed=11)
+    g = torch.randn(2, 1, h, w, generator=torch.Generator().manual_seed(6))
+    g = g.to(cuda_device)
+    kw = {"sample_dtype": sample_dtype}
+    name = ("deform_bwd_dx_bf16_slab" if sample_dtype
+            else "deform_bwd_dx_slab")
+    whole = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g, **kw)
+    parts = [slice(0, y0), slice(y0, y0 + hs), slice(y0 + hs, h)]
+    sums = [torch.zeros_like(whole[4]), torch.zeros_like(whole[2])]
+    for rows in (r for r in parts if r.stop > r.start):
+        off, msk, gs = (t[:, :, rows].contiguous() for t in (offset, mask,
+                                                              g))
+        before = dict(deform_cuda.LAUNCHES)
+        got = deform_cuda.deform_bwd_dx(x, off, weight, msk, gs, y0=rows.start,
+                                        **kw)
+        torch.cuda.synchronize()
+        assert {k: deform_cuda.LAUNCHES[k] - before[k] for k in before} == {
+            **NO_LAUNCHES, name: 1}
+        again = deform_cuda.deform_bwd_dx(x, off, weight, msk, gs,
+                                          y0=rows.start, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        assert got[4].shape == x.shape
+        for a, full in zip(got[:2], whole[:2]):
+            assert torch.equal(a, full[:, :, rows])
+        ref = deform_conv2d_backward_plain(x, off, weight, msk, gs,
+                                           need_dx=True, y0=rows.start, **kw)
+        abs_x = deform_conv2d_backward_plain(x.abs(), off, weight.abs(),
+                                             msk.abs(), gs.abs(),
+                                             need_dx=True, y0=rows.start,
+                                             **kw)[4]
+        for a, r in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        assert ((got[4] - ref[4]).abs() <= 1e-5 * abs_x + 1e-7).all()
+        sums = [sums[0] + got[4], sums[1] + got[2]]
+    abs_sum = deform_conv2d_backward_plain(x.abs(), offset, weight.abs(),
+                                           mask.abs(), g.abs(), need_dx=True,
+                                           **kw)
+    assert whole[4].abs().max() > 0
+    assert ((sums[0] - whole[4]).abs() <= 1e-6 * abs_sum[4] + 1e-7).all()
+    assert ((sums[1] - whole[2]).abs() <= 1e-6 * abs_sum[2] + 1e-6).all()
+
+
 # K1's load paths: sides its 4 x 64 tile does not divide, one smaller
 # than a tile (TMA), W % 4 != 0 (the copy path), at integer positions,
 # sub-pixel offsets and far off the image

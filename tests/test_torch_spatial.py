@@ -46,15 +46,17 @@ its weights carried into the port by ``utils/weights.py``:
   against one process (fp32 at rtol 1e-4 / atol 1e-5; bf16 within
   ``FACTOR`` x the one-process bf16 model's distance from its fp32 one,
   ``tests/test_torch_bf16.py``'s rule). ``tests/test_torch_spatial_models.py``
-  holds these cases and every loss against the JAX package.
+  holds these cases and every loss against the JAX package; the
+  CompletionFormer (``{"lr_dem": 1, "image": 3}``, 2 x 64^2: its H divides
+  by its row multiple of 32 x 2) is held against one process the same
+  way, and against JAX in ``tests/test_torch_spatial_completionformer.py``.
 
 In one process: K1's and K2's plain versions on a row slab (``y0``) are
 bit-equal to the same rows of the whole image's, and their d_weight and
 d_bias summed over the slabs match the whole image's at 1e-6 relative;
 the ops pass ``torch.library.opcheck`` with a row origin; the kernels'
-launch names on a slab in either mode; and what is still left out
-(CompletionFormer, the input gradient K3 on a slab) is refused with a
-message naming ROADMAP.md queue 1 item 11.
+launch names on a slab in either mode, K3's among them, whose op takes a
+slab where ``x`` needs its gradient.
 """
 
 import numpy as np
@@ -89,7 +91,12 @@ OPTIONS = [({"fuse_stems": True}, 8), ({"eval_grouped": True}, 8),
            ({"spn_sample_dtype": "bfloat16"}, 7)]
 FAMILIES = {"edsr.EDSR": {"in_channels": 4, "out_channels": 1,
                           "n_resblocks": 2, "n_features": 8},
-            "lrru.LRRU": {"in_channels": dict(SMALL), "bc": 4}}
+            "lrru.LRRU": {"in_channels": dict(SMALL), "bc": 4},
+            "completionformer.CompletionFormer": {
+                "in_channels": dict(SMALL)}}
+# the families whose inputs are ``data["cf_fwd"]``'s 2 x 64^2: H divides by
+# CompletionFormer's row multiple (32) x the space axis
+CF_INPUTS = ("completionformer.CompletionFormer",)
 
 
 def _nchw(a):
@@ -143,6 +150,10 @@ def _family(family) -> torch.nn.Module:
     cls = getattr(importlib.import_module(f"jspsr_torch.models.{module}"),
                   name)
     return cls(**FAMILIES[family], generator=torch.Generator().manual_seed(4))
+
+
+def _family_inputs(data, family) -> list:
+    return data["cf_fwd" if family in CF_INPUTS else "fwd"]["inputs"]
 
 
 def _tensors(arrays, dtype=torch.float32):
@@ -254,7 +265,7 @@ def _rank_checks(rank, world, data):
             _tensors(data["fwd"]["inputs"]), sharding).numpy()
             for kw, _ in OPTIONS]
         out["families"] = {family: sharded_forward(
-            _family(family).eval(), _tensors(data["fwd"]["inputs"]),
+            _family(family).eval(), _tensors(_family_inputs(data, family)),
             sharding).numpy() for family in FAMILIES}
     case, channels, dtype = REFERENCES[rank]
     d = data[case]
@@ -317,6 +328,9 @@ def world():
         "inputs": [rng.uniform(0.05, 0.95, (4, c, 32, 32)).astype(np.float32)
                    for c in FLAGSHIP.values()],
         "gt": rng.uniform(0.05, 0.95, (4, 1, 32, 32)).astype(np.float32)}
+    data["cf_fwd"] = {"inputs": [
+        rng.uniform(0.05, 0.95, (2, c, 64, 64)).astype(np.float32)
+        for c in SMALL.values()]}
     ranks = run_ranks(_rank_checks, WORLD, data, device="cpu",
                       timeout_s=240)
     return data, ref, ranks
@@ -507,38 +521,28 @@ def test_jspsr_refuses_what_is_out_of_this_slice(world, kwargs, item):
     ("edsr.EDSR", 9), ("lrru.LRRU", 10),
     ("completionformer.CompletionFormer", 11)])
 def test_other_families_are_refused_under_a_sharding(world, family, item):
-    """CompletionFormer's forward still raises first thing under a
-    sharding (so an instance without its layers shows it), naming ROADMAP.md
-    queue 1 item 11; EDSR and LRRU (items 9 and 10, ported) run there: the
-    sharded eval forward of each, gathered, equals one process's at rtol
-    1e-4 / atol 1e-5."""
-    import importlib
-
-    if family in FAMILIES:
-        data, _, ranks = world
-        with torch.no_grad():
-            want = _family(family).eval()(_tensors(data["fwd"]["inputs"]))
-        np.testing.assert_allclose(ranks[0]["families"][family],
-                                   want.numpy(), rtol=1e-4, atol=1e-5,
-                                   err_msg=f"item {item}")
-        return
-    module, name = family.split(".")
-    cls = getattr(importlib.import_module(f"jspsr_torch.models.{module}"),
-                  name)
-    with _sharding().active(), pytest.raises(
-            NotImplementedError,
-            match=rf"{name} is not ported \(ROADMAP\.md queue 1 item "
-                  rf"{item}\)"):
-        cls.forward(object.__new__(cls), [torch.zeros(2, 1, 16, 16),
-                                          torch.zeros(2, 3, 16, 16)])
+    """The other families (ROADMAP.md queue 1 items 9, 10 and 11 ported
+    them to a sharding) run there: the sharded eval forward of each,
+    gathered, equals one process's at rtol 1e-4 / atol 1e-5 (the
+    CompletionFormer at its fixed widths on 2 x 64^2)."""
+    data, _, ranks = world
+    with torch.no_grad():
+        want = _family(family).eval()(_tensors(_family_inputs(data,
+                                                              family)))
+    for r in ranks:
+        np.testing.assert_array_equal(r["families"][family],
+                                      ranks[0]["families"][family])
+    np.testing.assert_allclose(ranks[0]["families"][family], want.numpy(),
+                               rtol=1e-4, atol=1e-5, err_msg=f"item {item}")
 
 
 def test_unported_losses_and_the_input_gradient_are_refused():
-    """What is still refused on a slab: the deform op's input gradient (K3,
-    ROADMAP.md queue 1 item 11). The bf16 modes of K1 and K2 take a slab
-    under launch names of their own, and every loss is ported (the BCE
-    here, with no collective, is this block's share of the whole batch's
-    mean; ``tests/test_torch_spatial_models.py`` holds each loss)."""
+    """Nothing is refused on a slab any longer: the deform op's input
+    gradient (K3) runs there (its d_x the whole image's gradient from the
+    slab's rows), and K1, K2 and K3 take a slab in either mode under launch
+    names of their own; every loss is ported (the BCE here, with no
+    collective, is this block's share of the whole batch's mean;
+    ``tests/test_torch_spatial_models.py`` holds each loss)."""
     from jspsr_torch.losses import get_loss
     from jspsr_torch.ops import deform_cuda
 
@@ -547,14 +551,21 @@ def test_unported_losses_and_the_input_gradient_are_refused():
         share = get_loss("bce")(pred, pred)
     torch.testing.assert_close(share * WORLD, get_loss("bce")(pred, pred))
     x, offset, weight, bias, mask, _ = _deform_case(1, 8, 8, 1.5, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        deform_conv2d(x.requires_grad_(True), offset[:, :, 4:], weight, bias,
-                      mask[:, :, 4:], y0=4).sum().backward()
-    for kernel in ("deform_fwd", "deform_bwd"):
+    d_x = torch.zeros_like(x)
+    for y0 in (0, 4):
+        leaf = x.clone().requires_grad_(True)
+        deform_conv2d(leaf, offset[:, :, y0:y0 + 4], weight, bias,
+                      mask[:, :, y0:y0 + 4], y0=y0).sum().backward()
+        d_x += leaf.grad
+    leaf = x.clone().requires_grad_(True)
+    deform_conv2d(leaf, offset, weight, bias, mask).sum().backward()
+    torch.testing.assert_close(d_x, leaf.grad, rtol=1e-6, atol=1e-6)
+    for kernel in ("deform_fwd", "deform_bwd", "deform_bwd_dx"):
         assert deform_cuda._name(kernel, "bfloat16", x, offset[:, :, 4:],
                                  4) == f"{kernel}_bf16_slab"
         assert deform_cuda._name(kernel, None, x, offset[:, :, 4:],
                                  4) == f"{kernel}_slab"
         assert deform_cuda._name(kernel, "bfloat16", x, offset, 0) == \
             f"{kernel}_bf16"
-        assert f"{kernel}_bf16_slab" in deform_cuda.KERNELS
+        assert {f"{kernel}_slab", f"{kernel}_bf16_slab"} <= set(
+            deform_cuda.KERNELS)

@@ -52,9 +52,10 @@ as ``tests/test_torch_train.py`` compares the packages' gradients.
   one process's; in fp32 the summed loss is within rtol 1e-5 of the JAX
   package's ``get_loss(name)`` on the whole batch.
 
-Each model's row multiple is refused by name when H does not divide by it
-times the space axis, and SSIM refuses a slab shorter than its window's
-reach.
+Each model's row multiple (CompletionFormer's 32 among them) is refused by
+name when H does not divide by it times the space axis, and SSIM refuses a
+slab shorter than its window's reach. The sharded CompletionFormer is held
+to JAX in ``tests/test_torch_spatial_completionformer.py``.
 """
 
 import contextlib
@@ -624,13 +625,17 @@ def _sharding() -> SpatialSharding:
 
 @pytest.mark.parametrize("case, h, mult", [("fuse_stems", 24, 8),
                                            ("lrru", 48, 16),
-                                           ("edsr", 33, 1)])
+                                           ("edsr", 33, 1),
+                                           ("completionformer", 96, 32)])
 def test_row_multiple_is_each_models_own(case, h, mult):
     """H must divide by the model's row multiple x the space axis; the
-    refusal names the model."""
+    refusal names the model (CompletionFormer's before its layers are
+    built: the check needs none)."""
+    from jspsr_torch.models.completionformer import CompletionFormer
     from jspsr_torch.parallel.spatial import sharded_forward
 
-    model = _model(case)
+    model = (object.__new__(CompletionFormer) if case == "completionformer"
+             else _model(case))
     name = type(model).__name__
     assert model.ROW_MULTIPLE == mult
     inputs = [torch.zeros(2, 1, h, 8)]
@@ -640,17 +645,22 @@ def test_row_multiple_is_each_models_own(case, h, mult):
 
 
 def test_completionformer_is_refused_before_its_rows_are_checked():
-    """CompletionFormer has no row multiple: ``sharded_forward`` refuses it
-    naming ROADMAP.md queue 1 item 11, whatever H is."""
+    """CompletionFormer runs under a sharding where H divides by its row
+    multiple (32: five halvings, and stage 1's spatial-reduction conv of 8
+    at H / 4) x the space axis; any other H, one that divides by every
+    other model's multiple (16 x 2) or by 32 alone, is refused naming it,
+    before any collective."""
     from jspsr_torch.models.completionformer import CompletionFormer
     from jspsr_torch.parallel.spatial import sharded_forward
 
     model = object.__new__(CompletionFormer)
-    inputs = [torch.zeros(2, 1, 20, 8), torch.zeros(2, 3, 20, 8)]
-    with pytest.raises(NotImplementedError,
-                       match=r"CompletionFormer is not ported \(ROADMAP\.md "
-                             r"queue 1 item 11\)"):
-        sharded_forward(model, inputs, _sharding())
+    assert CompletionFormer.ROW_MULTIPLE == 32
+    for h in (20, 32, 96):
+        inputs = [torch.zeros(2, 1, h, 8), torch.zeros(2, 3, h, 8)]
+        with pytest.raises(ValueError,
+                           match=rf"CompletionFormer: H = {h} does not "
+                                 rf"divide by 32 x 2"):
+            sharded_forward(model, inputs, _sharding())
 
 
 def test_ssim_refuses_a_slab_shorter_than_its_window():
