@@ -51,7 +51,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the ``grid_sample`` form; then its bf16-sampling mode
    (``deform_bwd_bf16``) the same way at 50 and 16 x 128^2 and one 334^2
    scene, beside the fp32 mode on the same inputs, from which its
-   d_offset must differ by more than the tolerance;
+   d_offset must differ by more than the tolerance; in both modes every
+   output bit-identical over three calls on the same inputs, and, after
+   every phase (the profiler slows the process it traces), exactly one
+   device kernel per call, counted in a process of its own
+   (``bench_deform_bwd.kernels_per_call``: no memset, no reduction;
+   d_weight and d_bias are finished in K2's launch);
 3c. kernel check, backward with the input gradient (K3): against its
    plain backward at the CompletionFormer train batch (16 x 128^2),
    2 x 128^2 and one 334^2 scene padded to 352^2, offsets at 0, 1.5 and
@@ -97,7 +102,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bound; then the same in the bf16-sampling mode (``deform_fwd_bf16_slab``,
    ``deform_bwd_bf16_slab``, against the whole-image bf16 kernel), with
    one slab more: 25 x 64 x 128, the shipped bf16 batch of 50 on the mesh;
-   then K3 and K3-bf16 on row slabs (``deform_bwd_dx_slab``,
+   K2's slab outputs bit-identical over three calls, one device kernel per
+   call, as in 3b; then K3 and K3-bf16 on row slabs (``deform_bwd_dx_slab``,
    ``deform_bwd_dx_bf16_slab``, ``check_k3_slabs``) at 2 x 64 x 128 of
    128^2 (phase 17's gradient slab) and 8 x 64 x 128 (the shipped
    CompletionFormer batch of 16 on the mesh), each y0, offsets at 0, 1.5
@@ -415,6 +421,7 @@ from jspsr_torch.scripts.bench_deform_fwd import (
     k1_bound,
     time_ms,
 )
+from jspsr_torch.scripts.bench_deform_bwd import k2_bound
 from jspsr_torch.scripts.profile_kernels import device_us
 from jspsr_torch.train.checkpoint import load_model_params
 from jspsr_torch.train.optim import build_optimizer
@@ -780,10 +787,12 @@ def check_deform_kernel(dev, bandwidth, fp32_peak, sample_dtype=None,
 def check_deform_backward(dev, bandwidth, fp32_peak, shapes=BWD_SHAPES,
                           sample_dtype=None, seed: int = 1):
     """K2 against its plain backward at ``shapes`` (the train path's), in
-    the mode ``sample_dtype`` asks for; in the bf16 mode also the fp32
+    the mode ``sample_dtype`` asks for, and against itself (every output
+    bit-identical over three calls); in the bf16 mode also the fp32
     mode's time on the same inputs, and its distance from it, which must
     exceed the tolerance (the mode really rounds); returns one row per
-    shape."""
+    shape (``k2_kernels_per_call`` adds each one's device kernels after
+    every phase)."""
     name = "deform_bwd_bf16" if sample_dtype else "deform_bwd"
     gen = torch.Generator(device=dev).manual_seed(seed)
     flush = torch.empty(64 * 2**20, device=dev)
@@ -797,6 +806,9 @@ def check_deform_backward(dev, bandwidth, fp32_peak, shapes=BWD_SHAPES,
             g = torch.randn(b, 1, h, w, generator=gen, device=dev)
             got = deform_cuda.deform_bwd(x, offset, weight, mask, g,
                                          sample_dtype=sample_dtype)
+            k2_three_calls(got, lambda: deform_cuda.deform_bwd(
+                x, offset, weight, mask, g, sample_dtype=sample_dtype),
+                f"{name} at {(b, h, w)} offset scale {scale}")
             ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
                                                sample_dtype=sample_dtype)
             # |d_weight| <= this bound on the sum of the terms' magnitudes
@@ -851,18 +863,56 @@ def check_deform_backward(dev, bandwidth, fp32_peak, shapes=BWD_SHAPES,
     return rows
 
 
-def k2_bound(b, h, w, bandwidth, fp32_peak):
-    """K2's least time on this card, ms, and what sets it, for ``b`` x
-    ``h`` x ``w`` output pixels (a row slab's own): each input read once,
-    each output written once: x 4 B, offset 72 B, mask 36 B, g 4 B in;
-    d_offset 72 B, d_mask 36 B out per pixel; weight in and d_weight out
-    36 B each; about 35 fp32 operations per tap, 9 taps."""
-    pixels = b * h * w
-    nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36) + 72
-    bytes_ms = nbytes / bandwidth * 1e3
-    ops_ms = pixels * 315 / fp32_peak * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+def k2_three_calls(got, call, where: str) -> None:
+    """K2's outputs ``got`` and those of two more ``call``s on the same
+    inputs, bit for bit: d_weight and d_bias are finished in the kernel in
+    a fixed order."""
+    for _ in range(2):
+        again = call()
+        torch.cuda.synchronize()
+        diffs = [(a - c).abs().max().item() for a, c in zip(got, again)]
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"{where}: three calls differ by {diffs}")
+
+
+# run in a fresh process: K2's device kernels per call at each spec, read
+# by torch.profiler (in this process, after a process group and other
+# profiler runs, its events came back without their device)
+K2_KERNELS = r"""
+import json, sys
+from jspsr_torch.scripts.bench_deform_bwd import kernels_per_call
+print(json.dumps(kernels_per_call(json.loads(sys.argv[1]))))
+"""
+
+
+def k2_kernels_per_call(by_mode) -> None:
+    """Each K2 row's device kernels per call (``by_mode``: (rows, sample
+    dtype) pairs), at its shape (a slab row at its last y0), offsets of
+    TIMED_SCALE, counted by ``torch.profiler`` in a process of its own,
+    into the row's ``kernels_per_call``: exactly one kernel, K2's, and no
+    memset or copy. It runs after every other phase: the profiler slows
+    the process it traces."""
+    rows = [(row, mode) for rows, mode in by_mode for row in rows]
+    specs = [[row["shape"][0], row.get("image", row["shape"])[2],
+              row["shape"][2], row.get("y0", [0])[-1], mode]
+             for row, mode in rows]
+    run = subprocess.run([sys.executable, "-c", K2_KERNELS, json.dumps(specs)],
+                         capture_output=True, text=True, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    if run.returncode:
+        raise AssertionError(f"K2's kernel count failed: "
+                             f"{run.stderr[-4000:]}")
+    counts = json.loads(run.stdout.strip().splitlines()[-1])
+    for (row, mode), (b, side, hs, y0, _), kinds in zip(rows, specs, counts):
+        row["kernels_per_call"] = kinds
+        name = "deform_bwd" + ("_bf16" if mode else "") + (
+            "_slab" if hs != side else "")
+        print(f"{name} at {b} x {hs} x {side} (y0 {y0}): device kernels per "
+              f"call {kinds}", flush=True)
+        if (list(kinds.values()) != [1.0]
+                or "deform_bwd_kernel" not in next(iter(kinds))):
+            raise AssertionError(f"{name} at {row['shape']}: device work "
+                                 f"per call {kinds}, not one K2 kernel")
 
 
 def spatial_slabs(sample_dtype=None) -> list:
@@ -958,6 +1008,10 @@ def check_deform_slabs(dev, bandwidth, fp32_peak, seed: int = 7,
                     continue
                 gs = g[:, :, rows].contiguous()
                 got_b = deform_cuda.deform_bwd(x, o, wt, m, gs, y0=y0, **kw)
+                k2_three_calls(got_b, lambda: deform_cuda.deform_bwd(
+                    x, o, wt, m, gs, y0=y0, **kw),
+                    f"deform_bwd{mode}_slab at {bwd['shape']} y0 {y0} "
+                    f"offset scale {scale}")
                 ref_b = deform_conv2d_backward_plain(x, o, wt, m, gs, y0=y0,
                                                      **kw)
                 abs_sum = deform_conv2d_backward_plain(
@@ -4653,7 +4707,10 @@ def main() -> int:
         # ranks sharing the card
         spatial, spatial_paths = spatial_phase(dev, flagship, smi_line)
         paths.update(spatial_paths)
-    # K3's three kernels apart, under the profiler, after every phase
+    # K2's kernels per call and K3's three kernels apart, under the
+    # profiler, after every phase
+    k2_kernels_per_call(((bwd_rows, None), (bwd_bf16_rows, BF16),
+                         (slab_bwd_rows, None), (slab_bwd_bf16_rows, BF16)))
     dx_pass_times(dev, dx_rows)
     tiled["conv_probe"] = probe_rows
     for result in (serving, training, cf_training, cf_serving, tiled,

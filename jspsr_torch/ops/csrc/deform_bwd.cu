@@ -50,7 +50,9 @@
 // (ops/deform_cuda.py::dx_atomics counts both from the offsets). Blocks
 // run in no order on this card, so nothing like the TPU's carried
 // accumulator exists; an inverse gather over a fixed window is not exact
-// because offsets are unbounded (tests use 20 px).
+// because offsets are unbounded (tests use 20 px). Its d_weight is reduced
+// in the block (block_dweight: warp shuffles, then the warps in a fixed
+// order) into one row of 9 partials per block, which the caller sums.
 //
 // d_x is bitwise reproducible: it is summed in fixed point. Every
 // contribution v becomes the integer round(v * 2^k) (__float2ll_rn; the
@@ -98,24 +100,49 @@
 //
 // Bound on this card: bytes, or the atomics. Each pixel reads 18 offsets
 // (72 B), 9 mask values (36 B), g (4 B) and its image neighbourhood (4 B
-// new per pixel; the re-reads of neighbours hit L1/L2), and writes 18
-// offset gradients (72 B) and 9 mask gradients (36 B): about 224 B against
-// about 300 FLOP; d_x adds the bounds pass's second read of g and the
-// mask (40 B), its accumulator's zero fill (8 B), its read and its fp32
-// write-back (12 B). K3's up to 36 corner contributions per pixel go to
-// pairs of native 32-bit shared-memory atomics; about 2 per pixel reach
-// L2.
-// The design keeps the traffic at that minimum:
-//   - one thread per output pixel, planar NCHW, so every offset, mask and
-//     gradient access of a warp is one coalesced 128-byte line;
-//   - positions and corners are recomputed from the inputs rather than
-//     saved by the forward (saving them would cost more bytes than the
-//     arithmetic costs time);
-//   - d_weight is reduced in the block: a warp-shuffle sum, then the
-//     block's warps summed in shared memory in a fixed order, one row of 9
-//     partials per block written to `d_weight_partial`; the caller sums
-//     the (n_blocks, 9) rows outside the kernel. No float atomics there, so
-//     d_weight is the same on every run.
+// new per pixel; the re-reads of neighbours hit shared memory or L1/L2),
+// and writes 18 offset gradients (72 B) and 9 mask gradients (36 B): about
+// 224 B against about 300 FLOP; d_x adds the bounds pass's second read of
+// g and the mask (40 B), its accumulator's zero fill (8 B), its read and
+// its fp32 write-back (12 B). K3's up to 36 corner contributions per pixel
+// go to pairs of native 32-bit shared-memory atomics; about 2 per pixel
+// reach L2. Positions and corners are recomputed from the inputs rather
+// than saved by the forward (saving them would cost more bytes than the
+// arithmetic costs time).
+//
+// K2 (deform_bwd_kernel) is one launch that keeps the bytes in flight:
+//   - Persistent grid, as K1's (deform_fwd.cu): min(tiles, SMs x resident
+//     blocks) blocks, the resident count read once per device from
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor (three: the shared
+//     memory), each walking output tiles of 4 rows x 64 columns of one
+//     image with a fixed stride (blockIdx.x + i * gridDim.x).
+//   - TMA (tma.cuh): one producer thread per block loads each tile's 18
+//     offset, 9 mask and 1 gradient planes and a window of the image (the
+//     tile plus a margin of 4 px, its left edge on a multiple of 4 columns:
+//     15 x 80 floats, zero off the image) into a ring of 2 stages of 32.8
+//     KB on full and empty mbarriers, so the next tiles' loads overlap this
+//     tile's arithmetic. A tap whose 2 x 2 block of corners lies in the
+//     window reads it there; any other reads its corners from global memory
+//     with the bounds test in float, so no corner read waits on a global
+//     offset read. Shapes a tensor map cannot take (W % 4 != 0, a base not
+//     on 16 bytes) fill the same stages with 4-byte cp.async copies, two
+//     deep, without the producer warp: each thread its pixel of the 28
+//     planes (one index computation for all 28: an index per element made
+//     the copies, not the arithmetic, the bound) and a share of the window.
+//   - 256 consumer threads, one pixel of the tile each, run pixel_backward
+//     from the stage and write d_offset and d_mask straight to global
+//     memory: each warp's store is one full 128-byte line of a plane.
+//   - d_weight and d_bias are finished in the kernel, in a fixed order and
+//     without float atomics: each consumer carries its pixels' 9 g m val
+//     sums in registers across its tiles, and one warp (the producer,
+//     which waits for each tile's planes anyway) sums the tiles' g in
+//     double; the block sums them in double (warp shuffles, then the warps
+//     in order) into one row of 10, writes
+//     it to the caller's scratch, fences, and takes a ticket on a counter;
+//     the block whose ticket is last sums the rows in block order (one
+//     warp per value, in double), writes d_weight and d_bias and sets the
+//     counter back to 0. The grid is the same on every call on one card,
+//     so each sum is, bit for bit.
 //
 // Positions are tested against the image in float before any float->int
 // conversion, exactly as in the forward.
@@ -134,7 +161,7 @@
 // the offsets, the mask, g and their gradients may be a slab of Hs rows of
 // the image, whose first is image row y0 (``row0``), while x stays the
 // whole image: slab row h is image row y0 + h, so d_offset and d_mask are
-// those rows of the whole image's, bit for bit, and the d_weight partials
+// those rows of the whole image's, bit for bit, and d_weight and d_bias
 // are the slab's share (the caller's gradient reduction sums the slabs').
 // y0 = 0 and Hs = H is the whole image, as before. Both modes take a slab
 // (deform_bwd_slab, deform_bwd_bf16_slab): the slab planes and row0 are
@@ -167,12 +194,15 @@
 // as they are. No shipped model reaches it (NLSPN samples in fp32, the SPN
 // head detaches the DEM); the op's autograd does.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <cfloat>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -191,6 +221,40 @@ constexpr int kWinW = kTileW + 2 * kMargin;
 // 2^kFixedBits, and the pixels that sum it into one partial
 constexpr int kFixedBits = 61;
 constexpr int kBoundChunk = kThreads * 4;
+
+// K2's tile, window and ring (K1's: deform_fwd.cu)
+namespace k2 {
+constexpr int kTileH = 4;   // output rows per tile
+constexpr int kTileW = 64;  // output columns per tile: a 256-byte TMA row
+constexpr int kTilePx = kTileH * kTileW;
+constexpr int kMargin = 4;  // window margin beyond the taps' reach
+// every corner of every tap with |offset| <= kMargin, the left edge on a
+// multiple of 4 columns, the width a whole number of 16-byte groups
+constexpr int kWinH = kTileH + 2 * kMargin + 3;
+constexpr int kWinW = (kTileW + 2 * kMargin + 3 + 3 + 3) / 4 * 4;
+constexpr int kConsumers = kThreads;         // one pixel of the tile each
+constexpr int kThreadsTma = kConsumers + 32;  // and one producer warp
+constexpr int kStages = 2;
+constexpr int kBlocksPerSm = 3;  // what the shared memory allows
+// one stage, in floats: offsets [18][4][64], mask [9][4][64], g [4][64],
+// window [15][80]; the planes (offsets, mask, g) are 28 consecutive planes
+// of a tile, each part starts on a 128-byte boundary
+constexpr int kOffFloats = 2 * kTaps * kTilePx;
+constexpr int kMaskFloats = kTaps * kTilePx;
+constexpr int kPlaneFloats = kOffFloats + kMaskFloats + kTilePx;
+constexpr int kWinFloats = kWinH * kWinW;
+constexpr int kStageFloats = kPlaneFloats + kWinFloats;
+constexpr int kStageBytes = (kStageFloats * 4 + 127) / 128 * 128;
+constexpr int kBarBytes = 128;  // the mbarriers, ahead of the ring
+constexpr int kSmem = 128 + kBarBytes + kStages * kStageBytes;
+constexpr int kSums = kTaps + 1;  // a block's row: d_weight's 9, d_bias
+static_assert(kTilePx == kConsumers, "one pixel per consumer");
+static_assert(kPlaneFloats * 4 % 128 == 0, "window on a 128-byte boundary");
+static_assert(2 * kStages * 8 <= kBarBytes, "barriers");
+static_assert(kBlocksPerSm * (kSmem + 1024) <= 233472 &&
+                  (kBlocksPerSm + 1) * (kSmem + 1024) > 233472,
+              "the shared memory holds exactly kBlocksPerSm blocks per SM");
+}  // namespace k2
 
 int64_t k3_chunks(int64_t hw) { return (hw + kBoundChunk - 1) / kBoundChunk; }
 
@@ -259,26 +323,39 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// One output pixel's 9 taps: writes d_offset and d_mask, accumulates
-// g m_t val_t into dw and hands every in-bounds corner's share of d_x to
-// ``scatter``; with kBf16 the bf16-sampling mode's values and
-// derivatives. ``off``, ``msk``, ``doff`` and ``dmsk`` point at the pixel
-// in channel 0 of its image.
-template <bool kBf16, class Scatter>
+// K2's window of the image in shared memory around its tile: k2::kWinH x
+// k2::kWinW cells from image row wy0, column wx0 (floats: a corner's floor
+// is compared with them before any conversion), zero off the image
+struct Window {
+  const float* cells;
+  float wy0, wx0;
+};
+
+// One output pixel's 9 taps: writes d_offset and d_mask, writes g m_t
+// val_t to dw and hands every in-bounds corner's share of d_x to ``scatter``;
+// with kBf16 the bf16-sampling mode's values and derivatives. ``img`` is
+// the pixel's image; ``off`` and ``msk`` point at the pixel in channel 0
+// of planes ``in_plane`` floats apart, ``doff`` and ``dmsk`` of planes
+// ``out_plane`` apart. With kWindow (K2, which scatters nothing) a tap
+// whose 2 x 2 block of corners lies in ``win`` reads it there, the same
+// floats as from the image; any other tap reads its corners from ``img``.
+template <bool kBf16, bool kWindow, class Scatter>
 __device__ __forceinline__ void pixel_backward(
-    const float* __restrict__ img, const float* __restrict__ off,
-    const float* __restrict__ msk, const float* __restrict__ weight,
-    float* __restrict__ doff, float* __restrict__ dmsk, float g, int y,
-    int xo, int h, int w, int64_t hw, int pad, float (&dw)[kTaps],
+    const float* __restrict__ img, const Window& win,
+    const float* __restrict__ off, const float* __restrict__ msk,
+    int64_t in_plane, const float* __restrict__ weight,
+    float* __restrict__ doff, float* __restrict__ dmsk, int64_t out_plane,
+    float g, int y, int xo, int h, int w, int pad, float (&dw)[kTaps],
     const Scatter& scatter) {
   const float hmax = static_cast<float>(h - 1);
   const float wmax = static_cast<float>(w - 1);
 #pragma unroll
   for (int t = 0; t < kTaps; ++t) {
-    const float py = static_cast<float>(y - pad + t / 3) + off[(2 * t) * hw];
+    const float py =
+        static_cast<float>(y - pad + t / 3) + off[(2 * t) * in_plane];
     const float px =
-        static_cast<float>(xo - pad + t % 3) + off[(2 * t + 1) * hw];
-    const float m = msk[t * hw];
+        static_cast<float>(xo - pad + t % 3) + off[(2 * t + 1) * in_plane];
+    const float m = msk[t * in_plane];
     const float y0f = floorf(py);
     const float x0f = floorf(px);
     const float ty = py - y0f;
@@ -286,7 +363,23 @@ __device__ __forceinline__ void pixel_backward(
     const float gw = g * __ldg(weight + t);
     const float gwm = gw * m;
     float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-    if (y0f >= -1.f && y0f <= hmax && x0f >= -1.f && x0f <= wmax) {
+    bool in_window = false;
+    if constexpr (kWindow) {
+      // exact: both are integers, and a NaN or a far position fails
+      const float ry = y0f - win.wy0, rx = x0f - win.wx0;
+      if (ry >= 0.f && ry <= static_cast<float>(k2::kWinH - 2) &&
+          rx >= 0.f && rx <= static_cast<float>(k2::kWinW - 2)) {
+        const float* cell = win.cells + static_cast<int>(ry) * k2::kWinW +
+                            static_cast<int>(rx);
+        v00 = cell[0];
+        v01 = cell[1];
+        v10 = cell[k2::kWinW];
+        v11 = cell[k2::kWinW + 1];
+        in_window = true;
+      }
+    }
+    if (!in_window && y0f >= -1.f && y0f <= hmax && x0f >= -1.f &&
+        x0f <= wmax) {
       const int y0 = static_cast<int>(y0f);
       const int x0 = static_cast<int>(x0f);
       const bool vy0 = y0 >= 0, vy1 = y0 + 1 <= h - 1;
@@ -311,19 +404,19 @@ __device__ __forceinline__ void pixel_backward(
       const float tmp1 = __fadd_rn(__fmul_rn(b01, r0), __fmul_rn(b11, r1));
       const float cx = 1.f - tx;
       const float val = __fadd_rn(__fmul_rn(tmp0, cx), __fmul_rn(tmp1, tx));
-      dmsk[t * hw] = __fmul_rn(gw, val);
-      doff[(2 * t) * hw] = __fmul_rn(
+      dmsk[t * out_plane] = __fmul_rn(gw, val);
+      doff[(2 * t) * out_plane] = __fmul_rn(
           gwm, __fadd_rn(__fmul_rn(__fsub_rn(b10, b00), cx),
                          __fmul_rn(__fsub_rn(b11, b01), tx)));
-      doff[(2 * t + 1) * hw] = __fmul_rn(gwm, __fsub_rn(tmp1, tmp0));
+      doff[(2 * t + 1) * out_plane] = __fmul_rn(gwm, __fsub_rn(tmp1, tmp0));
       dw[t] = __fmul_rn(g * m, val);
     } else {
       const float top = (1.f - tx) * v00 + tx * v01;
       const float bot = (1.f - tx) * v10 + tx * v11;
       const float val = (1.f - ty) * top + ty * bot;
-      dmsk[t * hw] = gw * val;
-      doff[(2 * t) * hw] = gwm * (bot - top);
-      doff[(2 * t + 1) * hw] =
+      dmsk[t * out_plane] = gw * val;
+      doff[(2 * t) * out_plane] = gwm * (bot - top);
+      doff[(2 * t + 1) * out_plane] =
           gwm * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
       dw[t] = g * m * val;
     }
@@ -354,38 +447,276 @@ __device__ __forceinline__ void block_dweight(const float (&dw)[kTaps],
   }
 }
 
-// K2: one thread per pixel of the flattened slab (B, Hs, W) of image rows
-// [row0, row0 + Hs), no input gradient; kBf16 the bf16-sampling mode
+// K2's launch: its inputs and outputs (contiguous fp32; offset, mask, g,
+// d_offset and d_mask the slab of hs rows whose first is image row row0,
+// x the whole image), and its finish's scratch: one row of k2::kSums
+// doubles per block, and the ticket counter, 0 at the launch and left at 0
+struct K2Params {
+  const float* x;
+  const float* offset;
+  const float* mask;
+  const float* weight;
+  const float* grad_out;
+  float* d_offset;
+  float* d_mask;
+  float* d_weight;
+  float* d_bias;
+  double* rows;
+  unsigned* counter;
+  int h, w, pad, hs, row0, tiles_x, tiles_y, n_tiles;
+};
+
+// a tile of one image (its first row in the slab) and the origin of its
+// window (in image rows; an arithmetic shift floors negative columns too)
+struct K2Tile {
+  int b, y0, x0, wy0, wx0;
+};
+
+__device__ __forceinline__ K2Tile k2_tile(int t, const K2Params& p) {
+  const int tx = t % p.tiles_x;
+  t /= p.tiles_x;
+  const int y0 = (t % p.tiles_y) * k2::kTileH, x0 = tx * k2::kTileW;
+  return {t / p.tiles_y, y0, x0, y0 + p.row0 - p.pad - k2::kMargin,
+          ((x0 - p.pad - k2::kMargin) >> 2) << 2};
+}
+
+// this consumer thread's pixel of tile ``tl`` from one stage: its
+// d_offset and d_mask written, its g m_t val_t added to dw
 template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-deform_bwd_kernel(const float* __restrict__ x, const float* __restrict__ offset,
-                  const float* __restrict__ mask,
-                  const float* __restrict__ weight,
-                  const float* __restrict__ grad_out,
-                  float* __restrict__ d_offset, float* __restrict__ d_mask,
-                  float* __restrict__ d_weight_partial, int64_t n, int h,
-                  int w, int pad, int hs, int row0) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void k2_pixel(const float* st, const K2Tile& tl,
+                                         const K2Params& p, int ctid,
+                                         float (&dw)[kTaps]) {
+  const int y = tl.y0 + ctid / k2::kTileW, xo = tl.x0 + ctid % k2::kTileW;
+  if (y >= p.hs || xo >= p.w) return;
+  const int64_t hws = static_cast<int64_t>(p.hs) * p.w;  // a slab plane
+  const int64_t q = static_cast<int64_t>(y) * p.w + xo;
+  float px_dw[kTaps];
+  pixel_backward<kBf16, true>(
+      p.x + tl.b * (static_cast<int64_t>(p.h) * p.w),
+      Window{st + k2::kPlaneFloats, static_cast<float>(tl.wy0),
+             static_cast<float>(tl.wx0)},
+      st + ctid, st + k2::kOffFloats + ctid, k2::kTilePx, p.weight,
+      p.d_offset + tl.b * (2 * kTaps) * hws + q,
+      p.d_mask + tl.b * kTaps * hws + q, hws,
+      st[k2::kOffFloats + k2::kMaskFloats + ctid], p.row0 + y, xo, p.h, p.w,
+      p.pad, px_dw, NoScatter{});
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) dw[t] += px_dw[t];
+}
+
+// One warp's share of d_bias from a tile's stage: each lane adds its
+// strided eighth of the g plane (zero off the slab) to ``gsum``, in double:
+// d_bias is held to a relative tolerance, and a float sum of a million g
+// carries about 1e-4 of rounding, more than a sum near 0 allows. One warp
+// per block does it (the TMA path's producer, idle while the consumers
+// compute), so the consumers carry no double (which cost 2-5 % on an H100
+// at 16 and 50 x 128^2).
+__device__ __forceinline__ void k2_tile_gsum(const float* st, int lane,
+                                             double& gsum) {
+  const float* g = st + k2::kOffFloats + k2::kMaskFloats;
+#pragma unroll
+  for (int k = 0; k < k2::kTilePx / 32; ++k) gsum += g[lane + 32 * k];
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// the copy path's fill of one stage: the layout the TMA path's loads
+// write, zero off the slab and off the image; each thread copies its own
+// pixel of the tile's 28 planes (one index, 28 copies), then its share of
+// the window
+__device__ __forceinline__ void k2_copy_tile(float* st, const K2Tile& tl,
+                                             const K2Params& p, int tid) {
+  const int64_t hws = static_cast<int64_t>(p.hs) * p.w;  // a slab plane
+  const int y = tl.y0 + tid / k2::kTileW, xo = tl.x0 + tid % k2::kTileW;
+  const bool valid = y < p.hs && xo < p.w;
+  const int64_t q = valid ? static_cast<int64_t>(y) * p.w + xo : 0;
+  // planes 0-17 the offsets, 18-26 the mask, 27 g
+  const float* off = p.offset + tl.b * (2 * kTaps) * hws + q;
+  const float* msk = p.mask + tl.b * kTaps * hws + q;
+  const uint32_t dst = jspsr::smem_u32(st + tid);
+#pragma unroll
+  for (int k = 0; k < 2 * kTaps; ++k)
+    cp_async4(dst + k * k2::kTilePx * 4, off + k * hws, valid);
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k)
+    cp_async4(dst + (2 * kTaps + k) * k2::kTilePx * 4, msk + k * hws, valid);
+  cp_async4(dst + 3 * kTaps * k2::kTilePx * 4, p.grad_out + tl.b * hws + q,
+            valid);
+  const float* img = p.x + tl.b * (static_cast<int64_t>(p.h) * p.w);
+  for (int e = tid; e < k2::kWinFloats; e += k2::kConsumers) {
+    const int gy = tl.wy0 + e / k2::kWinW, gx = tl.wx0 + e % k2::kWinW;
+    const bool in = gy >= 0 && gy < p.h && gx >= 0 && gx < p.w;
+    cp_async4(jspsr::smem_u32(st + k2::kPlaneFloats + e),
+              in ? img + static_cast<int64_t>(gy) * p.w + gx : p.x, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// K2's d_weight and d_bias from every thread's sums (dw, gsum), in a fixed
+// order: the block's sums (warp shuffles, then its kWarpsB warps in order)
+// as one row of ``rows``; the block whose ticket on the counter comes last
+// sums the rows in block order (one warp per value: each lane its strided
+// share in double, then a fixed shuffle tree), writes d_weight and d_bias
+// and sets the counter back to 0. Every thread of the block calls it. The
+// last warp writes the row, fences and takes the ticket: a fence waits for
+// its thread's own stores, and in the TMA path that warp, the producer, has
+// written nothing else.
+template <int kWarpsB>
+__device__ __forceinline__ void k2_finish(const float (&dw)[kTaps],
+                                          double gsum, const K2Params& p) {
+  __shared__ double warp_sums[kWarpsB][k2::kSums];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int c = 0; c < k2::kSums; ++c) {
+    double v = c < kTaps ? static_cast<double>(dw[c % kTaps]) : gsum;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+    if (lane == 0) warp_sums[warp][c] = v;
+  }
+  __syncthreads();
+  if (warp == kWarpsB - 1) {
+    if (lane < k2::kSums) {
+      double s = 0.0;
+#pragma unroll
+      for (int k = 0; k < kWarpsB; ++k) s += warp_sums[k][lane];
+      p.rows[blockIdx.x * k2::kSums + lane] = s;
+      __threadfence();  // the row is visible before the ticket says so
+    }
+    __syncwarp();
+    if (lane == 0) last = atomicAdd(p.counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (int c = warp; c < k2::kSums; c += kWarpsB) {
+    double v = 0.0;
+    for (int r = lane; r < static_cast<int>(gridDim.x); r += 32)
+      v += __ldcg(p.rows + r * k2::kSums + c);  // from L2, past this SM's L1
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) {
+      if (c < kTaps)
+        p.d_weight[c] = static_cast<float>(v);
+      else
+        *p.d_bias = static_cast<float>(v);
+    }
+  }
+  if (threadIdx.x == 0) *p.counter = 0u;  // every block has its ticket
+}
+
+// K2: the persistent grid over 4 x 64 tiles of the slab (B, Hs, W) of image
+// rows [row0, row0 + Hs), no input gradient, d_weight and d_bias finished
+// in the kernel; kTma the TMA path (a producer warp and 256 consumers),
+// else the cp.async path (256 threads that copy and compute); kBf16 the
+// bf16-sampling mode
+template <bool kTma, bool kBf16>
+__global__ void __launch_bounds__(kTma ? k2::kThreadsTma : k2::kConsumers,
+                                  k2::kBlocksPerSm)
+deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
+                  const __grid_constant__ CUtensorMap mask_map,
+                  const __grid_constant__ CUtensorMap g_map,
+                  const __grid_constant__ CUtensorMap x_map,
+                  const K2Params p) {
+  using jspsr::smem_u32;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 127u) & ~127u;
+  unsigned char* smem = smem_raw + (base - raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [kStages]
+  uint64_t* empty = full + k2::kStages;                // [kStages]
+  float* ring = reinterpret_cast<float*>(smem + k2::kBarBytes);
+  constexpr int kStageStride = k2::kStageBytes / 4;  // floats
+
+  const int tid = threadIdx.x;
+  const int my_tiles =
+      static_cast<int>(blockIdx.x) < p.n_tiles
+          ? (p.n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
+          : 0;
   float dw[kTaps];
 #pragma unroll
   for (int t = 0; t < kTaps; ++t) dw[t] = 0.f;
+  double gsum = 0.0;  // this lane's share of d_bias, in the summing warp
 
-  // no early return: every thread takes part in the block reduction below
-  if (i < n) {
-    const int64_t hw = static_cast<int64_t>(h) * w;
-    const int64_t hws = static_cast<int64_t>(hs) * w;  // a slab plane
-    const int64_t b = i / hws;
-    const int64_t p = i - b * hws;
-    const int y = static_cast<int>(p / w);
-    const int xo = static_cast<int>(p - static_cast<int64_t>(y) * w);
-    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hws + p,
-                          mask + b * kTaps * hws + p, weight,
-                          d_offset + b * (2 * kTaps) * hws + p,
-                          d_mask + b * kTaps * hws + p, grad_out[i],
-                          row0 + y, xo, h, w, hws, pad, dw, NoScatter{});
+  if constexpr (kTma) {
+    if (tid == 0) {
+      for (int s = 0; s < k2::kStages; ++s) {
+        jspsr::mbar_init(smem_u32(full + s), 1);
+        // the consumer warps, and the producer once it has summed g
+        jspsr::mbar_init(smem_u32(empty + s), k2::kConsumers / 32 + 1);
+      }
+      jspsr::mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid >= k2::kConsumers) {
+      // the producer warp: lane 0 issues tile i's loads, then the warp
+      // sums tile i - 1's g, which has landed, and frees its stage
+      const int lane = tid - k2::kConsumers;
+      constexpr uint32_t kTx = k2::kStageFloats * 4;
+      for (int i = 0; i <= my_tiles; ++i) {
+        if (i < my_tiles && lane == 0) {
+          const int s = i % k2::kStages;
+          if (i >= k2::kStages)
+            jspsr::mbar_wait(smem_u32(empty + s), (i / k2::kStages - 1) & 1);
+          const K2Tile tl = k2_tile(blockIdx.x + i * gridDim.x, p);
+          const uint32_t bar = smem_u32(full + s);
+          const uint32_t dst = smem_u32(ring + s * kStageStride);
+          jspsr::mbar_expect_tx(bar, kTx);
+          jspsr::tma_load_3d(dst, &off_map, tl.x0, tl.y0,
+                             tl.b * 2 * kTaps, bar);
+          jspsr::tma_load_3d(dst + k2::kOffFloats * 4, &mask_map, tl.x0,
+                             tl.y0, tl.b * kTaps, bar);
+          jspsr::tma_load_3d(dst + (k2::kOffFloats + k2::kMaskFloats) * 4,
+                             &g_map, tl.x0, tl.y0, tl.b, bar);
+          jspsr::tma_load_4d(dst + k2::kPlaneFloats * 4, &x_map, 0,
+                             tl.wx0 / 4, tl.wy0, tl.b, bar);
+        }
+        if (i >= 1) {
+          const int s = (i - 1) % k2::kStages;
+          jspsr::mbar_wait(smem_u32(full + s), ((i - 1) / k2::kStages) & 1);
+          k2_tile_gsum(ring + s * kStageStride, lane, gsum);
+          __syncwarp();
+          if (lane == 0) jspsr::mbar_arrive(smem_u32(empty + s));
+        }
+      }
+    } else {
+      for (int i = 0; i < my_tiles; ++i) {
+        const int s = i % k2::kStages;
+        jspsr::mbar_wait(smem_u32(full + s), (i / k2::kStages) & 1);
+        k2_pixel<kBf16>(ring + s * kStageStride,
+                        k2_tile(blockIdx.x + i * gridDim.x, p), p, tid, dw);
+        // every lane's reads of the stage are done before lane 0 frees it
+        __syncwarp();
+        if (tid % 32 == 0) jspsr::mbar_arrive(smem_u32(empty + s));
+      }
+    }
+    k2_finish<k2::kThreadsTma / 32>(dw, gsum, p);
+  } else {
+    // the last warp sums each tile's g too
+    constexpr int kSummer = k2::kConsumers / 32 - 1;
+    for (int i = 0; i < my_tiles; ++i) {
+      if (i == 0) k2_copy_tile(ring, k2_tile(blockIdx.x, p), p, tid);
+      if (i + 1 < my_tiles) {
+        k2_copy_tile(ring + ((i + 1) % k2::kStages) * kStageStride,
+                     k2_tile(blockIdx.x + (i + 1) * gridDim.x, p), p, tid);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();
+      const float* st = ring + (i % k2::kStages) * kStageStride;
+      k2_pixel<kBf16>(st, k2_tile(blockIdx.x + i * gridDim.x, p), p, tid,
+                      dw);
+      if (tid / 32 == kSummer) k2_tile_gsum(st, tid % 32, gsum);
+      // the stage is refilled two tiles on
+      __syncthreads();
+    }
+    k2_finish<k2::kConsumers / 32>(dw, gsum, p);
   }
-  block_dweight(dw,
-                d_weight_partial + static_cast<int64_t>(blockIdx.x) * kTaps);
 }
 
 // K3: one block per 8 x 32 tile of one image's slab of image rows [row0,
@@ -437,11 +768,11 @@ deform_bwd_dx_kernel(const float* __restrict__ x,
     const int64_t p = static_cast<int64_t>(ys) * w + xo;
     const WindowScatter scatter{win_lo, win_hi, dimg, fs.scale,
                                 iy0 - kMargin, tx0 - kMargin, w};
-    pixel_backward<kBf16>(x + b * hw, offset + b * (2 * kTaps) * hws + p,
-                          mask + b * kTaps * hws + p, weight,
-                          d_offset + b * (2 * kTaps) * hws + p,
-                          d_mask + b * kTaps * hws + p, grad_out[b * hws + p],
-                          row0 + ys, xo, h, w, hws, pad, dw, scatter);
+    pixel_backward<kBf16, false>(
+        x + b * hw, Window{}, offset + b * (2 * kTaps) * hws + p,
+        mask + b * kTaps * hws + p, hws, weight,
+        d_offset + b * (2 * kTaps) * hws + p, d_mask + b * kTaps * hws + p,
+        hws, grad_out[b * hws + p], row0 + ys, xo, h, w, pad, dw, scatter);
   }
   // its __syncthreads also ends every scatter into the window
   block_dweight(dw, d_weight_partial + blk * kTaps);
@@ -536,27 +867,88 @@ dx_fixed_to_float_kernel(const long long* __restrict__ d_x_fixed,
                    : __int_as_float(0x7fc00000);
 }
 
-int64_t k2_blocks(int64_t batch, int h, int w) {
-  return (batch * h * w + kThreads - 1) / kThreads;
+bool k2_use_tma(const void* x, const void* offset, const void* mask,
+                const void* grad_out, int w) {
+  return w % 4 == 0 && jspsr::aligned16(x) && jspsr::aligned16(offset) &&
+         jspsr::aligned16(mask) && jspsr::aligned16(grad_out);
+}
+
+int64_t k2_tiles(int64_t batch, int hs, int w) {
+  return batch * ((hs + k2::kTileH - 1) / k2::kTileH) *
+         ((w + k2::kTileW - 1) / k2::kTileW);
+}
+
+// the rows of K2's finish on the current device: one per block of its
+// persistent grid, at most kBlocksPerSm per SM (0 where the runtime cannot
+// count the SMs)
+int64_t k2_rows(int64_t batch, int hs, int w) {
+  return std::min<int64_t>(k2_tiles(batch, hs, w),
+                           int64_t{jspsr::sm_count()} * k2::kBlocksPerSm);
+}
+
+// the kernel's dynamic shared-memory allowance, set once per device, and
+// how many of its blocks one SM holds
+template <bool kTma, bool kBf16>
+cudaError_t k2_prepare(int* blocks) {
+  static int resident[64] = {};  // per device, 0 until asked
+  return jspsr::resident_blocks(
+      deform_bwd_kernel<kTma, kBf16>,
+      kTma ? k2::kThreadsTma : k2::kConsumers, k2::kSmem, resident, blocks);
 }
 
 // K2 on the slab of image rows [y0, y0 + hs) (the whole image: hs = h,
-// y0 = 0)
+// y0 = 0), as jspsr_deform_bwd describes it
 template <bool kBf16>
 int launch_k2(const float* x, const float* offset, const float* mask,
               const float* weight, const float* grad_out, float* d_offset,
-              float* d_mask, float* d_weight_partial, int64_t batch, int h,
-              int w, int pad, int hs, int y0, void* stream) {
+              float* d_mask, float* d_weight, float* d_bias, double* rows,
+              unsigned* counter, int64_t batch, int h, int w, int pad, int hs,
+              int y0, void* stream) {
   if (y0 < 0 || hs < 0 || y0 > h - hs)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = batch * hs * w;
-  if (n == 0) return 0;
-  deform_bwd_kernel<kBf16>
-      <<<static_cast<unsigned int>(k2_blocks(batch, hs, w)), kThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(x, offset, mask, weight,
-                                              grad_out, d_offset, d_mask,
-                                              d_weight_partial, n, h, w, pad,
-                                              hs, y0);
+  if (batch == 0 || hs == 0 || w == 0) return 0;
+  const int64_t n_tiles = k2_tiles(batch, hs, w);
+  if (n_tiles >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = jspsr::sm_count();
+  if (sms == 0) return static_cast<int>(cudaGetLastError());
+  const bool tma = k2_use_tma(x, offset, mask, grad_out, w);
+  int blocks = 0;
+  const cudaError_t err = tma ? k2_prepare<true, kBf16>(&blocks)
+                              : k2_prepare<false, kBf16>(&blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // persistent: every block resident at once, none without a tile, no
+  // more than k2_rows sized the rows for
+  const int64_t slots =
+      static_cast<int64_t>(sms) * std::min(blocks, k2::kBlocksPerSm);
+  const int grid = static_cast<int>(std::min(n_tiles, slots));
+  const int tiles_x = (w + k2::kTileW - 1) / k2::kTileW;
+  const int tiles_y = (hs + k2::kTileH - 1) / k2::kTileH;
+  const K2Params p{x,      offset,  mask, weight, grad_out, d_offset,
+                   d_mask, d_weight, d_bias, rows, counter, h,
+                   w,      pad,     hs,   y0,     tiles_x,  tiles_y,
+                   static_cast<int>(n_tiles)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap maps[4] = {};
+  if (tma) {
+    const jspsr::EncodeTiled encode = jspsr::encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    using jspsr::encode_planes;
+    if (encode_planes(encode, &maps[0], offset, w, hs, batch * 2 * kTaps,
+                      k2::kTileW, k2::kTileH, 2 * kTaps) != CUDA_SUCCESS ||
+        encode_planes(encode, &maps[1], mask, w, hs, batch * kTaps,
+                      k2::kTileW, k2::kTileH, kTaps) != CUDA_SUCCESS ||
+        encode_planes(encode, &maps[2], grad_out, w, hs, batch, k2::kTileW,
+                      k2::kTileH, 1) != CUDA_SUCCESS ||
+        jspsr::encode_window(encode, &maps[3], x, w, h, batch, k2::kWinH,
+                             k2::kWinW) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+    deform_bwd_kernel<true, kBf16><<<grid, k2::kThreadsTma, k2::kSmem, s>>>(
+        maps[0], maps[1], maps[2], maps[3], p);
+  } else {
+    deform_bwd_kernel<false, kBf16><<<grid, k2::kConsumers, k2::kSmem, s>>>(
+        maps[0], maps[1], maps[2], maps[3], p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -612,14 +1004,15 @@ int launch_k3(const float* x, const float* offset, const float* mask,
 
 }  // namespace
 
-// Blocks of a launch, which is the number of d_weight partial rows the
-// caller allocates: K2 (need_dx 0) one per 256 pixels of the flattened
-// (B, H, W), H a slab's rows; K3 (need_dx 1) one per 8 x 32 tile of each
-// image's slab of H rows.
+// The rows of a launch's scratch. K2 (need_dx 0): one row of d_weight's 9
+// sums and d_bias's per block of its persistent grid on the current device
+// (jspsr_deform_bwd's ``rows``); K3 (need_dx 1): one row of 9 d_weight
+// partials per 8 x 32 tile of each image's slab of H rows. H is a slab's
+// rows.
 extern "C" int64_t jspsr_deform_bwd_blocks(int need_dx, int64_t batch, int h,
                                            int w) {
   return need_dx ? batch * k3_tiles_y(h) * k3_tiles_x(w)
-                 : k2_blocks(batch, h, w);
+                 : k2_rows(batch, h, w);
 }
 
 // K3's tile (rows, columns) and window margin, in that order.
@@ -632,32 +1025,47 @@ extern "C" void jspsr_deform_bwd_dx_window(int* out) {
 // Plain C entry points, bound from Python with ctypes. All tensors are
 // contiguous fp32 on the current device: x (B,1,H,W), offset (B,18,H,W),
 // mask (B,9,H,W), weight (9,), grad_out (B,1,H,W); outputs d_offset
-// (B,18,H,W), d_mask (B,9,H,W), d_weight_partial (jspsr_deform_bwd_blocks
-// rows, 9) and, for jspsr_deform_bwd_dx, d_x (B,1,H,W) through the
-// accumulator described there. Each takes a row slab: offset, mask,
-// grad_out, d_offset and d_mask of hs rows, image rows [y0, y0 + hs) of
-// x (hs = h, y0 = 0: the whole image); d_x is the whole image's (B,1,H,W)
-// either way. Each launches on ``stream`` without
-// synchronising and returns cudaGetLastError().
+// (B,18,H,W), d_mask (B,9,H,W) and, for jspsr_deform_bwd_dx, d_weight's
+// partials (jspsr_deform_bwd_blocks rows of 9, summed by the caller) and
+// d_x (B,1,H,W) through the accumulator described there. Each takes a row
+// slab: offset, mask, grad_out, d_offset and d_mask of hs rows, image rows
+// [y0, y0 + hs) of x (hs = h, y0 = 0: the whole image); d_x is the whole
+// image's (B,1,H,W) either way. Each launches on ``stream`` without
+// synchronising and returns cudaGetLastError() (cudaErrorNotSupported
+// where libcuda has no tensor-map encoder and K2's shape needs one).
+//
+// K2 writes d_weight (9,) and d_bias (1,) itself, in one launch, through
+// ``rows`` (jspsr_deform_bwd_blocks(0, ...) rows of 10 doubles, written
+// before they are read) and ``counter``, one unsigned int that is 0 when
+// the kernel starts and that its last block sets back to 0. One counter
+// serves every K2 launch on one stream: the launches of a stream run one
+// after the other, each leaves the counter at 0 for the next, and no other
+// kernel touches it. Two streams need two counters, as two launches on
+// them may run at once.
 extern "C" int jspsr_deform_bwd(const float* x, const float* offset,
                                 const float* mask, const float* weight,
                                 const float* grad_out, float* d_offset,
-                                float* d_mask, float* d_weight_partial,
-                                int64_t batch, int h, int w, int pad, int hs,
-                                int y0, void* stream) {
+                                float* d_mask, float* d_weight, float* d_bias,
+                                double* rows, unsigned* counter, int64_t batch,
+                                int h, int w, int pad, int hs, int y0,
+                                void* stream) {
   return launch_k2<false>(x, offset, mask, weight, grad_out, d_offset, d_mask,
-                          d_weight_partial, batch, h, w, pad, hs, y0, stream);
+                          d_weight, d_bias, rows, counter, batch, h, w, pad,
+                          hs, y0, stream);
 }
 
 // K2's bf16-sampling mode: as jspsr_deform_bwd.
 extern "C" int jspsr_deform_bwd_bf16(const float* x, const float* offset,
                                      const float* mask, const float* weight,
                                      const float* grad_out, float* d_offset,
-                                     float* d_mask, float* d_weight_partial,
-                                     int64_t batch, int h, int w, int pad,
-                                     int hs, int y0, void* stream) {
+                                     float* d_mask, float* d_weight,
+                                     float* d_bias, double* rows,
+                                     unsigned* counter, int64_t batch, int h,
+                                     int w, int pad, int hs, int y0,
+                                     void* stream) {
   return launch_k2<true>(x, offset, mask, weight, grad_out, d_offset, d_mask,
-                         d_weight_partial, batch, h, w, pad, hs, y0, stream);
+                         d_weight, d_bias, rows, counter, batch, h, w, pad,
+                         hs, y0, stream);
 }
 
 // K3's scratch, in int64 words, all zeroed by the caller: the whole

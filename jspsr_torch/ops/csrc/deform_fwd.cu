@@ -104,13 +104,17 @@
 
 namespace {
 
+using jspsr::aligned16;
+using jspsr::encode_planes;
 using jspsr::encode_tiled;
+using jspsr::encode_window;
 using jspsr::EncodeTiled;
 using jspsr::mbar_arrive;
 using jspsr::mbar_expect_tx;
 using jspsr::mbar_init;
 using jspsr::mbar_init_fence;
 using jspsr::mbar_wait;
+using jspsr::sm_count;
 using jspsr::smem_u32;
 using jspsr::tma_load_3d;
 using jspsr::tma_load_4d;
@@ -404,32 +408,8 @@ deform_fwd_kernel(const __grid_constant__ CUtensorMap off_map,
   }
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
 bool use_tma(const void* x, const void* offset, const void* mask, int w) {
   return w % 4 == 0 && aligned16(x) && aligned16(offset) && aligned16(mask);
-}
-
-// a 3-D fp32 tensor map over (W, H, planes), box (box_w, box_h, box_c)
-CUresult encode3d(EncodeTiled encode, CUtensorMap* map, const float* ptr,
-                  int w, int h, int64_t planes, int box_w, int box_h,
-                  int box_c) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(w),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(w) * 4,
-                                 static_cast<cuuint64_t>(w) * 4 * h};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w),
-                             static_cast<cuuint32_t>(box_h),
-                             static_cast<cuuint32_t>(box_c)};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                const_cast<float*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // the kernel's dynamic shared-memory allowance, set once per device, and
@@ -437,48 +417,8 @@ CUresult encode3d(EncodeTiled encode, CUtensorMap* map, const float* ptr,
 template <bool kTma, bool kBf16>
 cudaError_t prepare(int threads, int smem, int* blocks) {
   static int resident[64] = {};  // per device, 0 until asked
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && resident[dev] > 0) {
-    *blocks = resident[dev];
-    return cudaSuccess;
-  }
-  err = cudaFuncSetAttribute(deform_fwd_kernel<kTma, kBf16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, deform_fwd_kernel<kTma, kBf16>, threads, smem);
-  if (err == cudaSuccess && *blocks < 1) err = cudaErrorInvalidConfiguration;
-  if (err == cudaSuccess && dev < 64) resident[dev] = *blocks;
-  return err;
-}
-
-// the image's 4-D fp32 tensor map over (4, W/4, H, B), and its box, the
-// window: rows of 16-byte groups
-CUresult encode_window(EncodeTiled encode, CUtensorMap* map, const float* x,
-                       int w, int h, int64_t batch) {
-  const cuuint64_t dims[4] = {4, static_cast<cuuint64_t>(w / 4),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {16, static_cast<cuuint64_t>(w) * 4,
-                                 static_cast<cuuint64_t>(w) * 4 * h};
-  const cuuint32_t box[4] = {4, kWinW / 4, kWinH, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return n;
+  return jspsr::resident_blocks(deform_fwd_kernel<kTma, kBf16>, threads,
+                                smem, resident, blocks);
 }
 
 }  // namespace
@@ -538,11 +478,12 @@ int launch(const float* x, const float* offset, const float* mask,
   if (tma) {
     EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    if (encode3d(encode, &maps[0], offset, w, hs, batch * 2 * kTaps, kTileW,
-                 kTileH, 2 * kTaps) != CUDA_SUCCESS ||
-        encode3d(encode, &maps[1], mask, w, hs, batch * kTaps, kTileW,
-                 kTileH, kTaps) != CUDA_SUCCESS ||
-        encode_window(encode, &maps[2], x, w, h, batch) != CUDA_SUCCESS)
+    if (encode_planes(encode, &maps[0], offset, w, hs, batch * 2 * kTaps,
+                      kTileW, kTileH, 2 * kTaps) != CUDA_SUCCESS ||
+        encode_planes(encode, &maps[1], mask, w, hs, batch * kTaps, kTileW,
+                      kTileH, kTaps) != CUDA_SUCCESS ||
+        encode_window(encode, &maps[2], x, w, h, batch, kWinH, kWinW) !=
+            CUDA_SUCCESS)
       return static_cast<int>(cudaErrorInvalidValue);
     deform_fwd_kernel<true, kBf16><<<grid, kThreadsTma, kSmem, s>>>(
         maps[0], maps[1], maps[2], p);

@@ -1,7 +1,10 @@
 // Hopper's bulk-copy plumbing shared by the port's kernels (the deform
-// forward K1, deform_fwd.cu, and K4's bf16 conv, conv_same_bf16.cu):
-// mbarrier helpers, TMA tensor loads, and libcuda's tensor-map encoder
-// looked up through the runtime, so that no library needs -lcuda.
+// forward K1, deform_fwd.cu, the deform backward K2, deform_bwd.cu, and
+// K4's bf16 conv, conv_same_bf16.cu): mbarrier helpers, TMA tensor loads,
+// libcuda's tensor-map encoder looked up through the runtime, so that no
+// library needs -lcuda, and the host helpers of K1's and K2's persistent
+// launches (their plane and window tensor maps, the SM count, the resident
+// blocks per SM).
 //
 // A TMA load is issued by one thread; the hardware copies a box of a
 // tensor map into shared memory, fills what lies outside the tensor with
@@ -101,6 +104,85 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+inline bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+// a 3-D fp32 tensor map over (W, H, planes), box (box_w, box_h, box_c)
+inline CUresult encode_planes(EncodeTiled encode, CUtensorMap* map,
+                              const float* ptr, int w, int h, int64_t planes,
+                              int box_w, int box_h, int box_c) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(w) * 4,
+                                 static_cast<cuuint64_t>(w) * 4 * h};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h),
+                             static_cast<cuuint32_t>(box_c)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                const_cast<float*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// an fp32 image batch (B, 1, H, W) as a 4-D tensor map over (4, W/4, H, B),
+// box (4, win_w / 4, win_h, 1): a window of rows of 16-byte groups (a TMA
+// box row may be at most 256 bytes on an H100, a window row is wider)
+inline CUresult encode_window(EncodeTiled encode, CUtensorMap* map,
+                              const float* x, int w, int h, int64_t batch,
+                              int win_h, int win_w) {
+  const cuuint64_t dims[4] = {4, static_cast<cuuint64_t>(w / 4),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {16, static_cast<cuuint64_t>(w) * 4,
+                                 static_cast<cuuint64_t>(w) * 4 * h};
+  const cuuint32_t box[4] = {4, static_cast<cuuint32_t>(win_w / 4),
+                             static_cast<cuuint32_t>(win_h), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// the current device's SM count, 0 where the runtime cannot say
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// ``kernel``'s dynamic shared-memory allowance (``smem`` bytes), set once
+// per device, and how many of its blocks of ``threads`` one SM holds, in
+// ``blocks``; ``resident`` is the caller's cache of that count per device
+// (one array per kernel, 0 until asked)
+template <class Kernel>
+cudaError_t resident_blocks(Kernel* kernel, int threads, int smem,
+                            int (&resident)[64], int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && resident[dev] > 0) {
+    *blocks = resident[dev];
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess && *blocks < 1) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess && dev < 64) resident[dev] = *blocks;
+  return err;
 }
 
 }  // namespace jspsr

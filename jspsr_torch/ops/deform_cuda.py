@@ -7,9 +7,15 @@
   tensor map cannot take, by cp.async); ``fwd_window`` counts, from the
   offsets, the corners it reads from that window and from global memory;
 - ``deform_bwd`` (``csrc/deform_bwd.cu``), replacing ``_bwd_kernel`` with
-  ``need_dx=False``: d_offset, d_mask and per-block d_weight partials;
-- ``deform_bwd_dx`` (the same source, its own kernel), replacing
-  ``_bwd_kernel`` with ``need_dx=True``: the same outputs plus the input
+  ``need_dx=False``: one launch of a persistent grid over 4 x 64 tiles,
+  each tile's planes and an image window staged in shared memory as K1's
+  (TMA, or cp.async), that writes d_offset and d_mask and finishes d_weight
+  and d_bias itself (each block's sums in a fixed order, then the last
+  block sums the blocks' rows, through a ticket counter that ``_counter``
+  keeps per stream);
+- ``deform_bwd_dx`` (the same source, its own kernels), replacing
+  ``_bwd_kernel`` with ``need_dx=True``: d_offset, d_mask, per-block
+  d_weight partials (summed here, as d_bias = sum(g)) and the input
   gradient d_x, scattered in 64-bit fixed point (scaled per image from
   the L1 norm of its contributions, which a first pass sums in a fixed
   order) into a shared-memory window around each 8 x 32 output tile and
@@ -75,6 +81,8 @@ FWD_MARGIN = 4
 # csrc/deform_bwd.cu, checked against the library when it is loaded
 DX_TILE = (8, 32)
 DX_MARGIN = 4
+# a row of K2's scratch: a block's 9 d_weight sums and its d_bias sum
+K2_SUMS = TAPS + 1
 
 KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
            "deform_bwd_bf16", "deform_bwd_dx_bf16", "deform_fwd_slab",
@@ -83,6 +91,9 @@ KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _fns: dict = {}
+# K2's ticket counters, one zeroed int32 per (device, stream): see
+# ``_counter``
+_COUNTERS: dict = {}
 
 
 def reset_launches() -> None:
@@ -94,18 +105,18 @@ def reset_launches() -> None:
 # batch, h, w, pad, hs, y0: every entry point takes a row slab). A kernel
 # on a row slab (``<kernel>_slab``) is its kernel's entry point.
 _ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6),
-          "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 8),
+          "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 11),
           "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 10),
           "deform_fwd_bf16": ("deform_fwd", "jspsr_deform_fwd_bf16", 6),
-          "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 8),
+          "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 11),
           "deform_bwd_dx_bf16": ("deform_bwd", "jspsr_deform_bwd_dx_bf16",
                                  10)}
 
 
 def _load(name: str):
     """The kernel's ctypes function; for the backward kernels with the
-    library's block count, which sizes the d_weight partials, and K3's
-    scratch size in int64 words."""
+    library's row count, which sizes K2's scratch rows and K3's d_weight
+    partials, and K3's scratch size in int64 words."""
     name = name.removesuffix("_slab")
     if name not in _fns:
         source, symbol, n_ptr = _ENTRY[name]
@@ -211,7 +222,24 @@ def fwd_path(x: torch.Tensor, offset: torch.Tensor,
     return "tma" if use else "copy"
 
 
-def _backward(name, x, offset, weight, mask, grad_out, padding, y0=0):
+def _counter(stream: torch.cuda.Stream) -> torch.Tensor:
+    """K2's ticket counter for launches on ``stream``: one int32, zeroed
+    once, that every K2 launch leaves at 0. One per stream suffices, as a
+    stream runs its launches one after the other; two streams may run two
+    at once, so each has its own (``deform_bwd.cu``, jspsr_deform_bwd)."""
+    key = (stream.device_index, stream.cuda_stream)
+    if key not in _COUNTERS:  # the caller's current stream zeroes it
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                     device=stream.device)
+    return _COUNTERS[key]
+
+
+def _backward_args(kernel, x, offset, weight, mask, grad_out,
+                   sample_dtype, y0):
+    """Check a backward kernel's arguments; returns its launch count's name
+    and (B, H, W, Hs)."""
+    check_deform_args(x, offset, weight, None, mask, y0)
+    name = _name(kernel, sample_dtype, x, offset, y0)
     _check({"x": x, "offset": offset, "weight": weight, "mask": mask,
             "grad_out": grad_out}, x)
     b, _, h, w = x.shape
@@ -219,30 +247,7 @@ def _backward(name, x, offset, weight, mask, grad_out, padding, y0=0):
     if grad_out.shape != (b, 1, hs, w):
         raise ValueError(f"grad_out must be {(b, 1, hs, w)}, got "
                          f"{tuple(grad_out.shape)}")
-    fn, blocks, scratch = _load(name)
-    d_offset = torch.empty_like(offset)
-    d_mask = torch.empty_like(mask)
-    partial = torch.empty(blocks(b, hs, w), TAPS, device=x.device,
-                          dtype=torch.float32)
-    tail, d_x = [], []
-    if name.startswith("deform_bwd_dx"):
-        # the whole image's fixed-point accumulator, summed with atomics,
-        # starts at zero; the bounds pass's partials after it are written
-        # whole
-        d_x = [torch.empty_like(x)]
-        tail = [torch.zeros(scratch(b, h, w, hs), device=x.device,
-                            dtype=torch.int64), d_x[0]]
-    ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, partial,
-            *tail]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), hs,
-                int(y0), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
-    d_weight = partial.sum(0).view_as(weight)
-    return (d_offset, d_mask, d_weight, grad_out.sum().view(1), *d_x)
+    return name, (b, h, w, hs)
 
 
 def deform_bwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
@@ -253,12 +258,30 @@ def deform_bwd(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     (B,9,Hs,W), grad_out (B,1,Hs,W), the row slab whose first row is image
     row ``y0`` (Hs = H, y0 = 0 by default: the whole image), in its
     bf16-sampling mode where ``sample_dtype`` asks for it. Returns
-    ``(d_offset, d_mask, d_weight, d_bias)``; d_weight is the kernel's
-    per-block partials summed here, d_bias the sum of ``grad_out``: on a
-    slab, its share of the image's."""
-    check_deform_args(x, offset, weight, None, mask, y0)
-    name = _name("deform_bwd", sample_dtype, x, offset, y0)
-    return _backward(name, x, offset, weight, mask, grad_out, padding, y0)
+    ``(d_offset, d_mask, d_weight, d_bias)``, all four from one launch
+    (d_weight and d_bias summed in the kernel in a fixed order, the same
+    bits on every call on one card; on a slab, its share of the image's).
+    An empty batch or slab launches nothing."""
+    name, (b, h, w, hs) = _backward_args("deform_bwd", x, offset, weight,
+                                         mask, grad_out, sample_dtype, y0)
+    d_offset = torch.empty_like(offset)
+    d_mask = torch.empty_like(mask)
+    if d_offset.numel() == 0:  # nothing to compute: no launch, none counted
+        return d_offset, d_mask, torch.zeros_like(weight), x.new_zeros(1)
+    fn, rows, _ = _load(name)
+    d_weight, d_bias = torch.empty_like(weight), x.new_empty(1)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        # the blocks' sums, written before they are read
+        scratch = x.new_empty(rows(b, hs, w), K2_SUMS, dtype=torch.float64)
+        ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask,
+                d_weight, d_bias, scratch, _counter(stream)]
+        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), hs,
+                int(y0), stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    return d_offset, d_mask, d_weight, d_bias
 
 
 def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
@@ -271,10 +294,31 @@ def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     point, scaled per image (from the slab's own pixels) on the device, so
     every output is the same, bit for bit, on every run. In the
     bf16-sampling mode d_offset, d_mask and d_weight are ``deform_bwd``'s
-    in that mode and d_x is the fp32 mode's."""
-    check_deform_args(x, offset, weight, None, mask, y0)
-    name = _name("deform_bwd_dx", sample_dtype, x, offset, y0)
-    return _backward(name, x, offset, weight, mask, grad_out, padding, y0)
+    in that mode and d_x is the fp32 mode's. d_weight is the kernel's
+    per-block partials summed here, d_bias the sum of ``grad_out``."""
+    name, (b, h, w, hs) = _backward_args("deform_bwd_dx", x, offset, weight,
+                                         mask, grad_out, sample_dtype, y0)
+    fn, blocks, scratch = _load(name)
+    d_offset = torch.empty_like(offset)
+    d_mask = torch.empty_like(mask)
+    partial = torch.empty(blocks(b, hs, w), TAPS, device=x.device,
+                          dtype=torch.float32)
+    d_x = torch.empty_like(x)
+    # the whole image's fixed-point accumulator, summed with atomics, starts
+    # at zero; the bounds pass's partials after it are written whole
+    acc = torch.zeros(scratch(b, h, w, hs), device=x.device,
+                      dtype=torch.int64)
+    ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, partial,
+            acc, d_x]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), hs,
+                int(y0), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES[name] += 1
+    d_weight = partial.sum(0).view_as(weight)
+    return d_offset, d_mask, d_weight, grad_out.sum().view(1), d_x
 
 
 def dx_atomics(offset: torch.Tensor, h: int, w: int, padding: int = 1,

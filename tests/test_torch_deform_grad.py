@@ -170,3 +170,46 @@ def test_input_gradient_raises_naming_k3():
     assert grads[0].abs().max() > 0
     torch.testing.assert_close(grads[0], d_x, rtol=0, atol=0)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+def test_k2_bound_counts_each_byte_once():
+    """K2's bound: 224 bytes per output pixel (x, 18 offsets, 9 mask
+    values and g in; 18 offset and 9 mask gradients out) and the 9
+    weights in and out, or 315 fp32 operations per pixel."""
+    from jspsr_torch.scripts.bench_deform_bwd import k2_bound
+
+    ms, by = k2_bound(50, 128, 128, 3.35e12, 67e12)
+    assert by == "bytes"
+    assert ms == pytest.approx((50 * 128 * 128 * 224 + 72) / 3.35e12 * 1e3)
+    ms, by = k2_bound(2, 64, 128, 1e30, 1e9)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * 64 * 128 * 315 / 1e9 * 1e3)
+
+
+@pytest.mark.parametrize("label", ["16x128", "slab_2x64of128"])
+def test_bench_deform_bwd_inputs_are_rows_of_one_image(label):
+    """The K2 bench's inputs: x the whole image, offset, mask and g the
+    slab's rows of the image's own, contiguous, as a sharded rank holds
+    them."""
+    from jspsr_torch.scripts.bench_deform_bwd import SHAPES, bwd_inputs
+
+    b, side, hs, y0 = SHAPES[label]
+    b = min(b, 2)
+    slab = bwd_inputs(b, side, hs, y0, torch.Generator().manual_seed(5),
+                      torch.device("cpu"))
+    whole = bwd_inputs(b, side, side, 0, torch.Generator().manual_seed(5),
+                       torch.device("cpu"))
+    assert slab[0].shape == (b, 1, side, side)
+    for got, full in zip(slab[1:], whole[1:]):
+        assert got.is_contiguous()
+        want = full[:, :, y0:y0 + hs] if full.dim() == 4 and \
+            full.shape[2] == side else full
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_bench_deform_bwd_needs_cuda(monkeypatch):
+    from jspsr_torch.scripts import bench_deform_bwd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_deform_bwd.main([])

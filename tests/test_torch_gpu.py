@@ -260,7 +260,8 @@ def test_kernel_misaligned_base_takes_the_copy_path(cuda_device):
 @pytest.mark.parametrize("b,h,w,scale", CASES)
 def test_backward_kernel_matches_plain(cuda_device, b, h, w, scale):
     """d_offset and d_mask: the same fp32 arithmetic per element. d_weight
-    sums b*h*w terms in another order (warp, block, then the partials): its
+    sums b*h*w terms in another order (each thread's tiles, the warp, the
+    block, then the blocks' rows, all in K2's launch): its
     error is held to 1e-5 of the sum of the terms' magnitudes, bounded by
     the same backward on |x|, |mask| and |g|."""
     x, offset, weight, _, mask = _args(b, h, w, scale, cuda_device)
@@ -314,6 +315,131 @@ def test_bf16_sampling_kernels_match_plain(cuda_device, b, h, w, scale):
         sample_dtype="bfloat16")[2]
     assert ((grads[2] - ref_g[2]).abs() <= 1e-5 * scale_w + 1e-6).all()
     torch.testing.assert_close(grads[3], ref_g[3], rtol=1e-5, atol=1e-4)
+
+
+def _k2_case(b, h, w, scale, device, hs=None, y0=0, seed=3):
+    """K2's inputs: x the whole image, offset, mask and g the slab of ``hs``
+    rows from image row ``y0`` (the whole image by default)."""
+    x, offset, weight, _, mask = _args(b, h, w, scale, device, seed=seed)
+    g = torch.randn(b, 1, h, w, generator=torch.Generator().manual_seed(seed))
+    rows = slice(y0, y0 + (h if hs is None else hs))
+    offset, mask, g = (t[:, :, rows].contiguous() for t in
+                       (offset, mask, g.to(device)))
+    return x, offset, weight, mask, g
+
+
+def _hold_k2_to_plain(got, x, offset, weight, mask, g, **kw):
+    """As test_backward_kernel_matches_plain holds K2."""
+    ref = deform_conv2d_backward_plain(x, offset, weight, mask, g, **kw)
+    scale_w = deform_conv2d_backward_plain(x.abs(), offset, weight,
+                                           mask.abs(), g.abs(), **kw)[2]
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    assert ((got[2] - ref[2]).abs() <= 1e-5 * scale_w + 1e-6).all()
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("slab", [False, True], ids=["whole", "slab"])
+def test_backward_kernel_is_one_device_kernel(cuda_device, mode, slab):
+    """K2 finishes d_weight and d_bias in its own launch: one device
+    kernel per call, no memset, copy or reduction beside it."""
+    from jspsr_torch.scripts.bench_deform_bwd import device_kernels
+
+    kw = {"hs": 64, "y0": 64} if slab else {}
+    x, offset, weight, mask, g = _k2_case(4, 128, 128, 1.5, cuda_device,
+                                          **kw)
+    kinds = device_kernels(lambda: deform_cuda.deform_bwd(
+        x, offset, weight, mask, g, sample_dtype=mode, y0=kw.get("y0", 0)))
+    assert list(kinds.values()) == [1.0], kinds
+    assert "deform_bwd_kernel" in next(iter(kinds)), kinds
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_backward_kernel_is_bit_identical_across_calls_and_streams(
+        cuda_device, mode):
+    """Every output the same bits on every call: on the default stream, then
+    on two side streams one after the other (each with its own ticket
+    counter, left at 0 by every launch)."""
+    x, offset, weight, mask, g = _k2_case(16, 128, 128, 1.5, cuda_device)
+    first = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                   sample_dtype=mode)
+    runs = [deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                   sample_dtype=mode) for _ in range(2)]
+    torch.cuda.synchronize()
+    for _ in range(2):
+        side = torch.cuda.Stream(cuda_device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            runs.append(deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                               sample_dtype=mode))
+        side.synchronize()
+    torch.cuda.synchronize()
+    for got in runs:
+        assert all(torch.equal(a, c) for a, c in zip(first, got))
+    _hold_k2_to_plain(first, x, offset, weight, mask, g, sample_dtype=mode)
+
+
+@pytest.mark.parametrize("b,h,w,hs,y0", [(2, 13, 21, 13, 0),
+                                         (2, 40, 130, 17, 11),
+                                         (1, 333, 335, 111, 111)],
+                         ids=["small", "slab", "scene"])
+@pytest.mark.parametrize("scale", [0.0, 1.5, 20.0])
+def test_backward_kernel_copy_path_matches_plain(cuda_device, b, h, w, hs,
+                                                 y0, scale):
+    """W % 4 != 0 takes K2's cp.async path; its outputs hold the plain
+    version as the TMA path's do, whole and on a slab."""
+    args = _k2_case(b, h, w, scale, cuda_device, hs=hs, y0=y0)
+    assert deform_cuda.fwd_path(args[0], args[1], args[3]) == "copy"
+    got = deform_cuda.deform_bwd(*args, y0=y0)
+    torch.cuda.synchronize()
+    _hold_k2_to_plain(got, *args, y0=y0)
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_backward_kernel_misaligned_base_matches_aligned(cuda_device, mode):
+    """A g whose base is not on 16 bytes cannot have a tensor map: K2 takes
+    the copy path and gives the TMA path's d_offset and d_mask, bit for
+    bit, and d_weight and d_bias within the plain version's tolerance."""
+    x, offset, weight, mask, g = _k2_case(3, 64, 128, 1.5, cuda_device)
+    moved = torch.empty(g.numel() + 1, device=cuda_device)[1:]
+    moved = moved.view_as(g).copy_(g)
+    got = deform_cuda.deform_bwd(x, offset, weight, mask, moved,
+                                 sample_dtype=mode)
+    ref = deform_cuda.deform_bwd(x, offset, weight, mask, g,
+                                 sample_dtype=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    _hold_k2_to_plain(got, x, offset, weight, mask, g, sample_dtype=mode)
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_backward_kernel_blocks_walk_several_tiles(cuda_device, mode):
+    """At 60 x 128^2 (3,840 tiles of 4 x 64) each block of the persistent
+    grid (at most 3 per SM) walks several tiles, carrying its sums across
+    them; the outputs hold the plain version."""
+    args = _k2_case(60, 128, 128, 1.5, cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 60 * 32 * 2 >= 4 * 3 * sms
+    got = deform_cuda.deform_bwd(*args, sample_dtype=mode)
+    torch.cuda.synchronize()
+    _hold_k2_to_plain(got, *args, sample_dtype=mode)
+
+
+def test_backward_kernel_empty_batch_launches_nothing(cuda_device):
+    """An empty batch or an empty slab: empty gradients, zero d_weight and
+    d_bias, no launch counted."""
+    before = dict(deform_cuda.LAUNCHES)
+    for b, hs in ((0, 16), (2, 0)):
+        x, offset, weight, mask, g = _k2_case(max(b, 1), 16, 16, 1.5,
+                                              cuda_device, hs=hs)
+        x, offset, mask, g = (t[:b] for t in (x, offset, mask, g))
+        got = deform_cuda.deform_bwd(x, offset, weight, mask, g)
+        torch.cuda.synchronize()
+        assert got[0].shape == offset.shape and got[1].shape == mask.shape
+        assert not got[2].any() and not got[3].any()
+        assert got[2].shape == weight.shape and got[3].shape == (1,)
+    assert deform_cuda.LAUNCHES == before
 
 
 # K3 at NLSPN's shapes: a narrow odd width, integer positions (NLSPN's
