@@ -346,12 +346,42 @@ Phases, in order; any failure ends the run with a non-zero exit:
    attending over the gathered keys, NLSPN's 6 steps on the gathered
    feature, 6 K1 on a slab per forward, 6 K1 and 6 K3 on a slab per
    gradient); each case's launches exact on every rank.
+18. summary and trace (``utils/summary.py``), in a process of its own
+   (in this one, after a process group and other profiler runs, the
+   profiler's events came back without their device): phase 4's
+   full-width flagship checkpoint under configs/jspsr_r8_img_msk.yml at
+   its train batch, 50 x 128^2. (a) ``model_summary`` on the card: TOTAL
+   the JAX model's count (``FLAGSHIP_PARAMS``), the output line ``(50, 1,
+   128, 128) torch.float32``, the forward FLOPs equal, as an integer, to
+   the same model's on the CPU, no device memory allocated (the
+   allocator's peak over the call is what it held before it; the
+   process's first fake tensor on the card, in an earlier call, probes
+   the CUDA context with a 512-byte ``torch.empty(1)`` that is freed at
+   once) and no kernel launched; (b) ``trace_step`` around one warm fp32 train step
+   and around one eval forward: the step's trace holds exactly one
+   ``deform_fwd_kernel`` and one ``deform_bwd_kernel``, the forward's one
+   ``deform_fwd_kernel`` and no K2, the traced step's losses and every
+   parameter and buffer bit-equal to an untraced step's from the same
+   state, the traced forward's output to an untraced one's; (c) the
+   step's FLOPs counted (``count_flops``, one more step from the same
+   state: the convolutions' forward and backward and the deform forward;
+   the deform backward has no formula and is left out); (d) ``entry()``
+   on its default device, the card: its forward at 1 x 128^2 launches
+   exactly one K1 (counts set to 0 just before) and matches
+   ``entry("cpu")`` on the same seeded weights at rtol 1e-4, atol 2e-5.
+   It prints the top 5 device kernels of the step by summed time, the
+   device's busy share over the traced step's window (the union of its
+   kernels' intervals over the ``trace_step`` span), the FLOPs per second
+   of the eval forward and of the step (the counted FLOPs over the
+   untraced warm step's time), each with the card's name and power limit,
+   and its own time.
 
 It prints ``{"serving": ...}``, ``{"training": ...}``,
 ``{"cf_training": ...}``, ``{"cf_serving": ...}``, ``{"tiled_serving":
 ...}``, ``{"fit": ...}``, ``{"edsr": ...}``, ``{"lrru": ...}``,
 ``{"bf16": ...}``, ``{"export": ...}``, ``{"options": ...}``,
-``{"data_parallel": ...}``, ``{"spatial": ...}`` (each with the card's
+``{"data_parallel": ...}``, ``{"spatial": ...}``, ``{"summary_trace":
+...}`` (each with the card's
 name and power limit) and ``{"kernels": [...]}`` lines, its wall
 time, and ends with ``{"ok": true, "device":
 {...}}``. Without CUDA it exits non-zero before printing any result.
@@ -383,6 +413,7 @@ from jspsr_torch.data.loader import build_batch_inputs, input_kinds, \
 from jspsr_torch.data.normalize import scale_data
 from jspsr_torch.data.raster_io import read_raster, write_raster
 from jspsr_torch.data.synthetic import generate_city, generate_mini_dfc30
+from jspsr_torch.entry import entry
 from jspsr_torch.eval.export import load_exported
 from jspsr_torch.eval.inference import (
     load_scene,
@@ -431,6 +462,8 @@ from jspsr_torch.train.step import make_train_step, seed_step_generator
 from jspsr_torch.train.trainer import Trainer
 from jspsr_torch.utils.device import set_deterministic_cudnn, set_strict_fp32
 from jspsr_torch.utils.perturb import perturb_weights
+from jspsr_torch.utils.summary import count_flops, forward_cost, \
+    model_summary, trace_kernels, trace_step
 
 REPO = Path(__file__).resolve().parent
 FLAGSHIP = REPO / "configs" / "jspsr_r8_img_msk.yml"
@@ -885,6 +918,18 @@ print(json.dumps(kernels_per_call(json.loads(sys.argv[1]))))
 """
 
 
+def child_json(code: str, *args: str, what: str):
+    """The last line of the standard output, as JSON, of ``code`` run in a
+    fresh Python process from the repo's root (``-c``, with ``args``);
+    raises with its error output if it fails."""
+    run = subprocess.run([sys.executable, "-c", code, *args],
+                         capture_output=True, text=True, cwd=REPO,
+                         env={**os.environ, "PYTHONPATH": str(REPO)})
+    if run.returncode:
+        raise AssertionError(f"{what} failed: {run.stderr[-6000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
 def k2_kernels_per_call(by_mode) -> None:
     """Each K2 row's device kernels per call (``by_mode``: (rows, sample
     dtype) pairs), at its shape (a slab row at its last y0), offsets of
@@ -896,13 +941,8 @@ def k2_kernels_per_call(by_mode) -> None:
     specs = [[row["shape"][0], row.get("image", row["shape"])[2],
               row["shape"][2], row.get("y0", [0])[-1], mode]
              for row, mode in rows]
-    run = subprocess.run([sys.executable, "-c", K2_KERNELS, json.dumps(specs)],
-                         capture_output=True, text=True, cwd=REPO,
-                         env={**os.environ, "PYTHONPATH": str(REPO)})
-    if run.returncode:
-        raise AssertionError(f"K2's kernel count failed: "
-                             f"{run.stderr[-4000:]}")
-    counts = json.loads(run.stdout.strip().splitlines()[-1])
+    counts = child_json(K2_KERNELS, json.dumps(specs),
+                        what="K2's kernel count")
     for (row, mode), (b, side, hs, y0, _), kinds in zip(rows, specs, counts):
         row["kernels_per_call"] = kinds
         name = "deform_bwd" + ("_bf16" if mode else "") + (
@@ -4544,6 +4584,251 @@ def spatial_phase(dev: torch.device, flagship, smi: str) -> tuple:
     return out, paths
 
 
+# Phase 18: the shipped flagship's parameter count, the JAX model's
+# (tests/test_torch_configs.py, tests/test_torch_summary.py)
+FLAGSHIP_PARAMS = 43_869_763
+# the device kernels printed, by summed time in the traced step
+TOP_KERNELS = 5
+# the phase's launches in its process: two runs of a warm step and one
+# more, and the counted step (one K1 and one K2 each), two untraced eval
+# forwards, a traced one and entry()'s (one K1 each); the summary
+# launches nothing
+SUMMARY_TRACE_LAUNCHES = {"deform_fwd": 9, "deform_bwd": 5}
+# entry()'s forward on the card against entry("cpu"): the JAX suite's
+# tolerance (tests/test_parity_jspsr.py)
+ENTRY_RTOL, ENTRY_ATOL = 1e-4, 2e-5
+
+# run in a process of its own: phase 18 (``summary_trace_child``)
+SUMMARY_TRACE = r"""
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.summary_trace_child(sys.argv[1], sys.argv[2])))
+"""
+
+
+def trace_window(path) -> tuple:
+    """The ``trace_step`` span of a Chrome trace: (start, end) in us."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "trace_step"
+             and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise AssertionError(f"{path}: {len(spans)} trace_step spans")
+    return spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+
+
+def kernel_table(path) -> dict:
+    """A Chrome trace's device kernels: by name, their count and summed
+    time (ms); and the device's busy share over the ``trace_step`` span
+    (the union of the kernels' intervals within it over its length)."""
+    kernels = trace_kernels(path)
+    by_name = {}
+    for e in kernels:
+        n, ms = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, ms + e["dur"] / 1e3)
+    start, end = trace_window(path)
+    busy, reach = 0.0, start
+    for ts, te in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        ts, te = max(ts, reach), min(te, end)
+        if te > ts:
+            busy += te - ts
+            reach = te
+    return {"by_name": by_name, "busy_share": busy / (end - start),
+            "window_ms": (end - start) / 1e3}
+
+
+def named(by_name: dict, key: str) -> int:
+    """How many kernels of the table ``by_name`` have ``key`` in their
+    name."""
+    return sum(n for name, (n, _) in by_name.items() if key in name)
+
+
+def summary_trace_child(ckpt: str, log_dir: str) -> dict:
+    """Phase 18, in a process of its own (``SUMMARY_TRACE``): the
+    summary of the flagship checkpoint ``ckpt`` at its train batch on the
+    card, then traces of a warm train step and of an eval forward into
+    ``log_dir`` (the module's docstring)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    set_strict_fp32()
+    set_deterministic_cudnn()
+    reset_launches()
+    p = create_config(FLAGSHIP)
+    batch = int(p.train_batch_size)
+    model = checkpoint_model(p, ckpt)
+    inputs, gt = train_batch(p, batch, 5)
+    cpu_shape, cpu_dtype, cpu_flops = forward_cost(model, inputs)
+    model.to(dev)
+    inputs, gt = [x.to(dev) for x in inputs], gt.to(dev)
+    # (a) the summary allocates nothing on the card and launches nothing.
+    # The process's first fake tensor on the card probes the CUDA context
+    # once (torch's ``init_gpu_context``: ``torch.empty(1)``, freed at
+    # once): the first call's peak is kept apart
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    shape, dtype, flops = forward_cost(model, inputs)
+    first = torch.cuda.max_memory_allocated(dev) - held
+    torch.cuda.reset_peak_memory_stats(dev)
+    text = model_summary(model, inputs)
+    peak = torch.cuda.max_memory_allocated(dev)
+    lines = text.splitlines()
+    summary = {"batch": [batch, 128, 128], "lines": lines[-3:],
+               "groups": len(lines) - 3, "forward_flops": flops,
+               "cpu_forward_flops": cpu_flops, "bytes_held": held,
+               "peak_bytes_over_call": peak,
+               "first_call_probe_bytes": first,
+               "held_after": torch.cuda.memory_allocated(dev),
+               "launches": dict(deform_cuda.LAUNCHES)}
+    want = [f"{'TOTAL':<{len(lines[-3]) - 14}}  {FLAGSHIP_PARAMS:>12,}",
+            f"output: {(batch, 1, 128, 128)} torch.float32",
+            f"forward flops: {flops:.3e}"]
+    if (lines[-3:] != want or flops != cpu_flops or peak != held
+            or summary["held_after"] != held or first > 512
+            or (shape, dtype) != (cpu_shape, cpu_dtype)
+            or any(deform_cuda.LAUNCHES.values())):
+        raise AssertionError(f"summary at {batch} x 128^2: {summary}, "
+                             f"expected {want}")
+    # (b) a warm train step twice from one state, the second traced
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    warm_inputs, warm_gt = train_batch(p, batch, 6)
+    warm_inputs, warm_gt = [x.to(dev) for x in warm_inputs], warm_gt.to(dev)
+    runs = {}
+    for traced in (False, True):
+        m = model_from_state(p, state).to(dev)
+        gen = torch.Generator(dev)
+        seed_step_generator(gen, p.get("seed", 0), 0)
+        step = make_train_step(m, build_criterion(dict(p.loss)),
+                               build_optimizer(p, m), generator=gen)
+        step(warm_inputs, warm_gt)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        if traced:
+            losses, _ = trace_step(step, inputs, gt,
+                                   log_dir=Path(log_dir) / "step")
+        else:
+            losses = step(inputs, gt)
+            torch.cuda.synchronize()
+        runs[traced] = ((time.perf_counter() - s0) * 1e3,
+                        {k: v.detach().clone() for k, v in losses.items()},
+                        {n: t.detach().clone() for n, t in
+                         [*m.named_parameters(), *m.named_buffers()]})
+        del m, step
+    (step_ms, loss_u, after_u), (traced_ms, loss_t, after_t) = \
+        runs[False], runs[True]
+    # (c) the step's FLOPs, from one more step from the same state
+    m = model_from_state(p, state).to(dev)
+    step = make_train_step(m, build_criterion(dict(p.loss)),
+                           build_optimizer(p, m))
+    _, step_flops = count_flops(step, inputs, gt)
+    torch.cuda.synchronize()
+    del m, step
+    unequal = [n for n in after_u if not torch.equal(after_u[n], after_t[n])]
+    unequal += [k for k in loss_u if not torch.equal(loss_u[k], loss_t[k])]
+    # ... and the eval forward, untraced and traced
+    forward = make_forward(model)
+    ref = forward(inputs)
+    torch.cuda.synchronize()
+    f0 = time.perf_counter()
+    forward(inputs)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - f0) * 1e3
+    out, _ = trace_step(forward, inputs, log_dir=Path(log_dir) / "forward")
+    step_table = kernel_table(Path(log_dir) / "step" / "trace_000.json")
+    fwd_table = kernel_table(Path(log_dir) / "forward" / "trace_000.json")
+    # (d) entry() on its default device, the card, with the counts set to
+    # 0 just before its forward and added back to the phase's after it
+    launches = dict(deform_cuda.LAUNCHES)
+    fn, args = entry()
+    reset_launches()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = {k: n for k, n in deform_cuda.LAUNCHES.items() if n}
+    for k, n in launches.items():
+        deform_cuda.LAUNCHES[k] += n
+    cpu_fn, cpu_args = entry(device="cpu")
+    y_cpu = cpu_fn(*cpu_args)
+    entry_err = float((y.cpu() - y_cpu).abs().max())
+    entry_ok = (y.shape == y_cpu.shape == (1, 1, 128, 128)
+                and bool(torch.allclose(y.cpu(), y_cpu, rtol=ENTRY_RTOL,
+                                        atol=ENTRY_ATOL)))
+    del fn, cpu_fn
+    launches = dict(deform_cuda.LAUNCHES)
+    top = sorted(step_table["by_name"].items(), key=lambda kv: -kv[1][1])
+    result = {
+        "summary": summary, "launches": launches,
+        "step": {"untraced_ms": step_ms, "traced_ms": traced_ms,
+                 "loss": float(loss_u["Total"]), "tensors": len(after_u),
+                 "unequal": unequal, "kernels": sum(
+                     n for n, _ in step_table["by_name"].values()),
+                 "busy_share": step_table["busy_share"],
+                 "window_ms": step_table["window_ms"],
+                 "k1": named(step_table["by_name"], "deform_fwd_kernel"),
+                 "k2": named(step_table["by_name"], "deform_bwd_kernel"),
+                 "top": [{"name": n, "count": c, "ms": ms}
+                         for n, (c, ms) in top[:TOP_KERNELS]]},
+        "forward": {"untraced_ms": fwd_ms,
+                    "bit_equal": bool(torch.equal(out, ref)),
+                    "busy_share": fwd_table["busy_share"],
+                    "k1": named(fwd_table["by_name"], "deform_fwd_kernel"),
+                    "k2": named(fwd_table["by_name"], "deform_bwd_kernel")},
+        "entry": {"launches": entry_launches, "max_abs_err": entry_err,
+                  "allclose": entry_ok},
+        "step_flops": step_flops,
+        "forward_tflops_per_s": flops / fwd_ms / 1e9,
+        "step_tflops_per_s": step_flops / step_ms / 1e9,
+        "seconds": time.perf_counter() - t0,
+    }
+    if ((result["step"]["k1"], result["step"]["k2"]) != (1, 1)
+            or (result["forward"]["k1"], result["forward"]["k2"]) != (1, 0)
+            or unequal or not result["forward"]["bit_equal"]
+            or entry_launches != {"deform_fwd": 1} or not entry_ok
+            or not 2 * flops <= step_flops < 3 * flops
+            or {k: n for k, n in launches.items() if n}
+            != SUMMARY_TRACE_LAUNCHES
+            or not np.isfinite(result["step"]["loss"])):
+        raise AssertionError(f"summary and trace: {result}")
+    return result
+
+
+def summary_trace(flagship, smi: str) -> tuple:
+    """Phase 18 (``summary_trace_child``) in a process of its own; prints
+    its figures beside the card's name and power limit, and returns
+    (result, launches)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the child's step at batch 50 needs room
+    with tempfile.TemporaryDirectory(prefix="jspsr_trace_") as log_dir:
+        result = child_json(SUMMARY_TRACE, str(flagship[2]), log_dir,
+                            what="phase 18")
+    result["card"] = smi
+    step, summ = result["step"], result["summary"]
+    print(f"summary at {summ['batch']}: {summ['lines']}, CPU flops "
+          f"{summ['cpu_forward_flops']}, peak over the call "
+          f"{summ['peak_bytes_over_call']} of {summ['bytes_held']} bytes "
+          f"held (the first call's context probe "
+          f"{summ['first_call_probe_bytes']} bytes) [{smi}]", flush=True)
+    for k in step["top"]:
+        print(f"traced step top kernel: {k['ms']:.3f} ms in {k['count']} "
+              f"x {k['name'][:120]} [{smi}]", flush=True)
+    print(f"traced step at 50 x 128^2: {step['kernels']} kernels, K1 "
+          f"{step['k1']}, K2 {step['k2']}, device busy "
+          f"{step['busy_share']:.4f} of {step['window_ms']:.2f} ms; "
+          f"untraced {step['untraced_ms']:.2f} ms, traced "
+          f"{step['traced_ms']:.2f} ms; 0 of {step['tensors']} tensors and "
+          f"losses differ [{smi}]", flush=True)
+    print(f"forward flops {summ['forward_flops']}: eval forward "
+          f"{result['forward']['untraced_ms']:.2f} ms, "
+          f"{result['forward_tflops_per_s']:.2f} TFLOP/s; step flops "
+          f"{result['step_flops']} (counted; the deform backward left "
+          f"out) {result['step_tflops_per_s']:.2f} TFLOP/s [{smi}]",
+          flush=True)
+    ent = result["entry"]
+    print(f"entry() on the card at 1 x 128^2: launches {ent['launches']}, "
+          f"max |card - CPU| {ent['max_abs_err']:.3e} (rtol {ENTRY_RTOL}, "
+          f"atol {ENTRY_ATOL}) [{smi}]", flush=True)
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return result, result["launches"]
+
+
 def sum_launches(by_run: dict) -> dict:
     """The launch counts of several runs of one path, summed by kernel."""
     total = {}
@@ -4707,6 +4992,11 @@ def main() -> int:
         # ranks sharing the card
         spatial, spatial_paths = spatial_phase(dev, flagship, smi_line)
         paths.update(spatial_paths)
+        phase(18, t_start)
+        # 18. the flagship's summary and its traced train step and eval
+        # forward, in a process of its own
+        summary_traced, paths["summary_trace"] = summary_trace(flagship,
+                                                               smi_line)
     # K2's kernels per call and K3's three kernels apart, under the
     # profiler, after every phase
     k2_kernels_per_call(((bwd_rows, None), (bwd_bf16_rows, BF16),
@@ -4843,6 +5133,7 @@ def main() -> int:
     print(json.dumps({"options": options}, default=float), flush=True)
     print(json.dumps({"data_parallel": data_par}, default=float), flush=True)
     print(json.dumps({"spatial": spatial}, default=float), flush=True)
+    print(json.dumps({"summary_trace": summary_traced}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)

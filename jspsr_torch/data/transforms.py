@@ -1,8 +1,9 @@
 """Deterministic, shard-safe sample transforms (copy of
 ``jspsr_tpu/data/transforms.py``: ``TransformCtx``, ``Compose``,
 ``RandomFlipRotate90``, ``RandomCrop``, ``TileCrop``, ``ToArray``,
-``Normalize``, ``build_transforms`` and the BT.601 helpers ``RGB2YCbCr``,
-``rgb2ycbcr`` and ``ycbcr2rgb``).
+``Normalize``, ``build_transforms``, the output helpers ``ToImage`` and
+``ToDEM`` and the BT.601 helpers ``RGB2YCbCr``, ``rgb2ycbcr`` and
+``ycbcr2rgb``).
 
 Every transform is a pure function of (sample, ctx): ``ctx.rng`` is a numpy
 Generator seeded from (seed, epoch, sample index) and ``ctx.tile_index``
@@ -20,7 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from jspsr_torch.config.loader import get_tile
-from jspsr_torch.data.normalize import scale_data
+from jspsr_torch.data.normalize import descale_data, scale_data
 from jspsr_torch.data.raster_io import affine_xy
 
 
@@ -289,6 +290,35 @@ class Normalize:
 
     def __str__(self):
         return "Normalize"
+
+
+class ToImage:
+    """[0,1] float array -> [0,255] int image (reference data_utils.py:400-417)."""
+
+    def __call__(self, data):
+        data = np.asarray(data, np.float32)
+        assert data.min() >= 0 and data.max() <= 1, (data.min(), data.max())
+        return (255.0 * data).astype(int)
+
+    def __str__(self):
+        return "ToImage"
+
+
+class ToDEM:
+    """[0,1] float array -> elevation meters (reference data_utils.py:419-457)."""
+
+    def __init__(self, elev_min, elev_max, elev_log: bool = False):
+        self.elev_min = elev_min
+        self.elev_max = elev_max
+        self.elev_log = elev_log
+
+    def __call__(self, data):
+        data = np.asarray(data, np.float32)
+        assert data.min() >= 0 and data.max() <= 1, (data.min(), data.max())
+        return descale_data(data, self.elev_min, self.elev_max, self.elev_log)
+
+    def __str__(self):
+        return "ToDEM"
 
 
 def build_transforms(p):

@@ -10,6 +10,9 @@ reference utils/utils.py:1501-1655).
   (``eval/scene.py``) does not cover;
 - ``load_scene`` / ``run_scene_inference``: the CLI ``--infer`` driver
   (load rasters, run whole or tiled, descale to metres, write).
+- the padding helpers: ``add_padding`` / ``remove_padding`` / ``cal_pad``
+  (mirror padding to a power-of-two side), ``pad_to_square_pow2`` and
+  ``pad_to_multiple``.
 
 Public functions take and return HWC numpy arrays, like the JAX package's;
 tensors are NCHW only between ``_model_inputs`` and the forward's output.
@@ -61,6 +64,33 @@ def device_peak_memory_mb(device) -> float:
     return torch.cuda.max_memory_allocated(device) / 1024 / 1024
 
 
+def add_padding(img: np.ndarray, n: int) -> np.ndarray:
+    """Mirror-pad n pixels on each side (HWC)."""
+    return np.pad(img, ((n, n), (n, n), (0, 0)), mode="reflect")
+
+
+def remove_padding(img: np.ndarray, n: int) -> np.ndarray:
+    return img[n:img.shape[0] - n, n:img.shape[1] - n, :]
+
+
+def _next_pow2(n: int) -> int:
+    """The least power of two >= n."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def cal_pad(img: np.ndarray) -> int:
+    """Per-side padding to reach the next power-of-two square side."""
+    h, w, _ = img.shape
+    side = max(h, w)
+    if side & (side - 1) == 0 and h == w:
+        return 0
+    p = _next_pow2(side)
+    return (p - side) // 2 if (p - side) % 2 == 0 else (p - side + 1) // 2
+
+
 def _pad_hwc(img: np.ndarray, pads):
     t, b, l, r = pads
     if not any(pads):
@@ -87,6 +117,24 @@ def pads_for_multiple(h: int, w: int, mult: int):
     nw = -(-w // mult) * mult if mult > 1 else w
     dh, dw = nh - h, nw - w
     return (dh // 2, dh - dh // 2, dw // 2, dw - dw // 2)
+
+
+def pad_to_square_pow2(img: np.ndarray):
+    """Pad HWC to the next power-of-two SQUARE side (mirror; edge mode when
+    a pad would exceed the reflectable size). Returns (padded, (t, b, l, r)).
+    ``upscale_dem`` pads to the encoder's stride multiple instead."""
+    h, w, _ = img.shape
+    side = _next_pow2(max(h, w))
+    dh, dw = side - h, side - w
+    pads = (dh // 2, dh - dh // 2, dw // 2, dw - dw // 2)
+    return _pad_hwc(img, pads), pads
+
+
+def pad_to_multiple(img: np.ndarray, mult: int):
+    """Pad HWC so each dim is the next multiple of ``mult`` (mirror).
+    Returns (padded, (t, b, l, r))."""
+    pads = pads_for_multiple(img.shape[0], img.shape[1], mult)
+    return _pad_hwc(img, pads), pads
 
 
 def make_forward(model: torch.nn.Module):

@@ -6,6 +6,7 @@ and blends them back with linear cross-fade weights over the overlap
 strips; the 1D ramps sum to 1 in every overlap by construction. Pure numpy
 (the JAX package's native C++ branch is not carried over: the numpy loop
 is the function). Generalized to any square n_x x n_x grid.
+``mosaic_profile`` gives the merged mosaic's geo profile.
 """
 
 from __future__ import annotations
@@ -62,3 +63,16 @@ def merge_tiles(tiles, full_size: int | None = None):
             stride * col:stride * col + k] += t * w[:, :, None]
     out = out.astype(np.float32)
     return out[:, :, 0] if squeeze else out
+
+
+def mosaic_profile(tile_profile: dict, full_size: int, border_px: int = 0):
+    """Geo profile of the merged mosaic given the top-left tile's profile
+    (origin shifted back by the border crop)."""
+    if not tile_profile or not tile_profile.get("transform"):
+        return tile_profile
+    a, b, c, d, e, f = tile_profile["transform"]
+    prof = dict(tile_profile)
+    prof["transform"] = [a, b, c - a * border_px, d, e, f - e * border_px]
+    prof["width"] = full_size
+    prof["height"] = full_size
+    return prof

@@ -8,8 +8,8 @@ The JAX package's semantics, kept exactly:
 - the prediction clamped to [0, 1], the ground truth not;
 - the elevation meters (RMSE, Median, NMAD, LE95, Slope) descale both
   tensors to metres (log-minmax aware) first;
-- Median is torch's lower median; LE95 takes the k-th smallest |dh| with
-  k = 1 + round(0.95 (n - 1));
+- Median is torch's lower median, taken per sample; LE95 takes the k-th
+  smallest |dh| with k = 1 + round(0.95 (n - 1));
 - every ``package:`` value: PSNR piq/skimage/local (and ``psnr_type:
   y``), SSIM piq/skimage/local, Slope local/kornia/richdem, each with the
   JAX meter's convention.
@@ -50,6 +50,12 @@ def _prepare(pred, gt, border: float, tensor_range: str = "[0, 1]"):
     elif tensor_range == "[0, 255]":
         pred, gt = pred / 255.0, gt / 255.0
     return pred.clamp(0.0, 1.0), gt
+
+
+def torch_median(x: torch.Tensor) -> torch.Tensor:
+    """The lower median of the whole tensor (the JAX helper's twin; the
+    meters take ``_per_sample_median``)."""
+    return x.median()
 
 
 def _per_sample_median(x: torch.Tensor) -> torch.Tensor:

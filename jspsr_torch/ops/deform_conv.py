@@ -23,7 +23,9 @@ CPU tensors they are the plain versions ``deform_conv2d_plain`` and
 ``deform_conv2d_backward_plain``; any other device raises. Each op has a
 fake (``register_fake``: contiguous outputs of the kernels' shapes, no
 device work), so ``torch.export`` and ``torch.compile`` see the forward as
-one node (``eval/export.py``); importing this module registers them.
+one node (``eval/export.py``); importing this module registers them,
+and the forward's FLOP formula for ``FlopCounterMode``
+(``deform_flops``, read by ``utils/summary.model_summary``).
 
 ``sample_dtype="bfloat16"`` is the TPU kernels' bf16-sampling mode
 (``spn_sample_dtype``): each tap's row product rounds the image's corners
@@ -67,6 +69,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 NAMESPACE = "jspsr"
 KERNEL = 3
@@ -389,6 +392,30 @@ def _backward(ctx, grad_out):
 
 
 deform_conv2d_op.register_autograd(_backward, setup_context=_setup_context)
+
+# FLOPs of one tap at one output pixel (``deform_flops``)
+FLOPS_PER_TAP = 4 + 8 + 3
+
+
+@register_flop_formula(torch.ops.jspsr.deform_conv2d)
+def deform_flops(x_shape, offset_shape, weight_shape, bias_shape, mask_shape,
+                 padding, sample_dtype, y0=0, *, out_shape=None, **_) -> int:
+    """The forward's FLOPs for ``FlopCounterMode``, from the shapes alone
+    (the same on the CPU and on the card, in either sampling mode): for
+    each output pixel and each of the 9 taps,
+
+    - the bilinear corners' weights (1-ty)(1-tx), (1-ty)tx, ty(1-tx),
+      ty tx: 4 products;
+    - the sample, the 4 corners times their weights summed: 4
+      multiply-adds, 8 FLOPs;
+    - the modulation, the tap's weight times its mask (1 product) times
+      the sample, summed into the output (1 multiply-add): 3 FLOPs;
+
+    so FLOPS_PER_TAP = 15 and B x Hs x W x 9 x 15 in all. As a conv's
+    count, it leaves out the bias and the sampling positions' arithmetic.
+    Only the forward has a formula."""
+    b, _, hs, w = out_shape
+    return b * hs * w * TAPS * FLOPS_PER_TAP
 
 
 def deform_conv2d(x, offset, weight, bias, mask, padding: int = 1,

@@ -39,7 +39,8 @@ import tempfile
 import numpy as np
 import torch
 
-IN_CHANNELS = {"lr_dem": 1, "image": 3, "mask": 15}
+from jspsr_torch.entry import IN_CHANNELS, example_arrays, flagship
+
 LOSS = {"L1": 1, "L2": 1, "Grad": 0.1}
 OPT = {"optimizer": "AdamW",
        "optimizer_kwargs": {"lr": 1e-3, "weight_decay": 1e-6,
@@ -48,19 +49,12 @@ SIDE = 32
 
 
 def _flagship():
-    from jspsr_torch.models.jspsr import JSPSR
-
-    return JSPSR(dict(IN_CHANNELS), num_feature=8, layers=(1, 1, 1, 1),
-                 spn=True, generator=torch.Generator().manual_seed(0))
+    return flagship(num_feature=8, layers=(1, 1, 1, 1))
 
 
 def _example(batch: int, seed: int = 1):
     """(dem, img, msk, gt) NHWC numpy, as the JAX dry run draws them."""
-    rng = np.random.default_rng(seed)
-    dem = rng.uniform(0.3, 0.7, (batch, SIDE, SIDE, 1)).astype(np.float32)
-    img = rng.uniform(0, 1, (batch, SIDE, SIDE, 3)).astype(np.float32)
-    msk = ((rng.uniform(0, 1, (batch, SIDE, SIDE, 15)) < 0.1)
-           .astype(np.float32) * 0.5)
+    dem, img, msk = example_arrays(batch, SIDE, SIDE, seed)
     return dem, img, msk, np.clip(dem + 0.01, 0, 1)
 
 

@@ -129,7 +129,8 @@ from jspsr_torch.utils.device import (
 )
 from jspsr_torch.utils.logging import MetricLogger, serialize_config
 from jspsr_torch.utils.pretrained import apply_pretrained
-from jspsr_torch.utils.summary import count_parameters
+from jspsr_torch.utils.summary import count_parameters, start_profile, \
+    stop_profile
 
 _MONITOR_PREFIXES = ("grad_", "input_", "pred_")
 CHECKPOINT_BACKENDS = ("npz", "orbax")
@@ -388,21 +389,12 @@ class Trainer:
         if not self._profile_steps or self._profiled:
             return None
         self._profiled = True
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-        return prof
+        return start_profile(self.device.type == "cuda")
 
     def _stop_profile(self, prof, epoch: int) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
         proc = f".proc{self.rank}" if self.rank else ""
-        out = self.result_dir / "profile" / f"trace_e{epoch:03d}{proc}.json"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out))
+        out = stop_profile(prof, self.result_dir / "profile"
+                           / f"trace_e{epoch:03d}{proc}.json", self.device)
         if self.verbose:
             print(f"Profiler trace ({self._profile_steps} steps) -> {out}")
 

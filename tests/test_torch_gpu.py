@@ -1200,3 +1200,110 @@ def test_completionformer_remat_step_on_gpu_is_bit_equal(cuda_device,
     unequal = [n for n in after[0] if not torch.equal(after[0][n],
                                                       after[1][n])]
     assert not unequal, unequal[:8]
+
+
+# ---------------------------------------------- summary and trace (phase 18)
+
+def _flagship_step_inputs(device, b=4, side=64, seed=11):
+    rng = np.random.default_rng(seed)
+    inputs = [torch.from_numpy(rng.uniform(0.05, 0.95, (b, c, side, side))
+                               .astype(np.float32)).to(device)
+              for c in CF_INPUTS.values()]
+    gt = torch.from_numpy(rng.uniform(0.05, 0.95, (b, 1, side, side))
+                          .astype(np.float32)).to(device)
+    return inputs, gt
+
+
+def test_model_summary_on_gpu_allocates_nothing_and_counts_as_cpu(
+        cuda_device):
+    """The summary of a model on the card takes no device memory, launches
+    no kernel, and its FLOPs are the same model's on the CPU."""
+    from jspsr_torch.utils.summary import forward_cost, model_summary
+
+    model = JSPSR(dict(CF_INPUTS), num_feature=8, layers=(1, 1, 1, 1))
+    inputs, _ = _flagship_step_inputs("cpu")
+    cpu = forward_cost(model, inputs)
+    model.to(cuda_device)
+    inputs = [x.to(cuda_device) for x in inputs]
+    torch.cuda.synchronize()
+    # a process's first fake tensor on the card probes the CUDA context
+    # once (torch.empty(1), freed at once)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    card = forward_cost(model, inputs)
+    assert torch.cuda.max_memory_allocated() - held <= 512
+    assert torch.cuda.memory_allocated() == held
+    torch.cuda.reset_peak_memory_stats()
+    deform_cuda.reset_launches()
+    text = model_summary(model, inputs)
+    assert torch.cuda.max_memory_allocated() == held
+    assert deform_cuda.LAUNCHES == NO_LAUNCHES
+    assert card == cpu
+    assert text.splitlines()[-2] == "output: (4, 1, 64, 64) torch.float32"
+
+
+def test_trace_step_on_gpu_sees_k1_and_k2_once_per_step(cuda_device,
+                                                       tmp_path):
+    """A warm train step traced: one K1 and one K2 device kernel, and the
+    step bit-equal to an untraced one from the same state; an eval
+    forward traced: one K1, no K2."""
+    from jspsr_torch.utils.summary import trace_kernels, trace_step
+
+    set_deterministic_cudnn()
+    inputs, gt = _flagship_step_inputs(cuda_device)
+    state = JSPSR(dict(CF_INPUTS), num_feature=8,
+                  layers=(1, 1, 1, 1)).state_dict()
+    after = []
+    for traced in (False, True):
+        model = JSPSR(dict(CF_INPUTS), num_feature=8, layers=(1, 1, 1, 1))
+        model.load_state_dict(state)
+        model = model.to(cuda_device)
+        step = make_train_step(model, build_criterion(
+            {"L1": 1, "L2": 1, "Grad": 0.1}),
+            torch.optim.AdamW(model.parameters(), lr=1e-3))
+        step(inputs, gt)  # warm
+        if traced:
+            losses, log_dir = trace_step(step, inputs, gt,
+                                         log_dir=tmp_path / "step")
+        else:
+            losses = step(inputs, gt)
+        torch.cuda.synchronize()
+        after.append({**losses, **{n: t.detach().clone() for n, t in
+                                   [*model.named_parameters(),
+                                    *model.named_buffers()]}})
+    assert not [n for n in after[0] if not torch.equal(after[0][n],
+                                                       after[1][n])]
+    names = [e["name"] for e in trace_kernels(log_dir / "trace_000.json")]
+    assert sum("deform_fwd_kernel" in n for n in names) == 1
+    assert sum("deform_bwd_kernel" in n for n in names) == 1
+
+    model.eval()
+
+    def forward(x):
+        with torch.inference_mode():
+            return model(x)
+
+    out, log_dir = trace_step(forward, inputs, log_dir=tmp_path / "fwd")
+    assert torch.equal(out, forward(inputs))
+    names = [e["name"] for e in trace_kernels(log_dir / "trace_000.json")]
+    assert sum("deform_fwd_kernel" in n for n in names) == 1
+    assert not any("deform_bwd" in n for n in names)
+
+
+def test_entry_on_gpu_launches_k1_and_matches_the_cpu(cuda_device):
+    """``entry()`` with its default device: the flagship's forward at
+    1 x 128^2 on the card launches K1 once and matches ``entry("cpu")``
+    on the same seeded weights at the JAX suite's tolerance."""
+    from jspsr_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    deform_cuda.reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert deform_cuda.LAUNCHES == {**NO_LAUNCHES, "deform_fwd": 1}
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    assert out.shape == want.shape == (1, 1, 128, 128)
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=2e-5)
