@@ -70,10 +70,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    scale), d_x and d_weight within the same limit and bit-equal across
    two launches; timed as K2, the library yardstick being autograd's
    backward through the ``grid_sample`` form with ``x`` requiring grad,
-   and, after phase 10, the device time of each of its three kernels (the
-   bounds pass that sets the fixed point's scale, the scatter, the pass
-   back to fp32) read by name from ``torch.profiler``
-   (``profile_kernels.device_us``); where this run's d_x contributions go
+   and, after every phase, the device time of its one kernel (the zero
+   fill and bounds, the scatter and the pass back to fp32 are phases of
+   one cooperative launch) read by name from ``torch.profiler``
+   (``bench_deform_bwd_dx.kernels_per_call`` in a process of its own, with
+   K2's count), and exactly one device kernel per call in each mode,
+   whole and on a slab, on the TMA and the copy path, counted there too
+   (no memset, no reduction);
+   its bounds come from ``bench_deform_bwd_dx``; where this run's d_x
+   contributions go
    (``deform_cuda.dx_atomics``: into the block's shared-memory window, or
    global, and the window's flush) is counted at every offset scale and
    printed per shape beside the one global atomic per in-bounds corner
@@ -112,7 +117,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    image's, and d_weight within 1e-5 of their magnitude sums), bit-equal
    across two launches, and the slabs' d_x and d_weight summed within
    1e-6 of the whole image's magnitude sums; timed beside the plain
-   version, the library form and the slab's bound;
+   version, the library form and the slab's bound; then K3 on an empty
+   batch and on empty slabs (no rows, at y0 = 0 and at y0 = H), each
+   mode, after a NaN tensor of d_x's size was freed (``k3_empty_slabs``):
+   zero d_x, d_weight and d_bias, no launch counted;
 4. serving: the flagship JSPSR (configs/jspsr_r8_img_msk.yml: lr_dem +
    RGB + 15-channel mask, num_feature 32, num_block 2) at full width with
    seeded random weights and non-trivial BatchNorm statistics, serving a
@@ -453,7 +461,7 @@ from jspsr_torch.scripts.bench_deform_fwd import (
     time_ms,
 )
 from jspsr_torch.scripts.bench_deform_bwd import k2_bound
-from jspsr_torch.scripts.profile_kernels import device_us
+from jspsr_torch.scripts.bench_deform_bwd_dx import k3_bound, k3_slab_bound
 from jspsr_torch.train.checkpoint import load_model_params
 from jspsr_torch.train.optim import build_optimizer
 from jspsr_torch.train.orbax_ckpt import wait_for_checkpoint
@@ -498,9 +506,16 @@ DX_ERR_LIMIT = 1e-5
 # batch, scaled by each factor (they set their images' fixed-point scale),
 # at this offset scale
 HEAVY_TAILS, HEAVY_COUNT, HEAVY_SCALE = (1e4, 1e6), 4, 20.0
-# K3's three kernels, by the names the profiler gives them
-DX_PASSES = {"bounds": "dx_bounds_kernel", "scatter": "deform_bwd_dx_kernel",
-             "fixed_to_float": "dx_fixed_to_float_kernel"}
+# K3's one kernel (its three phases in one launch), by the name the
+# profiler gives it
+DX_PASSES = {"kernel": "deform_bwd_dx_kernel"}
+# K3's device work per call, counted in a process of its own: each mode,
+# whole and on a slab, on the TMA path (128^2) and on the copy path (333^2:
+# W % 4 != 0)
+K3_COUNT_SPECS = [[b, side, hs, y0, mode] for mode in (None, "bfloat16")
+                  for b, side, hs, y0 in ((16, 128, 128, 0), (2, 128, 64, 64),
+                                          (1, 333, 333, 0),
+                                          (1, 333, 111, 111))]
 OFFSET_SCALES = (0.0, 1.5, 20.0)
 SCENES = [("scene_0", 334), ("scene_1", 334), ("scene_2", 334),
           ("scene_3", 334), ("scene_4", 1024)]
@@ -908,13 +923,16 @@ def k2_three_calls(got, call, where: str) -> None:
             raise AssertionError(f"{where}: three calls differ by {diffs}")
 
 
-# run in a fresh process: K2's device kernels per call at each spec, read
-# by torch.profiler (in this process, after a process group and other
-# profiler runs, its events came back without their device)
-K2_KERNELS = r"""
+# run in a fresh process: K2's and K3's device work per call at each of
+# their specs, read by torch.profiler (in this process, after a process
+# group and other profiler runs, its events came back without their
+# device)
+BWD_KERNELS = r"""
 import json, sys
-from jspsr_torch.scripts.bench_deform_bwd import kernels_per_call
-print(json.dumps(kernels_per_call(json.loads(sys.argv[1]))))
+from jspsr_torch.scripts import bench_deform_bwd, bench_deform_bwd_dx
+k2, k3 = json.loads(sys.argv[1])
+print(json.dumps([bench_deform_bwd.kernels_per_call(k2),
+                  bench_deform_bwd_dx.kernels_per_call(k3)]))
 """
 
 
@@ -930,19 +948,34 @@ def child_json(code: str, *args: str, what: str):
     return json.loads(run.stdout.strip().splitlines()[-1])
 
 
-def k2_kernels_per_call(by_mode) -> None:
-    """Each K2 row's device kernels per call (``by_mode``: (rows, sample
-    dtype) pairs), at its shape (a slab row at its last y0), offsets of
-    TIMED_SCALE, counted by ``torch.profiler`` in a process of its own,
-    into the row's ``kernels_per_call``: exactly one kernel, K2's, and no
-    memset or copy. It runs after every other phase: the profiler slows
-    the process it traces."""
-    rows = [(row, mode) for rows, mode in by_mode for row in rows]
-    specs = [[row["shape"][0], row.get("image", row["shape"])[2],
-              row["shape"][2], row.get("y0", [0])[-1], mode]
-             for row, mode in rows]
-    counts = child_json(K2_KERNELS, json.dumps(specs),
-                        what="K2's kernel count")
+def bwd_kernels_per_call(k2_by_mode, dx_rows) -> dict:
+    """K2's and K3's device work per call, counted by ``torch.profiler`` in
+    one process of its own (``BWD_KERNELS``): K2 at each of its rows
+    (``k2_kernels_per_call``), K3 at K3_COUNT_SPECS
+    (``k3_kernels_per_call``) and at ``dx_rows``' shapes, whose device
+    time it gives (``dx_pass_times``). It runs after every other phase:
+    the profiler slows the process it traces. Returns K3's counts."""
+    rows = [(row, mode) for rows, mode in k2_by_mode for row in rows]
+    k2_specs = [[row["shape"][0], row.get("image", row["shape"])[2],
+                 row["shape"][2], row.get("y0", [0])[-1], mode]
+                for row, mode in rows]
+    k3_specs = K3_COUNT_SPECS + [[r["shape"][0], r["shape"][2],
+                                  r["shape"][2], 0, None] for r in dx_rows]
+    k2_work, k3_work = child_json(BWD_KERNELS,
+                                  json.dumps([k2_specs, k3_specs]),
+                                  what="K2's and K3's kernel counts")
+    k2_kernels_per_call(rows, k2_specs, k2_work)
+    counts = k3_kernels_per_call(k3_specs, k3_work)
+    dx_pass_times(dx_rows, k3_work[len(K3_COUNT_SPECS):])
+    return counts
+
+
+def k2_kernels_per_call(rows, specs, counts) -> None:
+    """Each K2 row's device kernels per call (``rows``: (row, sample
+    dtype) pairs; ``specs`` their shapes, a slab row at its last y0;
+    ``counts`` the child's), offsets of TIMED_SCALE, into the row's
+    ``kernels_per_call``: exactly one kernel, K2's, and no memset or
+    copy."""
     for (row, mode), (b, side, hs, y0, _), kinds in zip(rows, specs, counts):
         row["kernels_per_call"] = kinds
         name = "deform_bwd" + ("_bf16" if mode else "") + (
@@ -953,6 +986,73 @@ def k2_kernels_per_call(by_mode) -> None:
                 or "deform_bwd_kernel" not in next(iter(kinds))):
             raise AssertionError(f"{name} at {row['shape']}: device work "
                                  f"per call {kinds}, not one K2 kernel")
+
+
+def k3_kernels_per_call(specs, work) -> dict:
+    """K3's device kernels per call at each of ``specs`` (``work`` the
+    child's ``bench_deform_bwd_dx.kernels_per_call``): exactly one kernel,
+    K3's, and no memset, copy or reduction (the zero fill, the bounds, the
+    conversion and the d_weight and d_bias sums are phases of its launch).
+    Returns the counts of K3_COUNT_SPECS' cases by kernel name
+    (``deform_bwd_dx[_bf16][_slab]``) and path."""
+    out: dict = {}
+    for i, ((b, side, hs, y0, mode), kinds) in enumerate(zip(specs, work)):
+        counts = {k: n for k, (n, _) in kinds.items()}
+        name = "deform_bwd_dx" + ("_bf16" if mode else "") + (
+            "_slab" if hs != side else "")
+        path = "tma" if side % 4 == 0 else "copy"
+        print(f"{name} at {b} x {hs} x {side} (y0 {y0}, {path} path): "
+              f"device kernels per call {counts}", flush=True)
+        if (list(counts.values()) != [1.0]
+                or DX_PASSES["kernel"] not in next(iter(counts))):
+            raise AssertionError(f"{name} at {b} x {hs} x {side} ({path}):"
+                                 f" device work per call {counts}, not one "
+                                 f"K3 kernel")
+        if i < len(K3_COUNT_SPECS):
+            out.setdefault(name, {})[path] = counts
+    return out
+
+
+def k3_empty_slabs(dev) -> dict:
+    """K3 on an empty batch and on empty slabs (no rows, at y0 = 0 and at
+    y0 = H) in each mode: d_offset and d_mask empty, d_x, d_weight and
+    d_bias zero and of their shapes, no launch counted. Before each call a
+    NaN tensor of d_x's size is made and freed, so that the caching
+    allocator hands its block back: a d_x the call left unwritten shows as
+    NaN. Returns the cases, each True."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, off, wt, _, mask = deform_inputs(2, 128, 128, TIMED_SCALE, gen, dev)
+    g = torch.randn(2, 1, 128, 128, generator=gen, device=dev)
+    before = dict(deform_cuda.LAUNCHES)
+    cases = {}
+    for mode in (None, BF16):
+        for b, hs, y0 in ((0, 128, 0), (2, 0, 0), (2, 0, 128)):
+            xs = x[:b]
+            o, m, gs = (t[:b, :, y0:y0 + hs].contiguous()
+                        for t in (off, mask, g))
+            torch.full_like(xs, float("nan"))  # made and freed at once
+            got = deform_cuda.deform_bwd_dx(xs, o, wt, m, gs,
+                                            sample_dtype=mode, y0=y0)
+            torch.cuda.synchronize()
+            shapes = [tuple(t.shape) for t in got]
+            ok = (shapes == [tuple(o.shape), tuple(m.shape),
+                             tuple(wt.shape), (1,), tuple(xs.shape)]
+                  and not any(t.any() for t in got[2:]))
+            label = f"{mode or 'fp32'} b {b} hs {hs} y0 {y0}"
+            print(f"deform_bwd_dx on an empty batch or slab, {label}: "
+                  f"shapes {shapes}, zero d_x, d_weight, d_bias: {ok}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"deform_bwd_dx, {label}: {shapes}, "
+                                     f"d_x NaN {got[4].isnan().sum().item()}"
+                                     f", d_weight {got[2].flatten()}, d_bias "
+                                     f"{got[3]}")
+            cases[label] = ok
+    if deform_cuda.LAUNCHES != before:
+        raise AssertionError(f"deform_bwd_dx on empty inputs counted "
+                             f"launches: {deform_cuda.LAUNCHES} against "
+                             f"{before}")
+    return cases
 
 
 def spatial_slabs(sample_dtype=None) -> list:
@@ -1135,21 +1235,6 @@ def k3_slabs() -> list:
             for b, side in (SPATIAL_GRAD, CF_SPATIAL_BATCH)]
 
 
-def k3_slab_bound(b, h, w, hs, atomics, bandwidth, fp32_peak):
-    """K3's least time on a slab of ``hs`` of an image's ``h`` rows, ms,
-    and what sets it: each input read once, each output written once, x
-    and d_x the whole images' (4 B each per image pixel), the offsets, the
-    mask, g, d_offset and d_mask the slab's (220 B per slab pixel), weight
-    in and d_weight out 36 B each; K3's operations on the slab's pixels
-    (``check_deform_backward_dx``'s count, ``atomics`` the slab's in-image
-    corners)."""
-    nbytes = b * hs * w * (72 + 36 + 4 + 72 + 36) + b * h * w * 8 + 72
-    flops = b * hs * w * (315 + 18) + 2 * atomics
-    bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
-
-
 def check_k3_slabs(dev, bandwidth, fp32_peak, seed: int = 9,
                    sample_dtype=None) -> list:
     """K3 (``deform_bwd_dx_slab``, or with ``sample_dtype`` bf16
@@ -1274,24 +1359,16 @@ def _err_over_abs_sum(got, ref, abs_sum) -> float:
     return ((got - ref).abs() / abs_sum.clamp_min(1e-30)).max().item()
 
 
-def dx_pass_times(dev, rows) -> None:
-    """The device time of each of K3's three kernels at each of its rows'
-    shapes (offsets of TIMED_SCALE), read by name from ``torch.profiler``,
-    into the row's ``pass_device_ms``. It runs after every other phase:
-    once the profiler has traced the card, the CompletionFormer step, which
-    waits on its host's launches, ran slower in this script."""
-    gen = torch.Generator(device=dev).manual_seed(3)
-    flush = torch.empty(64 * 2**20, device=dev)
-    for row in rows:
+def dx_pass_times(rows, work) -> None:
+    """The device time of K3's one kernel at each of its rows' shapes
+    (offsets of TIMED_SCALE; ``work`` the child's ``device_profile`` of
+    each, by kernel name: [count, device µs] per call), into the row's
+    ``pass_device_ms``."""
+    for row, kinds in zip(rows, work):
         b, _, h, w = row["shape"]
-        x, offset, weight, _, mask = deform_inputs(b, h, w, TIMED_SCALE, gen,
-                                                   dev)
-        g = torch.randn(b, 1, h, w, generator=gen, device=dev)
-        us = device_us(lambda: deform_cuda.deform_bwd_dx(
-            x, offset, weight, mask, g), flush)
         row["pass_device_ms"] = {
-            part: sum(t for k, t in us.items() if kernel in k) / 1e3
-            for part, kernel in DX_PASSES.items()}
+            part: sum(us for k, (_, us) in kinds.items() if kernel in k)
+            / 1e3 for part, kernel in DX_PASSES.items()}
         print(f"deform_bwd_dx at {b} x {h} x {w}: device ms by kernel "
               f"{row['pass_device_ms']}", flush=True)
 
@@ -1416,15 +1493,8 @@ def check_deform_backward_dx(dev, bandwidth, fp32_peak):
                     out, leaves, g, retain_graph=True), flush)
                 del out, leaves
         pixels = b * h * w
-        # each input read once, each output written once: K2's 224 B per
-        # pixel plus d_x (4 B); weight in and d_weight out 36 B each
-        nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36 + 4) + 72
-        # K2's ~35 operations per tap, 2 more per tap for the scatter's
-        # row weights, and a multiply and an add per atomic
-        flops = pixels * (315 + 18) + 2 * atomics
-        bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
-        row["bound_ms"] = max(bytes_ms, ops_ms)
-        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["bound_ms"], row["bound_by"] = k3_bound(b, h, w, atomics,
+                                                    bandwidth, fp32_peak)
         row["atomics"] = atomics
         row["atomics_per_pixel"] = atomics / pixels
         row["global_atomics_per_pixel"] = row["dx_atomics"]["global"] / pixels
@@ -1529,12 +1599,8 @@ def check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak):
                     out, leaves, g, retain_graph=True), flush)
                 del out, leaves
         # K3's bound: the same bytes and operations (its d_x is K3's)
-        pixels = b * h * w
-        nbytes = pixels * (4 + 72 + 36 + 4 + 72 + 36 + 4) + 72
-        flops = pixels * (315 + 18) + 2 * atomics
-        bytes_ms, ops_ms = nbytes / bandwidth * 1e3, flops / fp32_peak * 1e3
-        row["bound_ms"] = max(bytes_ms, ops_ms)
-        row["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+        row["bound_ms"], row["bound_by"] = k3_bound(b, h, w, atomics,
+                                                    bandwidth, fp32_peak)
         row["kernel_over_bound"] = row["kernel_ms"] / row["bound_ms"]
         row["kernel_over_fp32_mode"] = row["kernel_ms"] / row["fp32_mode_ms"]
         rows.append(row)
@@ -4907,6 +4973,8 @@ def main() -> int:
     slab_dx_rows = check_k3_slabs(dev, bandwidth, fp32_peak)
     slab_dx_bf16_rows = check_k3_slabs(dev, bandwidth, fp32_peak, seed=10,
                                        sample_dtype=BF16)
+    # ... and K3 on an empty batch and on empty slabs
+    k3_empty = k3_empty_slabs(dev)
     # 3d. K3's bf16-sampling mode, then through the op's autograd
     dx_bf16_rows = check_deform_backward_dx_bf16(dev, bandwidth, fp32_peak)
     paths = dict(zip(("k3_bf16_autograd", "k3_bf16_slab_autograd"),
@@ -4997,11 +5065,11 @@ def main() -> int:
         # forward, in a process of its own
         summary_traced, paths["summary_trace"] = summary_trace(flagship,
                                                                smi_line)
-    # K2's kernels per call and K3's three kernels apart, under the
+    # K2's and K3's kernels per call and K3's kernel time, under the
     # profiler, after every phase
-    k2_kernels_per_call(((bwd_rows, None), (bwd_bf16_rows, BF16),
-                         (slab_bwd_rows, None), (slab_bwd_bf16_rows, BF16)))
-    dx_pass_times(dev, dx_rows)
+    k3_counts = bwd_kernels_per_call(
+        ((bwd_rows, None), (bwd_bf16_rows, BF16), (slab_bwd_rows, None),
+         (slab_bwd_bf16_rows, BF16)), dx_rows)
     tiled["conv_probe"] = probe_rows
     for result in (serving, training, cf_training, cf_serving, tiled,
                    *edsr.values(), *lrru.values()):
@@ -5117,6 +5185,11 @@ def main() -> int:
                         "float32": "jspsr_torch/ops/csrc/conv_same_f32.cu"}),
     ]
     kernels[0]["host_us_per_call"] = fwd_host_us
+    for line in kernels:
+        if line["name"] in k3_counts:
+            line["kernels_per_call"] = k3_counts[line["name"]]
+    next(k for k in kernels if k["name"] == "deform_bwd_dx_slab")[
+        "empty_cases"] = k3_empty
     unlaunched = [k["name"] for k in kernels if not k["launches"]]
     if unlaunched:
         raise AssertionError(f"kernels no main path launched: {unlaunched}")

@@ -34,82 +34,6 @@
 // block. Here the corners are gathered directly, as in deform_fwd.cu, and
 // d_x is a scatter.
 //
-// K3's scatter goes through a shared-memory window first. A block owns an
-// 8 x 32 output tile (one thread per pixel; a warp is one row, so each of
-// its offset, mask and gradient reads is one coalesced 128-byte line) and
-// keeps a window of (8 + 2M) x (32 + 2M) cells around it, M = 4. A corner
-// inside the window is added there (a shared-memory atomic); one outside
-// it (an offset beyond about M - 1 px from the tile, or a tile at the
-// image edge) goes to a global atomic into the d_x accumulator that the
-// caller zeroes; off-image corners still receive nothing. After a barrier
-// every in-image window cell that is not 0 is flushed with one global
-// atomic: windows of neighbouring tiles overlap, so the flush stays
-// atomic. At NLSPN's offsets of about 1.5 px that takes the global atomics
-// from up to 36 per pixel (4 corners x 9 taps) to at most 640 / 256 = 2.5
-// flushes plus the few corners that leave the window
-// (ops/deform_cuda.py::dx_atomics counts both from the offsets). Blocks
-// run in no order on this card, so nothing like the TPU's carried
-// accumulator exists; an inverse gather over a fixed window is not exact
-// because offsets are unbounded (tests use 20 px). Its d_weight is reduced
-// in the block (block_dweight: warp shuffles, then the warps in a fixed
-// order) into one row of 9 partials per block, which the caller sums.
-//
-// d_x is bitwise reproducible: it is summed in fixed point. Every
-// contribution v becomes the integer round(v * 2^k) (__float2ll_rn; the
-// scaling by a power of two is exact), the window cells and the global
-// accumulator hold 64-bit integers, and integer addition is associative,
-// so the order in which the atomics land no longer matters. A last pass
-// (dx_fixed_to_float_kernel) turns the accumulator back into fp32, acc *
-// 2^-k, one rounding. k is chosen per image on the device, with no host
-// sync, from the image's L1 norm of contributions,
-//   L_b = sum over its pixels p of |g_p| * sum_t |w_t| |m_{p,t}|,
-// which a first pass (dx_bounds_kernel) sums in double: each block one
-// chunk of kBoundChunk pixels, reduced in a fixed order into one partial;
-// the block that finishes last (an integer counter) sums each image's
-// partials in a fixed order, so L_b, and k, are the same on every run. A
-// tap's four corner weights are in [0, 1] and sum to 1, so the magnitudes
-// of all of an image's contributions sum to at most L_b, and k is the
-// largest with
-//   L_b * 2^k <= 2^61:
-// no partial sum can pass 2^62, whatever the order, roundings included
-// (at most 2^-1 each, 36 per pixel). The resolution is absolute, 2^-k <
-// 2^-60 L_b: a pixel that receives n terms whose magnitudes sum to A is
-// off by at most n 2^-61 L_b, so by at most 2^-55.8 L_b / A of A (n <=
-// 36), below 1e-5 while A is above 2^-39 L_b. A typical pixel's A is about
-// L_b / (H*W) (2^-14 L_b at 128^2); a few entries of g 10^6 times the rest
-// shrink that share by about 2^20, to about 2^-34. chip_smoke.py phase 3c
-// checks such a g. A bound from the call's maxima, 36 B*H*W max|g| max|w|
-// max|m|, is 36 B max|g| max|w| max|m| / mean(|g| sum_t |w_t m_t|) times
-// L_b (more than 2^20 at 16 x 128^2 with such a g) and misses 1e-5 of the
-// magnitude sum there. One image's k does not depend on the other images
-// of the batch. An L_b that is NaN, inf or beyond fp32's range (a NaN or
-// inf among that image's g, w or m) makes the last pass write NaN over the
-// image, as a float sum would have given NaN or inf; a NaN offset, as in
-// the forward, reads no corner and scatters nothing.
-//
-// On sm_90a a 64-bit shared-memory atomicAdd compiles to a compare-and-
-// swap loop (ATOMS.CAST.SPIN.64), only the 32-bit one to a native add
-// (ATOMS.ADD). So a window cell is two 32-bit words, lo and hi: a
-// contribution q adds its low word to lo, learns from the old value that
-// atomicAdd returns whether lo wrapped, and adds its high word plus that
-// carry to hi. Each wrap is counted by the one add that made it, so hi:lo
-// ends as the exact 64-bit sum mod 2^64, in any order; the flush joins
-// the two words into one global 64-bit add (RED.E.ADD.64, native).
-// Contributions that round to 0 (the corners of weight 0 at integer
-// positions) are skipped.
-//
-// Bound on this card: bytes, or the atomics. Each pixel reads 18 offsets
-// (72 B), 9 mask values (36 B), g (4 B) and its image neighbourhood (4 B
-// new per pixel; the re-reads of neighbours hit shared memory or L1/L2),
-// and writes 18 offset gradients (72 B) and 9 mask gradients (36 B): about
-// 224 B against about 300 FLOP; d_x adds the bounds pass's second read of
-// g and the mask (40 B), its accumulator's zero fill (8 B), its read and
-// its fp32 write-back (12 B). K3's up to 36 corner contributions per pixel
-// go to pairs of native 32-bit shared-memory atomics; about 2 per pixel
-// reach L2. Positions and corners are recomputed from the inputs rather
-// than saved by the forward (saving them would cost more bytes than the
-// arithmetic costs time).
-//
 // K2 (deform_bwd_kernel) is one launch that keeps the bytes in flight:
 //   - Persistent grid, as K1's (deform_fwd.cu): min(tiles, SMs x resident
 //     blocks) blocks, the resident count read once per device from
@@ -167,33 +91,134 @@
 // (deform_bwd_slab, deform_bwd_bf16_slab): the slab planes and row0 are
 // the same code for kBf16, which changes only pixel_backward's values.
 //
+// K3 (deform_bwd_dx_kernel) is K2 with the input gradient: K2's
+// persistent grid, 4 x 64 tiles, ring, pixel code and per-block rows of
+// d_weight and d_bias, in ONE launch that also scatters d_x. Every
+// scatter needs its image's fixed-point scale (below), which needs all of
+// the image's (or slab's) pixels summed first, so the launch runs in three
+// phases split by two grid-wide barriers:
+//   1. every block zeroes its share of the d_x accumulator and of its
+//      scatter window, and the blocks sum the images' L1 bounds in chunks
+//      (the producer has already issued its first two tiles' loads, which
+//      land meanwhile);
+//   2. the tiles, as K2's, each consumer also scattering its pixel's d_x
+//      contributions; the tile's scale comes with its stage (the producer,
+//      or warp 0 on the copy path, sums the image's chunks into L_b);
+//   3. the accumulator back to fp32 over the whole images, and block 0
+//      sums the blocks' rows into d_weight and d_bias (no ticket counter:
+//      the barrier has ordered the rows).
+// The barrier is cooperative_groups' grid.sync() in a cooperative launch
+// (cudaLaunchCooperativeKernel), whose grid the runtime starts only when
+// every block of it can be resident at once, so the barrier never waits on
+// a block that another stream's kernels keep from starting; a refused
+// launch raises, nothing falls back. The grid is K2's, min(tiles, SMs x
+// resident blocks), the resident count read from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, as a cooperative launch
+// requires. The barrier also orders the zero fill before every scatter and
+// every scatter before the conversion. The call puts one kernel on the card:
+// no memset, no reduction, no second launch.
+//
+// K3's scatter goes through a shared-memory window first. Around its 4 x
+// 64 tile a block keeps a window of (4 + 2M) x (64 + 2M) cells, M = 4. A
+// corner inside the window is added there (a shared-memory atomic); one
+// outside it (an offset beyond about M - 1 px from the tile, or a tile at
+// the image edge) goes to a global atomic into the d_x accumulator;
+// off-image corners receive nothing. After a barrier of the consumers
+// every in-image window cell that is not 0 is flushed with one global
+// atomic and set back to 0 for the block's next tile: windows of
+// neighbouring tiles overlap, so the flush stays atomic. At NLSPN's
+// offsets of about 1.5 px that takes the global atomics from up to 36 per
+// pixel (4 corners x 9 taps) to at most 864 / 256 = 3.4 flushes plus the
+// few corners that leave the window (ops/deform_cuda.py::dx_atomics
+// counts both from the offsets: 2.9 per pixel at 2 x 128^2). Blocks run in
+// no order on this card, so nothing like the TPU's carried accumulator
+// exists; an inverse gather over a fixed window is not exact because
+// offsets are unbounded (tests use 20 px).
+//
+// d_x is bitwise reproducible: it is summed in fixed point. Every
+// contribution v becomes the integer round(v * 2^k) (__float2ll_rn; the
+// scaling by a power of two is exact), the window cells and the global
+// accumulator hold 64-bit integers, and integer addition is associative,
+// so neither the order in which the atomics land nor the tile shape
+// matters. Phase 3 turns the accumulator back into fp32, acc * 2^-k, one
+// rounding. k is chosen per image on the device, with no host sync, from
+// the image's L1 norm of contributions,
+//   L_b = sum over its pixels p of |g_p| * sum_t |w_t| |m_{p,t}|,
+// which phase 1 sums in double in a fixed order: chunks of kBoundChunk
+// pixels, each thread its strided pixels in turn, then block_sum's shuffle
+// tree into one partial per chunk; one warp then sums an image's partials
+// (each lane its strided share in order, then a shuffle tree). So L_b, and
+// k, are the same on every run; any other order may move k, and with it
+// every bit of d_x. A tap's four corner weights are in
+// [0, 1] and sum to 1, so the magnitudes of all of an image's
+// contributions sum to at most L_b, and k is the largest with
+//   L_b * 2^k <= 2^61:
+// no partial sum can pass 2^62, whatever the order, roundings included
+// (at most 2^-1 each, 36 per pixel). The resolution is absolute, 2^-k <
+// 2^-60 L_b: a pixel that receives n terms whose magnitudes sum to A is
+// off by at most n 2^-61 L_b, so by at most 2^-55.8 L_b / A of A (n <=
+// 36), below 1e-5 while A is above 2^-39 L_b. A typical pixel's A is about
+// L_b / (H*W) (2^-14 L_b at 128^2); a few entries of g 10^6 times the rest
+// shrink that share by about 2^20, to about 2^-34. chip_smoke.py phase 3c
+// checks such a g. A bound from the call's maxima, 36 B*H*W max|g| max|w|
+// max|m|, is 36 B max|g| max|w| max|m| / mean(|g| sum_t |w_t m_t|) times
+// L_b (more than 2^20 at 16 x 128^2 with such a g) and misses 1e-5 of the
+// magnitude sum there. One image's k does not depend on the other images
+// of the batch. An L_b that is NaN, inf or beyond fp32's range (a NaN or
+// inf among that image's g, w or m) makes phase 3 write NaN over the
+// image, as a float sum would have given NaN or inf; a NaN offset, as in
+// the forward, reads no corner and scatters nothing.
+//
+// On sm_90a a 64-bit shared-memory atomicAdd compiles to a compare-and-
+// swap loop (ATOMS.CAST.SPIN.64), only the 32-bit one to a native add
+// (ATOMS.ADD). So a window cell is two 32-bit words, lo and hi: a
+// contribution q adds its low word to lo, learns from the old value that
+// atomicAdd returns whether lo wrapped, and adds its high word plus that
+// carry to hi. Each wrap is counted by the one add that made it, so hi:lo
+// ends as the exact 64-bit sum mod 2^64, in any order; the flush joins
+// the two words into one global 64-bit add (RED.E.ADD.64, native).
+// Contributions that round to 0 (the corners of weight 0 at integer
+// positions) are skipped.
+//
+// Bound on this card: bytes, or the atomics. Each pixel reads 18 offsets
+// (72 B), 9 mask values (36 B), g (4 B) and its image neighbourhood (4 B
+// new per pixel; the re-reads of neighbours hit shared memory or L1/L2),
+// and writes 18 offset gradients (72 B) and 9 mask gradients (36 B): about
+// 224 B against about 300 FLOP; d_x adds phase 1's second read of g and
+// the mask (40 B), its accumulator's zero fill (8 B), its read and its
+// fp32 write-back (12 B). K3's up to 36 corner contributions per pixel go
+// to pairs of native 32-bit shared-memory atomics; about 3 per pixel reach
+// L2. Positions and corners are recomputed from the inputs rather than
+// saved by the forward (saving them would cost more bytes than the
+// arithmetic costs time). On a small call (a row slab of 16k pixels) the
+// launch and the two grid barriers, a few microseconds each, are most of
+// the time.
+//
 // K3 on a row slab (deform_bwd_dx_slab, deform_bwd_dx_bf16_slab; NLSPN's
 // propagation under a spatial sharding, and an SPN head whose DEM needs
-// its gradient): the slab planes and row0 as K2's, while x and the d_x
-// accumulator stay the whole image. Each block's 8 x 32 tile is a tile of
-// the slab (a last tile row that passes the slab's Hs rows is partial, as
-// at the image's bottom), and its output rows, its window origin and its
-// global-atomic fallback are image rows row0 + h: a slab scatters its own
-// contributions into the whole image's d_x. The bounds pass sums L_b over
-// the slab's own pixels, which bounds every contribution the slab
-// scatters, so the fixed point stays safe; the last pass converts the
-// whole image once, with that slab's scale. d_offset, d_mask and the
-// d_weight partials come from the per-pixel code K2 runs, so d_offset and
-// d_mask are those rows of the whole image's K3 output, bit for bit. The
-// slabs' d_x are then summed in fp32, in space order, by the caller
-// (parallel/spatial.py's row gather), not in the fixed point: each slab's
-// own scale makes that sum deterministic but not bit-equal to one
-// whole-image launch.
+// its gradient): K2's slab planes and row0, while x and the d_x
+// accumulator stay the whole image. The tiles walk the slab, and their
+// output rows, window origins and global-atomic fallback are image rows
+// row0 + h: a slab scatters its own contributions into the whole image's
+// d_x. Phase 1 sums L_b over the slab's own pixels, which bounds every
+// contribution the slab scatters, so the fixed point stays safe; phase 3
+// converts the whole image once, with that slab's scale. d_offset and
+// d_mask come from K2's per-pixel code, so they are those rows of the
+// whole image's K3 output, bit for bit. The slabs' d_x are then summed in
+// fp32, in space order, by the caller (parallel/spatial.py's row gather),
+// not in the fixed point: each slab's own scale makes that sum
+// deterministic but not bit-equal to one whole-image launch.
 //
-// K3's bf16-sampling mode (the same flag on deform_bwd_dx_kernel; the TPU
+// K3's bf16-sampling mode (kBf16 of deform_bwd_dx_kernel; the TPU
 // kernel's sample_dtype='bfloat16' with need_dx=True, entry point
 // jspsr_deform_bwd_dx_bf16): the TPU kernel rounds only its two image
 // products (pallas_deform.py:184-188,213,224) and keeps wy, wx and g w m in
 // fp32 for the d_x matmul (:227-232), so d_offset, d_mask and d_weight are
-// K2's bf16 mode's and d_x is K3's fp32 mode's, bounds pass and fixed point
-// as they are. No shipped model reaches it (NLSPN samples in fp32, the SPN
+// K2's bf16 mode's and d_x is K3's fp32 mode's, bounds and fixed point as
+// they are. No shipped model reaches it (NLSPN samples in fp32, the SPN
 // head detaches the DEM); the op's autograd does.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -201,6 +226,7 @@
 
 #include <algorithm>
 #include <cfloat>
+#include <type_traits>
 
 #include "tma.cuh"
 
@@ -209,20 +235,12 @@ namespace {
 constexpr int kTaps = 9;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// K3's tile and window (ops/deform_cuda.py's DX_TILE and DX_MARGIN, checked
-// against jspsr_deform_bwd_dx_window when the library is loaded)
-constexpr int kTileH = 8;
-constexpr int kTileW = 32;
-constexpr int kMargin = 4;
-static_assert(kTileH * kTileW == kThreads, "K3: one thread per tile pixel");
-constexpr int kWinH = kTileH + 2 * kMargin;
-constexpr int kWinW = kTileW + 2 * kMargin;
 // d_x's fixed point: an image's L1 norm of contributions scales to at most
 // 2^kFixedBits, and the pixels that sum it into one partial
 constexpr int kFixedBits = 61;
 constexpr int kBoundChunk = kThreads * 4;
 
-// K2's tile, window and ring (K1's: deform_fwd.cu)
+// K2's tile, window and ring (K1's: deform_fwd.cu), which K3 shares
 namespace k2 {
 constexpr int kTileH = 4;   // output rows per tile
 constexpr int kTileW = 64;  // output columns per tile: a 256-byte TMA row
@@ -256,6 +274,22 @@ static_assert(kBlocksPerSm * (kSmem + 1024) <= 233472 &&
               "the shared memory holds exactly kBlocksPerSm blocks per SM");
 }  // namespace k2
 
+// K3's scatter window around K2's tile (ops/deform_cuda.py's DX_TILE and
+// DX_MARGIN, checked against jspsr_deform_bwd_dx_window when the library
+// is loaded): two 32-bit words per cell, after K2's ring; each stage's
+// fixed-point scale sits behind the mbarriers
+namespace k3 {
+constexpr int kMargin = 4;
+constexpr int kWinH = k2::kTileH + 2 * kMargin;
+constexpr int kWinW = k2::kTileW + 2 * kMargin;
+constexpr int kCells = kWinH * kWinW;
+constexpr int kScaleOff = 2 * k2::kStages * 8;
+constexpr int kSmem = k2::kSmem + 2 * kCells * 4;
+static_assert(kScaleOff + k2::kStages * 4 <= k2::kBarBytes, "scales");
+static_assert(k2::kBlocksPerSm * (kSmem + 1024) <= 233472,
+              "the window keeps K2's blocks per SM");
+}  // namespace k3
+
 int64_t k3_chunks(int64_t hw) { return (hw + kBoundChunk - 1) / kBoundChunk; }
 
 // The scale of one image's fixed point: 2^k as a float (to scale a
@@ -286,28 +320,28 @@ __device__ __forceinline__ FixedScale fixed_scale(double bound) {
 }
 
 // K2 scatters nothing
-struct NoScatter {
-  __device__ void operator()(int, int, float) const {}
-};
+struct NoScatter {};
 
-// K3: in fixed point, into the block's window (hi:lo word pairs) where the
-// corner lies inside it, else straight to the d_x accumulator
-// (two's-complement integers added as unsigned: the same bits as a signed
-// sum)
+// K3: one corner's contribution in fixed point, into the block's window
+// (hi:lo word pairs) where the corner lies inside it, else straight to the
+// d_x accumulator (two's-complement integers added as unsigned: the same
+// bits as a signed sum). One corner at a time: issuing a tap's four
+// low-word adds before their high words, to overlap the round trips, held
+// registers that spilled and made K3 slower on an H100.
 struct WindowScatter {
-  unsigned* lo;              // [kWinH * kWinW], shared
-  unsigned* hi;              // [kWinH * kWinW], shared
+  unsigned* lo;              // [k3::kCells], shared
+  unsigned* hi;              // [k3::kCells], shared
   unsigned long long* dimg;  // this image's d_x accumulator
   float scale;
   int wy0, wx0, w;
-  __device__ void operator()(int yc, int xc, float v) const {
+  __device__ __forceinline__ void operator()(int yc, int xc, float v) const {
     const unsigned long long q =
         static_cast<unsigned long long>(__float2ll_rn(v * scale));
     if (q == 0ull) return;
     const int ry = yc - wy0, rx = xc - wx0;
-    if (static_cast<unsigned>(ry) < kWinH &&
-        static_cast<unsigned>(rx) < kWinW) {
-      const int c = ry * kWinW + rx;
+    if (static_cast<unsigned>(ry) < k3::kWinH &&
+        static_cast<unsigned>(rx) < k3::kWinW) {
+      const int c = ry * k3::kWinW + rx;
       const unsigned ql = static_cast<unsigned>(q);
       const unsigned old = atomicAdd(lo + c, ql);
       const unsigned carry = (old + ql < old) ? 1u : 0u;
@@ -332,14 +366,15 @@ struct Window {
 };
 
 // One output pixel's 9 taps: writes d_offset and d_mask, writes g m_t
-// val_t to dw and hands every in-bounds corner's share of d_x to ``scatter``;
-// with kBf16 the bf16-sampling mode's values and derivatives. ``img`` is
-// the pixel's image; ``off`` and ``msk`` point at the pixel in channel 0
-// of planes ``in_plane`` floats apart, ``doff`` and ``dmsk`` of planes
-// ``out_plane`` apart. With kWindow (K2, which scatters nothing) a tap
-// whose 2 x 2 block of corners lies in ``win`` reads it there, the same
-// floats as from the image; any other tap reads its corners from ``img``.
-template <bool kBf16, bool kWindow, class Scatter>
+// val_t to dw and hands every in-bounds corner's share of d_x to
+// ``scatter`` (K3's; K2's NoScatter takes nothing); with kBf16 the
+// bf16-sampling mode's values and derivatives. ``img`` is the pixel's
+// image; ``off`` and ``msk`` point at the pixel in channel 0 of planes
+// ``in_plane`` floats apart, ``doff`` and ``dmsk`` of planes ``out_plane``
+// apart. A tap whose 2 x 2 block of corners lies in ``win`` reads it
+// there, the same floats as from the image; any other tap reads its
+// corners from ``img``.
+template <bool kBf16, class Scatter>
 __device__ __forceinline__ void pixel_backward(
     const float* __restrict__ img, const Window& win,
     const float* __restrict__ off, const float* __restrict__ msk,
@@ -347,6 +382,7 @@ __device__ __forceinline__ void pixel_backward(
     float* __restrict__ doff, float* __restrict__ dmsk, int64_t out_plane,
     float g, int y, int xo, int h, int w, int pad, float (&dw)[kTaps],
     const Scatter& scatter) {
+  constexpr bool kScatter = !std::is_same<Scatter, NoScatter>::value;
   const float hmax = static_cast<float>(h - 1);
   const float wmax = static_cast<float>(w - 1);
 #pragma unroll
@@ -364,22 +400,22 @@ __device__ __forceinline__ void pixel_backward(
     const float gwm = gw * m;
     float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
     bool in_window = false;
-    if constexpr (kWindow) {
-      // exact: both are integers, and a NaN or a far position fails
-      const float ry = y0f - win.wy0, rx = x0f - win.wx0;
-      if (ry >= 0.f && ry <= static_cast<float>(k2::kWinH - 2) &&
-          rx >= 0.f && rx <= static_cast<float>(k2::kWinW - 2)) {
-        const float* cell = win.cells + static_cast<int>(ry) * k2::kWinW +
-                            static_cast<int>(rx);
-        v00 = cell[0];
-        v01 = cell[1];
-        v10 = cell[k2::kWinW];
-        v11 = cell[k2::kWinW + 1];
-        in_window = true;
-      }
+    // exact: both are integers, and a NaN or a far position fails
+    const float ry = y0f - win.wy0, rx = x0f - win.wx0;
+    if (ry >= 0.f && ry <= static_cast<float>(k2::kWinH - 2) && rx >= 0.f &&
+        rx <= static_cast<float>(k2::kWinW - 2)) {
+      const float* cell = win.cells + static_cast<int>(ry) * k2::kWinW +
+                          static_cast<int>(rx);
+      v00 = cell[0];
+      v01 = cell[1];
+      v10 = cell[k2::kWinW];
+      v11 = cell[k2::kWinW + 1];
+      in_window = true;
     }
-    if (!in_window && y0f >= -1.f && y0f <= hmax && x0f >= -1.f &&
-        x0f <= wmax) {
+    // some corner lies on the image
+    const bool near =
+        y0f >= -1.f && y0f <= hmax && x0f >= -1.f && x0f <= wmax;
+    if (!in_window && near) {
       const int y0 = static_cast<int>(y0f);
       const int x0 = static_cast<int>(x0f);
       const bool vy0 = y0 >= 0, vy1 = y0 + 1 <= h - 1;
@@ -390,11 +426,19 @@ __device__ __forceinline__ void pixel_backward(
       if (vy0 && vx1) v01 = __ldg(img + r0 + x0 + 1);
       if (vy1 && vx0) v10 = __ldg(img + r1 + x0);
       if (vy1 && vx1) v11 = __ldg(img + r1 + x0 + 1);
-      const float gy0 = gwm * (1.f - ty), gy1 = gwm * ty;
-      if (vy0 && vx0) scatter(y0, x0, gy0 * (1.f - tx));
-      if (vy0 && vx1) scatter(y0, x0 + 1, gy0 * tx);
-      if (vy1 && vx0) scatter(y0 + 1, x0, gy1 * (1.f - tx));
-      if (vy1 && vx1) scatter(y0 + 1, x0 + 1, gy1 * tx);
+    }
+    if constexpr (kScatter) {
+      if (near) {
+        const int y0 = static_cast<int>(y0f);
+        const int x0 = static_cast<int>(x0f);
+        const bool vy0 = y0 >= 0, vy1 = y0 + 1 <= h - 1;
+        const bool vx0 = x0 >= 0, vx1 = x0 + 1 <= w - 1;
+        const float gy0 = gwm * (1.f - ty), gy1 = gwm * ty;
+        if (vy0 && vx0) scatter(y0, x0, gy0 * (1.f - tx));
+        if (vy0 && vx1) scatter(y0, x0 + 1, gy0 * tx);
+        if (vy1 && vx0) scatter(y0 + 1, x0, gy1 * (1.f - tx));
+        if (vy1 && vx1) scatter(y0 + 1, x0 + 1, gy1 * tx);
+      }
     }
     if constexpr (kBf16) {
       const float b00 = bf16_round(v00), b01 = bf16_round(v01);
@@ -411,46 +455,29 @@ __device__ __forceinline__ void pixel_backward(
       doff[(2 * t + 1) * out_plane] = __fmul_rn(gwm, __fsub_rn(tmp1, tmp0));
       dw[t] = __fmul_rn(g * m, val);
     } else {
-      const float top = (1.f - tx) * v00 + tx * v01;
-      const float bot = (1.f - tx) * v10 + tx * v11;
-      const float val = (1.f - ty) * top + ty * bot;
+      // each a * b + c * d as fma(a, b, c * d), written out: left to the
+      // compiler, the contraction changed with the code around it (K3's
+      // scatter made it fma(c, d, a * b)), and with it the bits of
+      // d_offset and d_mask, which K2 and K3 share
+      const float cx = 1.f - tx, cy = 1.f - ty;
+      const float top = __fmaf_rn(cx, v00, __fmul_rn(tx, v01));
+      const float bot = __fmaf_rn(cx, v10, __fmul_rn(tx, v11));
+      const float val = __fmaf_rn(cy, top, __fmul_rn(ty, bot));
       dmsk[t * out_plane] = gw * val;
       doff[(2 * t) * out_plane] = gwm * (bot - top);
-      doff[(2 * t + 1) * out_plane] =
-          gwm * ((1.f - ty) * (v01 - v00) + ty * (v11 - v10));
+      doff[(2 * t + 1) * out_plane] = gwm * __fmaf_rn(
+          cy, v01 - v00, __fmul_rn(ty, v11 - v10));
       dw[t] = g * m * val;
     }
   }
 }
 
-// The block's 9 d_weight sums: a warp-shuffle sum, then the warps summed
-// in a fixed order, one row of partials per block. Every thread of the
-// block calls it; it ends after a __syncthreads.
-__device__ __forceinline__ void block_dweight(const float (&dw)[kTaps],
-                                              float* __restrict__ row) {
-  __shared__ float warp_sums[kWarps][kTaps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    float v = dw[t];
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
-    if (lane == 0) warp_sums[warp][t] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kTaps) {
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) s += warp_sums[k][threadIdx.x];
-    row[threadIdx.x] = s;
-  }
-}
-
-// K2's launch: its inputs and outputs (contiguous fp32; offset, mask, g,
+// The launch's inputs and outputs (contiguous fp32; offset, mask, g,
 // d_offset and d_mask the slab of hs rows whose first is image row row0,
 // x the whole image), and its finish's scratch: one row of k2::kSums
-// doubles per block, and the ticket counter, 0 at the launch and left at 0
+// doubles per block; K2's ticket counter, 0 at the launch and left at 0;
+// K3's whole-image d_x and its scratch: the fixed-point accumulator (B*H*W),
+// the images' L1 bounds (B) and phase 1's partials (``chunks`` per image)
 struct K2Params {
   const float* x;
   const float* offset;
@@ -464,6 +491,11 @@ struct K2Params {
   double* rows;
   unsigned* counter;
   int h, w, pad, hs, row0, tiles_x, tiles_y, n_tiles;
+  float* d_x;
+  unsigned long long* acc;
+  double* bound;
+  double* part;
+  int64_t batch, chunks;
 };
 
 // a tile of one image (its first row in the slab) and the origin of its
@@ -481,17 +513,19 @@ __device__ __forceinline__ K2Tile k2_tile(int t, const K2Params& p) {
 }
 
 // this consumer thread's pixel of tile ``tl`` from one stage: its
-// d_offset and d_mask written, its g m_t val_t added to dw
-template <bool kBf16>
+// d_offset and d_mask written, its g m_t val_t added to dw, its d_x
+// contributions handed to ``scatter``
+template <bool kBf16, class Scatter>
 __device__ __forceinline__ void k2_pixel(const float* st, const K2Tile& tl,
                                          const K2Params& p, int ctid,
-                                         float (&dw)[kTaps]) {
+                                         float (&dw)[kTaps],
+                                         const Scatter& scatter) {
   const int y = tl.y0 + ctid / k2::kTileW, xo = tl.x0 + ctid % k2::kTileW;
   if (y >= p.hs || xo >= p.w) return;
   const int64_t hws = static_cast<int64_t>(p.hs) * p.w;  // a slab plane
   const int64_t q = static_cast<int64_t>(y) * p.w + xo;
   float px_dw[kTaps];
-  pixel_backward<kBf16, true>(
+  pixel_backward<kBf16>(
       p.x + tl.b * (static_cast<int64_t>(p.h) * p.w),
       Window{st + k2::kPlaneFloats, static_cast<float>(tl.wy0),
              static_cast<float>(tl.wx0)},
@@ -499,7 +533,7 @@ __device__ __forceinline__ void k2_pixel(const float* st, const K2Tile& tl,
       p.d_offset + tl.b * (2 * kTaps) * hws + q,
       p.d_mask + tl.b * kTaps * hws + q, hws,
       st[k2::kOffFloats + k2::kMaskFloats + ctid], p.row0 + y, xo, p.h, p.w,
-      p.pad, px_dw, NoScatter{});
+      p.pad, px_dw, scatter);
 #pragma unroll
   for (int t = 0; t < kTaps; ++t) dw[t] += px_dw[t];
 }
@@ -516,6 +550,24 @@ __device__ __forceinline__ void k2_tile_gsum(const float* st, int lane,
   const float* g = st + k2::kOffFloats + k2::kMaskFloats;
 #pragma unroll
   for (int k = 0; k < k2::kTilePx / 32; ++k) gsum += g[lane + 32 * k];
+}
+
+// the TMA path's loads of tile ``tl`` into the stage at shared address
+// ``dst``, counted on the full barrier ``bar``
+__device__ __forceinline__ void k2_load(const K2Tile& tl, uint32_t dst,
+                                        uint32_t bar,
+                                        const CUtensorMap& off_map,
+                                        const CUtensorMap& mask_map,
+                                        const CUtensorMap& g_map,
+                                        const CUtensorMap& x_map) {
+  jspsr::mbar_expect_tx(bar, k2::kStageFloats * 4);
+  jspsr::tma_load_3d(dst, &off_map, tl.x0, tl.y0, tl.b * 2 * kTaps, bar);
+  jspsr::tma_load_3d(dst + k2::kOffFloats * 4, &mask_map, tl.x0, tl.y0,
+                     tl.b * kTaps, bar);
+  jspsr::tma_load_3d(dst + (k2::kOffFloats + k2::kMaskFloats) * 4, &g_map,
+                     tl.x0, tl.y0, tl.b, bar);
+  jspsr::tma_load_4d(dst + k2::kPlaneFloats * 4, &x_map, 0, tl.wx0 / 4,
+                     tl.wy0, tl.b, bar);
 }
 
 __device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
@@ -556,20 +608,14 @@ __device__ __forceinline__ void k2_copy_tile(float* st, const K2Tile& tl,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// K2's d_weight and d_bias from every thread's sums (dw, gsum), in a fixed
-// order: the block's sums (warp shuffles, then its kWarpsB warps in order)
-// as one row of ``rows``; the block whose ticket on the counter comes last
-// sums the rows in block order (one warp per value: each lane its strided
-// share in double, then a fixed shuffle tree), writes d_weight and d_bias
-// and sets the counter back to 0. Every thread of the block calls it. The
-// last warp writes the row, fences and takes the ticket: a fence waits for
-// its thread's own stores, and in the TMA path that warp, the producer, has
-// written nothing else.
+// The block's d_weight and d_bias sums from every thread's (dw, gsum), in a
+// fixed order (warp shuffles, then its kWarpsB warps in order), written by
+// its last warp's first k2::kSums lanes as the block's row of ``rows``.
+// Every thread of the block calls it.
 template <int kWarpsB>
-__device__ __forceinline__ void k2_finish(const float (&dw)[kTaps],
-                                          double gsum, const K2Params& p) {
+__device__ __forceinline__ void k2_row(const float (&dw)[kTaps], double gsum,
+                                       const K2Params& p) {
   __shared__ double warp_sums[kWarpsB][k2::kSums];
-  __shared__ bool last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
@@ -580,19 +626,21 @@ __device__ __forceinline__ void k2_finish(const float (&dw)[kTaps],
     if (lane == 0) warp_sums[warp][c] = v;
   }
   __syncthreads();
-  if (warp == kWarpsB - 1) {
-    if (lane < k2::kSums) {
-      double s = 0.0;
+  if (warp == kWarpsB - 1 && lane < k2::kSums) {
+    double s = 0.0;
 #pragma unroll
-      for (int k = 0; k < kWarpsB; ++k) s += warp_sums[k][lane];
-      p.rows[blockIdx.x * k2::kSums + lane] = s;
-      __threadfence();  // the row is visible before the ticket says so
-    }
-    __syncwarp();
-    if (lane == 0) last = atomicAdd(p.counter, 1u) == gridDim.x - 1;
+    for (int k = 0; k < kWarpsB; ++k) s += warp_sums[k][lane];
+    p.rows[blockIdx.x * k2::kSums + lane] = s;
   }
-  __syncthreads();
-  if (!last) return;
+}
+
+// d_weight and d_bias from the grid's rows, summed in block order (one
+// warp per value: each lane its strided share in double, then a fixed
+// shuffle tree). Every thread of one block calls it.
+template <int kWarpsB>
+__device__ __forceinline__ void k2_sum_rows(const K2Params& p) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   for (int c = warp; c < k2::kSums; c += kWarpsB) {
     double v = 0.0;
     for (int r = lane; r < static_cast<int>(gridDim.x); r += 32)
@@ -606,22 +654,204 @@ __device__ __forceinline__ void k2_finish(const float (&dw)[kTaps],
         *p.d_bias = static_cast<float>(v);
     }
   }
+}
+
+// K2's d_weight and d_bias from every thread's sums (dw, gsum): the
+// block's row (k2_row); the block whose ticket on the counter comes last
+// sums the rows (k2_sum_rows) and sets the counter back to 0. Every thread
+// of the block calls it. The last warp writes the row, fences and takes
+// the ticket: a fence waits for its thread's own stores, and in the TMA
+// path that warp, the producer, has written nothing else.
+template <int kWarpsB>
+__device__ __forceinline__ void k2_finish(const float (&dw)[kTaps],
+                                          double gsum, const K2Params& p) {
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  k2_row<kWarpsB>(dw, gsum, p);
+  if (warp == kWarpsB - 1) {
+    // the row is visible before the ticket says so
+    if (lane < k2::kSums) __threadfence();
+    __syncwarp();
+    if (lane == 0) last = atomicAdd(p.counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  k2_sum_rows<kWarpsB>(p);
   if (threadIdx.x == 0) *p.counter = 0u;  // every block has its ticket
 }
 
-// K2: the persistent grid over 4 x 64 tiles of the slab (B, Hs, W) of image
-// rows [row0, row0 + Hs), no input gradient, d_weight and d_bias finished
-// in the kernel; kTma the TMA path (a producer warp and 256 consumers),
-// else the cp.async path (256 threads that copy and compute); kBf16 the
-// bf16-sampling mode
-template <bool kTma, bool kBf16>
-__global__ void __launch_bounds__(kTma ? k2::kThreadsTma : k2::kConsumers,
-                                  k2::kBlocksPerSm)
-deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
-                  const __grid_constant__ CUtensorMap mask_map,
-                  const __grid_constant__ CUtensorMap g_map,
-                  const __grid_constant__ CUtensorMap x_map,
-                  const K2Params p) {
+// A block's sum of one double per thread of its first kThreads, in a fixed
+// order (a warp shuffle tree, then the warps' sums in turn); thread 0
+// holds the result. Every thread of the block calls it.
+__device__ __forceinline__ double block_sum(double v) {
+  __shared__ double warp_sum[kWarps];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0 && threadIdx.x < kThreads)
+    warp_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) v += warp_sum[k];
+  }
+  return v;
+}
+
+// K3's phase 1: the accumulator zeroed (16-byte stores, every thread of the
+// grid its strided share; the scratch starts on 16 bytes), the block's
+// window zeroed, and the chunks' partial bounds: chunk c of the batch's
+// B * chunks (kBoundChunk pixels of image c / chunks's slab, which
+// ``part[c]`` receives) summed by the block's first kThreads threads, each
+// its strided pixels in turn, then block_sum (NaN and inf carry through).
+// Every thread of the block calls it.
+__device__ __forceinline__ void k3_phase1(const K2Params& p, unsigned* lo,
+                                          unsigned* hi) {
+  const int64_t n = p.batch * p.h * p.w;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  ulonglong2* acc2 = reinterpret_cast<ulonglong2*>(p.acc);
+  for (int64_t i = i0; i < n / 2; i += stride)
+    acc2[i] = make_ulonglong2(0ull, 0ull);
+  if (i0 == 0 && (n & 1)) p.acc[n - 1] = 0ull;
+  for (int e = threadIdx.x; e < k3::kCells; e += blockDim.x) {
+    lo[e] = 0u;
+    hi[e] = 0u;
+  }
+  const int64_t hws = static_cast<int64_t>(p.hs) * p.w;
+  float aw[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) aw[t] = fabsf(__ldg(p.weight + t));
+  for (int64_t c = blockIdx.x; c < p.batch * p.chunks; c += gridDim.x) {
+    const int64_t b = c / p.chunks;
+    const int64_t p0 = (c % p.chunks) * kBoundChunk;
+    const int64_t p1 = p0 + kBoundChunk < hws ? p0 + kBoundChunk : hws;
+    const float* g = p.grad_out + b * hws;
+    const float* m = p.mask + b * kTaps * hws;
+    double s = 0.0;
+    if (threadIdx.x < kThreads) {
+      // a thread's kBoundChunk / kThreads pixels loaded together, then
+      // summed in turn
+      constexpr int kPer = kBoundChunk / kThreads;
+      float gv[kPer], mv[kPer][kTaps];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int64_t q = p0 + threadIdx.x + k * kThreads;
+        const bool in = q < p1;
+        gv[k] = in ? g[q] : 0.f;
+#pragma unroll
+        for (int t = 0; t < kTaps; ++t) mv[k][t] = in ? m[t * hws + q] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (p0 + threadIdx.x + k * kThreads < p1) {
+          float wm = 0.f;
+#pragma unroll
+          for (int t = 0; t < kTaps; ++t) wm += aw[t] * fabsf(mv[k][t]);
+          s += static_cast<double>(fabsf(gv[k])) * static_cast<double>(wm);
+        }
+      }
+    }
+    s = block_sum(s);
+    if (threadIdx.x == 0) p.part[c] = s;
+    __syncthreads();  // thread 0 has read warp_sum before the next chunk
+  }
+}
+
+// The scale of tile ``tl``'s image, on lane 0 of the warp that calls it:
+// the image's L1 bound summed from its phase-1 partials in a fixed order
+// (each lane its strided share, then a shuffle tree), unless the block's
+// previous tile (``last_b``, its scale ``last``) was of the same image.
+// The image's first tile leaves its bound in ``bound`` for phase 3. A
+// whole warp calls it.
+__device__ __forceinline__ float k3_tile_scale(const K2Params& p,
+                                               const K2Tile& tl, int lane,
+                                               int& last_b, float& last) {
+  if (tl.b != last_b) {
+    double v = 0.0;
+    for (int64_t c = lane; c < p.chunks; c += 32)
+      v += __ldcg(p.part + tl.b * p.chunks + c);  // from L2, past L1
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0 && tl.y0 == 0 && tl.x0 == 0) p.bound[tl.b] = v;
+    last = fixed_scale(v).scale;  // not ok: phase 3 writes NaN instead
+    last_b = tl.b;
+  }
+  return last;
+}
+
+// K3's scatter for tile ``tl``: its window's origin in image rows, its
+// image's accumulator and scale
+__device__ __forceinline__ WindowScatter k3_scatter(unsigned* lo,
+                                                    unsigned* hi,
+                                                    const K2Tile& tl,
+                                                    const K2Params& p,
+                                                    float scale) {
+  return {lo, hi, p.acc + tl.b * (static_cast<int64_t>(p.h) * p.w), scale,
+          p.row0 + tl.y0 - k3::kMargin, tl.x0 - k3::kMargin, p.w};
+}
+
+// K3's flush of tile ``tl``'s window: every in-image cell that is not 0
+// added to the accumulator with one global atomic, and every cell set back
+// to 0; by the kConsumers threads (``ctid``)
+__device__ __forceinline__ void k3_flush(unsigned* lo, unsigned* hi,
+                                         const K2Tile& tl, const K2Params& p,
+                                         int ctid) {
+  const WindowScatter sc = k3_scatter(lo, hi, tl, p, 0.f);
+  for (int e = ctid; e < k3::kCells; e += k2::kConsumers) {
+    const unsigned long long v =
+        (static_cast<unsigned long long>(hi[e]) << 32) | lo[e];
+    lo[e] = 0u;
+    hi[e] = 0u;
+    const int yc = sc.wy0 + e / k3::kWinW, xc = sc.wx0 + e % k3::kWinW;
+    if (v != 0ull && yc >= 0 && yc < p.h && xc >= 0 && xc < p.w)
+      atomicAdd(sc.dimg + static_cast<int64_t>(yc) * p.w + xc, v);
+  }
+}
+
+// K3's phase 3: the accumulator back to fp32 over the whole images, one
+// rounding (int64 -> double is exact below 2^53; above, double then float
+// round), NaN over an image whose bound is not ok; every thread of the
+// grid its strided share
+__device__ __forceinline__ void k3_to_float(const K2Params& p) {
+  const int64_t hw = static_cast<int64_t>(p.h) * p.w;
+  const int64_t n = p.batch * hw;
+  const long long* acc = reinterpret_cast<const long long*>(p.acc);
+  int64_t cached = -1;
+  FixedScale fs{0.f, 0.0, false};
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t b = i / hw;
+    if (b != cached) {
+      fs = fixed_scale(__ldcg(p.bound + b));
+      cached = b;
+    }
+    p.d_x[i] = fs.ok ? static_cast<float>(
+                           static_cast<double>(__ldcg(acc + i)) * fs.inv)
+                     : __int_as_float(0x7fc00000);
+  }
+}
+
+// the consumers' barrier (named barrier 1: the TMA path's producer warp
+// takes no part)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(k2::kConsumers) : "memory");
+}
+
+// K2 (kDx false) and K3 (kDx true): the persistent grid over 4 x 64 tiles
+// of the slab (B, Hs, W) of image rows [row0, row0 + Hs); kTma the TMA
+// path (a producer warp and 256 consumers), else the cp.async path (256
+// threads that copy and compute); kBf16 the bf16-sampling mode. K2
+// finishes d_weight and d_bias through the ticket counter; K3 runs its
+// three phases around two grid barriers (the header note).
+template <bool kTma, bool kBf16, bool kDx>
+__device__ __forceinline__ void backward_tiles(const CUtensorMap& off_map,
+                                               const CUtensorMap& mask_map,
+                                               const CUtensorMap& g_map,
+                                               const CUtensorMap& x_map,
+                                               const K2Params& p) {
   using jspsr::smem_u32;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -629,8 +859,13 @@ deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
   unsigned char* smem = smem_raw + (base - raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // [kStages]
   uint64_t* empty = full + k2::kStages;                // [kStages]
+  float* scales = reinterpret_cast<float*>(smem + k3::kScaleOff);  // K3
   float* ring = reinterpret_cast<float*>(smem + k2::kBarBytes);
   constexpr int kStageStride = k2::kStageBytes / 4;  // floats
+  // K3's window, after the ring
+  unsigned* win_lo =
+      reinterpret_cast<unsigned*>(ring + k2::kStages * kStageStride);
+  unsigned* win_hi = win_lo + k3::kCells;
 
   const int tid = threadIdx.x;
   const int my_tiles =
@@ -641,39 +876,54 @@ deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
 #pragma unroll
   for (int t = 0; t < kTaps; ++t) dw[t] = 0.f;
   double gsum = 0.0;  // this lane's share of d_bias, in the summing warp
+  int last_b = -1;    // K3: the image of the block's last scaled tile
+  float last_scale = 0.f;
 
   if constexpr (kTma) {
     if (tid == 0) {
       for (int s = 0; s < k2::kStages; ++s) {
-        jspsr::mbar_init(smem_u32(full + s), 1);
+        // K3's producer arrives once more, with the tile's scale
+        jspsr::mbar_init(smem_u32(full + s), kDx ? 2 : 1);
         // the consumer warps, and the producer once it has summed g
         jspsr::mbar_init(smem_u32(empty + s), k2::kConsumers / 32 + 1);
       }
       jspsr::mbar_init_fence();
     }
     __syncthreads();
+    if constexpr (kDx) {
+      // the first stages' loads land during phase 1
+      if (tid == k2::kConsumers)
+        for (int i = 0; i < min(my_tiles, k2::kStages); ++i)
+          k2_load(k2_tile(blockIdx.x + i * gridDim.x, p),
+                  smem_u32(ring + i * kStageStride), smem_u32(full + i),
+                  off_map, mask_map, g_map, x_map);
+      k3_phase1(p, win_lo, win_hi);
+      cooperative_groups::this_grid().sync();
+    }
     if (tid >= k2::kConsumers) {
-      // the producer warp: lane 0 issues tile i's loads, then the warp
-      // sums tile i - 1's g, which has landed, and frees its stage
+      // the producer warp: lane 0 issues tile i's loads (K3: the warp
+      // then puts its scale in the stage), then the warp sums tile i - 1's
+      // g, which has landed, and frees its stage
       const int lane = tid - k2::kConsumers;
-      constexpr uint32_t kTx = k2::kStageFloats * 4;
       for (int i = 0; i <= my_tiles; ++i) {
-        if (i < my_tiles && lane == 0) {
+        if (i < my_tiles) {
           const int s = i % k2::kStages;
-          if (i >= k2::kStages)
-            jspsr::mbar_wait(smem_u32(empty + s), (i / k2::kStages - 1) & 1);
           const K2Tile tl = k2_tile(blockIdx.x + i * gridDim.x, p);
-          const uint32_t bar = smem_u32(full + s);
-          const uint32_t dst = smem_u32(ring + s * kStageStride);
-          jspsr::mbar_expect_tx(bar, kTx);
-          jspsr::tma_load_3d(dst, &off_map, tl.x0, tl.y0,
-                             tl.b * 2 * kTaps, bar);
-          jspsr::tma_load_3d(dst + k2::kOffFloats * 4, &mask_map, tl.x0,
-                             tl.y0, tl.b * kTaps, bar);
-          jspsr::tma_load_3d(dst + (k2::kOffFloats + k2::kMaskFloats) * 4,
-                             &g_map, tl.x0, tl.y0, tl.b, bar);
-          jspsr::tma_load_4d(dst + k2::kPlaneFloats * 4, &x_map, 0,
-                             tl.wx0 / 4, tl.wy0, tl.b, bar);
+          if (lane == 0 && (!kDx || i >= k2::kStages)) {
+            if (i >= k2::kStages)
+              jspsr::mbar_wait(smem_u32(empty + s),
+                               (i / k2::kStages - 1) & 1);
+            k2_load(tl, smem_u32(ring + s * kStageStride),
+                    smem_u32(full + s), off_map, mask_map, g_map, x_map);
+          }
+          if constexpr (kDx) {
+            const float scale = k3_tile_scale(p, tl, lane, last_b,
+                                              last_scale);
+            if (lane == 0) {
+              scales[s] = scale;
+              jspsr::mbar_arrive(smem_u32(full + s));
+            }
+          }
         }
         if (i >= 1) {
           const int s = (i - 1) % k2::kStages;
@@ -687,19 +937,34 @@ deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
       for (int i = 0; i < my_tiles; ++i) {
         const int s = i % k2::kStages;
         jspsr::mbar_wait(smem_u32(full + s), (i / k2::kStages) & 1);
-        k2_pixel<kBf16>(ring + s * kStageStride,
-                        k2_tile(blockIdx.x + i * gridDim.x, p), p, tid, dw);
+        const K2Tile tl = k2_tile(blockIdx.x + i * gridDim.x, p);
+        const float* st = ring + s * kStageStride;
+        if constexpr (kDx)
+          k2_pixel<kBf16>(st, tl, p, tid, dw,
+                          k3_scatter(win_lo, win_hi, tl, p, scales[s]));
+        else
+          k2_pixel<kBf16>(st, tl, p, tid, dw, NoScatter{});
         // every lane's reads of the stage are done before lane 0 frees it
         __syncwarp();
         if (tid % 32 == 0) jspsr::mbar_arrive(smem_u32(empty + s));
+        if constexpr (kDx) {
+          consumers_sync();  // every scatter into the window has landed
+          k3_flush(win_lo, win_hi, tl, p, tid);
+          consumers_sync();  // the window is 0 before the next scatter
+        }
       }
     }
-    k2_finish<k2::kThreadsTma / 32>(dw, gsum, p);
   } else {
     // the last warp sums each tile's g too
     constexpr int kSummer = k2::kConsumers / 32 - 1;
+    if constexpr (kDx) {
+      // the first tile's copies land during phase 1
+      if (my_tiles > 0) k2_copy_tile(ring, k2_tile(blockIdx.x, p), p, tid);
+      k3_phase1(p, win_lo, win_hi);
+      cooperative_groups::this_grid().sync();
+    }
     for (int i = 0; i < my_tiles; ++i) {
-      if (i == 0) k2_copy_tile(ring, k2_tile(blockIdx.x, p), p, tid);
+      if (!kDx && i == 0) k2_copy_tile(ring, k2_tile(blockIdx.x, p), p, tid);
       if (i + 1 < my_tiles) {
         k2_copy_tile(ring + ((i + 1) % k2::kStages) * kStageStride,
                      k2_tile(blockIdx.x + (i + 1) * gridDim.x, p), p, tid);
@@ -707,164 +972,63 @@ deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
       } else {
         asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       }
+      const K2Tile tl = k2_tile(blockIdx.x + i * gridDim.x, p);
+      if constexpr (kDx) {
+        if (tid < 32) {
+          const float scale = k3_tile_scale(p, tl, tid, last_b, last_scale);
+          if (tid == 0) scales[0] = scale;
+        }
+      }
       __syncthreads();
       const float* st = ring + (i % k2::kStages) * kStageStride;
-      k2_pixel<kBf16>(st, k2_tile(blockIdx.x + i * gridDim.x, p), p, tid,
-                      dw);
+      if constexpr (kDx)
+        k2_pixel<kBf16>(st, tl, p, tid, dw,
+                        k3_scatter(win_lo, win_hi, tl, p, scales[0]));
+      else
+        k2_pixel<kBf16>(st, tl, p, tid, dw, NoScatter{});
       if (tid / 32 == kSummer) k2_tile_gsum(st, tid % 32, gsum);
-      // the stage is refilled two tiles on
+      // the stage is refilled two tiles on; K3's window and scale are
+      // reused after the next tile's barrier
       __syncthreads();
+      if constexpr (kDx) k3_flush(win_lo, win_hi, tl, p, tid);
     }
-    k2_finish<k2::kConsumers / 32>(dw, gsum, p);
+  }
+  constexpr int kWarpsB = (kTma ? k2::kThreadsTma : k2::kConsumers) / 32;
+  if constexpr (kDx) {
+    k2_row<kWarpsB>(dw, gsum, p);
+    // every scatter, flush and row is in before phase 3 reads them
+    cooperative_groups::this_grid().sync();
+    // block 0's chain of loads for the rows first, beside the others'
+    // conversion
+    if (blockIdx.x == 0) k2_sum_rows<kWarpsB>(p);
+    k3_to_float(p);
+  } else {
+    k2_finish<kWarpsB>(dw, gsum, p);
   }
 }
 
-// K3: one block per 8 x 32 tile of one image's slab of image rows [row0,
-// row0 + hs) (the whole image: hs = h, row0 = 0), d_x through the window
-// into the whole image's fixed-point accumulator ``d_x_fixed``, scaled by
-// the image's L1 bound in ``bound``; kBf16 the bf16-sampling mode (its d_x
-// is the fp32 mode's)
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-deform_bwd_dx_kernel(const float* __restrict__ x,
-                     const float* __restrict__ offset,
-                     const float* __restrict__ mask,
-                     const float* __restrict__ weight,
-                     const float* __restrict__ grad_out,
-                     const double* __restrict__ bound,
-                     float* __restrict__ d_offset, float* __restrict__ d_mask,
-                     float* __restrict__ d_weight_partial,
-                     unsigned long long* __restrict__ d_x_fixed, int h, int w,
-                     int tiles_x, int tiles_y, int pad, int hs, int row0) {
-  __shared__ unsigned win_lo[kWinH * kWinW];
-  __shared__ unsigned win_hi[kWinH * kWinW];
-  const int64_t blk = blockIdx.x;
-  const int tx_i = static_cast<int>(blk % tiles_x);
-  const int64_t rest = blk / tiles_x;
-  const int ty_i = static_cast<int>(rest % tiles_y);
-  const int64_t b = rest / tiles_y;
-  // the tile's first row in the slab, and in the image
-  const int ty0 = ty_i * kTileH, tx0 = tx_i * kTileW;
-  const int iy0 = row0 + ty0;
-  const int ys = ty0 + threadIdx.x / kTileW;  // the pixel's slab row
-  const int xo = tx0 + threadIdx.x % kTileW;
-  const int64_t hw = static_cast<int64_t>(h) * w;
-  const int64_t hws = static_cast<int64_t>(hs) * w;  // a slab plane
-  unsigned long long* dimg = d_x_fixed + b * hw;
-  // not ok: the last pass writes NaN, the scatter's values do not matter
-  const FixedScale fs = fixed_scale(bound[b]);
-
-  for (int e = threadIdx.x; e < kWinH * kWinW; e += kThreads) {
-    win_lo[e] = 0u;
-    win_hi[e] = 0u;
-  }
-  __syncthreads();
-
-  float dw[kTaps];
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) dw[t] = 0.f;
-  // no early return: every thread takes part in the barriers below
-  if (ys < hs && xo < w) {
-    const int64_t p = static_cast<int64_t>(ys) * w + xo;
-    const WindowScatter scatter{win_lo, win_hi, dimg, fs.scale,
-                                iy0 - kMargin, tx0 - kMargin, w};
-    pixel_backward<kBf16, false>(
-        x + b * hw, Window{}, offset + b * (2 * kTaps) * hws + p,
-        mask + b * kTaps * hws + p, hws, weight,
-        d_offset + b * (2 * kTaps) * hws + p, d_mask + b * kTaps * hws + p,
-        hws, grad_out[b * hws + p], row0 + ys, xo, h, w, pad, dw, scatter);
-  }
-  // its __syncthreads also ends every scatter into the window
-  block_dweight(dw, d_weight_partial + blk * kTaps);
-
-  for (int e = threadIdx.x; e < kWinH * kWinW; e += kThreads) {
-    const unsigned long long v =
-        (static_cast<unsigned long long>(win_hi[e]) << 32) | win_lo[e];
-    const int yc = iy0 - kMargin + e / kWinW;
-    const int xc = tx0 - kMargin + e % kWinW;
-    if (v != 0ull && yc >= 0 && yc < h && xc >= 0 && xc < w)
-      atomicAdd(dimg + static_cast<int64_t>(yc) * w + xc, v);
-  }
+// K2: no input gradient, d_weight and d_bias finished in the kernel
+template <bool kTma, bool kBf16>
+__global__ void __launch_bounds__(kTma ? k2::kThreadsTma : k2::kConsumers,
+                                  k2::kBlocksPerSm)
+deform_bwd_kernel(const __grid_constant__ CUtensorMap off_map,
+                  const __grid_constant__ CUtensorMap mask_map,
+                  const __grid_constant__ CUtensorMap g_map,
+                  const __grid_constant__ CUtensorMap x_map,
+                  const K2Params p) {
+  backward_tiles<kTma, kBf16, false>(off_map, mask_map, g_map, x_map, p);
 }
 
-// A block's sum of one double per thread, in a fixed order (a warp
-// shuffle tree, then the warps' sums in turn); thread 0 holds the result.
-__device__ __forceinline__ double block_sum(double v) {
-  __shared__ double warp_sum[kWarps];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 1; k < kWarps; ++k) v += warp_sum[k];
-  }
-  return v;
-}
-
-// K3's first pass: one block per chunk of kBoundChunk pixels of one image
-// (``chunks`` per image) writes the chunk's sum of |g_p| * sum_t |w_t|
-// |m_{p,t}| to ``part`` (NaN and inf carry through); the block that counts
-// itself last on ``done`` (zeroed by the caller) then sums each image's
-// partials in a fixed order into ``bound`` (one warp per image: each lane
-// its strided share in order, then a fixed shuffle tree).
-__global__ void __launch_bounds__(kThreads)
-dx_bounds_kernel(const float* __restrict__ grad_out,
-                 const float* __restrict__ weight,
-                 const float* __restrict__ mask, int64_t batch, int64_t hw,
-                 int64_t chunks, double* __restrict__ part,
-                 double* __restrict__ bound, unsigned* __restrict__ done) {
-  __shared__ bool last;
-  const int64_t b = blockIdx.x / chunks;
-  const int64_t p0 = (blockIdx.x % chunks) * kBoundChunk;
-  const int64_t p1 = p0 + kBoundChunk < hw ? p0 + kBoundChunk : hw;
-  float aw[kTaps];
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t) aw[t] = fabsf(__ldg(weight + t));
-  const float* g = grad_out + b * hw;
-  const float* m = mask + b * kTaps * hw;
-  double s = 0.0;
-  for (int64_t p = p0 + threadIdx.x; p < p1; p += kThreads) {
-    float wm = 0.f;
-#pragma unroll
-    for (int t = 0; t < kTaps; ++t) wm += aw[t] * fabsf(m[t * hw + p]);
-    s += static_cast<double>(fabsf(g[p])) * static_cast<double>(wm);
-  }
-  s = block_sum(s);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = s;
-    __threadfence();  // the partial is visible before the count says so
-    last = atomicAdd(done, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  const int lane = threadIdx.x & 31;
-  for (int64_t img = threadIdx.x >> 5; img < batch; img += kWarps) {
-    double v = 0.0;
-    for (int64_t c = lane; c < chunks; c += 32)
-      v += __ldcg(part + img * chunks + c);  // from L2, past this SM's L1
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) bound[img] = v;
-  }
-}
-
-// K3's last pass: the fixed-point accumulator back to fp32, one rounding
-// (int64 -> double is exact below 2^53; above, double then float round);
-// ``per_image`` blocks stride over each image's hw pixels
-__global__ void __launch_bounds__(kThreads)
-dx_fixed_to_float_kernel(const long long* __restrict__ d_x_fixed,
-                         const double* __restrict__ bound,
-                         float* __restrict__ d_x, int64_t hw,
-                         int64_t per_image) {
-  const int64_t b = blockIdx.x / per_image;
-  const FixedScale fs = fixed_scale(bound[b]);
-  const long long* acc = d_x_fixed + b * hw;
-  float* out = d_x + b * hw;
-  for (int64_t i = (blockIdx.x % per_image) * kThreads + threadIdx.x; i < hw;
-       i += per_image * kThreads)
-    out[i] = fs.ok ? static_cast<float>(static_cast<double>(acc[i]) * fs.inv)
-                   : __int_as_float(0x7fc00000);
+// K3: K2 with d_x, one cooperative launch
+template <bool kTma, bool kBf16>
+__global__ void __launch_bounds__(kTma ? k2::kThreadsTma : k2::kConsumers,
+                                  k2::kBlocksPerSm)
+deform_bwd_dx_kernel(const __grid_constant__ CUtensorMap off_map,
+                     const __grid_constant__ CUtensorMap mask_map,
+                     const __grid_constant__ CUtensorMap g_map,
+                     const __grid_constant__ CUtensorMap x_map,
+                     const K2Params p) {
+  backward_tiles<kTma, kBf16, true>(off_map, mask_map, g_map, x_map, p);
 }
 
 bool k2_use_tma(const void* x, const void* offset, const void* mask,
@@ -878,9 +1042,9 @@ int64_t k2_tiles(int64_t batch, int hs, int w) {
          ((w + k2::kTileW - 1) / k2::kTileW);
 }
 
-// the rows of K2's finish on the current device: one per block of its
-// persistent grid, at most kBlocksPerSm per SM (0 where the runtime cannot
-// count the SMs)
+// the rows of K2's and K3's finish on the current device: one per block of
+// their persistent grid, at most kBlocksPerSm per SM (0 where the runtime
+// cannot count the SMs)
 int64_t k2_rows(int64_t batch, int hs, int w) {
   return std::min<int64_t>(k2_tiles(batch, hs, w),
                            int64_t{jspsr::sm_count()} * k2::kBlocksPerSm);
@@ -888,160 +1052,185 @@ int64_t k2_rows(int64_t batch, int hs, int w) {
 
 // the kernel's dynamic shared-memory allowance, set once per device, and
 // how many of its blocks one SM holds
-template <bool kTma, bool kBf16>
-cudaError_t k2_prepare(int* blocks) {
+template <bool kTma, bool kBf16, bool kDx>
+cudaError_t bwd_prepare(int* blocks) {
   static int resident[64] = {};  // per device, 0 until asked
-  return jspsr::resident_blocks(
-      deform_bwd_kernel<kTma, kBf16>,
-      kTma ? k2::kThreadsTma : k2::kConsumers, k2::kSmem, resident, blocks);
+  constexpr int kThreadsB = kTma ? k2::kThreadsTma : k2::kConsumers;
+  if constexpr (kDx)
+    return jspsr::resident_blocks(deform_bwd_dx_kernel<kTma, kBf16>,
+                                  kThreadsB, k3::kSmem, resident, blocks);
+  else
+    return jspsr::resident_blocks(deform_bwd_kernel<kTma, kBf16>, kThreadsB,
+                                  k2::kSmem, resident, blocks);
 }
 
-// K2 on the slab of image rows [y0, y0 + hs) (the whole image: hs = h,
-// y0 = 0), as jspsr_deform_bwd describes it
-template <bool kBf16>
-int launch_k2(const float* x, const float* offset, const float* mask,
-              const float* weight, const float* grad_out, float* d_offset,
-              float* d_mask, float* d_weight, float* d_bias, double* rows,
-              unsigned* counter, int64_t batch, int h, int w, int pad, int hs,
-              int y0, void* stream) {
-  if (y0 < 0 || hs < 0 || y0 > h - hs)
+// K2 (kDx false) or K3 on the slab of image rows [row0, row0 + hs) that
+// ``p`` describes, as jspsr_deform_bwd and jspsr_deform_bwd_dx describe
+// them; ``p``'s grid fields are filled here
+template <bool kBf16, bool kDx>
+int launch_bwd(K2Params p, int64_t batch, void* stream) {
+  if (p.row0 < 0 || p.hs < 0 || p.row0 > p.h - p.hs)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (batch == 0 || hs == 0 || w == 0) return 0;
-  const int64_t n_tiles = k2_tiles(batch, hs, w);
+  if (batch == 0 || p.hs == 0 || p.w == 0) return 0;
+  const int64_t n_tiles = k2_tiles(batch, p.hs, p.w);
   if (n_tiles >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const int sms = jspsr::sm_count();
   if (sms == 0) return static_cast<int>(cudaGetLastError());
-  const bool tma = k2_use_tma(x, offset, mask, grad_out, w);
+  const bool tma = k2_use_tma(p.x, p.offset, p.mask, p.grad_out, p.w);
   int blocks = 0;
-  const cudaError_t err = tma ? k2_prepare<true, kBf16>(&blocks)
-                              : k2_prepare<false, kBf16>(&blocks);
+  const cudaError_t err = tma ? bwd_prepare<true, kBf16, kDx>(&blocks)
+                              : bwd_prepare<false, kBf16, kDx>(&blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   // persistent: every block resident at once, none without a tile, no
   // more than k2_rows sized the rows for
   const int64_t slots =
       static_cast<int64_t>(sms) * std::min(blocks, k2::kBlocksPerSm);
   const int grid = static_cast<int>(std::min(n_tiles, slots));
-  const int tiles_x = (w + k2::kTileW - 1) / k2::kTileW;
-  const int tiles_y = (hs + k2::kTileH - 1) / k2::kTileH;
-  const K2Params p{x,      offset,  mask, weight, grad_out, d_offset,
-                   d_mask, d_weight, d_bias, rows, counter, h,
-                   w,      pad,     hs,   y0,     tiles_x,  tiles_y,
-                   static_cast<int>(n_tiles)};
+  p.tiles_x = (p.w + k2::kTileW - 1) / k2::kTileW;
+  p.tiles_y = (p.hs + k2::kTileH - 1) / k2::kTileH;
+  p.n_tiles = static_cast<int>(n_tiles);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   CUtensorMap maps[4] = {};
   if (tma) {
     const jspsr::EncodeTiled encode = jspsr::encode_tiled();
     if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
     using jspsr::encode_planes;
-    if (encode_planes(encode, &maps[0], offset, w, hs, batch * 2 * kTaps,
-                      k2::kTileW, k2::kTileH, 2 * kTaps) != CUDA_SUCCESS ||
-        encode_planes(encode, &maps[1], mask, w, hs, batch * kTaps,
+    if (encode_planes(encode, &maps[0], p.offset, p.w, p.hs,
+                      batch * 2 * kTaps, k2::kTileW, k2::kTileH,
+                      2 * kTaps) != CUDA_SUCCESS ||
+        encode_planes(encode, &maps[1], p.mask, p.w, p.hs, batch * kTaps,
                       k2::kTileW, k2::kTileH, kTaps) != CUDA_SUCCESS ||
-        encode_planes(encode, &maps[2], grad_out, w, hs, batch, k2::kTileW,
-                      k2::kTileH, 1) != CUDA_SUCCESS ||
-        jspsr::encode_window(encode, &maps[3], x, w, h, batch, k2::kWinH,
-                             k2::kWinW) != CUDA_SUCCESS)
+        encode_planes(encode, &maps[2], p.grad_out, p.w, p.hs, batch,
+                      k2::kTileW, k2::kTileH, 1) != CUDA_SUCCESS ||
+        jspsr::encode_window(encode, &maps[3], p.x, p.w, p.h, batch,
+                             k2::kWinH, k2::kWinW) != CUDA_SUCCESS)
       return static_cast<int>(cudaErrorInvalidValue);
-    deform_bwd_kernel<true, kBf16><<<grid, k2::kThreadsTma, k2::kSmem, s>>>(
+  }
+  const int threads = tma ? k2::kThreadsTma : k2::kConsumers;
+  if constexpr (kDx) {
+    // the grid barrier needs every block resident: a cooperative launch,
+    // which the runtime refuses (an error, no fallback) rather than start
+    // a grid that it cannot hold at once
+    void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &p};
+    const void* fn =
+        tma ? reinterpret_cast<const void*>(deform_bwd_dx_kernel<true, kBf16>)
+            : reinterpret_cast<const void*>(
+                  deform_bwd_dx_kernel<false, kBf16>);
+    const cudaError_t rc = cudaLaunchCooperativeKernel(
+        fn, dim3(grid), dim3(threads), args, k3::kSmem, s);
+    if (rc != cudaSuccess) {
+      cudaGetLastError();  // the error is returned, not left behind
+      return static_cast<int>(rc);
+    }
+  } else if (tma) {
+    deform_bwd_kernel<true, kBf16><<<grid, threads, k2::kSmem, s>>>(
         maps[0], maps[1], maps[2], maps[3], p);
   } else {
-    deform_bwd_kernel<false, kBf16><<<grid, k2::kConsumers, k2::kSmem, s>>>(
+    deform_bwd_kernel<false, kBf16><<<grid, threads, k2::kSmem, s>>>(
         maps[0], maps[1], maps[2], maps[3], p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int64_t k3_tiles_x(int w) { return (w + kTileW - 1) / kTileW; }
-int64_t k3_tiles_y(int h) { return (h + kTileH - 1) / kTileH; }
+// K2's launch parameters (K3's fields left empty)
+template <bool kBf16>
+int launch_k2(const float* x, const float* offset, const float* mask,
+              const float* weight, const float* grad_out, float* d_offset,
+              float* d_mask, float* d_weight, float* d_bias, double* rows,
+              unsigned* counter, int64_t batch, int h, int w, int pad, int hs,
+              int y0, void* stream) {
+  K2Params p{};
+  p.x = x;
+  p.offset = offset;
+  p.mask = mask;
+  p.weight = weight;
+  p.grad_out = grad_out;
+  p.d_offset = d_offset;
+  p.d_mask = d_mask;
+  p.d_weight = d_weight;
+  p.d_bias = d_bias;
+  p.rows = rows;
+  p.counter = counter;
+  p.h = h;
+  p.w = w;
+  p.pad = pad;
+  p.hs = hs;
+  p.row0 = y0;
+  p.batch = batch;
+  return launch_bwd<kBf16, false>(p, batch, stream);
+}
 
-// K3 on the slab of image rows [y0, y0 + hs) (the whole image: hs = h,
-// y0 = 0): the bounds pass over the slab's pixels, the kernel and the last
-// pass over the whole image on ``stream``, through ``scratch``
-// (jspsr_deform_bwd_dx_scratch words); d_x (B,1,H,W) is written by the last
-// pass.
+// K3's scratch (jspsr_deform_bwd_dx_scratch words) laid out: the
+// accumulator, the bounds, phase 1's partials, the blocks' rows
 template <bool kBf16>
 int launch_k3(const float* x, const float* offset, const float* mask,
               const float* weight, const float* grad_out, float* d_offset,
-              float* d_mask, float* d_weight_partial, long long* scratch,
-              float* d_x, int64_t batch, int h, int w, int pad, int hs,
-              int y0, void* stream) {
-  if (y0 < 0 || hs < 0 || y0 > h - hs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = batch * k3_tiles_y(hs) * k3_tiles_x(w);
-  if (blocks == 0) return 0;
-  if (blocks >= (int64_t{1} << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+              float* d_mask, float* d_weight, float* d_bias,
+              long long* scratch, float* d_x, int64_t batch, int h, int w,
+              int pad, int hs, int y0, void* stream) {
   const int64_t hw = static_cast<int64_t>(h) * w;
-  const int64_t hws = static_cast<int64_t>(hs) * w;
-  const int64_t chunks = k3_chunks(hws);
-  double* bound = reinterpret_cast<double*>(scratch + batch * hw);
-  double* part = bound + batch;
-  unsigned* done = reinterpret_cast<unsigned*>(part + batch * chunks);
-  dx_bounds_kernel<<<static_cast<unsigned int>(batch * chunks), kThreads, 0,
-                     s>>>(grad_out, weight, mask, batch, hws, chunks, part,
-                          bound, done);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  deform_bwd_dx_kernel<kBf16>
-      <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
-      x, offset, mask, weight, grad_out, bound, d_offset, d_mask,
-      d_weight_partial, reinterpret_cast<unsigned long long*>(scratch), h, w,
-      static_cast<int>(k3_tiles_x(w)), static_cast<int>(k3_tiles_y(hs)), pad,
-      hs, y0);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  // about 16 blocks per SM over the batch, at most one per 256 pixels
-  const int64_t per_image = std::max<int64_t>(
-      1, std::min<int64_t>((hw + kThreads - 1) / kThreads,
-                           (132 * 16 + batch - 1) / batch));
-  dx_fixed_to_float_kernel<<<static_cast<unsigned int>(batch * per_image),
-                             kThreads, 0, s>>>(
-      scratch, bound, d_x, hw, per_image);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t chunks = k3_chunks(static_cast<int64_t>(hs) * w);
+  K2Params p{};
+  p.x = x;
+  p.offset = offset;
+  p.mask = mask;
+  p.weight = weight;
+  p.grad_out = grad_out;
+  p.d_offset = d_offset;
+  p.d_mask = d_mask;
+  p.d_weight = d_weight;
+  p.d_bias = d_bias;
+  p.h = h;
+  p.w = w;
+  p.pad = pad;
+  p.hs = hs;
+  p.row0 = y0;
+  p.d_x = d_x;
+  p.acc = reinterpret_cast<unsigned long long*>(scratch);
+  p.bound = reinterpret_cast<double*>(scratch + batch * hw);
+  p.part = p.bound + batch;
+  p.rows = p.part + batch * chunks;
+  p.batch = batch;
+  p.chunks = chunks;
+  return launch_bwd<kBf16, true>(p, batch, stream);
 }
 
 }  // namespace
 
-// The rows of a launch's scratch. K2 (need_dx 0): one row of d_weight's 9
-// sums and d_bias's per block of its persistent grid on the current device
-// (jspsr_deform_bwd's ``rows``); K3 (need_dx 1): one row of 9 d_weight
-// partials per 8 x 32 tile of each image's slab of H rows. H is a slab's
-// rows.
-extern "C" int64_t jspsr_deform_bwd_blocks(int need_dx, int64_t batch, int h,
-                                           int w) {
-  return need_dx ? batch * k3_tiles_y(h) * k3_tiles_x(w)
-                 : k2_rows(batch, h, w);
+// The rows of K2's scratch on the current device: one row of d_weight's 9
+// sums and d_bias's per block of its persistent grid over a slab of H rows
+// (jspsr_deform_bwd's ``rows``).
+extern "C" int64_t jspsr_deform_bwd_rows(int64_t batch, int h, int w) {
+  return k2_rows(batch, h, w);
 }
 
 // K3's tile (rows, columns) and window margin, in that order.
 extern "C" void jspsr_deform_bwd_dx_window(int* out) {
-  out[0] = kTileH;
-  out[1] = kTileW;
-  out[2] = kMargin;
+  out[0] = k2::kTileH;
+  out[1] = k2::kTileW;
+  out[2] = k3::kMargin;
 }
 
 // Plain C entry points, bound from Python with ctypes. All tensors are
 // contiguous fp32 on the current device: x (B,1,H,W), offset (B,18,H,W),
 // mask (B,9,H,W), weight (9,), grad_out (B,1,H,W); outputs d_offset
-// (B,18,H,W), d_mask (B,9,H,W) and, for jspsr_deform_bwd_dx, d_weight's
-// partials (jspsr_deform_bwd_blocks rows of 9, summed by the caller) and
-// d_x (B,1,H,W) through the accumulator described there. Each takes a row
-// slab: offset, mask, grad_out, d_offset and d_mask of hs rows, image rows
-// [y0, y0 + hs) of x (hs = h, y0 = 0: the whole image); d_x is the whole
-// image's (B,1,H,W) either way. Each launches on ``stream`` without
-// synchronising and returns cudaGetLastError() (cudaErrorNotSupported
-// where libcuda has no tensor-map encoder and K2's shape needs one).
+// (B,18,H,W), d_mask (B,9,H,W), d_weight (9,), d_bias (1,) and, for
+// jspsr_deform_bwd_dx, d_x (B,1,H,W). Each takes a row slab: offset, mask,
+// grad_out, d_offset and d_mask of hs rows, image rows [y0, y0 + hs) of x
+// (hs = h, y0 = 0: the whole image); d_x is the whole image's (B,1,H,W)
+// either way. Each launches one kernel on ``stream`` without synchronising
+// and returns its launch's error (cudaErrorNotSupported where libcuda has
+// no tensor-map encoder and the shape needs one); an empty batch or slab
+// launches nothing and writes nothing.
 //
-// K2 writes d_weight (9,) and d_bias (1,) itself, in one launch, through
-// ``rows`` (jspsr_deform_bwd_blocks(0, ...) rows of 10 doubles, written
-// before they are read) and ``counter``, one unsigned int that is 0 when
-// the kernel starts and that its last block sets back to 0. One counter
-// serves every K2 launch on one stream: the launches of a stream run one
-// after the other, each leaves the counter at 0 for the next, and no other
-// kernel touches it. Two streams need two counters, as two launches on
-// them may run at once.
+// K2 writes d_weight and d_bias itself, in one launch, through ``rows``
+// (jspsr_deform_bwd_rows rows of 10 doubles, written before they are read)
+// and ``counter``, one unsigned int that is 0 when the kernel starts and
+// that its last block sets back to 0. One counter serves every K2 launch
+// on one stream: the launches of a stream run one after the other, each
+// leaves the counter at 0 for the next, and no other kernel touches it.
+// Two streams need two counters, as two launches on them may run at once.
 extern "C" int jspsr_deform_bwd(const float* x, const float* offset,
                                 const float* mask, const float* weight,
                                 const float* grad_out, float* d_offset,
@@ -1068,27 +1257,32 @@ extern "C" int jspsr_deform_bwd_bf16(const float* x, const float* offset,
                          hs, y0, stream);
 }
 
-// K3's scratch, in int64 words, all zeroed by the caller: the whole
-// images' d_x accumulator (B*H*W), the images' L1 bounds (B doubles), the
-// bounds pass's partials (one double per chunk of each image's slab of hs
-// rows) and its counter.
+// K3's scratch, in int64 words, written by the kernel before it is read
+// (nothing to zero): the whole images' d_x accumulator (B*H*W), the
+// images' L1 bounds (B doubles), phase 1's partials (one double per chunk
+// of each image's slab of hs rows) and the blocks' rows of d_weight and
+// d_bias (K2's rows, 10 doubles each).
 extern "C" int64_t jspsr_deform_bwd_dx_scratch(int64_t batch, int h, int w,
                                                int hs) {
   const int64_t hw = static_cast<int64_t>(h) * w;
-  return batch * (hw + 1 + k3_chunks(static_cast<int64_t>(hs) * w)) + 1;
+  return batch * (hw + 1 + k3_chunks(static_cast<int64_t>(hs) * w)) +
+         k2_rows(batch, hs, w) * k2::kSums;
 }
 
-// K3: as described at launch_k3. All tensors as for jspsr_deform_bwd (the
-// same row slab), plus ``scratch`` and d_x (B,1,H,W), the whole images'.
+// K3: one cooperative launch, as the header note describes it. All tensors
+// as for jspsr_deform_bwd (the same row slab), plus ``scratch``
+// (jspsr_deform_bwd_dx_scratch words, its start on 16 bytes) and d_x
+// (B,1,H,W), the whole images'. No counter: the grid barrier orders the
+// rows, so launches on any streams may run at once.
 extern "C" int jspsr_deform_bwd_dx(const float* x, const float* offset,
                                    const float* mask, const float* weight,
                                    const float* grad_out, float* d_offset,
-                                   float* d_mask, float* d_weight_partial,
-                                   long long* scratch, float* d_x,
-                                   int64_t batch, int h, int w, int pad,
-                                   int hs, int y0, void* stream) {
+                                   float* d_mask, float* d_weight,
+                                   float* d_bias, long long* scratch,
+                                   float* d_x, int64_t batch, int h, int w,
+                                   int pad, int hs, int y0, void* stream) {
   return launch_k3<false>(x, offset, mask, weight, grad_out, d_offset,
-                          d_mask, d_weight_partial, scratch, d_x, batch, h,
+                          d_mask, d_weight, d_bias, scratch, d_x, batch, h,
                           w, pad, hs, y0, stream);
 }
 
@@ -1098,11 +1292,11 @@ extern "C" int jspsr_deform_bwd_dx_bf16(const float* x, const float* offset,
                                         const float* weight,
                                         const float* grad_out,
                                         float* d_offset, float* d_mask,
-                                        float* d_weight_partial,
+                                        float* d_weight, float* d_bias,
                                         long long* scratch, float* d_x,
                                         int64_t batch, int h, int w, int pad,
                                         int hs, int y0, void* stream) {
   return launch_k3<true>(x, offset, mask, weight, grad_out, d_offset, d_mask,
-                         d_weight_partial, scratch, d_x, batch, h, w, pad,
-                         hs, y0, stream);
+                         d_weight, d_bias, scratch, d_x, batch, h, w, pad, hs,
+                         y0, stream);
 }

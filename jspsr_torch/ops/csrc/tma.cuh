@@ -2,9 +2,9 @@
 // forward K1, deform_fwd.cu, the deform backward K2, deform_bwd.cu, and
 // K4's bf16 conv, conv_same_bf16.cu): mbarrier helpers, TMA tensor loads,
 // libcuda's tensor-map encoder looked up through the runtime, so that no
-// library needs -lcuda, and the host helpers of K1's and K2's persistent
-// launches (their plane and window tensor maps, the SM count, the resident
-// blocks per SM).
+// library needs -lcuda, and the host helpers of K1's, K2's and K3's
+// persistent launches (their plane and window tensor maps, the SM count,
+// the resident blocks per SM).
 //
 // A TMA load is issued by one thread; the hardware copies a box of a
 // tensor map into shared memory, fills what lies outside the tensor with
@@ -87,8 +87,17 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // libcuda's cuTensorMapEncodeTiled, looked up through the runtime once;
-// nullptr where libcuda has none
+// nullptr where libcuda has none. The encoder is a driver call, which needs
+// a current context, and the runtime binds its context to a thread only at
+// that thread's first call that needs one: a launch from a thread that has
+// not touched the card yet (autograd's device thread, when the deform op's
+// backward is its first work) would fail to encode. So every call binds
+// the current device's context first (cudaSetDevice does, and costs nothing
+// once it is bound).
 inline EncodeTiled encode_tiled() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;

@@ -13,15 +13,17 @@
   and d_bias itself (each block's sums in a fixed order, then the last
   block sums the blocks' rows, through a ticket counter that ``_counter``
   keeps per stream);
-- ``deform_bwd_dx`` (the same source, its own kernels), replacing
-  ``_bwd_kernel`` with ``need_dx=True``: d_offset, d_mask, per-block
-  d_weight partials (summed here, as d_bias = sum(g)) and the input
-  gradient d_x, scattered in 64-bit fixed point (scaled per image from
-  the L1 norm of its contributions, which a first pass sums in a fixed
-  order) into a shared-memory window around each 8 x 32 output tile and
-  flushed with integer atomics, then turned back into fp32 by a last pass:
-  bitwise reproducible (``dx_atomics`` counts, from the offsets, where
-  this data's corners go);
+- ``deform_bwd_dx`` (the same source, its own kernel), replacing
+  ``_bwd_kernel`` with ``need_dx=True``: K2 with the input gradient d_x,
+  one cooperative launch of K2's persistent grid in three phases split by
+  grid-wide barriers (zero the fixed-point d_x accumulator and sum each
+  image's L1 norm of contributions in a fixed order; the tiles, scattering
+  d_x in 64-bit fixed point scaled per image from that norm into a
+  shared-memory window around each 4 x 64 tile, flushed with integer
+  atomics; d_x back to fp32 and d_weight and d_bias summed from the
+  blocks' rows): bitwise reproducible, one device kernel per call
+  (``dx_atomics`` counts, from the offsets, where this data's corners
+  go);
 - ``deform_fwd``, ``deform_bwd`` and ``deform_bwd_dx`` with
   ``sample_dtype="bfloat16"``: the three kernels' bf16-sampling mode (a
   template flag of each, entry points ``jspsr_deform_fwd_bf16``,
@@ -77,9 +79,9 @@ TAPS = 9
 # csrc/deform_fwd.cu, checked against the library when it is loaded
 FWD_TILE = (4, 64)
 FWD_MARGIN = 4
-# K3's output tile (rows, columns) and window margin: the constants of
-# csrc/deform_bwd.cu, checked against the library when it is loaded
-DX_TILE = (8, 32)
+# K3's output tile (rows, columns; K2's) and window margin: the constants
+# of csrc/deform_bwd.cu, checked against the library when it is loaded
+DX_TILE = (4, 64)
 DX_MARGIN = 4
 # a row of K2's scratch: a block's 9 d_weight sums and its d_bias sum
 K2_SUMS = TAPS + 1
@@ -106,17 +108,17 @@ def reset_launches() -> None:
 # on a row slab (``<kernel>_slab``) is its kernel's entry point.
 _ENTRY = {"deform_fwd": ("deform_fwd", "jspsr_deform_fwd", 6),
           "deform_bwd": ("deform_bwd", "jspsr_deform_bwd", 11),
-          "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 10),
+          "deform_bwd_dx": ("deform_bwd", "jspsr_deform_bwd_dx", 11),
           "deform_fwd_bf16": ("deform_fwd", "jspsr_deform_fwd_bf16", 6),
           "deform_bwd_bf16": ("deform_bwd", "jspsr_deform_bwd_bf16", 11),
           "deform_bwd_dx_bf16": ("deform_bwd", "jspsr_deform_bwd_dx_bf16",
-                                 10)}
+                                 11)}
 
 
 def _load(name: str):
     """The kernel's ctypes function; for the backward kernels with the
-    library's row count, which sizes K2's scratch rows and K3's d_weight
-    partials, and K3's scratch size in int64 words."""
+    library's row count, which sizes K2's scratch rows, and K3's scratch
+    size in int64 words."""
     name = name.removesuffix("_slab")
     if name not in _fns:
         source, symbol, n_ptr = _ENTRY[name]
@@ -138,10 +140,9 @@ def _load(name: str):
             path.restype = ctypes.c_int
             _fns["deform_fwd_path"] = path
         if source == "deform_bwd":
-            blocks = lib.jspsr_deform_bwd_blocks
-            blocks.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                               ctypes.c_int]
-            blocks.restype = ctypes.c_int64
+            rows = lib.jspsr_deform_bwd_rows
+            rows.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+            rows.restype = ctypes.c_int64
             window = (ctypes.c_int * 3)()
             lib.jspsr_deform_bwd_dx_window(window)
             if tuple(window) != (*DX_TILE, DX_MARGIN):
@@ -152,8 +153,7 @@ def _load(name: str):
             scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_int]
             scratch.restype = ctypes.c_int64
-            need_dx = int(name.startswith("deform_bwd_dx"))
-            fn = (fn, lambda b, h, w: blocks(need_dx, b, h, w), scratch)
+            fn = (fn, rows, scratch)
         _fns[name] = fn
     return _fns[name]
 
@@ -290,26 +290,30 @@ def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     """Launch the backward kernel with the input gradient: as
     ``deform_bwd`` (the row slab of image row ``y0`` included), and returns
     ``(d_offset, d_mask, d_weight, d_bias, d_x)``, d_x (B,1,H,W) the whole
-    image's gradient from the slab's contributions. d_x is summed in fixed
-    point, scaled per image (from the slab's own pixels) on the device, so
-    every output is the same, bit for bit, on every run. In the
-    bf16-sampling mode d_offset, d_mask and d_weight are ``deform_bwd``'s
-    in that mode and d_x is the fp32 mode's. d_weight is the kernel's
-    per-block partials summed here, d_bias the sum of ``grad_out``."""
+    image's gradient from the slab's contributions. All five come from one
+    launch: d_x summed in fixed point, scaled per image (from the slab's
+    own pixels) on the device, d_weight and d_bias in the kernel in a fixed
+    order, so every output is the same, bit for bit, on every call on one
+    card. In the bf16-sampling mode d_offset, d_mask and d_weight are
+    ``deform_bwd``'s in that mode and d_x is the fp32 mode's. An empty
+    batch or slab launches nothing and gives zero d_x, d_weight and
+    d_bias."""
     name, (b, h, w, hs) = _backward_args("deform_bwd_dx", x, offset, weight,
                                          mask, grad_out, sample_dtype, y0)
-    fn, blocks, scratch = _load(name)
     d_offset = torch.empty_like(offset)
     d_mask = torch.empty_like(mask)
-    partial = torch.empty(blocks(b, hs, w), TAPS, device=x.device,
-                          dtype=torch.float32)
-    d_x = torch.empty_like(x)
-    # the whole image's fixed-point accumulator, summed with atomics, starts
-    # at zero; the bounds pass's partials after it are written whole
-    acc = torch.zeros(scratch(b, h, w, hs), device=x.device,
-                      dtype=torch.int64)
-    ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, partial,
-            acc, d_x]
+    if d_offset.numel() == 0:  # nothing to compute: no launch, none counted
+        return (d_offset, d_mask, torch.zeros_like(weight), x.new_zeros(1),
+                torch.zeros_like(x))
+    fn, _, scratch = _load(name)
+    d_weight, d_bias, d_x = (torch.empty_like(weight), x.new_empty(1),
+                             torch.empty_like(x))
+    # the accumulator, the bounds and the blocks' rows: written by the
+    # kernel before it reads them
+    work = torch.empty(scratch(b, h, w, hs), device=x.device,
+                       dtype=torch.int64)
+    ptrs = [x, offset, mask, weight, grad_out, d_offset, d_mask, d_weight,
+            d_bias, work, d_x]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(*(t.data_ptr() for t in ptrs), b, h, w, int(padding), hs,
@@ -317,8 +321,7 @@ def deform_bwd_dx(x: torch.Tensor, offset: torch.Tensor, weight: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
-    d_weight = partial.sum(0).view_as(weight)
-    return d_offset, d_mask, d_weight, grad_out.sum().view(1), d_x
+    return d_offset, d_mask, d_weight, d_bias, d_x
 
 
 def dx_atomics(offset: torch.Tensor, h: int, w: int, padding: int = 1,

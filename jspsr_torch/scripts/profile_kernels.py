@@ -4,10 +4,10 @@ wrapper launches around it.
 
     python -m jspsr_torch.scripts.profile_kernels
 
-``chip_smoke.py`` times a whole wrapper call: for K3 that includes the
-d_x zero fill and the d_weight and d_bias reductions, for K1 and K2 the
-outputs' allocation (K2 finishes d_weight and d_bias in its launch), for
-K4 nothing else. This script runs each wrapper
+``chip_smoke.py`` times a whole wrapper call: for K1, K2 and K3 that
+includes the outputs' allocation (K2 and K3 finish d_weight and d_bias
+in their launch; K3 zeroes and converts its d_x accumulator there too),
+for K4 nothing else. This script runs each wrapper
 20 times at its main shapes (K1 at 16 x 128² and 1 x 1024², K2 at 50 x
 128², K3 at 16 x 128², offsets of 1.5 px; K4 at the TPU probe's four
 cases, beside cuDNN's ``F.conv2d``), the L2 cache flushed before each

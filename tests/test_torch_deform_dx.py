@@ -250,17 +250,20 @@ def test_dx_atomics_matches_brute_force(b, h, w, tile, margin, scale):
 
 
 def test_dx_atomics_at_nlspn_offsets_stay_below_a_tenth():
-    """At 1.5 px, the train batch's 128² images send about 2 global atomics
-    per pixel through the window (at most 2.5 flushes plus the few corners
-    that leave it) where a scatter without the window sends every corner,
-    about 35."""
+    """At 1.5 px, the train batch's 128² images send about 3 global atomics
+    per pixel through the window of K3's 4 x 64 tiles (at most 3.4 flushes,
+    a window's 12 x 72 cells over its tile's 256 pixels, plus the few
+    corners that leave it) where a scatter without the window sends every
+    corner, about 35."""
     rng = np.random.default_rng(0)
     off = torch.from_numpy((rng.normal(size=(2, 18, 128, 128)) * 1.5)
                            .astype(np.float32))
     got = deform_cuda.dx_atomics(off, 128, 128)
     pixels = 2 * 128 * 128
+    (th, tw), margin = deform_cuda.DX_TILE, deform_cuda.DX_MARGIN
     assert got["global"] / pixels <= 0.1 * got["corners"] / pixels
-    assert got["flush"] <= 2 * 16 * 4 * (8 + 8) * (32 + 8)
+    assert got["flush"] <= (2 * (128 // th) * (128 // tw) * (th + 2 * margin)
+                            * (tw + 2 * margin))
 
 
 @pytest.mark.parametrize("b,h,w,scale", CASES, ids=IDS)
@@ -303,3 +306,54 @@ def test_custom_ops_pass_opcheck(op, sample_dtype):
         fn = (deform_conv2d_backward_op if op == "backward"
               else deform_conv2d_backward_dx_op)
         torch.library.opcheck(fn, (x, off, wgt, mask, g, 1, sample_dtype))
+
+
+@pytest.mark.parametrize("sample_dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("y0", [0, 12], ids=["first_row", "past_last_row"])
+@pytest.mark.parametrize("impl", ["plain", "op"])
+def test_empty_slab_gives_zero_gradients(impl, y0, sample_dtype):
+    """A slab of no rows (hs = 0) at image row 0 and at H: the plain
+    backward and the ``jspsr::deform_conv2d_backward_dx`` op (on CPU
+    tensors, the plain version; K3 returns the same without a launch) give
+    empty d_offset and d_mask and zero d_x, d_weight and d_bias of their
+    shapes, as the JAX package's backward over no output rows adds
+    nothing."""
+    x, off, mask, wgt, _, g = _case(2, 12, 10, 1.5, seed=19)
+    x, off, mask, g = (_nchw(a) for a in (x, off, mask, g[..., None]))
+    off, mask, g = (t[:, :, y0:y0].contiguous() for t in (off, mask, g))
+    wgt = torch.from_numpy(wgt.transpose(3, 2, 0, 1).copy())
+    if impl == "plain":
+        got = deform_conv2d_backward_plain(x, off, wgt, mask, g, need_dx=True,
+                                           sample_dtype=sample_dtype, y0=y0)
+    else:
+        got = deform_conv2d_backward_dx_op(x, off, wgt, mask, g, 1,
+                                           sample_dtype, y0)
+    assert [tuple(t.shape) for t in got] == [(2, 18, 0, 10), (2, 9, 0, 10),
+                                             (1, 1, 3, 3), (1,),
+                                             (2, 1, 12, 10)]
+    assert all(not t.any() for t in got[2:])
+
+
+@pytest.mark.parametrize("b,hs,want", [(16, 128, 0.0178), (2, 64, 0.00115),
+                                       (8, 64, 0.00462)],
+                         ids=["16x128", "slab_2x64of128", "slab_8x64of128"])
+def test_k3_bounds_give_the_recorded_figures(b, hs, want):
+    """K3's bounds as ``chip_smoke.py`` and the K3 bench take them
+    (``bench_deform_bwd_dx``), on an NVIDIA H100 80GB HBM3's published
+    rates: the whole image at 16 x 128² and the row slabs 2 and 8 x 64 x
+    128 of 128² are bytes-bound at PERF.md's 0.0178, 0.00115 and 0.00462
+    ms, whatever the share of corners on the image."""
+    from jspsr_torch.scripts.bench_deform_bwd_dx import (
+        k3_bound,
+        k3_slab_bound,
+    )
+    from jspsr_torch.scripts.bench_deform_fwd import card_peaks
+
+    _, (bandwidth, fp32_peak, _) = card_peaks("NVIDIA H100 80GB HBM3")
+    for atomics in (0, 36 * b * hs * 128):  # no corner, every corner
+        bound, by = (k3_bound(b, 128, 128, atomics, bandwidth, fp32_peak)
+                     if hs == 128 else
+                     k3_slab_bound(b, 128, 128, hs, atomics, bandwidth,
+                                   fp32_peak))
+        assert by == "bytes"
+        assert float(f"{bound:.3g}") == want

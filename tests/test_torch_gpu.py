@@ -170,7 +170,7 @@ def test_bf16_row_slab_kernels_are_the_whole_images_rows(cuda_device, h, w,
 def test_k3_row_slab_is_the_whole_images(cuda_device, h, w, y0, hs, scale,
                                          sample_dtype):
     """K3 and K3-bf16 on a row slab (``y0``; a slab of 11 rows off K3's
-    8-row tile, whose last tile row is partial): d_offset and d_mask
+    4-row tile, whose last tile row is partial): d_offset and d_mask
     bit-equal to those rows of the whole-image K3's; d_x the whole image's
     shape; over a partition of the rows the slabs' d_x and d_weight summed
     within 1e-6 of the whole image's terms' magnitude sums; each slab
@@ -442,9 +442,194 @@ def test_backward_kernel_empty_batch_launches_nothing(cuda_device):
     assert deform_cuda.LAUNCHES == before
 
 
+def _hold_k3_to_plain(got, x, offset, weight, mask, g, **kw):
+    """As test_backward_dx_kernel_matches_plain holds K3 (on a row slab
+    with ``y0``)."""
+    ref = deform_conv2d_backward_plain(x, offset, weight, mask, g,
+                                       need_dx=True, **kw)
+    abs_sum = deform_conv2d_backward_plain(x.abs(), offset, weight.abs(),
+                                           mask.abs(), g.abs(), need_dx=True,
+                                           **kw)
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-5, atol=1e-5)
+    assert ((got[2] - ref[2]).abs() <= 1e-5 * abs_sum[2] + 1e-6).all()
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-5, atol=1e-4)
+    assert ((got[4] - ref[4]).abs() <= 1e-5 * abs_sum[4] + 1e-7).all()
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("slab", [False, True], ids=["whole", "slab"])
+@pytest.mark.parametrize("side", [128, 333], ids=["tma", "copy"])
+def test_backward_dx_kernel_is_one_device_kernel(cuda_device, mode, slab,
+                                                 side):
+    """K3 zeroes its accumulator, sums the bounds, scatters, converts d_x
+    and finishes d_weight and d_bias in one launch: one device kernel per
+    call, no memset, copy or reduction beside it, on the TMA path and on
+    the copy path (W % 4 != 0), counted in a process of its own."""
+    from jspsr_torch.scripts.bench_deform_bwd_dx import (
+        kernels_per_call_child,
+    )
+
+    hs, y0 = (side // 3, side // 3) if slab else (side, 0)
+    kinds, = kernels_per_call_child([[2, side, hs, y0, mode]])
+    assert [n for n, _ in kinds.values()] == [1.0], kinds
+    assert "deform_bwd_dx_kernel" in next(iter(kinds)), kinds
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("slab", [False, True], ids=["whole", "slab"])
+def test_backward_dx_kernel_is_bit_identical_across_calls_and_streams(
+        cuda_device, mode, slab):
+    """Every output of K3 the same bits on every call: on the default
+    stream, then on two side streams one after the other; the outputs
+    hold the plain version."""
+    kw = {"hs": 64, "y0": 64} if slab else {}
+    x, offset, weight, mask, g = _k2_case(16, 128, 128, 1.5, cuda_device,
+                                          **kw)
+
+    def call():
+        return deform_cuda.deform_bwd_dx(x, offset, weight, mask, g,
+                                         sample_dtype=mode,
+                                         y0=kw.get("y0", 0))
+
+    first = call()
+    runs = [call() for _ in range(2)]
+    torch.cuda.synchronize()
+    for _ in range(2):
+        side = torch.cuda.Stream(cuda_device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            runs.append(call())
+        side.synchronize()
+    torch.cuda.synchronize()
+    for got in runs:
+        assert all(torch.equal(a, c) for a, c in zip(first, got))
+    _hold_k3_to_plain(first, x, offset, weight, mask, g, sample_dtype=mode,
+                      y0=kw.get("y0", 0))
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_backward_dx_kernel_blocks_walk_several_tiles(cuda_device, mode):
+    """At 60 x 128^2 (3,840 tiles of 4 x 64) each block of the persistent
+    grid (at most 3 per SM) walks several tiles, carrying its sums and
+    its image's scale across them and flushing its window after each;
+    the outputs hold the plain version."""
+    args = _k2_case(60, 128, 128, 1.5, cuda_device, seed=8)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 60 * 32 * 2 >= 4 * 3 * sms
+    got = deform_cuda.deform_bwd_dx(*args, sample_dtype=mode)
+    torch.cuda.synchronize()
+    _hold_k3_to_plain(got, *args, sample_dtype=mode)
+
+
+@pytest.mark.parametrize("b,h,w,hs,y0", [(2, 13, 21, 13, 0),
+                                         (2, 40, 130, 17, 11),
+                                         (1, 333, 335, 111, 111)],
+                         ids=["small", "slab", "scene"])
+@pytest.mark.parametrize("scale", [0.0, 1.5, 20.0])
+def test_backward_dx_kernel_copy_path_matches_plain(cuda_device, b, h, w, hs,
+                                                    y0, scale):
+    """W % 4 != 0 takes K3's cp.async path; its outputs hold the plain
+    version as the TMA path's do, whole and on a slab, bit-equal across
+    two calls."""
+    args = _k2_case(b, h, w, scale, cuda_device, hs=hs, y0=y0, seed=9)
+    assert deform_cuda.fwd_path(args[0], args[1], args[3]) == "copy"
+    got = deform_cuda.deform_bwd_dx(*args, y0=y0)
+    again = deform_cuda.deform_bwd_dx(*args, y0=y0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _hold_k3_to_plain(got, *args, y0=y0)
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("slab", [False, True], ids=["whole", "slab"])
+def test_backward_dx_kernel_misaligned_base_matches_aligned(cuda_device,
+                                                            mode, slab):
+    """A g whose base is not on 16 bytes cannot have a tensor map: K3 takes
+    the copy path and gives the TMA path's d_offset, d_mask and d_x, bit
+    for bit (the fixed point's scale and sums do not depend on the path),
+    and d_weight and d_bias within the plain version's tolerance."""
+    kw = {"hs": 32, "y0": 16} if slab else {}
+    x, offset, weight, mask, g = _k2_case(3, 64, 128, 1.5, cuda_device,
+                                          seed=10, **kw)
+    moved = torch.empty(g.numel() + 1, device=cuda_device)[1:]
+    moved = moved.view_as(g).copy_(g)
+    y0 = kw.get("y0", 0)
+    got = deform_cuda.deform_bwd_dx(x, offset, weight, mask, moved,
+                                    sample_dtype=mode, y0=y0)
+    ref = deform_cuda.deform_bwd_dx(x, offset, weight, mask, g,
+                                    sample_dtype=mode, y0=y0)
+    torch.cuda.synchronize()
+    for i in (0, 1, 4):
+        assert torch.equal(got[i], ref[i])
+    _hold_k3_to_plain(got, x, offset, weight, mask, g, sample_dtype=mode,
+                      y0=y0)
+
+
+@pytest.mark.parametrize("mode", [None, "bfloat16"], ids=["fp32", "bf16"])
+def test_backward_dx_kernel_empty_batch_or_slab_gives_zeros(cuda_device,
+                                                            mode):
+    """An empty batch, or a slab of no rows at y0 = 0 and at y0 = H: empty
+    d_offset and d_mask, zero d_x, d_weight and d_bias of their shapes, no
+    launch counted. A NaN tensor of d_x's size is made and freed before
+    each call, so the caching allocator hands its block back: a d_x the
+    call left unwritten shows as NaN."""
+    x, offset, weight, mask, g = _k2_case(2, 16, 16, 1.5, cuda_device)
+    before = dict(deform_cuda.LAUNCHES)
+    for b, hs, y0 in ((0, 16, 0), (2, 0, 0), (2, 0, 16)):
+        xs = x[:b]
+        o, m, gs = (t[:b, :, y0:y0 + hs].contiguous()
+                    for t in (offset, mask, g))
+        torch.full_like(xs, float("nan"))  # made and freed at once
+        got = deform_cuda.deform_bwd_dx(xs, o, weight, m, gs,
+                                        sample_dtype=mode, y0=y0)
+        torch.cuda.synchronize()
+        assert got[0].shape == o.shape and got[1].shape == m.shape
+        assert got[2].shape == weight.shape and got[3].shape == (1,)
+        assert got[4].shape == xs.shape
+        assert not got[2].any() and not got[3].any() and not got[4].any()
+    assert deform_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["deform_fwd", "deform_bwd",
+                                    "deform_bwd_dx"])
+def test_tma_kernels_launch_from_a_fresh_thread(cuda_device, kernel):
+    """K1, K2 and K3 launched from a thread that has not touched the card
+    (as autograd's device thread, when the deform op's backward is its
+    first work there): the tensor-map encoder needs that thread's context
+    bound first. The outputs are the main thread's, bit for bit."""
+    import threading
+
+    x, offset, weight, mask, g = _k2_case(2, 32, 64, 1.5, cuda_device)
+    bias = torch.zeros(1, device=cuda_device)
+    call = {"deform_fwd": lambda: (deform_cuda.deform_fwd(
+                x, offset, weight, bias, mask),),
+            "deform_bwd": lambda: deform_cuda.deform_bwd(
+                x, offset, weight, mask, g),
+            "deform_bwd_dx": lambda: deform_cuda.deform_bwd_dx(
+                x, offset, weight, mask, g)}[kernel]
+    want = call()
+    got = []
+
+    def run():
+        try:
+            got.append(call())
+            torch.cuda.synchronize()
+        except Exception as err:  # handed to the test's thread
+            got.append(err)
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    if isinstance(got[0], Exception):
+        raise got[0]
+    assert all(torch.equal(a, c) for a, c in zip(want, got[0]))
+
+
 # K3 at NLSPN's shapes: a narrow odd width, integer positions (NLSPN's
 # zero-offset init) and the CompletionFormer train batch far off the image;
-# then the window scatter's edges on tiles (8 x 32) that divide neither H
+# then the window scatter's edges on tiles (4 x 64) that divide neither H
 # nor W: corners in the 4-pixel margin (1.5 px), across the window's edge
 # (3 and 5 px) and off the image (20 px)
 DX_CASES = [(1, 12, 20, 2.0), (2, 32, 32, 0.0), (16, 128, 128, 20.0),
