@@ -57,6 +57,7 @@ from jspsr_torch.data.normalize import (
 )
 from jspsr_torch.eval.mosaic import edge_ramp
 from jspsr_torch.parallel.mesh import as_mesh
+from jspsr_torch.utils import tracing
 from jspsr_torch.utils.device import resolve_device, set_strict_fp32
 
 
@@ -355,44 +356,49 @@ def scene_dispatch_batch(model, prepared_list, p, cap: int | None = None,
     device. All scenes must share (keys, hw, enc, tile, min_overlap);
     group first (``serve._compat_key``). The model is moved to ``device``
     and put in eval mode; on CUDA, TF32 is turned off (fp32 means
-    fp32). ``mesh`` runs the forward tile-parallel (``make_scene_runner``)."""
-    mesh = as_mesh(mesh)
-    device = resolve_device(device)
-    first = prepared_list[0]
-    S = len(prepared_list)
-    if not all(pr.keys == first.keys and pr.hw == first.hw
-               and pr.enc == first.enc and pr.tile == first.tile
-               and pr.min_overlap == first.min_overlap
-               for pr in prepared_list):
-        raise ValueError("scene batch must be homogeneous")
-    tk = p.get("tensor_kwargs") or {}
-    # min_overlap sets the grid: scenes of two overlaps never share a runner
-    key = (id(model), tuple(first.keys), first.hw, first.tile,
-           first.min_overlap, cap, S,
-           tuple(sorted(first.enc.items())), tk.get("min"), tk.get("max"),
-           tk.get("log", False), tk.get("scale_mask", False),
-           bool(p.get("relative")),
-           len(p.get("mask_channel") or list(range(15))),
-           p.get("infer_tile_batch"), p.model_name.lower(), str(device),
-           None if mesh is None else mesh.key())
-    if device.type == "cuda":
-        set_strict_fp32()
-    model.to(device).eval()  # a no-op once it is there
-    hit = _RUNNER_CACHE.get(key)
-    if hit is None:
-        # the entry holds the model so its id cannot be recycled onto a
-        # different object while the entry lives
-        hit = (model, make_scene_runner(
-            model, p, first.keys, first.hw, tile=first.tile, cap=cap,
-            mesh=mesh, encodings=first.enc, min_overlap=first.min_overlap,
-            scene_batch=S, device=device))
-        _RUNNER_CACHE[key] = hit
-        if len(_RUNNER_CACHE) > _RUNNER_CACHE_MAX:
-            _RUNNER_CACHE.popitem(last=False)
-    else:
-        _RUNNER_CACHE.move_to_end(key)
-    scenes, base = upload_scenes(prepared_list, device, copy_stream)
-    return hit[1](scenes, base)
+    fp32). ``mesh`` runs the forward tile-parallel (``make_scene_runner``).
+    Profiler ranges (``utils/tracing.ranged``): ``scene.stage`` (the
+    checks, the runner and the upload) and ``scene.run``."""
+    with tracing.ranged("scene.stage"):
+        mesh = as_mesh(mesh)
+        device = resolve_device(device)
+        first = prepared_list[0]
+        S = len(prepared_list)
+        if not all(pr.keys == first.keys and pr.hw == first.hw
+                   and pr.enc == first.enc and pr.tile == first.tile
+                   and pr.min_overlap == first.min_overlap
+                   for pr in prepared_list):
+            raise ValueError("scene batch must be homogeneous")
+        tk = p.get("tensor_kwargs") or {}
+        # min_overlap sets the grid: scenes of two overlaps never share a
+        # runner
+        key = (id(model), tuple(first.keys), first.hw, first.tile,
+               first.min_overlap, cap, S,
+               tuple(sorted(first.enc.items())), tk.get("min"), tk.get("max"),
+               tk.get("log", False), tk.get("scale_mask", False),
+               bool(p.get("relative")),
+               len(p.get("mask_channel") or list(range(15))),
+               p.get("infer_tile_batch"), p.model_name.lower(), str(device),
+               None if mesh is None else mesh.key())
+        if device.type == "cuda":
+            set_strict_fp32()
+        model.to(device).eval()  # a no-op once it is there
+        hit = _RUNNER_CACHE.get(key)
+        if hit is None:
+            # the entry holds the model so its id cannot be recycled onto a
+            # different object while the entry lives
+            hit = (model, make_scene_runner(
+                model, p, first.keys, first.hw, tile=first.tile, cap=cap,
+                mesh=mesh, encodings=first.enc, min_overlap=first.min_overlap,
+                scene_batch=S, device=device))
+            _RUNNER_CACHE[key] = hit
+            if len(_RUNNER_CACHE) > _RUNNER_CACHE_MAX:
+                _RUNNER_CACHE.popitem(last=False)
+        else:
+            _RUNNER_CACHE.move_to_end(key)
+        scenes, base = upload_scenes(prepared_list, device, copy_stream)
+    with tracing.ranged("scene.run"):
+        return hit[1](scenes, base)
 
 
 def scene_dispatch(model, sample, p, tile: int = 128, cap: int | None = None,

@@ -16,6 +16,17 @@ everything enqueued before it, the next group's forward included; the side
 stream waits for this group's event alone. Same-shape scenes share one
 runner (``scene._RUNNER_CACHE``); ``scene_batch`` > 1 stacks that many
 consecutive same-shape scenes into one run.
+
+Each call is a unit of work of ``utils/tracing.py`` (``serve.call``),
+handed to the loader and writer threads. It counts the ``scenes`` and
+``groups`` dispatched and holds the host time of each stage's spans:
+``serve.load`` and ``serve.prep`` (the loader's ``load_scene`` and
+``prepare_scene``), ``serve.wait_input`` (the dispatch loop waiting for a
+loaded scene), ``serve.dispatch`` (a group's ``scene_dispatch_batch`` and
+its event), ``serve.wait_output`` (waiting for room in the writer's
+queue), and one ``serve.scene`` latency sample a scene, from the loader
+taking it up to its raster written. The writer's fetch and writes are the
+profiler range ``serve.write``.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import numpy as np
 import torch
 
 from jspsr_torch.eval.inference import _SCENE_ALIASES, _find_modality
+from jspsr_torch.utils import tracing
 
 # The largest stacked run ``auto_scene_batch`` allows, in tiles, from the
 # scene_batch sweep of ``eval/profile_serve.py`` on an H100 (PERF.md): at
@@ -167,8 +179,12 @@ def serve_scenes(model, p, scene_paths, out_dir, tile: int = 128,
     out_paths: list = [None] * len(scene_paths)
 
     def _load_one(i, path):
-        sample, profile = load_scene(path, p)
-        return (i, path, prepare_scene(sample, p, tile=tile), profile)
+        taken = time.perf_counter_ns()  # the scene's latency starts here
+        with tracing.span("serve.load", work):
+            sample, profile = load_scene(path, p)
+        with tracing.span("serve.prep", work):
+            prepared = prepare_scene(sample, p, tile=tile)
+        return (i, path, prepared, profile, taken)
 
     def loader():
         for i, path in enumerate(scene_paths):
@@ -213,24 +229,22 @@ def serve_scenes(model, p, scene_paths, out_dir, tile: int = 128,
             item = done.get()
             if item is None:
                 return
-            idxs, paths, dev_out, profiles, ready = item
+            idxs, paths, dev_out, profiles, taken, ready = item
             try:
-                arr = _fetch(dev_out, ready, d2h_stream)
-                for j, (i, path, profile) in enumerate(
-                        zip(idxs, paths, profiles)):
-                    out_path = out_dir / f"{path.stem}_sr{scene_ext(path)}"
-                    write_raster(out_path, arr[j].astype(np.float32),
-                                 dict(profile) if profile else None)
-                    out_paths[i] = out_path
+                with tracing.ranged("serve.write"):
+                    arr = _fetch(dev_out, ready, d2h_stream)
+                    for j, (i, path, profile) in enumerate(
+                            zip(idxs, paths, profiles)):
+                        out_path = (out_dir
+                                    / f"{path.stem}_sr{scene_ext(path)}")
+                        write_raster(out_path, arr[j].astype(np.float32),
+                                     dict(profile) if profile else None)
+                        out_paths[i] = out_path
+                        work.sample("serve.scene",
+                                    time.perf_counter_ns() - taken[j])
             except Exception as e:
                 errors.append(e)
 
-    t_loader = threading.Thread(
-        target=loader_pool if loader_threads > 1 else loader, daemon=True)
-    t_writer = threading.Thread(target=writer, daemon=True)
-    t0 = time.perf_counter_ns()
-    t_loader.start()
-    t_writer.start()
     n_done = 0
     buf: list = []
 
@@ -242,44 +256,56 @@ def serve_scenes(model, p, scene_paths, out_dir, tile: int = 128,
         if scene_batch > 1:  # pad the tail so one runner serves all
             group = group + [group[-1]] * (scene_batch - len(group))
         try:
-            dev = scene_dispatch_batch(model, group, p, mesh=mesh,
-                                       device=device,
-                                       copy_stream=copy_stream)
-            ready = (torch.cuda.current_stream(device).record_event()
-                     if cuda else None)
+            with tracing.span("serve.dispatch", work):
+                dev = scene_dispatch_batch(model, group, p, mesh=mesh,
+                                           device=device,
+                                           copy_stream=copy_stream)
+                ready = (torch.cuda.current_stream(device).record_event()
+                         if cuda else None)
         except Exception as e:
             errors.append(e)
             return False
-        done.put(([b[0] for b in buf], [b[1] for b in buf], dev,
-                  [b[3] for b in buf], ready))
+        with tracing.span("serve.wait_output", work):
+            done.put(([b[0] for b in buf], [b[1] for b in buf], dev,
+                      [b[3] for b in buf], [b[4] for b in buf], ready))
         n_done += len(buf)
+        work.count("groups")
+        work.count("scenes", len(buf))
         buf.clear()
         return True
 
-    ok = True
-    while ok:
-        item = loaded.get()
-        if item is None:
-            ok = flush()
-            break
-        if buf and (_compat_key(item[2]) != _compat_key(buf[0][2])
-                    or len(buf) == scene_batch):
-            if not flush():
-                # drain the loader so it can finish (it may be blocked on a
-                # full queue); items are discarded
-                while loaded.get() is not None:
-                    pass
+    t_loader = threading.Thread(
+        target=loader_pool if loader_threads > 1 else loader, daemon=True)
+    t_writer = threading.Thread(target=writer, daemon=True)
+    with tracing.unit("serve.call") as work:
+        t0 = time.perf_counter_ns()
+        t_loader.start()
+        t_writer.start()
+        ok = True
+        while ok:
+            with tracing.span("serve.wait_input", work):
+                item = loaded.get()
+            if item is None:
+                ok = flush()
                 break
-        buf.append(item)
-        if len(buf) == scene_batch:
-            if not flush():
-                while loaded.get() is not None:
-                    pass
-                break
-    done.put(None)
-    t_writer.join()
-    t_loader.join()
-    elapsed_ms = (time.perf_counter_ns() - t0) // 1000 / 1000
+            if buf and (_compat_key(item[2]) != _compat_key(buf[0][2])
+                        or len(buf) == scene_batch):
+                if not flush():
+                    # drain the loader so it can finish (it may be blocked
+                    # on a full queue); items are discarded
+                    while loaded.get() is not None:
+                        pass
+                    break
+            buf.append(item)
+            if len(buf) == scene_batch:
+                if not flush():
+                    while loaded.get() is not None:
+                        pass
+                    break
+        done.put(None)
+        t_writer.join()
+        t_loader.join()
+        elapsed_ms = (time.perf_counter_ns() - t0) // 1000 / 1000
     if errors:
         raise errors[0]
     return out_paths, elapsed_ms, n_done / max(elapsed_ms, 1e-9) * 1000.0

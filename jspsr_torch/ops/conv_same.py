@@ -14,7 +14,8 @@ matrix, in fp32.
 No model layer calls it: the probe's decision rule (an op-level win below
 about 1.3x does not ship) stands, and the JAX models do not use it either.
 Its caller is the probe's port, ``jspsr_torch/scripts/bench_conv_same.py``.
-``LAUNCHES["conv_same"]`` counts launches (one per wrapper call on CUDA).
+``LAUNCHES["conv_same"]`` counts launches (one per wrapper call on CUDA;
+registered in ``utils/tracing.py`` with the port's other launch counters).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from dataclasses import dataclass
 import torch
 
 from jspsr_torch.ops.cuda_build import build
+from jspsr_torch.utils import tracing
 
-LAUNCHES = {"conv_same": 0}
+LAUNCHES = tracing.counters("conv_same", ("conv_same",))
 MAX_CHANNELS = 128
 MAX_PIXELS = 2**31  # B*H*W: the kernels index pixels with 32-bit ints
 _DTYPES = (torch.float32, torch.bfloat16)

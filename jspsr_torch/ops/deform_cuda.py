@@ -47,7 +47,8 @@ builds every kernel of the port in one parallel pass), loaded with
 ``ctypes``. Nothing is built or loaded when this module is imported, so it
 imports on a host without CUDA.
 
-``LAUNCHES`` counts kernel launches by kernel name (one per wrapper call);
+``LAUNCHES`` counts kernel launches by kernel name (one per wrapper call;
+the port's launch counters are registered in ``utils/tracing.py``);
 a run resets it to show that its main path went through the kernels. The
 two backward kernels share a library (``deform_bwd``) and count apart;
 each bf16 mode counts under its own name (``deform_fwd_bf16``,
@@ -73,6 +74,7 @@ from jspsr_torch.ops.deform_conv import (
     check_deform_args,
     is_slab,
 )
+from jspsr_torch.utils import tracing
 
 TAPS = 9
 # K1's output tile (rows, columns) and window margin: the constants of
@@ -90,7 +92,7 @@ KERNELS = ("deform_fwd", "deform_bwd", "deform_bwd_dx", "deform_fwd_bf16",
            "deform_bwd_bf16", "deform_bwd_dx_bf16", "deform_fwd_slab",
            "deform_bwd_slab", "deform_fwd_bf16_slab", "deform_bwd_bf16_slab",
            "deform_bwd_dx_slab", "deform_bwd_dx_bf16_slab")
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = tracing.counters("deform_cuda", KERNELS)
 
 _fns: dict = {}
 # K2's ticket counters, one zeroed int32 per (device, stream): see

@@ -53,6 +53,12 @@ its batch-sharded array (``jspsr_tpu/train/step.py:62-72``), and each
 rank takes its share of those rows (``mb`` must divide by the world
 size).
 
+The step's phases are profiler ranges (``utils/tracing.ranged``), named
+in the trace only while a ``torch.profiler`` runs: ``step.forward`` (with
+``zero_grad``), ``step.loss``, ``step.backward`` and ``step.optimizer``
+(the unreached gradients' fill, the all-reduce, the monitor, the update
+and the loss dict's reduction).
+
 ``make_eval_step`` is the eval-mode forward with the losses, among them
 the per-sample totals that the eval loop reads.
 """
@@ -71,6 +77,7 @@ from jspsr_torch.parallel.mesh import (
     rank_world,
     reduce_step_outputs,
 )
+from jspsr_torch.utils import tracing
 
 
 def seed_step_generator(generator: torch.Generator | None, seed: int,
@@ -119,9 +126,12 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
         return model(inputs, generator=generator)
 
     def step_full(inputs, gt):
-        pred = forward(inputs)
-        losses = criterion(pred, gt)
-        losses["Total"].backward()
+        with tracing.ranged("step.forward"):
+            pred = forward(inputs)
+        with tracing.ranged("step.loss"):
+            losses = criterion(pred, gt)
+        with tracing.ranged("step.backward"):
+            losses["Total"].backward()
         return losses, pred
 
     def step_accum(inputs, gt, group):
@@ -168,28 +178,32 @@ def make_train_step(model: torch.nn.Module, criterion, optimizer,
         return {k: v * inv for k, v in loss_sum.items()}, torch.cat(preds)
 
     def train_step(inputs, gt):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        group = process_group()
+        with tracing.ranged("step.forward"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            group = process_group()
         with data_parallel(group):
             if accum_steps > 1:
                 losses, pred = step_accum(inputs, gt, group)
             else:
                 losses, pred = step_full(inputs, gt)
-        fill_unreached_grads(params)
-        all_reduce_grads(params, group)
-        out = {k: v.detach() for k, v in losses.items()}
-        if monitor:
-            with torch.no_grad():
-                grads = [p.grad for p in params]
-                out["grad_min"] = torch.stack([g.min() for g in grads]).min()
-                out["grad_max"] = torch.stack([g.max() for g in grads]).max()
-                out["input_min"] = inputs[0].min()
-                out["input_max"] = inputs[0].max()
-                out["pred_min"] = pred.detach().min()
-                out["pred_max"] = pred.detach().max()
-        optimizer.step()
-        return reduce_step_outputs(out, group)
+        with tracing.ranged("step.optimizer"):
+            fill_unreached_grads(params)
+            all_reduce_grads(params, group)
+            out = {k: v.detach() for k, v in losses.items()}
+            if monitor:
+                with torch.no_grad():
+                    grads = [p.grad for p in params]
+                    out["grad_min"] = torch.stack(
+                        [g.min() for g in grads]).min()
+                    out["grad_max"] = torch.stack(
+                        [g.max() for g in grads]).max()
+                    out["input_min"] = inputs[0].min()
+                    out["input_max"] = inputs[0].max()
+                    out["pred_min"] = pred.detach().min()
+                    out["pred_max"] = pred.detach().max()
+            optimizer.step()
+            return reduce_step_outputs(out, group)
 
     return train_step
 

@@ -122,6 +122,7 @@ from jspsr_torch.train.optim import build_lr_schedule, build_optimizer, \
     set_learning_rate
 from jspsr_torch.train.step import make_eval_step, make_train_step, \
     seed_step_generator
+from jspsr_torch.utils import tracing
 from jspsr_torch.utils.device import (
     resolve_device,
     set_deterministic_cudnn,
@@ -449,81 +450,97 @@ class Trainer:
                                host_stage=stage_host)
 
     def train_one_epoch(self, epoch: int):
-        p = self.p
-        lr = self.lr_schedule(epoch)
-        set_learning_rate(self.optimizer, lr, base_lr=p.optimizer_kwargs.lr)
-        n_samples = 0
-        losses = None
-        # Epoch loss = batch-size-weighted mean over every step (reference
-        # train_utils.py:216-240); the sums stay on the device, so there is
-        # no per-step host sync.
-        loss_sums = None
-        start_batch = 0
-        if self._mid_resume and self._mid_resume[0] == epoch:
-            # finish the interrupted epoch from its cursor, with its
-            # partial sums (fp32 -> float -> fp32 is exact)
-            _, start_batch, sums, n_samples = self._mid_resume
-            loss_sums = {k: torch.tensor(v, dtype=torch.float32,
-                                         device=self.device)
-                         for k, v in sums.items()} or None
-            self._mid_resume = None
-            if self.verbose and start_batch:
-                print(f"E{epoch:03d} resuming at step {start_batch}")
-        self.train_loader.set_epoch(epoch, start_batch=start_batch)
-        steps_done = start_batch
-        n_run = 0  # samples stepped in this run, for the throughput
-        prof = self._start_profile()
-        profiling = self._profile_steps if prof is not None else 0
-        t0 = time.perf_counter()
-        for inputs, gt, bs, done in self._batches(epoch):
-            if done is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(done)
-                # the copies were made on the side stream: keep their
-                # memory from being reused before this stream is done
-                for t in (*inputs, gt):
-                    t.record_stream(stream)
-            seed_step_generator(self.generator, self.seed, self.global_step)
-            losses = self.train_step(inputs, gt)
-            self.global_step += 1
-            step_losses = {k: v for k, v in losses.items()
-                           if not _is_monitor_key(k)}
-            if loss_sums is None:
-                loss_sums = {k: v * bs for k, v in step_losses.items()}
+        """One epoch, a unit of work of ``utils/tracing.py``
+        (``train.epoch``, its ``steps`` counted): ``train.epoch_start``
+        spans from the call to the first batch in hand,
+        ``train.feed_wait`` each later wait for a batch."""
+        with tracing.unit("train.epoch", epoch=epoch) as work:
+            with tracing.span("train.epoch_start"):
+                p = self.p
+                lr = self.lr_schedule(epoch)
+                set_learning_rate(self.optimizer, lr,
+                                  base_lr=p.optimizer_kwargs.lr)
+                n_samples = 0
+                losses = None
+                # Epoch loss = batch-size-weighted mean over every step
+                # (reference train_utils.py:216-240); the sums stay on the
+                # device, so there is no per-step host sync.
+                loss_sums = None
+                start_batch = 0
+                if self._mid_resume and self._mid_resume[0] == epoch:
+                    # finish the interrupted epoch from its cursor, with
+                    # its partial sums (fp32 -> float -> fp32 is exact)
+                    _, start_batch, sums, n_samples = self._mid_resume
+                    loss_sums = {k: torch.tensor(v, dtype=torch.float32,
+                                                 device=self.device)
+                                 for k, v in sums.items()} or None
+                    self._mid_resume = None
+                    if self.verbose and start_batch:
+                        print(f"E{epoch:03d} resuming at step "
+                              f"{start_batch}")
+                self.train_loader.set_epoch(epoch, start_batch=start_batch)
+                steps_done = start_batch
+                n_run = 0  # samples stepped in this run, for the throughput
+                prof = self._start_profile()
+                profiling = self._profile_steps if prof is not None else 0
+                t0 = time.perf_counter()
+                batches = iter(self._batches(epoch))
+                batch = next(batches, None)
+            while batch is not None:
+                inputs, gt, bs, done = batch
+                if done is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(done)
+                    # the copies were made on the side stream: keep their
+                    # memory from being reused before this stream is done
+                    for t in (*inputs, gt):
+                        t.record_stream(stream)
+                seed_step_generator(self.generator, self.seed,
+                                    self.global_step)
+                losses = self.train_step(inputs, gt)
+                self.global_step += 1
+                work.count("steps")
+                step_losses = {k: v for k, v in losses.items()
+                               if not _is_monitor_key(k)}
+                if loss_sums is None:
+                    loss_sums = {k: v * bs for k, v in step_losses.items()}
+                else:
+                    loss_sums = {k: loss_sums[k] + v * bs
+                                 for k, v in step_losses.items()}
+                n_samples += bs
+                n_run += bs
+                steps_done += 1
+                if profiling:
+                    profiling -= 1
+                    if profiling == 0:
+                        self._stop_profile(prof, epoch)
+                if (self.save_every_steps
+                        and steps_done % self.save_every_steps == 0):
+                    self._save_preempt(epoch, steps_done, loss_sums,
+                                       n_samples)
+                with tracing.span("train.feed_wait"):
+                    batch = next(batches, None)
+            if profiling:  # an epoch shorter than profile_steps
+                self._stop_profile(prof, epoch)
+            if loss_sums:
+                keys = list(loss_sums)
+                sums = torch.stack([loss_sums[k] for k in keys]).cpu().tolist()
+                self.last_epoch_losses = {k: v / n_samples
+                                          for k, v in zip(keys, sums)}
             else:
-                loss_sums = {k: loss_sums[k] + v * bs
-                             for k, v in step_losses.items()}
-            n_samples += bs
-            n_run += bs
-            steps_done += 1
-            if profiling:
-                profiling -= 1
-                if profiling == 0:
-                    self._stop_profile(prof, epoch)
-            if (self.save_every_steps
-                    and steps_done % self.save_every_steps == 0):
-                self._save_preempt(epoch, steps_done, loss_sums, n_samples)
-        if profiling:  # an epoch shorter than profile_steps
-            self._stop_profile(prof, epoch)
-        if loss_sums:
-            keys = list(loss_sums)
-            sums = torch.stack([loss_sums[k] for k in keys]).cpu().tolist()
-            self.last_epoch_losses = {k: v / n_samples
-                                      for k, v in zip(keys, sums)}
-        else:
-            self.last_epoch_losses = {}
-        epoch_loss = self.last_epoch_losses.get("Total", float("nan"))
-        dt = time.perf_counter() - t0
-        self.last_throughput = n_run / max(dt, 1e-9)  # tiles/s
-        if self.verbose:
-            extra = ""
-            if losses is not None and "grad_max" in losses:
-                extra = (f" grad[{float(losses['grad_min']):.4f},"
-                         f"{float(losses['grad_max']):.4f}]"
-                         f" pred[{float(losses['pred_min']):.4f},"
-                         f"{float(losses['pred_max']):.4f}]")
-            print(f"E{epoch:03d} loss {epoch_loss:.4e} lr {lr:.2e} "
-                  f"({self.last_throughput:.1f} samples/s){extra}")
+                self.last_epoch_losses = {}
+            epoch_loss = self.last_epoch_losses.get("Total", float("nan"))
+            dt = time.perf_counter() - t0
+            self.last_throughput = n_run / max(dt, 1e-9)  # tiles/s
+            if self.verbose:
+                extra = ""
+                if losses is not None and "grad_max" in losses:
+                    extra = (f" grad[{float(losses['grad_min']):.4f},"
+                             f"{float(losses['grad_max']):.4f}]"
+                             f" pred[{float(losses['pred_min']):.4f},"
+                             f"{float(losses['pred_max']):.4f}]")
+                print(f"E{epoch:03d} loss {epoch_loss:.4e} lr {lr:.2e} "
+                      f"({self.last_throughput:.1f} samples/s){extra}")
         return epoch_loss, lr
 
     # ------------------------------------------------------------------

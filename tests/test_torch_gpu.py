@@ -1492,3 +1492,43 @@ def test_entry_on_gpu_launches_k1_and_matches_the_cpu(cuda_device):
     assert out.shape == want.shape == (1, 1, 128, 128)
     np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=2e-5)
+
+
+def test_profiled_serve_group_names_its_stages_beside_the_kernels(
+        cuda_device, tmp_path):
+    """A ``serve_scenes`` call under ``torch.profiler`` on the card: the
+    dispatch thread's spans (``serve.wait_input``, ``serve.dispatch``) and
+    the runner's range (``scene.run``) are in the Chrome trace with the
+    kernels, and K1 ran inside ``scene.run`` on the device's clock."""
+    import json
+
+    from jspsr_torch.utils import tracing
+
+    p = AttrDict(dict(TILED_P))
+    scenes = _tiled_scenes(tmp_path / "batch", [(96, 96)] * 2, seed=3)
+    model = _tiled_model().to(cuda_device)
+    serve_scenes(model, p, scenes, tmp_path / "warm", tile=64,
+                 scene_batch=2, device=cuda_device)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        serve_scenes(model, p, scenes, tmp_path / "out", tile=64,
+                     scene_batch=2, device=cuda_device)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    ranges = {e["name"]: e for e in events
+              if e.get("cat") == "user_annotation"}
+    assert {"serve.wait_input", "serve.dispatch", "scene.run"} <= set(
+        ranges), sorted(ranges)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("deform_fwd_kernel" in e["name"] for e in kernels)
+    run = ranges["scene.run"]
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and run["ts"] <= e["ts"] <= run["ts"] + run["dur"]]
+    assert launches  # the group's kernels were launched inside scene.run
+    work = tracing.units("serve.call")[-1]
+    assert work.counts == {"scenes": 2, "groups": 1}
